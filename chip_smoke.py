@@ -9,24 +9,55 @@ JSON line per phase:
 1. device: the card's name, CUDA version, and ``nvidia-smi``'s name and
    power limit (also printed raw on a line of its own);
 2. build: compiles the CUDA kernel library with nvcc (sm_90a);
-3. kernel: the CUDA arg-min kernel against its plain PyTorch version on
-   the card, over rem x k in {0,1,3,4,31,32,55,56,62,63} x {1,5,9}
-   (1- and 2-block tails), windows whose valid edges fall off thread and
-   block edges; triples must be bit-identical and each winner must hash
-   to its triple under hashlib;
-4. e2e: the port's scheduler server and one miner on ``cuda`` as
+3. kernel: each kernel against its plain PyTorch version on the card, over
+   rem x k in {0,1,3,4,31,32,55,56,62,63} x {1,5,9} (1- and 2-block
+   tails), windows whose valid edges fall off thread and block edges. K1
+   (arg-min): triples bit-identical, each winner hashing to its triple
+   under hashlib. K2 (difficulty target): three targets per case, one
+   hitting at the window's arg-min lane, one that half the lanes satisfy
+   (run at the default grid and at 37 blocks: the first qualifying lane
+   must win the race at both), one that nothing satisfies; found and f_idx
+   equal always, the arg-min words when found is 0. K6 (device-resident
+   chain): arg-min and until chains of 4 blocks past 2^32, the until chain
+   hitting in its third block, carry words equal after every block (the
+   arg-min words until the hit), and the launch after the hit leaving the
+   carry untouched;
+4. e2e: the port's scheduler server and a miner on ``cuda`` as
    subprocesses through their CLIs, requests submitted with the port's
-   client: R1 ("cmu440", 2^26-1) and R2 (a 60-character message, 10^8-1)
-   against the plain scan on the card, R3 ("cmu440", 2^32-1) against the
-   hashlib claim check and a direct ``NonceSearcher`` run launched at a
-   different grid size, then R1 again on a warm card. The kernel's launch
-   count comes from the miner process, whose counts start at 0;
-5. rates: the kernel over one full 10^9 block (1-block tail), R2's 9*10^8
-   block (2-block tail with digits in both blocks) and a 10^9 block whose
-   second tail block holds no digit, and the plain scan over 2^22 lanes,
-   timed with CUDA events, beside the bound from the INT32 work each
-   nonce needs (``needed_int_ops``) and, under another name, the bound
-   from the INT32 instructions of the kernel's own SASS loop.
+   client. The arg-min path: R1 ("cmu440", 2^26-1), R2 (a 60-character
+   message, 10^8-1) and a mouse ("cmu440", 10^5-1) against the plain scan
+   on the card, R3 ("cmu440", 2^32-1) against the hashlib claim check and
+   a direct ``NonceSearcher`` run at another grid size, and R1 again on a
+   warm card. Then the difficulty path, on a new server and two miners
+   (so that a request splits into two chunks): R4 ("cmu440", 2^32-1,
+   target 2^64 // 10^8) through ``submit_until``, held to the claim
+   check, to the target, and to the plain until scan on the card from 0,
+   with a "(prefix release)" line in the server log when its hit lies in
+   chunk 0; direct ``search_until`` runs over R4's range and over the
+   second miner's chunk [2^31, 2^32], at the default grid and at 37
+   blocks, each equal to the plain until scan on the same range (the
+   second chunk's answer is dropped by the prefix release, so this is
+   where the until chain's hit-and-fold on real lanes is held to the
+   plain version); and R5 ("cmu440", 2^26-1, target 1) through the
+   client CLI's fifth argument, which must equal R1. The launch counts
+   of each path come from its own miner processes, which start at 0 just
+   before the path;
+5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
+   (2-block tail with digits in both blocks) and a 10^9 block whose second
+   tail block holds no digit; K2 over the first block with a target
+   nothing meets, and on a 10^9 block whose first hit lies a little past
+   lane 10^8 (to the hit, and with no target, beside K1 on that block);
+   the plain scans over 2^22 lanes; K6's arg-min chain over R3's blocks
+   and over the mouse's range against per-block K1 launches with one
+   stacked fetch; K6's until
+   chain to the first hit of that 10^9 block and over R4's range, and a
+   chained until launch after a hit; and the two difficulty shapes on
+   R4's two chunks served back to back by one searcher: the chain
+   against one K2 launch per block read in ascending order, with and
+   without one launch of lookahead. Timed with CUDA events, beside the bound
+   from the INT32 work each nonce needs (``needed_int_ops``, plus the
+   target compare for K2) and, under another name, the bound from the
+   INT32 instructions of K1's own SASS loop.
 
 Then the ``kernels`` line and, last, the ``ok`` line. Any failure exits
 non-zero without the ``ok`` line. It imports nothing of JAX.
@@ -84,8 +115,39 @@ def tail_case(rem: int, k: int):
     return prefix, midstate, build_tail_template(tail, k, len(prefix) + k)
 
 
-def triple(t) -> tuple:
-    return tuple(int(x) & 0xFFFFFFFF for x in t.to("cpu").tolist())
+M32 = 0xFFFFFFFF
+
+
+def words(t) -> tuple:
+    """A device vector's words as uint32 ints."""
+    return tuple(int(x) & M32 for x in t.to("cpu").tolist())
+
+
+def event_ms(fn) -> float:
+    """Milliseconds of one ``fn()`` between CUDA events (``fn`` may end in
+    a host fetch; the stop event is recorded after it returns)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def lane_hashes(mid, tmpl, i0: int, n: int, rem: int, k: int, dev):
+    """The 64-bit hash of every lane ``i0 + [0, n)``, as numpy uint64,
+    from the plain lane tier on the card."""
+    import numpy as np
+    import torch
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
+        hash_lanes
+    i = torch.arange(i0, i0 + n, dtype=torch.int64, device=dev)
+    hi, lo = hash_lanes(mid, tmpl, i, rem, k)
+    return ((hi.cpu().numpy().astype(np.uint64) << np.uint64(32))
+            | lo.cpu().numpy().astype(np.uint64))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -194,6 +256,8 @@ def phase_device() -> dict:
     return info
 
 
+
+
 def phase_build() -> dict:
     from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
     t0 = time.monotonic()
@@ -202,51 +266,162 @@ def phase_build() -> dict:
             "nvcc_seconds": round(sha256_cuda.build_info.get("seconds", 0), 3),
             "built": sha256_cuda.build_info.get("built"),
             "threads": lib.dbmt_sha256_argmin_threads(),
-            "blocks_per_sm": [lib.dbmt_sha256_argmin_blocks_per_sm(1),
-                              lib.dbmt_sha256_argmin_blocks_per_sm(2)],
+            "blocks_per_sm": {
+                "argmin": [lib.dbmt_sha256_argmin_blocks_per_sm(1),
+                           lib.dbmt_sha256_argmin_blocks_per_sm(2)],
+                "until": [lib.dbmt_sha256_until_blocks_per_sm(1),
+                          lib.dbmt_sha256_until_blocks_per_sm(2)]},
             "ptxas": [ln for ln in sha256_cuda.build_info.get(
                 "ptxas", "").splitlines() if "registers" in ln
-                or "spill" in ln]}
+                or "spill" in ln or "entry function" in ln]}
     emit("build", **info)
     return info
 
 
-def phase_kernel() -> dict:
-    import torch
-    from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
-    dev = torch.device("cuda", 0)
-    cases, max_err, n_total = [], 0, 0
+def kernel_windows():
+    """The 30 rem x k cases: (rem, k, prefix, mid, tmpl, i0, n, lo_i,
+    hi_i), valid edges off the thread and block edges."""
     for rem in (0, 1, 3, 4, 31, 32, 55, 56, 62, 63):
         for k in (1, 5, 9):
             prefix, mid, tmpl = tail_case(rem, k)
             if k == 9:
                 i0, n = 123_456_789, (1 << 20) + 4_099
+                lo_i, hi_i = i0 + 1_013, i0 + n - 777
             else:
                 i0, n = 0, 10 ** k
-            lo_i, hi_i = i0 + min(3, n - 1), i0 + n - 1 - min(5, n - 1)
-            if k == 9:
-                lo_i, hi_i = i0 + 1_013, i0 + n - 777
-            got = triple(sha256_cuda.sha256_argmin(
-                mid, tmpl, i0, lo_i, hi_i, n, rem=rem, k=k, device=dev))
-            want = triple(search.span_scan(mid, tmpl, i0, lo_i, hi_i, n,
-                                           rem=rem, k=k, device=dev))
-            err = max(abs(a - b) for a, b in zip(got, want))
-            max_err = max(max_err, err)
-            digest = hashlib.sha256(
-                prefix + f"{got[2]:0{k}d}".encode()).digest()
-            hashed = (int.from_bytes(digest[:4], "big"),
-                      int.from_bytes(digest[4:8], "big"))
-            ok = got == want and hashed == got[:2] and lo_i <= got[2] <= hi_i
-            cases.append({"rem": rem, "k": k, "nblocks": int(tmpl.shape[0]),
-                          "lanes": n, "ok": ok})
-            n_total += n
-            if not ok:
-                emit("kernel", failed=cases[-1], got=got, want=want,
-                     hashlib=hashed)
-                fail(f"kernel disagrees at rem={rem} k={k}")
-    torch.cuda.synchronize()
-    info = {"cases": len(cases), "lanes": n_total, "max_abs_err": max_err,
+                lo_i, hi_i = i0 + min(3, n - 1), i0 + n - 1 - min(5, n - 1)
+            yield rem, k, prefix, mid, tmpl, i0, n, lo_i, hi_i
+
+
+def check_k1(dev) -> dict:
+    """K1 against the plain scan and hashlib on every window."""
+    from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+    cases, max_err, n_total = [], 0, 0
+    for rem, k, prefix, mid, tmpl, i0, n, lo_i, hi_i in kernel_windows():
+        got = words(sha256_cuda.sha256_argmin(
+            mid, tmpl, i0, lo_i, hi_i, n, rem=rem, k=k, device=dev))
+        want = words(search.span_scan(mid, tmpl, i0, lo_i, hi_i, n,
+                                      rem=rem, k=k, device=dev))
+        err = max(abs(a - b) for a, b in zip(got, want))
+        max_err = max(max_err, err)
+        digest = hashlib.sha256(prefix + f"{got[2]:0{k}d}".encode()).digest()
+        hashed = (int.from_bytes(digest[:4], "big"),
+                  int.from_bytes(digest[4:8], "big"))
+        ok = got == want and hashed == got[:2] and lo_i <= got[2] <= hi_i
+        cases.append({"rem": rem, "k": k, "nblocks": int(tmpl.shape[0]),
+                      "lanes": n, "ok": ok})
+        n_total += n
+        if not ok:
+            emit("kernel", failed=cases[-1], got=got, want=want,
+                 hashlib=hashed)
+            fail(f"K1 disagrees at rem={rem} k={k}")
+    return {"cases": len(cases), "lanes": n_total, "max_abs_err": max_err,
             "two_block_cases": sum(c["nblocks"] == 2 for c in cases)}
+
+
+def check_k2(dev) -> dict:
+    """K2 against the plain until scan on every window, with three
+    targets; the dense one at the default grid and at 37 blocks. found and
+    f_idx must equal the plain scan's and the first qualifying lane of
+    the window's hashes; the arg-min words must equal when found is 0."""
+    import numpy as np
+    from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+    runs, max_err = 0, 0
+    for rem, k, _, mid, tmpl, i0, n, lo_i, hi_i in kernel_windows():
+        valid = lane_hashes(mid, tmpl, i0, n, rem, k, dev)[
+            lo_i - i0:hi_i - i0 + 1]
+        targets = {"mid_window": int(valid.min()) + 1,
+                   "dense": int(np.sort(valid)[len(valid) // 2]),
+                   "miss": int(valid.min())}
+        for name, t in targets.items():
+            q = np.nonzero(valid < np.uint64(t))[0]
+            first = lo_i + int(q[0]) if len(q) else None
+            want = words(search.span_until_scan(
+                mid, tmpl, i0, lo_i, hi_i, n, t >> 32, t & M32, rem=rem,
+                k=k, device=dev))
+            for grid in ((None, 37) if name == "dense" else (None,)):
+                got = words(sha256_cuda.sha256_until(
+                    mid, tmpl, i0, lo_i, hi_i, n, t >> 32, t & M32, rem=rem,
+                    k=k, device=dev, grid=grid))
+                cmp = 5 if not want[0] else 2
+                err = max(abs(a - b) for a, b in zip(got[:cmp], want[:cmp]))
+                max_err = max(max_err, err)
+                runs += 1
+                ok = (err == 0 and bool(want[0]) == (first is not None)
+                      and (first is None or want[1] == first))
+                if not ok:
+                    emit("kernel", failed={"kernel": "K2", "rem": rem,
+                                           "k": k, "target": name,
+                                           "grid": grid},
+                         got=got, want=want, first=first)
+                    fail(f"K2 disagrees at rem={rem} k={k} target={name} "
+                         f"grid={grid}")
+    return {"runs": runs, "max_abs_err": max_err}
+
+
+def chain_windows(dev):
+    """Four 2^16-lane windows of "cmu440" in the 10^9 blocks from 10^10
+    (nonces past 2^32, a different midstate each), placed so that the
+    third window holds a hash below every hash of the first two; the
+    target one above it hits there first."""
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    s = NonceSearcher("cmu440", device=dev)
+    off = 12_345
+    while True:
+        plans = [next(iter(s.plan(10 ** 10 + b * 10 ** 9 + off,
+                                  10 ** 10 + b * 10 ** 9 + off + 65_535)))
+                 for b in range(4)]
+        mins = [int(lane_hashes(p.midstate, p.template, p.lo_i, p.lanes,
+                                p.rem, p.k, dev).min()) for p in plans]
+        if mins[2] < min(mins[0], mins[1]):
+            return plans, mins[2] + 1
+        off += 99_991
+
+
+def check_k6(dev) -> dict:
+    """K6's arg-min and until chains against the plain scans and folds,
+    carry words after every block; after the until chain's hit, its
+    timing-dependent arg-min words are not compared, and the next launch
+    must leave the kernel's carry as it was."""
+    from distributed_bitcoinminer_tpu_torch.ops import search, searchop
+    plans, t = chain_windows(dev)
+    max_err, hit_block = 0, None
+    for op in (searchop.ARGMIN_OP, searchop.UNTIL_OP):
+        until = op is searchop.UNTIL_OP
+        step = search.devloop_span_until if until else search.devloop_span
+        carry_k, carry_p = search.devloop_carry(op, dev), op.init()
+        prev_k = None
+        for b, p in enumerate(plans):
+            args = (p.lo_i, p.lo_i, p.hi_i, p.lanes)
+            args += (t >> 32, t & M32, p.base) if until else (p.base,)
+            carry_k = step(p.midstate, p.template, carry_k, *args,
+                           rem=p.rem, k=p.k, device=dev)
+            carry_p = step(p.midstate, p.template, carry_p, *args,
+                           rem=p.rem, k=p.k, device="cpu")
+            got, want = words(carry_k), words(carry_p)
+            cmp = 3 if until and want[0] else len(want)
+            err = max(abs(a - b) for a, b in zip(got[:cmp], want[:cmp]))
+            max_err = max(max_err, err)
+            after_hit = until and prev_k is not None and prev_k[0]
+            if until and want[0] and hit_block is None:
+                hit_block = b
+            if err or (after_hit and got != prev_k):
+                emit("kernel", failed={"kernel": "K6", "op": op.name,
+                                       "block": b}, got=got, want=want,
+                     before=prev_k)
+                fail(f"K6 {op.name} chain disagrees at block {b}")
+            prev_k = got
+    if hit_block != 2:
+        fail(f"K6 until chain hit in block {hit_block}, not 2")
+    return {"blocks": len(plans), "lanes_per_block": plans[0].lanes,
+            "until_hit_block": hit_block, "max_abs_err": max_err}
+
+
+def phase_kernel() -> dict:
+    import torch
+    dev = torch.device("cuda", 0)
+    info = {"K1": check_k1(dev), "K2": check_k2(dev), "K6": check_k6(dev)}
+    torch.cuda.synchronize()
     emit("kernel", **info)
     return info
 
@@ -280,112 +455,304 @@ def read_counts(log_path: str) -> dict:
     return last
 
 
+def launches_of(counts: dict) -> dict:
+    return dict(counts.get("kernel_launches", {"K1": 0, "K2": 0, "K6": 0}))
+
+
 #: R2's message: 60 characters, so the prefix tail is 61 bytes and every
 #: nonce's digits run into a second tail block.
 R2_DATA = "a sixty-character message whose nonce digits cross a block.."
-REQUESTS = (("R1", "cmu440", (1 << 26) - 1), ("R2", R2_DATA, 10 ** 8 - 1),
-            ("R3", "cmu440", (1 << 32) - 1),
-            ("R1 again", "cmu440", (1 << 26) - 1))
+ARGMIN_REQUESTS = (("R1", "cmu440", (1 << 26) - 1),
+                   ("R2", R2_DATA, 10 ** 8 - 1),
+                   ("R3", "cmu440", (1 << 32) - 1),
+                   ("R1 again", "cmu440", (1 << 26) - 1),
+                   ("mouse", "cmu440", 10 ** 5 - 1))
+#: R4's target: about one nonce in 10^8 qualifies.
+R4_TARGET = (1 << 64) // 10 ** 8
+UNTIL_REQUESTS = (("R4", "cmu440", (1 << 32) - 1, R4_TARGET),
+                  ("R5", "cmu440", (1 << 26) - 1, 1))
+#: The ranges the two miners scan for R4: the scheduler splits [0, 2^32)
+#: evenly, and each miner scans its chunk's upper bound too.
+R4_CHUNKS = ((0, 1 << 31), (1 << 31, 1 << 32))
 
 
-def phase_e2e(outdir: str) -> dict:
-    """The main path: the port's server and one miner on ``cuda``, the
-    requests of ``REQUESTS`` through the port's client."""
-    import asyncio
+class Cluster:
+    """The port's server and miners as subprocesses through their CLIs,
+    logging under ``outdir``; stopped, all of them, on exit."""
 
-    import torch
-    from distributed_bitcoinminer_tpu_torch.apps.client import submit
-    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
-    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
-    dev = torch.device("cuda", 0)
-    port = free_port()
-    hostport = f"127.0.0.1:{port}"
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    logs = {name: os.path.join(outdir, f"e2e_{name}.log")
-            for name in ("server", "miner")}
-    procs, handles, results = [], [], []
-    try:
-        for name, args, ready in (
-                ("server", [str(port)], "Server listening on port"),
-                ("miner", [hostport, "--device", "cuda"], "joined ")):
-            handles.append(open(logs[name], "w"))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", f"{PKG}.apps.{name}", *args],
-                cwd=outdir, env=env, stdout=handles[-1],
-                stderr=subprocess.STDOUT))
-            # Time requests, not process start: the server listens, and
-            # the miner warms the device up before it joins.
-            wait_for_line(logs[name], ready, procs[-1])
-        counts0 = read_counts(logs["miner"])
-        for name, data, max_nonce in REQUESTS:
-            t0 = time.monotonic()
-            res = asyncio.run(asyncio.wait_for(
-                submit(hostport, data, max_nonce), 300))
-            wall = time.monotonic() - t0
-            if res is None:
-                fail(f"{name}: client disconnected")
-            nonces = max_nonce + 2          # the system scans [0, max+1]
-            results.append({"request": name, "data": data,
-                            "max_nonce": max_nonce, "hash": res[0],
-                            "nonce": res[1], "seconds": wall,
-                            "nonces_per_s": nonces / wall})
-        time.sleep(0.5)
-        counts = read_counts(logs["miner"])
-    finally:
-        for p in procs[::-1]:
+    def __init__(self, outdir: str):
+        self.outdir = outdir
+        self.port = free_port()
+        self.hostport = f"127.0.0.1:{self.port}"
+        self.env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.procs, self.handles, self.logs = [], [], {}
+
+    def start(self, name: str, module: str, args: list, ready: str,
+              env: dict | None = None) -> str:
+        """Start one process and wait until its log shows ``ready`` (the
+        server listens; a miner joins after warming the device up, so
+        requests time requests, not process start). Returns its log."""
+        log = self.logs[name] = os.path.join(self.outdir, f"e2e_{name}.log")
+        self.handles.append(open(log, "w"))
+        self.procs.append(subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.apps.{module}", *args],
+            cwd=self.outdir, env={**self.env, **(env or {})},
+            stdout=self.handles[-1], stderr=subprocess.STDOUT))
+        wait_for_line(log, ready, self.procs[-1])
+        return log
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.procs[::-1]:
             p.terminate()
-        for p in procs[::-1]:
+        for p in self.procs[::-1]:
             try:
                 p.wait(timeout=20)
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
-        for fh in handles:
+        for fh in self.handles:
             fh.close()
-    if counts0:
-        fail(f"miner counts were not 0 before the main path: {counts0}")
-    launches = counts.get("kernel_launches", 0)
-    if launches <= 0:
-        fail(f"the main path launched no kernel: {counts}")
-    # Checks, after the cluster is down (the card is free again).
+        return False
+
+
+def timed(name: str, data: str, max_nonce: int, submit_fn) -> dict:
+    t0 = time.monotonic()
+    res = submit_fn()
+    wall = time.monotonic() - t0
+    if res is None:
+        fail(f"{name}: client disconnected")
+    nonces = max_nonce + 2          # the system scans [0, max+1]
+    return {"request": name, "data": data, "max_nonce": max_nonce,
+            "hash": res[0], "nonce": res[1], "seconds": wall,
+            "nonces_per_s": nonces / wall}
+
+
+def cli_submit(cluster: Cluster, data: str, max_nonce: int, target: int):
+    """The request through the client CLI with its fifth argument."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.apps.client", cluster.hostport, data,
+         str(max_nonce), str(target)], capture_output=True, text=True,
+        env=cluster.env, cwd=cluster.outdir, timeout=300)
+    m = re.fullmatch(r"Result (\d+) (\d+)", out.stdout.strip())
+    if out.returncode != 0 or m is None:
+        fail(f"client CLI: rc {out.returncode}, {out.stdout!r} "
+             f"{out.stderr[-2000:]!r}")
+    return int(m.group(1)), int(m.group(2))
+
+
+def start_miners(c: Cluster, names: list, envs: list) -> list:
+    """Start one miner per name on ``cuda`` (in join order, which is chunk
+    order) and check that each one's launch counts start at 0."""
+    logs = []
+    for name, env in zip(names, envs):
+        logs.append(c.start(name, "miner", [c.hostport, "--device", "cuda"],
+                            "joined ", env=env))
+        if read_counts(logs[-1]):
+            fail(f"{name}'s counts were not 0 before its path: "
+                 f"{read_counts(logs[-1])}")
+    return logs
+
+
+def path_launches(miner_logs: list) -> dict:
+    """The launches per kernel that the miners made on one path, read
+    after its last request (each miner logs its counts per chunk)."""
+    time.sleep(0.5)
+    total = {"K1": 0, "K2": 0, "K6": 0}
+    for log in miner_logs:
+        for kern, n in launches_of(read_counts(log)).items():
+            total[kern] += n
+    return total
+
+
+def phase_e2e(outdir: str) -> dict:
+    """The main paths, each on a cluster of its own so that every launch
+    count starts at 0 just before the path. The arg-min path: the port's
+    server and one miner on ``cuda``, the requests of
+    ``ARGMIN_REQUESTS``. The difficulty path: a new server and two
+    miners, then the requests of ``UNTIL_REQUESTS``, R4 through
+    ``submit_until`` and R5 through the client CLI."""
+    import asyncio
+
+    import torch
+    from distributed_bitcoinminer_tpu_torch.apps.client import (
+        submit, submit_until)
+    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    dev = torch.device("cuda", 0)
+    results = []
+    with Cluster(outdir) as c:
+        c.start("server", "server", [str(c.port)], "Server listening on port")
+        miners = start_miners(c, ["miner"], [None])
+        for name, data, max_nonce in ARGMIN_REQUESTS:
+            results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+                asyncio.wait_for(submit(c.hostport, data, max_nonce), 300))))
+        argmin_launches = path_launches(miners)
+    with Cluster(outdir) as c:
+        server_log = c.start("until_server", "server", [str(c.port)],
+                             "Server listening on port")
+        miners = start_miners(c, ["until_miner", "until_miner2"],
+                              [None, None])
+        (r4_name, r4_data, r4_max, r4_target), (r5_name, r5_data, r5_max,
+                                                 r5_target) = UNTIL_REQUESTS
+        results.append(timed(r4_name, r4_data, r4_max, lambda: asyncio.run(
+            asyncio.wait_for(submit_until(c.hostport, r4_data, r4_max,
+                                          r4_target), 300))))
+        results.append(timed(r5_name, r5_data, r5_max, lambda: cli_submit(
+            c, r5_data, r5_max, r5_target)))
+        until_launches = path_launches(miners)
+        with open(server_log, errors="replace") as f:
+            server_text = f.read()
+    for path, counts, kernels in (("arg-min", argmin_launches, ("K1", "K6")),
+                                  ("difficulty", until_launches,
+                                   ("K2", "K6"))):
+        for kern in kernels:
+            if counts.get(kern, 0) <= 0:
+                fail(f"the {path} path launched no {kern}: {counts}")
+    # Checks, after the clusters are down (the card is free again).
+    by_name = {r["request"]: r for r in results}
     plain = {}
     for r in results:
         hi_nonce = r["max_nonce"] + 1
         if hash_op(r["data"], r["nonce"]) != r["hash"] \
                 or not 0 <= r["nonce"] <= hi_nonce:
             fail(f"{r['request']}: claim check failed: {r}")
-        if r["request"] != "R3":
-            key = (r["data"], hi_nonce)
-            if key not in plain:
-                plain[key] = plain_search(
-                    NonceSearcher(r["data"], device=dev), 0, hi_nonce)
-            want = plain[key]
-            r["plain"] = list(want)
-            if (r["hash"], r["nonce"]) != want:
-                fail(f"{r['request']}: {r['hash'], r['nonce']} != plain "
-                     f"{want}")
-        else:
-            ref = NonceSearcher(r["data"], device=dev, grid=37)
-            want = ref.search(0, hi_nonce)
-            r["direct_grid37"] = list(want)
-            if (r["hash"], r["nonce"]) != want:
-                fail(f"R3: {r['hash'], r['nonce']} != direct {want}")
-    info = {"requests": results, "miner_counts": counts,
-            "kernel_launches": launches}
+        if r["request"] in ("R3", "R4", "R5"):
+            continue
+        key = (r["data"], hi_nonce)
+        if key not in plain:
+            plain[key] = plain_search(
+                NonceSearcher(r["data"], device=dev), 0, hi_nonce)
+        r["plain"] = list(plain[key])
+        if (r["hash"], r["nonce"]) != plain[key]:
+            fail(f"{r['request']}: {r['hash'], r['nonce']} != plain "
+                 f"{plain[key]}")
+    r3 = by_name["R3"]
+    want = NonceSearcher(r3["data"], device=dev, grid=37).search(
+        0, r3["max_nonce"] + 1)
+    r3["direct_grid37"] = list(want)
+    if (r3["hash"], r3["nonce"]) != want:
+        fail(f"R3: {r3['hash'], r3['nonce']} != direct {want}")
+    r4 = by_name["R4"]
+    if not r4["hash"] < R4_TARGET:
+        fail(f"R4: hash {r4['hash']} is not below the target {R4_TARGET}")
+    # Two miners: chunk 0 is [0, 2^31] (the first miner's), chunk 1
+    # [2^31, 2^32] (each miner scans its upper bound too); a hit in chunk
+    # 0 releases before chunk 1 answers.
+    ranges = {"request": (0, r4["max_nonce"] + 1),
+              "chunk1": R4_CHUNKS[1]}
+    r4["plain"], r4["direct"] = {}, {}
+    for rname, (lower, upper) in ranges.items():
+        want = plain_search_until(NonceSearcher(r4["data"], device=dev),
+                                  lower, upper, R4_TARGET)
+        r4["plain"][rname] = list(want)
+        for grid in (None, 37):
+            got = NonceSearcher(r4["data"], device=dev,
+                                grid=grid).search_until(lower, upper,
+                                                        R4_TARGET)
+            r4["direct"][f"{rname}_grid{grid or 'default'}"] = list(got)
+            if got != want:
+                fail(f"R4 {rname} [{lower}, {upper}] at grid {grid}: "
+                     f"{got} != plain {want}")
+        if not want[2]:
+            fail(f"R4 {rname}: no nonce below the target in [{lower}, "
+                 f"{upper}]")
+    if [r4["hash"], r4["nonce"], True] != r4["plain"]["request"]:
+        fail(f"R4: {r4['hash'], r4['nonce']} != plain "
+             f"{r4['plain']['request']}")
+    r4["chunk"] = 0 if r4["nonce"] <= R4_CHUNKS[0][1] else 1
+    r4["prefix_release_logged"] = "(prefix release)" in server_text
+    if r4["chunk"] == 0 and not r4["prefix_release_logged"]:
+        fail("R4 hit in chunk 0 but the server logged no prefix release")
+    r1, r5 = by_name["R1"], by_name["R5"]
+    if (r5["hash"], r5["nonce"]) != (r1["hash"], r1["nonce"]):
+        fail(f"R5 {r5['hash'], r5['nonce']} != R1 "
+             f"{r1['hash'], r1['nonce']}")
+    info = {"requests": results,
+            "launches": {"arg-min": argmin_launches,
+                         "difficulty": until_launches}}
     emit("e2e", **info)
     return info
 
 
+def per_block_search(searcher, lower: int, upper: int, scan):
+    """The searcher's block plan, one ``scan(plan)`` (a (3,) device tensor
+    ``(hi, lo, idx)``) per block, the triples copied to the host in one
+    stacked fetch and merged in ascending order with a strict less (the
+    earliest nonce keeps a tie; an all-ones triple had no valid lane)."""
+    import torch
+    plans = list(searcher.plan(lower, upper))
+    fetched = torch.stack([scan(p) for p in plans]).cpu().tolist()
+    best = None
+    for p, triple in zip(plans, fetched):
+        hi, lo, idx = (int(x) & M32 for x in triple)
+        if (hi, lo, idx) != (M32, M32, M32) and (
+                best is None or (hi << 32 | lo) < best[0]):
+            best = (hi << 32 | lo, p.base + idx)
+    return best or ((1 << 64) - 1, lower)
+
+
 def plain_search(searcher, lower: int, upper: int):
     """The searcher's block plan run through the plain scan on its
-    device, merged like ``finalize``."""
+    device."""
     from distributed_bitcoinminer_tpu_torch.ops.search import span_scan
-    results = [(p.base, span_scan(p.midstate, p.template, p.lo_i, p.lo_i,
-                                  p.hi_i, p.hi_i - p.lo_i + 1, rem=p.rem,
-                                  k=p.k, device=searcher.device))
-               for p in searcher.plan(lower, upper)]
-    return searcher.finalize(results, lower)
+    return per_block_search(searcher, lower, upper, lambda p: span_scan(
+        p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes, rem=p.rem,
+        k=p.k, device=searcher.device))
+
+
+def per_block_until(searcher, lower: int, upper: int, target: int, scan,
+                    lookahead: int = 0):
+    """Difficulty mode one block at a time: ``scan(plan, t_hi, t_lo)`` (a
+    (5,) device tensor ``(found, f_idx, best_hi, best_lo, best_idx)``)
+    per block, each block's words read in ascending order, with
+    ``lookahead`` later blocks launched before a block's words are read
+    (each copy goes to pinned memory behind an event, so a queued launch
+    does not delay it); stops at the first block that hits. Returns
+    (hash, nonce, found) like ``search_until``."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+    t_hi, t_lo = target >> 32, target & M32
+    plans, inflight, best = iter(searcher.plan(lower, upper)), [], None
+    while True:
+        while len(inflight) <= lookahead:
+            p = next(plans, None)
+            if p is None:
+                break
+            out = scan(p, t_hi, t_lo)
+            host = torch.empty(out.shape, dtype=out.dtype,
+                               pin_memory=out.is_cuda)
+            host.copy_(out, non_blocking=out.is_cuda)
+            done = torch.cuda.Event() if out.is_cuda else None
+            if done is not None:
+                done.record()
+            inflight.append((p, host, done))
+        if not inflight:
+            return (*best, False) if best else ((1 << 64) - 1, lower, False)
+        p, host, done = inflight.pop(0)
+        if done is not None:
+            done.synchronize()
+        found, f_idx, b_hi, b_lo, b_idx = words(host)
+        if found:
+            return hash_op(searcher.data, p.base + f_idx), p.base + f_idx, True
+        if (b_hi, b_lo, b_idx) != (M32, M32, M32) and (
+                best is None or (b_hi << 32 | b_lo) < best[0]):
+            best = (b_hi << 32 | b_lo, p.base + b_idx)
+
+
+def plain_search_until(searcher, lower: int, upper: int, target: int):
+    """The searcher's block plan through the plain until scan on its
+    device, in ascending order, stopping at the first block that hits:
+    (hash, nonce, found) like ``search_until``."""
+    from distributed_bitcoinminer_tpu_torch.ops.search import span_until_scan
+    return per_block_until(
+        searcher, lower, upper, target,
+        lambda p, t_hi, t_lo: span_until_scan(
+            p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes, t_hi,
+            t_lo, rem=p.rem, k=p.k, device=searcher.device))
 
 
 #: SASS opcodes that do not issue to the INT32 ALU pipe: IMAD (the FMA
@@ -399,6 +766,9 @@ NON_ALU_PREFIXES = ("IMAD", "LD", "ST", "BRA", "BSSY", "BSYNC", "EXIT",
 #: in Hopper's fused forms: S0 and S1 (3 SHF rotates and 1 LOP3 each), ch
 #: and maj (1 LOP3 each), and t1, e and a (4 IADD3).
 ROUND_OPS = 14
+#: K2's per-lane target compare: hi below, hi equal and lo below, fused
+#: into ISETP chains and one predicate combine.
+TARGET_OPS = 3
 
 
 def needed_int_ops(rem: int, k: int, nblocks: int) -> int:
@@ -443,11 +813,11 @@ def bound_ms(lanes: int, int_per_lane: int, dev_info: dict) -> tuple:
     """(least milliseconds, what bounds it) for ``lanes`` lanes of
     ``int_per_lane`` INT32-pipe instructions: 64 lanes/clk on each SM at
     the card's maximum SM clock, against the bytes the call must move
-    (the 188-byte plan in, 12 bytes out) at 3.35 TB/s."""
+    (the 196-byte plan in, at most 32 bytes out) at 3.35 TB/s."""
     clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
     ops_s = lanes * int_per_lane / (dev_info["sms"]
                                     * RATE_INTS_PER_CLK_PER_SM * clk_hz)
-    bytes_s = (4 * 47 + 12) / 3.35e12
+    bytes_s = (4 * 49 + 32) / 3.35e12
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes")
 
@@ -458,15 +828,13 @@ def bound_ms(lanes: int, int_per_lane: int, dev_info: dict) -> tuple:
 DIGIT_FREE_DATA = "a fifty-character message; its digits stay in one."
 
 
-def phase_rates(dev_info: dict, outdir: str) -> dict:
-    """The kernel over one full 10^9 block (1-block tail, the R3 shape),
-    over the 9*10^8-lane block of R2's message (2-block tail, digits in
-    both blocks) and over a 10^9 block whose second tail block holds no
-    digit, and the plain scan over 2^22 lanes of the first."""
-    import torch
+def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
+    """K1 over one full 10^9 block (1-block tail, the R3 shape), over the
+    9*10^8-lane block of R2's message (2-block tail, digits in both
+    blocks) and over a 10^9 block whose second tail block holds no digit,
+    and the plain scan over 2^22 lanes of the first."""
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
-    dev = torch.device("cuda", 0)
     cases = {}
     for name, data, lower, upper in (
             ("one_block", "cmu440", 10 ** 9, 2 * 10 ** 9 - 1),
@@ -474,8 +842,7 @@ def phase_rates(dev_info: dict, outdir: str) -> dict:
             ("two_block_digit_free", DIGIT_FREE_DATA, 10 ** 9,
              2 * 10 ** 9 - 1)):
         (p,) = list(NonceSearcher(data, device=dev).plan(lower, upper))
-        lanes = p.hi_i - p.lo_i + 1
-        args = (p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, lanes)
+        args = (p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes)
         kw = dict(rem=p.rem, k=p.k, device=dev)
         with ClockSampler() as clocks:
             ms = cuda_ms(lambda: sha256_cuda.sha256_argmin(*args, **kw), 3)
@@ -485,11 +852,11 @@ def phase_rates(dev_info: dict, outdir: str) -> dict:
         sass_alu = sum(n for op, n in ops.items()
                        if not op.startswith(NON_ALU_PREFIXES))
         needed = needed_int_ops(p.rem, p.k, nb)
-        b_ms, b_by = bound_ms(lanes, needed, dev_info)
-        sass_ms, _ = bound_ms(lanes, sass_alu, dev_info)
-        cases[name] = {"data": data, "lanes": lanes, "rem": p.rem, "k": p.k,
-                       "nblocks": nb, "ms": ms,
-                       "nonces_per_s": lanes / (ms / 1e3),
+        b_ms, b_by = bound_ms(p.lanes, needed, dev_info)
+        sass_ms, _ = bound_ms(p.lanes, sass_alu, dev_info)
+        cases[name] = {"data": data, "lanes": p.lanes, "rem": p.rem,
+                       "k": p.k, "nblocks": nb, "ms": ms,
+                       "nonces_per_s": p.lanes / (ms / 1e3),
                        "needed_int_ops_per_lane": needed,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "share_of_bound": b_ms / ms,
@@ -507,12 +874,337 @@ def phase_rates(dev_info: dict, outdir: str) -> dict:
                 lambda: search.span_scan(*sargs, **kw), 2)
             cases[name]["plain_nonces_per_s"] = small / (
                 cases[name]["plain_ms_2p22"] / 1e3)
-    info = {"cases": cases, "sms": dev_info["sms"],
-            "clocks_max_sm_mhz": dev_info["clocks_max_sm_mhz"],
-            "clocks_sm_after": nvidia_smi("clocks.sm"),
-            "nvidia_smi": dev_info["nvidia_smi"]}
+    return cases
+
+
+def hit_block(dev):
+    """A 10^9 block of "cmu440" whose first lane below the target lies in
+    [10^8, 1.25 * 10^8): the target is the minimum hash of the block's
+    first 10^8 lanes (K1), so no lane before 10^8 meets it, and the first
+    hit after it is found with K2. Returns (plan, target, hit lane)."""
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    s = NonceSearcher("cmu440", device=dev)
+    for b in range(1, 60):
+        (p,) = list(s.plan(b * 10 ** 9, b * 10 ** 9 + 10 ** 9 - 1))
+        hi, lo, _ = words(sha256_cuda.sha256_argmin(
+            p.midstate, p.template, 0, 0, 10 ** 8 - 1, 10 ** 8, rem=p.rem,
+            k=p.k, device=dev))
+        t = hi << 32 | lo
+        found, f_idx = words(sha256_cuda.sha256_until(
+            p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes,
+            t >> 32, t & M32, rem=p.rem, k=p.k, device=dev))[:2]
+        if found and 10 ** 8 <= f_idx < 125 * 10 ** 6:
+            return p, t, f_idx
+    fail("no 10^9 block of cmu440 has its first hit in [1e8, 1.25e8)")
+
+
+def rates_k2(dev_info: dict, dev, one_block: dict, hit: tuple) -> dict:
+    """K2 with a target nothing meets over the one_block case's block
+    (beside K1 there), the plain until scan over 2^22 of its lanes, and K2
+    to a first hit a little past lane 10^8 of another 10^9 block, beside
+    K2 and K1 over all of that block."""
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+    (p,) = list(NonceSearcher("cmu440", device=dev).plan(
+        10 ** 9, 2 * 10 ** 9 - 1))
+    args = (p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes)
+    kw = dict(rem=p.rem, k=p.k, device=dev)
+    nb = int(p.template.shape[0])
+    needed = needed_int_ops(p.rem, p.k, nb) + TARGET_OPS
+    ms = cuda_ms(lambda: sha256_cuda.sha256_until(*args, 0, 0, **kw), 3)
+    b_ms, b_by = bound_ms(p.lanes, needed, dev_info)
+    small = 1 << 22
+    sargs = args[:4] + (small - 1, small)
+    plain_ms = cuda_ms(lambda: search.span_until_scan(*sargs, 0, 0, **kw), 2)
+    info = {"lanes": p.lanes, "rem": p.rem, "k": p.k, "nblocks": nb,
+            "ms": ms, "k1_ms_same_block": one_block["ms"],
+            "needed_int_ops_per_lane": needed, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / ms,
+            "ms_2p22": cuda_ms(lambda: sha256_cuda.sha256_until(
+                *sargs, 0, 0, **kw), 5),
+            "plain_ms_2p22": plain_ms}
+    hp, t, f_idx = hit
+    hargs = (hp.midstate, hp.template, hp.lo_i, hp.lo_i, hp.hi_i, hp.lanes)
+    hkw = dict(rem=hp.rem, k=hp.k, device=dev)
+    to_hit = cuda_ms(lambda: sha256_cuda.sha256_until(
+        *hargs, t >> 32, t & M32, **hkw), 5)
+    miss = cuda_ms(lambda: sha256_cuda.sha256_until(*hargs, 0, 0, **hkw), 3)
+    k1 = cuda_ms(lambda: sha256_cuda.sha256_argmin(*hargs, **hkw), 3)
+    hit_needed = needed_int_ops(hp.rem, hp.k, int(hp.template.shape[0])) \
+        + TARGET_OPS
+    info["first_hit"] = {
+        "base": hp.base, "hit_lane": f_idx, "ms_to_hit": to_hit,
+        "ms_no_target_same_block": miss, "k1_ms_same_block": k1,
+        "share_of_no_target": to_hit / miss,
+        "bound_ms_to_hit": bound_ms(f_idx - hp.lo_i + 1, hit_needed,
+                                    dev_info)[0]}
+    if to_hit > 0.2 * miss:
+        fail(f"K2 took {to_hit:.2f} ms to a hit at lane {f_idx}, above 20% "
+             f"of its {miss:.2f} ms over the whole block")
+    return info
+
+
+def k1_triple(p, dev, grid=None):
+    """K1 over one block plan: its (3,) ``(hi, lo, idx)`` device tensor."""
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    return sha256_cuda.sha256_argmin(p.midstate, p.template, p.lo_i, p.lo_i,
+                                     p.hi_i, p.lanes, rem=p.rem, k=p.k,
+                                     device=dev, grid=grid)
+
+
+def k2_words(p, t_hi, t_lo, dev):
+    """K2 over one block plan: its (5,) device tensor."""
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    return sha256_cuda.sha256_until(p.midstate, p.template, p.lo_i, p.lo_i,
+                                    p.hi_i, p.lanes, t_hi, t_lo, rem=p.rem,
+                                    k=p.k, device=dev)
+
+
+def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
+    """K6's arg-min chain over R3's blocks and over the mouse's against
+    per-block K1 launches with one stacked fetch, in turns; the plain
+    scan-and-fold chain beside K6 over four 2^20-lane windows; K6's until
+    chain from a fresh carry to the first hit of the ``hit`` block
+    (beside K2 there) and over R4's range, whole and in two parts; and a
+    chained until launch after a hit over a whole 10^9 block."""
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    from distributed_bitcoinminer_tpu_torch.ops import (search, searchop,
+                                                        sha256_cuda)
+    chain = NonceSearcher("cmu440", device=dev)
+
+    def in_turns(lower: int, upper: int, reps: int) -> dict:
+        """Milliseconds of the chain and of per-block K1 with one stacked
+        fetch over [lower, upper], in turns (per-block, chain, chain,
+        per-block), each turn the mean of ``reps`` back-to-back runs."""
+        answers, times = {}, {"per_block": [], "chain": []}
+        shapes = {"chain": lambda: chain.search(lower, upper),
+                  "per_block": lambda: per_block_search(
+                      chain, lower, upper, lambda p: k1_triple(p, dev))}
+        for name in ("per_block", "chain", "chain", "per_block"):
+            times[name].append(event_ms(lambda: [
+                answers.__setitem__(name, shapes[name]())
+                for _ in range(reps)]) / reps)
+        if answers["chain"] != answers["per_block"]:
+            fail(f"K6 chain {answers['chain']} != per-block K1 "
+                 f"{answers['per_block']} over [{lower}, {upper}]")
+        return times
+
+    lower, upper = 0, 1 << 32
+    times = in_turns(lower, upper, 1)
+    # The mouse's range: 6 blocks, 10^5 + 1 nonces.
+    mouse_times = in_turns(0, 10 ** 5, 20)
+    plans = list(chain.plan(lower, upper))
+    bound = sum(bound_ms(p.lanes, needed_int_ops(
+        p.rem, p.k, int(p.template.shape[0])), dev_info)[0] for p in plans)
+    # The plain chain: the plain scan and fold of ops.searchop on the
+    # card, over four 2^20-lane windows (its pace is ~30 M lanes/s).
+    wins = [next(iter(chain.plan(b * 10 ** 9, b * 10 ** 9 + (1 << 20) - 1)))
+            for b in range(1, 5)]
+
+    def plain_chain():
+        carry = searchop.carry_init().to(dev)
+        for p in wins:
+            hi, lo, idx = search.span_scan(p.midstate, p.template, p.lo_i,
+                                           p.lo_i, p.hi_i, p.lanes,
+                                           rem=p.rem, k=p.k, device=dev)
+            carry = searchop.fold_argmin(carry, hi, lo, idx, p.base >> 32,
+                                         p.base & M32)
+        return words(carry)
+
+    def kernel_chain():
+        carry = search.devloop_carry(searchop.ARGMIN_OP, dev)
+        for p in wins:
+            sha256_cuda.sha256_argmin_fold(p.midstate, p.template, carry,
+                                           p.lo_i, p.lo_i, p.hi_i, p.lanes,
+                                           p.base, rem=p.rem, k=p.k,
+                                           device=dev)
+        return words(carry)
+
+    if plain_chain() != kernel_chain():
+        fail("K6 chain over the 2^20-lane windows disagrees with plain")
+    plain_ms = cuda_ms(plain_chain, 1)
+    ms_small = cuda_ms(kernel_chain, 5)
+    # The until chain where it does lane work: one launch from a fresh
+    # carry to the first hit of the hit block, which must fold that hit.
+    hp, t, f_idx = hit
+
+    def until_to_hit():
+        carry = search.devloop_carry(searchop.UNTIL_OP, dev)
+        sha256_cuda.sha256_until_fold(
+            hp.midstate, hp.template, carry, hp.lo_i, hp.lo_i, hp.hi_i,
+            hp.lanes, t >> 32, t & M32, hp.base, rem=hp.rem, k=hp.k,
+            device=dev)
+        return carry
+    got = searchop.decode_until(until_to_hit().cpu(), hp.base)
+    if got[:2] != (True, hp.base + f_idx):
+        fail(f"K6 until chain over the hit block: {got[:2]} != "
+             f"(True, {hp.base + f_idx})")
+    to_hit_ms = cuda_ms(until_to_hit, 5)
+    hit_needed = needed_int_ops(hp.rem, hp.k, int(hp.template.shape[0])) \
+        + TARGET_OPS
+    # R4's range through search_until: the chain to the first hit, then
+    # launches that do no lane work.
+    r4 = NonceSearcher("cmu440", device=dev)
+    r4_answer = {}
+    r4_ms = cuda_ms(lambda: r4_answer.__setitem__(
+        "r", r4.search_until(0, 1 << 32, R4_TARGET)), 3)
+    r4_plans = list(r4.plan(0, 1 << 32))
+    hit_nonce = r4_answer["r"][1]
+    upto = [(p, min(p.lanes, hit_nonce - p.base - p.lo_i + 1))
+            for p in r4_plans if p.base + p.lo_i <= hit_nonce]
+    r4_lanes = sum(n for _, n in upto)
+    r4_bound = sum(bound_ms(n, needed_int_ops(p.rem, p.k,
+                                              int(p.template.shape[0]))
+                            + TARGET_OPS, dev_info)[0] for p, n in upto)
+    # Where R4's time goes: digit classes 1-7 (7 blocks, 10^7 nonces) and
+    # the class-8 block up to the hit, each through search_until alone.
+    r4_parts = {name: cuda_ms(lambda: r4.search_until(lo, hi, R4_TARGET), 3)
+                for name, lo, hi in (("classes_1_7", 0, 10 ** 7 - 1),
+                                     ("class_8", 10 ** 7, 10 ** 8 - 1))}
+    # A chained until launch after a hit: the carry says found, so the
+    # launch over a whole 10^9 block does no lane work.
+    (p,) = list(chain.plan(10 ** 9, 2 * 10 ** 9 - 1))
+    found = search.devloop_carry(searchop.UNTIL_OP, dev)
+    found[0] = 1
+    before = words(found)
+    noop_ms = cuda_ms(lambda: sha256_cuda.sha256_until_fold(
+        p.midstate, p.template, found, p.lo_i, p.lo_i, p.hi_i, p.lanes, 0,
+        0, p.base, rem=p.rem, k=p.k, device=dev), 20)
+    if words(found) != before:
+        fail("a chained until launch after a hit changed the carry")
+    return {"blocks": len(plans), "launches": 2 * len(plans),
+            "lanes": sum(p.lanes for p in plans),
+            "ms": sum(times["chain"]) / 2,
+            "per_block_ms": sum(times["per_block"]) / 2,
+            "times": times, "bound_ms": bound, "bound_by": "operations",
+            "mouse": {"range": [0, 10 ** 5], "blocks": 6,
+                      "ms": sum(mouse_times["chain"]) / 2,
+                      "per_block_ms": sum(mouse_times["per_block"]) / 2,
+                      "times": mouse_times},
+            "plain_windows": len(wins), "plain_lanes": len(wins) * (1 << 20),
+            "plain_ms": plain_ms, "ms_at_plain_lanes": ms_small,
+            "until_to_hit": {
+                "base": hp.base, "hit_lane": f_idx, "ms": to_hit_ms,
+                "bound_ms": bound_ms(f_idx - hp.lo_i + 1, hit_needed,
+                                     dev_info)[0]},
+            "until_r4": {"range": [0, 1 << 32], "answer": r4_answer["r"],
+                         "blocks": len(r4_plans),
+                         "lanes_to_hit": r4_lanes, "ms": r4_ms,
+                         "bound_ms": r4_bound, "parts_ms": r4_parts},
+            "until_after_hit_ms": noop_ms}
+
+
+def rates_until_shapes(dev) -> dict:
+    """The two difficulty shapes on R4's two chunks served back to back by
+    one searcher, as one miner would serve them: the chain
+    (``search_until``), and one K2 launch per block read in ascending
+    order with no lookahead and with one launch of lookahead. In turns
+    (chain, per-block, lookahead, lookahead, per-block, chain); host wall
+    seconds from the first chunk's start to each chunk's answer."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    s = NonceSearcher("cmu440", device=dev)
+    shapes = {
+        "chain": lambda lo, hi: s.search_until(lo, hi, R4_TARGET),
+        "per_block": lambda lo, hi: per_block_until(
+            s, lo, hi, R4_TARGET, lambda p, th, tl: k2_words(p, th, tl, dev)),
+        "per_block_lookahead": lambda lo, hi: per_block_until(
+            s, lo, hi, R4_TARGET, lambda p, th, tl: k2_words(p, th, tl, dev),
+            lookahead=1)}
+    runs = {name: [] for name in shapes}
+    answers = {}
+    for name in ("chain", "per_block", "per_block_lookahead",
+                 "per_block_lookahead", "per_block", "chain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = shapes[name](*R4_CHUNKS[0])
+        t1 = time.perf_counter()
+        second = shapes[name](*R4_CHUNKS[1])
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        runs[name].append({"first_s": t1 - t0, "second_s": t2 - t0,
+                           "drained_s": t3 - t0})
+        answers.setdefault(name, (first, second))
+        if answers[name] != (first, second) \
+                or answers[name] != answers["chain"]:
+            fail(f"difficulty shape {name}: {first, second} != chain "
+                 f"{answers['chain']}")
+    return {"chunks": [list(c) for c in R4_CHUNKS],
+            "answers": [list(a) for a in answers["chain"]],
+            "runs": runs,
+            "mean_second_s": {name: sum(r["second_s"] for r in v) / len(v)
+                              for name, v in runs.items()}}
+
+
+def phase_rates(dev_info: dict, outdir: str) -> dict:
+    import torch
+    dev = torch.device("cuda", 0)
+    info = {"K1": rates_k1(dev_info, outdir, dev)}
+    hit = hit_block(dev)
+    info["K2"] = rates_k2(dev_info, dev, info["K1"]["one_block"], hit)
+    info["K6"] = rates_k6(dev_info, dev, hit)
+    info["until_shapes"] = rates_until_shapes(dev)
+    info.update({"sms": dev_info["sms"],
+                 "clocks_max_sm_mhz": dev_info["clocks_max_sm_mhz"],
+                 "clocks_sm_after": nvidia_smi("clocks.sm"),
+                 "nvidia_smi": dev_info["nvidia_smi"]})
     emit("rates", **info)
     return info
+
+
+def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
+    """The ``kernels`` JSON object: every kernel of the paths, its
+    launches on them, its check against its plain version and its
+    times."""
+    src = f"{PKG}/csrc/sha256_argmin.cu"
+    launches = {k: sum(path[k] for path in e2e["launches"].values())
+                for k in ("K1", "K2", "K6")}
+    one, k2, k6 = rates["K1"]["one_block"], rates["K2"], rates["K6"]
+    return {"kernels": [
+        {"name": "sha256_argmin", "route": "cuda", "source": src,
+         "replaces": "ops/sha256_pallas.py:649 (pallas_search_span, in the "
+                     "JAX package)",
+         "launches": launches["K1"], "checked": True,
+         "max_abs_err": kernel["K1"]["max_abs_err"],
+         "ms": one["ms"], "lanes": one["lanes"],
+         "plain_ms": one["plain_ms_2p22"], "plain_lanes": 1 << 22,
+         "ms_at_plain_lanes": one["ms_2p22"],
+         "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+         "sass_issue_bound_ms": one["sass_issue_bound_ms"],
+         "library_ms": None},
+        {"name": "sha256_until", "route": "cuda", "source": src,
+         "replaces": "ops/sha256_pallas.py:680 (pallas_search_span_until, "
+                     "in the JAX package)",
+         "launches": launches["K2"], "checked": True,
+         "max_abs_err": kernel["K2"]["max_abs_err"],
+         "ms": k2["ms"], "lanes": k2["lanes"],
+         "plain_ms": k2["plain_ms_2p22"], "plain_lanes": 1 << 22,
+         "ms_at_plain_lanes": k2["ms_2p22"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "ms_to_first_hit": k2["first_hit"]["ms_to_hit"],
+         "first_hit_lane": k2["first_hit"]["hit_lane"],
+         "library_ms": None},
+        {"name": "sha256_argmin_fold+sha256_until_fold", "route": "cuda",
+         "source": src,
+         "replaces": "ops/sha256_pallas.py:882 and :919 "
+                     "(_pallas_devloop_span_jit, _pallas_devloop_until_jit, "
+                     "in the JAX package)",
+         "launches": launches["K6"], "checked": True,
+         "max_abs_err": kernel["K6"]["max_abs_err"],
+         "ms": k6["ms"], "lanes": k6["lanes"],
+         "per_block_k1_ms": k6["per_block_ms"],
+         "plain_ms": k6["plain_ms"], "plain_lanes": k6["plain_lanes"],
+         "ms_at_plain_lanes": k6["ms_at_plain_lanes"],
+         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+         "until_ms_to_hit": k6["until_to_hit"]["ms"],
+         "until_lanes_to_hit": k6["until_to_hit"]["hit_lane"] + 1,
+         "until_bound_ms_to_hit": k6["until_to_hit"]["bound_ms"],
+         "until_r4_ms": k6["until_r4"]["ms"],
+         "until_r4_bound_ms": k6["until_r4"]["bound_ms"],
+         "until_after_hit_ms": k6["until_after_hit_ms"],
+         "library_ms": None}]}
 
 
 def main() -> int:
@@ -528,29 +1220,14 @@ def main() -> int:
         return 1
     outdir = os.path.join(ROOT, "chiprun_out", "chip_smoke")
     os.makedirs(outdir, exist_ok=True)
+    t0 = time.monotonic()
     dev_info = phase_device()
     phase_build()
     kernel = phase_kernel()
     e2e = phase_e2e(outdir)
     rates = phase_rates(dev_info, outdir)
-    one = rates["cases"]["one_block"]
-    entry = {"name": "sha256_argmin", "route": "cuda",
-             "source": f"{PKG}/csrc/sha256_argmin.cu",
-             "replaces": "ops/sha256_pallas.py:649 (pallas_search_span, "
-                         "in the JAX package)",
-             "launches": e2e["kernel_launches"],
-             "checked": True,
-             "max_abs_err": kernel["max_abs_err"],
-             "ms": one["ms"],
-             "lanes": one["lanes"],
-             "plain_ms": one["plain_ms_2p22"],
-             "plain_lanes": 1 << 22,
-             "ms_at_plain_lanes": one["ms_2p22"],
-             "bound_ms": one["bound_ms"],
-             "bound_by": one["bound_by"],
-             "sass_issue_bound_ms": one["sass_issue_bound_ms"],
-             "library_ms": None}
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    emit("done", seconds=time.monotonic() - t0)
+    print(json.dumps(kernels_line(kernel, e2e, rates)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

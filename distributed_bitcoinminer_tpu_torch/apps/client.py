@@ -3,9 +3,11 @@
 Same contract as the reference submitter (ref: bitcoin/client/client.go):
 write Request(message, 0, maxNonce), block on Read, report
 ``Result <hash> <nonce>`` or ``Disconnected`` when the connection is lost.
+An optional target selects difficulty mode: the Result is then the first
+nonce whose hash is below the target, or the exact arg-min when none is.
 
 Usage: ``python -m distributed_bitcoinminer_tpu_torch.apps.client
-<host:port> <message> <maxNonce>``.
+<host:port> <message> <maxNonce> [target]``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import asyncio
 from typing import Optional, Tuple
 
+from ..bitcoin.hash import MAX_U64
 from ..bitcoin.message import Message, MsgType, new_request
 from ..lsp.client import new_async_client
 from ..lsp.errors import LspError
@@ -21,9 +24,33 @@ from ..lsp.params import Params
 
 async def submit(hostport: str, message: str, max_nonce: int,
                  params: Optional[Params] = None) -> Optional[Tuple[int, int]]:
-    """Submit and await one request; None means the connection was lost."""
+    """Submit and await one request; None means the connection was lost.
+
+    The stock exact-arg-min mode is the target-0 case of
+    :func:`submit_until` (target 0 serializes to reference-identical
+    bytes, bitcoin/message.py)."""
+    result = await submit_until(hostport, message, max_nonce, 0, params)
+    return None if result is None else result[:2]
+
+
+async def submit_until(hostport: str, message: str, max_nonce: int,
+                       target: int, params: Optional[Params] = None,
+                       ) -> Optional[Tuple[int, int, bool]]:
+    """Difficulty-target mode: one Request carrying ``Target`` (the wire
+    extension of bitcoin/message.py).
+
+    The scheduler fans the target out with every chunk and miners stop
+    early at their chunk's first qualifying nonce
+    (``models.NonceSearcher.search_until``), so a loose target completes
+    far ahead of the full arg-min scan. Returns ``(hash, nonce, found)``:
+    found means ``hash < target`` and, when every miner speaks the
+    extension, ``nonce`` is the FIRST qualifying nonce of the scanned
+    range; found=False hands back the exact arg-min. None = connection
+    lost. Against a scheduler that drops the Target key, use
+    :func:`stream_until`, which needs nothing beyond the reference wire.
+    """
     client = await new_async_client(hostport, params)
-    client.write(new_request(message, 0, max_nonce).to_json())
+    client.write(new_request(message, 0, max_nonce, target).to_json())
     try:
         payload = await client.read()
     except LspError:
@@ -36,7 +63,49 @@ async def submit(hostport: str, message: str, max_nonce: int,
         return None
     if msg.type != MsgType.RESULT:
         return None
-    return msg.hash, msg.nonce
+    return msg.hash, msg.nonce, msg.hash < target
+
+
+async def stream_until(hostport: str, message: str, target: int,
+                       span: int = 1 << 24, start: int = 0,
+                       max_nonce: Optional[int] = None,
+                       params: Optional[Params] = None,
+                       ) -> Optional[Tuple[int, int, int]]:
+    """Difficulty-target mode over the stock wire: stream Requests span by
+    span until a merged Result beats ``target``.
+
+    Each span rides a reference-shaped Request, so it works against ANY
+    scheduler, but miners run a full arg-min per span (the early exit is
+    only span-granular). Returns (hash, nonce, spans_scanned), or None on
+    disconnect or once ``max_nonce`` is passed (default: the end of the
+    uint64 nonce space, so an unreachable target cannot loop forever).
+    """
+    if max_nonce is None:
+        max_nonce = MAX_U64
+    client = await new_async_client(hostport, params)
+    spans = 0
+    lower = start
+    try:
+        while lower <= max_nonce:
+            upper = min(lower + span - 1, max_nonce)
+            client.write(new_request(message, lower, upper).to_json())
+            try:
+                payload = await client.read()
+            except LspError:
+                return None
+            try:
+                msg = Message.from_json(payload)
+            except ValueError:
+                return None
+            if msg.type != MsgType.RESULT:
+                return None
+            spans += 1
+            if msg.hash < target:
+                return msg.hash, msg.nonce, spans
+            lower = upper + 1
+        return None
+    finally:
+        await client.close()
 
 
 def printable_result(result: Optional[Tuple[int, int]]) -> str:
@@ -46,26 +115,43 @@ def printable_result(result: Optional[Tuple[int, int]]) -> str:
     return f"Result {result[0]} {result[1]}"
 
 
+def parse_u64(arg: str) -> Optional[int]:
+    """Go's strconv.ParseUint(s, 10, 64) in the reference client: ASCII
+    decimal digits only (bare int() would also take '+5', ' 5 ', '1_0'
+    and Unicode digits), bounded to uint64, the same diagnostic on
+    failure (then None)."""
+    if arg.isascii() and arg.isdigit() and int(arg) < (1 << 64):
+        return int(arg)
+    print(f"{arg} is not a number.")
+    return None
+
+
 def main(argv=None) -> int:
     """CLI contract of the reference binary (ref: client.go:24-58):
-    ``client <hostport> <message> <maxNonce>``."""
+    ``client <hostport> <message> <maxNonce>``, with an optional trailing
+    ``[target]`` selecting difficulty mode (:func:`submit_until`; the
+    stdout contract is unchanged). Target 0 means no target, the same as
+    leaving it out."""
     import sys
     argv = sys.argv if argv is None else argv
-    if len(argv) != 4:
+    if len(argv) not in (4, 5):
         print(f"Usage: ./{argv[0]} <hostport> <message> <maxNonce>", end="")
         return 1
-    arg = argv[3]
-    # Mirrors Go's strconv.ParseUint(s, 10, 64): ASCII decimal digits
-    # only, bounded to uint64, same diagnostic on failure.
-    if not (arg.isascii() and arg.isdigit() and int(arg) < (1 << 64)):
-        print(f"{arg} is not a number.")
+    max_nonce = parse_u64(argv[3])
+    if max_nonce is None:
         return 1
+    target = 0
+    if len(argv) == 5:
+        target = parse_u64(argv[4])
+        if target is None:
+            return 1
     try:
-        result = asyncio.run(submit(argv[1], argv[2], int(arg)))
+        result = asyncio.run(submit_until(argv[1], argv[2], max_nonce,
+                                          target))
     except LspError as exc:
         print("Failed to connect to server:", exc)
         return 1
-    print(printable_result(result))
+    print(printable_result(None if result is None else result[:2]))
     return 0
 
 

@@ -4,7 +4,8 @@ Counterpart of the serial path of the JAX package's
 ``apps/miner.py::MinerWorker`` (the reference worker's loop, ref:
 bitcoin/miner/miner.go): Join, then serve Requests one at a time — read, search, write
 the Result — and exit silently on transport errors like the reference
-(miner.go:40-44, 63-66).
+(miner.go:40-44, 63-66). A Request carrying a difficulty ``Target`` runs
+the early-exiting ``NonceSearcher.search_until`` and echoes the target.
 
 The search runs in a worker thread so the asyncio loop keeps serving LSP
 heartbeats and acks while the card is busy.
@@ -115,9 +116,11 @@ class MinerWorker:
         await self.client.close()
 
     def counts(self) -> dict:
-        """Chunks served and CUDA kernel launches made by this process."""
+        """Chunks served and CUDA kernel launches made by this process, by
+        the TPU kernel each replaces (K1 arg-min search, K2 difficulty
+        search, K6 the folds of the device-resident chain)."""
         return {"chunks": self.jobs_done,
-                "kernel_launches": sha256_cuda.launches}
+                "kernel_launches": dict(sha256_cuda.launches)}
 
     def _reply(self, msg, best_hash: int, best_nonce: int,
                echo_target: int, t0: float) -> bool:
@@ -147,15 +150,24 @@ class MinerWorker:
 
     def _search(self, data: str, lower: int, upper: int,
                 target: int = 0) -> tuple[int, int, int]:
-        """(hash, nonce, echo_target). This miner has no difficulty mode:
-        a Target request gets the full-scan arg-min and echoes 0, exactly
-        like a stock Go miner that dropped the unknown Target key."""
+        """(hash, nonce, echo_target). A Request with a target runs the
+        early-exiting ``search_until`` and echoes the target: the Result
+        then reports the chunk's FIRST qualifying nonce, or its exact
+        arg-min when none qualifies. A searcher without ``search_until``
+        answers with the full-scan arg-min and echoes 0, exactly like a
+        stock Go miner that dropped the unknown Target key; the scheduler
+        reads the echo to grade its merge."""
         if lower > upper:
             # The Go miner's loop body never runs for an inverted range and
             # it reports (maxUint, 0) (ref: miner.go:46-59).
             return (MAX_U64, 0, 0)
-        best_hash, best_nonce = self._get_searcher(data).search(lower, upper)
-        return best_hash, best_nonce, 0
+        searcher = self._get_searcher(data)
+        if target:
+            until = getattr(searcher, "search_until", None)
+            if until is not None:
+                best_hash, best_nonce, _found = until(lower, upper, target)
+                return best_hash, best_nonce, target
+        return (*searcher.search(lower, upper), 0)
 
     async def close(self) -> None:
         if self.client is not None:
@@ -204,16 +216,19 @@ def main(argv=None) -> int:
 
 
 def warm_up(device) -> None:
-    """Create the CUDA context, build (if needed) and load the kernel, and
-    launch it once on a 10-nonce search before joining, so the first
-    request does not pay for any of it. The launch counter restarts at 0
-    afterwards: it counts the launches made serving requests."""
+    """Create the CUDA context, build (if needed) and load the kernels, and
+    run both chains (arg-min and difficulty) once over the 6 blocks of
+    [0, 10^5) before joining, so the first request does not pay for any
+    of it. The launch counters restart at 0 afterwards: they count the
+    launches made serving requests."""
     import torch
 
     from ..models import NonceSearcher
     t0 = time.monotonic()
     torch.zeros(1, device=device)
-    NonceSearcher("warm-up", device=device).search(0, 9)
+    s = NonceSearcher("warm-up", device=device)
+    s.search(0, 10 ** 5 - 1)
+    s.search_until(0, 10 ** 5 - 1, 1)
     sha256_cuda.reset_launches()
     logger.info("device %s ready in %.3fs (%s)", device,
                 time.monotonic() - t0, torch.cuda.get_device_name(device))

@@ -27,9 +27,16 @@ names:
   is cancelled at once — miners are freed, parked chunks cleared, the
   next queued request starts.
 
-A Request carrying a difficulty ``Target`` is forwarded with the target
-on every chunk and merged as an exact arg-min, the answer a stock miner
-gives.
+Difficulty merge: a Request carrying a ``Target`` is forwarded with the
+target on every chunk. Chunks cover ascending disjoint sub-ranges and each
+until-speaking miner answers its chunk's FIRST qualifying (``hash <
+target``) nonce, echoing the target; so the lowest-index qualifying chunk
+holds the request's first qualifying nonce, final as soon as every earlier
+chunk has answered (prefix release), whatever is still in flight. When no
+chunk qualifies, the barrier answers the exact arg-min. A miner that
+answers without echoing the target (a stock miner) makes the merge weak:
+the answer is still qualifying when one exists, but not guaranteed first,
+and the scheduler logs it.
 
 Bookkeeping: every Request written to a miner pushes a chunk record onto
 that miner's pending FIFO; since miners answer in order over exactly-once
@@ -91,6 +98,11 @@ class Request:
     min_hash: int = MAX_U64
     min_nonce: int = 0
     answered: list = field(default_factory=list)   # bool per chunk idx
+    # Difficulty merge: each qualifying chunk's (nonce, hash) by chunk idx,
+    # and whether a responder answered a target chunk without echoing the
+    # target (then the answer is qualifying, not guaranteed first).
+    chunk_q: dict = field(default_factory=dict)
+    weak: bool = False
     started: float = 0.0
 
 
@@ -178,18 +190,43 @@ class Scheduler:
             curr.min_hash = msg.hash
             curr.min_nonce = msg.nonce
         curr.answered[chunk.idx] = True
+        if curr.target and msg.target != curr.target and not curr.weak:
+            curr.weak = True
+            logger.info(
+                "difficulty request %d: miner %d answered without the "
+                "target extension; the merged result is guaranteed "
+                "qualifying, not guaranteed globally first",
+                curr.job_id, miner.conn_id)
+        if curr.target and msg.hash < curr.target:
+            curr.chunk_q[chunk.idx] = (msg.nonce, msg.hash)
+        # Prefix release (difficulty only): the lowest-index qualifying
+        # chunk is final once every earlier chunk has answered clean —
+        # later chunks cover strictly higher nonces and cannot beat it.
+        if curr.chunk_q:
+            c = min(curr.chunk_q)
+            if all(curr.answered[:c]):
+                nonce, q_hash = curr.chunk_q[c]
+                self._finish(curr, q_hash, nonce, early=True)
+                return
         if all(curr.answered):
+            # Full barrier: an arg-min request, or a target missed
+            # everywhere (the exact arg-min).
             self._finish(curr, curr.min_hash, curr.min_nonce)
 
     def _claim_ok(self, curr: Request, chunk: Chunk, miner: MinerState,
                   msg: Message) -> bool:
         """Claim check: the nonce lies in the chunk (``Upper`` read
-        inclusive) and the hash equals the host recompute. A failed claim
-        leaves ``answered[idx]`` False and sends the range to another
-        eligible miner, or parks it."""
+        inclusive), the hash equals the host recompute, and a difficulty
+        claim entering the qualifying set satisfies the target bound on
+        the RECOMPUTED hash (never the claimed one). A failed claim leaves
+        ``answered[idx]`` False and sends the range to another eligible
+        miner, or parks it."""
         self.stats["claims_checked"] += 1
+        actual = hash_op(curr.data, msg.nonce)
         if chunk.lower <= msg.nonce <= chunk.upper \
-                and hash_op(curr.data, msg.nonce) == msg.hash:
+                and actual == msg.hash \
+                and not (curr.target and msg.hash < curr.target
+                         and not actual < curr.target):
             return True
         self.stats["claims_failed"] += 1
         logger.warning("miner %d: claim (%d, %d) for [%d, %d] failed the "
@@ -234,13 +271,17 @@ class Scheduler:
 
     # --------------------------------------------------------------- dispatch
 
-    def _finish(self, curr: Request, h: int, nonce: int) -> None:
-        """Answer the client and retire the request."""
+    def _finish(self, curr: Request, h: int, nonce: int,
+                early: bool = False) -> None:
+        """Answer the client and retire the request. ``early`` = prefix
+        release: the job's other chunks are still in flight."""
         self._write(curr.conn_id, new_result(h, nonce))
         self.stats["results_sent"] += 1
-        logger.info("request %d served in %.3fs: [%d, %d) over %d chunks",
+        logger.info("request %d served in %.3fs: [%d, %d) over %d chunks%s%s",
                     curr.job_id, time.monotonic() - curr.started,
-                    curr.lower, curr.upper, curr.num_chunks)
+                    curr.lower, curr.upper, curr.num_chunks,
+                    " (prefix release)" if early else "",
+                    " (weak merge)" if curr.weak else "")
         self._retire(curr)
 
     def _retire(self, curr: Request) -> None:

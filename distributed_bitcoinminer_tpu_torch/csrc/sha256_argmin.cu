@@ -1,6 +1,9 @@
-// SHA-256 arg-min over one aligned 10^k nonce block, hand-written for Hopper.
+// SHA-256 nonce search over one aligned 10^k nonce block, hand-written for
+// Hopper: the arg-min kernel (K1), the difficulty-target kernel with its
+// early exit (K2), and the device-resident chain that folds each block's
+// winner into a carry on the card (K6).
 //
-// Replaces the TPU kernel of the JAX package, ops/sha256_pallas.py::
+// K1 replaces the TPU kernel of the JAX package, ops/sha256_pallas.py::
 // pallas_search_span (the rolled _kernel_body, not-peel branch), and its
 // lex_argmin reduce. It computes the same function: for every lane i in
 // i0 + [0, n) that lies inside [lo_i, hi_i], the k ASCII decimal digits of i
@@ -11,19 +14,45 @@
 // valid. The idx component of the key makes the earliest nonce win a hash
 // tie, and lets a valid all-ones hash beat the sentinel.
 //
-// What bounds it: the 32-bit integer pipes. A lane reads no memory (the plan
-// travels by value as a kernel parameter, the round constants sit in the
-// constant bank) and a block writes 12 bytes, so the work is the ~2,000 to
-// ~4,000 integer instructions of one or two compressions per lane.
+// K2 replaces ops/sha256_pallas.py::pallas_search_span_until: K1 plus the
+// first (lowest) valid lane whose key (hi, lo) is below the 64-bit target
+// (t_hi, t_lo). Out: (found, f_idx, best_hi, best_lo, best_idx); best_* is
+// read only when found is 0, since after a hit the lanes a thread skips
+// depend on timing.
+//
+// K6 replaces the single-device entries of the TPU devloop
+// (_pallas_devloop_span_jit, _pallas_devloop_until_jit): the K1 or K2
+// search, with a reduce that folds the block's winner into a carry of 5
+// (arg-min) or 8 (until) words on the device, by the rule of the JAX
+// package's ops/searchop.py fold_argmin / fold_until: the 64-bit global
+// nonce from the block base, full-lex strict-less on (hash, nonce), the
+// minimum of the qualifying nonces. A chain of launches over a span's
+// blocks leaves the span's answer on the card for one fetch. The TPU grid
+// needed a run-time `live` step count because its grid is static; a CUDA
+// launch takes its lane count at run time, so only the found check remains:
+// a chained until launch returns at once when an earlier one hit.
+//
+// What bounds them: the 32-bit integer pipes. A lane reads no memory (the
+// plan travels by value as a kernel parameter, the round constants sit in
+// the constant bank) and a block writes 12 bytes, so the work is the ~2,000
+// to ~4,000 integer instructions of one or two compressions per lane. K2
+// adds a compare and one volatile load per lane.
 //
 // Design. The TPU grid runs its steps in order and carries accumulators from
 // step to step; GPU blocks run in parallel in no order. So each thread walks
 // its lanes i0 + tid, i0 + tid + stride, ... in ascending order with a
 // running strict-less minimum, a warp-shuffle and then a shared-memory min
 // reduce each block to one partial on the full (hi, lo, idx) key, and a
-// second one-block kernel reduces the partials to the uint32[3] answer on the
-// device. No atomics: the answer cannot depend on the order in which blocks
-// run, nor on the grid size.
+// second one-block kernel reduces the partials on the device. The answer
+// cannot depend on the order in which blocks run, nor on the grid size.
+//
+// K2's early exit. The TPU kernel skips its later grid steps on a bare
+// found flag, which is sound only because its grid runs in order. Here a
+// later block may hit first, so a flag would let it hide an earlier hit.
+// Instead a qualifying lane does atomicMin on one device word f_min (reset
+// to all-ones before every launch), and a thread stops as soon as its next
+// lane lies above f_min. Only lanes above the lowest hit found so far are
+// skipped, and that never passes over the true first qualifier.
 //
 // This first design is simple and right; speed comes later (per-thread lane
 // unrolling, hoisting the high digits, a digit-free second block without
@@ -38,7 +67,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// The host plan, by value: 47 uint32 words, in this order.
+// The host plan, by value: 49 uint32 words, in this order.
 struct Plan {
   uint32_t mid[8];     // state after the prefix's full 64-byte blocks
   uint32_t tmpl[32];   // padded tail block(s), digit bytes zeroed
@@ -49,8 +78,10 @@ struct Plan {
   uint32_t lo_i;       // first valid lane
   uint32_t hi_i;       // last valid lane
   uint32_t n;          // lanes
+  uint32_t t_hi;       // target, high word (K2 and the until chain only)
+  uint32_t t_lo;       // target, low word
 };
-static_assert(sizeof(Plan) == 47 * sizeof(uint32_t), "plan layout");
+static_assert(sizeof(Plan) == 49 * sizeof(uint32_t), "plan layout");
 
 __constant__ uint32_t kK[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu,
@@ -127,6 +158,46 @@ __device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
   st[7] += h;
 }
 
+// The key of lane i: its k digits written into the tail template, the
+// tail's NB blocks compressed from the host midstate, digest words 0 and 1.
+// The k digits fill bytes s .. s+k-1 of a 12-byte field that starts at
+// tail word a = rem / 4; the field's three words are q0, q1, q2.
+template <int NB>
+__device__ __forceinline__ Key lane_key(const Plan& p, uint32_t i,
+                                        uint32_t s, int a) {
+  const uint32_t k = p.k;
+  uint32_t q0 = 0u, q1 = 0u, q2 = 0u;
+  uint32_t x = i;
+#pragma unroll
+  for (uint32_t t = 0; t < 9u; ++t) {  // t = 0 is the least significant digit
+    if (t < k) {
+      const uint32_t digit = x % 10u;
+      x /= 10u;
+      const uint32_t pos = s + k - 1u - t;
+      const uint32_t v = (digit + 48u) << ((3u - (pos & 3u)) * 8u);
+      const uint32_t wq = pos >> 2;
+      q0 |= wq == 0u ? v : 0u;
+      q1 |= wq == 1u ? v : 0u;
+      q2 |= wq == 2u ? v : 0u;
+    }
+  }
+  uint32_t st[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) st[r] = p.mid[r];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    uint32_t w[16];
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const int off = 16 * b + m - a;
+      w[m] = p.tmpl[16 * b + m] |
+             (off == 0 ? q0 : off == 1 ? q1 : off == 2 ? q2 : 0u);
+    }
+    compress(st, w);
+  }
+  return Key{st[0], st[1], i};
+}
+
 __device__ __forceinline__ Key warp_min(Key v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -154,14 +225,23 @@ __device__ __forceinline__ Key block_min(Key v) {
   return v;
 }
 
+// The block's minimum of the per-thread keys, written by thread 0 as the
+// block's partial.
+__device__ __forceinline__ void write_partial(Key best,
+                                              uint32_t* __restrict__ partials) {
+  best = block_min(best);
+  if (threadIdx.x == 0) {
+    partials[3 * blockIdx.x + 0] = best.hi;
+    partials[3 * blockIdx.x + 1] = best.lo;
+    partials[3 * blockIdx.x + 2] = best.idx;
+  }
+}
+
 template <int NB>
 __global__ void __launch_bounds__(kThreads)
     sha256_argmin_kernel(const Plan p, uint32_t* __restrict__ partials) {
-  // The k digits fill bytes s .. s+k-1 of a 12-byte field that starts at
-  // tail word a = rem / 4; the field's three words are q0, q1, q2.
   const uint32_t s = p.rem & 3u;
   const int a = static_cast<int>(p.rem >> 2);
-  const uint32_t k = p.k;
   const uint32_t stride = gridDim.x * blockDim.x;
   Key best = sentinel();
   // The launcher keeps n <= 2^31 and the grid far below 2^31 threads, so
@@ -171,55 +251,59 @@ __global__ void __launch_bounds__(kThreads)
        j += stride) {
     const uint32_t i = p.i0 + j;
     if (i < p.lo_i || i > p.hi_i) continue;
-    uint32_t q0 = 0u, q1 = 0u, q2 = 0u;
-    uint32_t x = i;
-#pragma unroll
-    for (uint32_t t = 0; t < 9u; ++t) {  // t = 0 is the least significant digit
-      if (t < k) {
-        const uint32_t digit = x % 10u;
-        x /= 10u;
-        const uint32_t pos = s + k - 1u - t;
-        const uint32_t v = (digit + 48u) << ((3u - (pos & 3u)) * 8u);
-        const uint32_t wq = pos >> 2;
-        q0 |= wq == 0u ? v : 0u;
-        q1 |= wq == 1u ? v : 0u;
-        q2 |= wq == 2u ? v : 0u;
-      }
-    }
-    uint32_t st[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) st[r] = p.mid[r];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      uint32_t w[16];
-#pragma unroll
-      for (int m = 0; m < 16; ++m) {
-        const int off = 16 * b + m - a;
-        w[m] = p.tmpl[16 * b + m] |
-               (off == 0 ? q0 : off == 1 ? q1 : off == 2 ? q2 : 0u);
-      }
-      compress(st, w);
-    }
-    const Key cand{st[0], st[1], i};
+    const Key cand = lane_key<NB>(p, i, s, a);
     if (key_less(cand, best)) best = cand;
   }
-  best = block_min(best);
-  if (threadIdx.x == 0) {
-    partials[3 * blockIdx.x + 0] = best.hi;
-    partials[3 * blockIdx.x + 1] = best.lo;
-    partials[3 * blockIdx.x + 2] = best.idx;
-  }
+  write_partial(best, partials);
 }
 
-__global__ void __launch_bounds__(1024)
-    reduce_partials_kernel(const uint32_t* __restrict__ partials, int count,
-                           uint32_t* __restrict__ out) {
+// K2's search; with CHAINED, one launch of K6's until chain, which does
+// nothing once an earlier launch of the chain has hit (carry[0] != 0; no
+// thread of this launch writes the carry, so every thread sees one value).
+// f_min holds the lowest qualifying lane found so far (all-ones: none).
+template <int NB, bool CHAINED>
+__global__ void __launch_bounds__(kThreads)
+    sha256_until_kernel(const Plan p, const uint32_t* __restrict__ carry,
+                        uint32_t* f_min, uint32_t* __restrict__ partials) {
+  if (CHAINED && carry[0] != 0u) return;
+  const uint32_t s = p.rem & 3u;
+  const int a = static_cast<int>(p.rem >> 2);
+  const uint32_t stride = gridDim.x * blockDim.x;
+  const volatile uint32_t* lowest_hit = f_min;
+  Key best = sentinel();
+  for (uint32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < p.n;
+       j += stride) {
+    const uint32_t i = p.i0 + j;
+    // A thread's lanes ascend: once this one lies above the lowest hit,
+    // so do all the rest. The load is volatile, so a hit by any block is
+    // seen at the next lane. Breaking still reaches write_partial's
+    // barrier with every other thread of the block.
+    if (i > *lowest_hit) break;
+    if (i < p.lo_i || i > p.hi_i) continue;
+    const Key cand = lane_key<NB>(p, i, s, a);
+    if (key_less(cand, best)) best = cand;
+    if (cand.hi < p.t_hi || (cand.hi == p.t_hi && cand.lo < p.t_lo)) {
+      atomicMin(f_min, i);
+    }
+  }
+  write_partial(best, partials);
+}
+
+// Every thread's strict-less minimum over a strided share of the partials.
+__device__ __forceinline__ Key partials_min(const uint32_t* __restrict__ partials,
+                                            int count) {
   Key best = sentinel();
   for (int b = threadIdx.x; b < count; b += blockDim.x) {
     const Key c{partials[3 * b + 0], partials[3 * b + 1], partials[3 * b + 2]};
     if (key_less(c, best)) best = c;
   }
-  best = block_min(best);
+  return best;
+}
+
+__global__ void __launch_bounds__(1024)
+    reduce_partials_kernel(const uint32_t* __restrict__ partials, int count,
+                           uint32_t* __restrict__ out) {
+  const Key best = block_min(partials_min(partials, count));
   if (threadIdx.x == 0) {
     out[0] = best.hi;
     out[1] = best.lo;
@@ -227,46 +311,214 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Threads per block of the search kernel.
-int dbmt_sha256_argmin_threads() { return kThreads; }
-
-// Resident search blocks per SM for a tail of nblocks blocks (0 on error).
-int dbmt_sha256_argmin_blocks_per_sm(int nblocks) {
-  int per_sm = 0;
-  cudaError_t err = nblocks == 2
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, sha256_argmin_kernel<2>, kThreads, 0)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, sha256_argmin_kernel<1>, kThreads, 0);
-  return err == cudaSuccess ? per_sm : 0;
+// K2's reduce: (found, f_idx, best_hi, best_lo, best_idx).
+__global__ void __launch_bounds__(1024)
+    reduce_until_kernel(const uint32_t* __restrict__ partials, int count,
+                        const uint32_t* __restrict__ f_min,
+                        uint32_t* __restrict__ out) {
+  const Key best = block_min(partials_min(partials, count));
+  if (threadIdx.x == 0) {
+    const uint32_t f = *f_min;
+    out[0] = f != ~0u ? 1u : 0u;
+    out[1] = f;
+    out[2] = best.hi;
+    out[3] = best.lo;
+    out[4] = best.idx;
+  }
 }
 
-// Launch the search over `grid` blocks and the partials reduce on `stream`.
-// plan_words: 47 host uint32 words (the Plan layout); partials: 3 * grid
-// device words; out: 3 device words. Returns the cudaGetLastError() seen
-// right after the launches (0 when both were accepted).
-int dbmt_sha256_argmin(const uint32_t* plan_words, uint32_t* partials,
-                       uint32_t* out, int grid, void* stream) {
+// Strict lexicographic a < b over n words (element 0 most significant).
+__device__ __forceinline__ bool words_less(const uint32_t* a,
+                                           const uint32_t* b, int n) {
+  for (int w = 0; w < n; ++w) {
+    if (a[w] != b[w]) return a[w] < b[w];
+  }
+  return false;
+}
+
+// searchop.fold_argmin on the 5-word carry c = [hash_hi, hash_lo,
+// nonce_hi, nonce_lo, seen]; the nonce is base + m.idx in 64 bits.
+__device__ __forceinline__ void fold_argmin_words(uint32_t* c, const Key& m,
+                                                  uint32_t base_hi,
+                                                  uint32_t base_lo) {
+  const bool valid = !(m.hi == ~0u && m.lo == ~0u && m.idx == ~0u);
+  const uint32_t n_lo = base_lo + m.idx;
+  const uint32_t n_hi = base_hi + (n_lo < m.idx ? 1u : 0u);
+  const uint32_t cand[4] = {m.hi, m.lo, n_hi, n_lo};
+  if (valid && (c[4] == 0u || words_less(cand, c, 4))) {
+    for (int w = 0; w < 4; ++w) c[w] = cand[w];
+    c[4] = 1u;
+  }
+}
+
+// searchop.fold_until on the 8-word carry c = [found, f_nonce_hi,
+// f_nonce_lo] + the arg-min carry: the lower qualifying 64-bit nonce wins.
+__device__ __forceinline__ void fold_until_words(uint32_t* c, uint32_t f_idx,
+                                                 const Key& m,
+                                                 uint32_t base_hi,
+                                                 uint32_t base_lo) {
+  if (f_idx != ~0u) {
+    const uint32_t f_lo = base_lo + f_idx;
+    const uint32_t f[2] = {base_hi + (f_lo < f_idx ? 1u : 0u), f_lo};
+    if (c[0] == 0u || words_less(f, c + 1, 2)) {
+      c[1] = f[0];
+      c[2] = f[1];
+    }
+    c[0] = 1u;
+  }
+  fold_argmin_words(c + 3, m, base_hi, base_lo);
+}
+
+__global__ void __launch_bounds__(1024)
+    reduce_argmin_fold_kernel(const uint32_t* __restrict__ partials,
+                              int count, uint32_t* __restrict__ carry,
+                              uint32_t base_hi, uint32_t base_lo) {
+  const Key best = block_min(partials_min(partials, count));
+  if (threadIdx.x == 0) fold_argmin_words(carry, best, base_hi, base_lo);
+}
+
+// The until chain's reduce. When an earlier launch hit, the search kernel
+// wrote no partials and the carry stays as it is (a fold of "no hit, no
+// valid lane" changes nothing). Thread 0 writes the carry only after
+// block_min's barrier, so every thread reads the same carry[0].
+__global__ void __launch_bounds__(1024)
+    reduce_until_fold_kernel(const uint32_t* __restrict__ partials, int count,
+                             const uint32_t* __restrict__ f_min,
+                             uint32_t* carry, uint32_t base_hi,
+                             uint32_t base_lo) {
+  if (carry[0] != 0u) return;
+  const Key best = block_min(partials_min(partials, count));
+  if (threadIdx.x == 0) {
+    fold_until_words(carry, *f_min, best, base_hi, base_lo);
+  }
+}
+
+bool plan_ok(const Plan& p, int grid) {
+  return grid > 0 && grid <= (1 << 20) && p.n <= (1u << 31) &&
+         (p.nblocks == 1u || p.nblocks == 2u) && p.k >= 1u && p.k <= 9u &&
+         p.rem <= 63u;
+}
+
+Plan read_plan(const uint32_t* plan_words) {
   Plan p;
   std::memcpy(&p, plan_words, sizeof(Plan));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (grid <= 0 || grid > (1 << 20) || p.n > (1u << 31) ||
-      (p.nblocks != 1u && p.nblocks != 2u) || p.k < 1u || p.k > 9u ||
-      p.rem > 63u) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return p;
+}
+
+// Launch K1's search kernel; returns cudaGetLastError() after it.
+int launch_argmin_search(const Plan& p, uint32_t* partials, int grid,
+                         cudaStream_t s) {
   if (p.nblocks == 1u) {
     sha256_argmin_kernel<1><<<grid, kThreads, 0, s>>>(p, partials);
   } else {
     sha256_argmin_kernel<2><<<grid, kThreads, 0, s>>>(p, partials);
   }
-  cudaError_t err = cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Reset f_min to all-ones on the stream, then launch K2's search kernel
+// (CHAINED: the until chain's); returns the first error seen.
+template <bool CHAINED>
+int launch_until_search(const Plan& p, const uint32_t* carry, uint32_t* f_min,
+                        uint32_t* partials, int grid, cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(f_min, 0xFF, sizeof(uint32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.nblocks == 1u) {
+    sha256_until_kernel<1, CHAINED><<<grid, kThreads, 0, s>>>(p, carry, f_min,
+                                                              partials);
+  } else {
+    sha256_until_kernel<2, CHAINED><<<grid, kThreads, 0, s>>>(p, carry, f_min,
+                                                              partials);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel) {
+  int per_sm = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return err == cudaSuccess ? per_sm : 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Threads per block of the search kernels.
+int dbmt_sha256_argmin_threads() { return kThreads; }
+
+// Resident K1 search blocks per SM for a tail of nblocks blocks (0 on error).
+int dbmt_sha256_argmin_blocks_per_sm(int nblocks) {
+  return nblocks == 2 ? blocks_per_sm(sha256_argmin_kernel<2>)
+                      : blocks_per_sm(sha256_argmin_kernel<1>);
+}
+
+// Resident K2 search blocks per SM for a tail of nblocks blocks (0 on error).
+int dbmt_sha256_until_blocks_per_sm(int nblocks) {
+  return nblocks == 2 ? blocks_per_sm(sha256_until_kernel<2, false>)
+                      : blocks_per_sm(sha256_until_kernel<1, false>);
+}
+
+// Every entry below takes plan_words, 49 host uint32 words (the Plan
+// layout), enqueues on `stream` without synchronising, and returns the
+// cudaGetLastError() seen right after its launches (0 when all were
+// accepted). partials: 3 * grid device words of scratch.
+
+// K1: the search over `grid` blocks and the partials reduce; out: 3 device
+// words (hi, lo, idx).
+int dbmt_sha256_argmin(const uint32_t* plan_words, uint32_t* partials,
+                       uint32_t* out, int grid, void* stream) {
+  const Plan p = read_plan(plan_words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!plan_ok(p, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_argmin_search(p, partials, grid, s);
+  if (err != 0) return err;
   reduce_partials_kernel<<<1, 1024, 0, s>>>(partials, grid, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2: f_min is one device word of scratch; out: 5 device words (found,
+// f_idx, best_hi, best_lo, best_idx).
+int dbmt_sha256_until(const uint32_t* plan_words, uint32_t* partials,
+                      uint32_t* f_min, uint32_t* out, int grid, void* stream) {
+  const Plan p = read_plan(plan_words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!plan_ok(p, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err =
+      launch_until_search<false>(p, nullptr, f_min, partials, grid, s);
+  if (err != 0) return err;
+  reduce_until_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6, arg-min: K1's search, then its winner folded into the 5-word device
+// carry, whose nonces are base + lane in 64 bits.
+int dbmt_sha256_argmin_fold(const uint32_t* plan_words, uint32_t* partials,
+                            uint32_t* carry, uint32_t base_hi,
+                            uint32_t base_lo, int grid, void* stream) {
+  const Plan p = read_plan(plan_words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!plan_ok(p, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_argmin_search(p, partials, grid, s);
+  if (err != 0) return err;
+  reduce_argmin_fold_kernel<<<1, 1024, 0, s>>>(partials, grid, carry, base_hi,
+                                               base_lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6, until: K2's search (skipped when carry[0] says an earlier launch of
+// the chain hit), then the fold into the 8-word device carry.
+int dbmt_sha256_until_fold(const uint32_t* plan_words, uint32_t* partials,
+                           uint32_t* f_min, uint32_t* carry, uint32_t base_hi,
+                           uint32_t base_lo, int grid, void* stream) {
+  const Plan p = read_plan(plan_words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!plan_ok(p, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_until_search<true>(p, carry, f_min, partials, grid, s);
+  if (err != 0) return err;
+  reduce_until_fold_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, carry,
+                                              base_hi, base_lo);
   return static_cast<int>(cudaGetLastError());
 }
 

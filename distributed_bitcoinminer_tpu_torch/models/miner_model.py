@@ -1,16 +1,22 @@
-"""The flagship model: exact SHA-256 arg-min search over a nonce range.
+"""The flagship model: exact SHA-256 nonce search over a nonce range.
 
-Host orchestration around :func:`ops.search.span_argmin`, the counterpart
-of the JAX package's ``models/miner_model.py``. The nonce range
-is scaled by:
+Host orchestration around the span routers of :mod:`ops.search`, the
+counterpart of the JAX package's ``models/miner_model.py``. The nonce
+range is scaled by:
 
 1. digit-class splitting (a launch hashes nonces of one decimal width);
 2. aligned 10^k blocks (the top digits are constant inside a block and
    join the host midstate; the k <= 9 low digits are formatted per lane
    in uint32);
-3. one kernel launch per block, each returning a (hi, lo, idx) triple
-   that stays on the device until :meth:`NonceSearcher.finalize` copies
-   all of them to the host at once and merges them.
+3. one kernel launch per block, chained on the device: each block's
+   winner is folded into one ``ops.searchop`` carry that stays on the
+   device until the span ends, so a span costs one small fetch however
+   many blocks it holds.
+
+Difficulty mode (:meth:`NonceSearcher.search_until`) returns the FIRST
+nonce whose hash is below a target, or the exact arg-min when none is:
+the same chain with the early-exiting launch, whose launches after the
+span's first hit do no lane work.
 
 Results are bit-identical to the Go reference, ties included (the
 earliest nonce wins everywhere).
@@ -23,12 +29,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..bitcoin.hash import MAX_U64
-from ..ops.search import span_argmin
+from ..bitcoin.hash import hash_op
+from ..ops import searchop
+from ..ops.search import devloop_carry, devloop_span, devloop_span_until
 from ..ops.sha256_host import sha256_midstate
 from ..ops.sha256_torch import M32, build_tail_template
-
-_SENTINEL = (M32, M32, M32)
 
 
 def _digit_classes(lower: int, upper: int):
@@ -54,6 +59,10 @@ class _BlockPlan:
     rem: int
     k: int
 
+    @property
+    def lanes(self) -> int:
+        return self.hi_i - self.lo_i + 1
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; asking for CUDA where there is none
@@ -69,11 +78,11 @@ def resolve_device(device) -> torch.device:
 
 
 class NonceSearcher:
-    """Exact arg-min hash search for one message, chunk-schedulable.
+    """Exact hash search for one message, chunk-schedulable.
 
     ``device`` is where the lanes are hashed: ``cuda`` (the default)
-    launches the CUDA kernel, ``cpu`` runs the plain PyTorch scan.
-    ``grid`` overrides the kernel's block count (None: one full wave).
+    launches the CUDA kernels, ``cpu`` runs the plain PyTorch scans.
+    ``grid`` overrides the kernels' block count (None: one full wave).
     """
 
     def __init__(self, data: str, device="cuda", grid: int | None = None):
@@ -83,7 +92,7 @@ class NonceSearcher:
         self._prefix = data.encode("utf-8") + b" "
         self._midstate_cache: dict[tuple, tuple] = {}
         #: Block searches dispatched by this searcher: one per aligned 10^k
-        #: block (on ``cuda``, one ``sha256_argmin`` call).
+        #: block (on ``cuda``, one kernel wrapper call).
         self.device_launches = 0
 
     def _plan_block(self, d: int, k: int, block_base: int, lo: int,
@@ -114,42 +123,58 @@ class NonceSearcher:
                 yield self._plan_block(d, k, base, lo, hi)
                 base += span
 
-    def search_block(self, plan: _BlockPlan) -> torch.Tensor:
-        """ONE launch over the block's valid lanes; returns its (3,)
-        (hi, lo, idx) device tensor without waiting for it."""
-        self.device_launches += 1
-        return span_argmin(plan.midstate, plan.template, plan.lo_i,
-                           plan.lo_i, plan.hi_i, plan.hi_i - plan.lo_i + 1,
-                           rem=plan.rem, k=plan.k, device=self.device,
-                           grid=self.grid)
-
-    def dispatch(self, lower: int, upper: int) -> list:
-        """Launch every block of the range WITHOUT forcing results.
-
-        Returns an opaque list of (base, device-triple) pairs for
-        :meth:`finalize`.
-        """
+    def dispatch(self, lower: int, upper: int) -> torch.Tensor:
+        """Launch every block of the range WITHOUT forcing results: one
+        launch per 10^k block, each folding its winner into the span's
+        5-word arg-min carry on the device. Returns the carry, the handle
+        for :meth:`finalize`."""
         if lower > upper:
             raise ValueError("empty range")
-        return [(plan.base, self.search_block(plan))
-                for plan in self.plan(lower, upper)]
+        carry = devloop_carry(searchop.ARGMIN_OP, self.device)
+        for plan in self.plan(lower, upper):
+            self.device_launches += 1
+            carry = devloop_span(plan.midstate, plan.template, carry,
+                                 plan.lo_i, plan.lo_i, plan.hi_i, plan.lanes,
+                                 plan.base, rem=plan.rem, k=plan.k,
+                                 device=self.device, grid=self.grid)
+        return carry
 
-    def finalize(self, results: list, lower: int) -> tuple[int, int]:
-        """Copy every block's triple to the host in ONE transfer and merge
-        in ascending order (strict less keeps the earliest nonce on ties).
-        A block whose triple is the sentinel had no valid lane."""
-        fetched = torch.stack([t for _, t in results]).cpu().tolist()
-        best_hash, best_nonce = MAX_U64, lower
-        seen = False
-        for (base, _), triple in zip(results, fetched):
-            hi, lo, idx = (int(x) & M32 for x in triple)
-            if (hi, lo, idx) == _SENTINEL:
-                continue
-            h = (hi << 32) | lo
-            if not seen or h < best_hash:
-                best_hash, best_nonce, seen = h, base + idx, True
-        return best_hash, best_nonce
+    def finalize(self, carry: torch.Tensor, lower: int) -> tuple[int, int]:
+        """Force a dispatched span: ONE fetch of its 20-byte carry. A span
+        without a valid lane decodes to the all-ones hash at ``lower``."""
+        return searchop.decode_argmin(carry.cpu(), lower)
 
     def search(self, lower: int, upper: int) -> tuple[int, int]:
         """Exact (min_hash, argmin_nonce) over the inclusive range."""
         return self.finalize(self.dispatch(lower, upper), lower)
+
+    # ------------------------------------------------------ difficulty mode
+
+    def search_until(self, lower: int, upper: int,
+                     target: int) -> tuple[int, int, bool]:
+        """Difficulty-target mode: (hash, nonce, found).
+
+        Chains every block of the range, ascending, through the
+        early-exiting launch and fetches the 8-word carry ONCE: a hit
+        sets ``carry[0]`` on the device and every later launch sees it
+        and does no lane work, so no host round trip stands between the
+        blocks. Returns the first (lowest-nonce) qualifying hash, which
+        the host recomputes with ``hash_op`` since the carry keeps only
+        the nonce; when the whole range misses the target, returns the
+        exact arg-min (found=False).
+        """
+        if lower > upper:
+            raise ValueError("empty range")
+        t_hi, t_lo = target >> 32, target & M32
+        carry = devloop_carry(searchop.UNTIL_OP, self.device)
+        for plan in self.plan(lower, upper):
+            self.device_launches += 1
+            carry = devloop_span_until(
+                plan.midstate, plan.template, carry, plan.lo_i, plan.lo_i,
+                plan.hi_i, plan.lanes, t_hi, t_lo, plan.base, rem=plan.rem,
+                k=plan.k, device=self.device, grid=self.grid)
+        found, f_nonce, best_hash, best_nonce = searchop.decode_until(
+            carry.cpu(), lower)
+        if found:
+            return hash_op(self.data, f_nonce), f_nonce, True
+        return best_hash, best_nonce, False

@@ -1,54 +1,101 @@
-"""Span scan over one aligned 10^k block, with an arg-min result.
+"""Span scans over one aligned 10^k block: arg-min, difficulty target, and
+the device-resident chain.
 
-Counterpart of the JAX package's ``ops/search.py::search_span``:
-the lanes ``i0 + [0, n)``, masked to ``[lo_i, hi_i]``, reduce to the
-lexicographic ``(hash_hi, hash_lo, index)`` minimum; a span without a
-valid lane returns the all-ones sentinel.
+Counterpart of the JAX package's ``ops/search.py``:
 
-:func:`span_argmin` is the one entry the searcher calls. On a CUDA device
-it launches the hand-written kernel (``ops.sha256_cuda``) or raises; on
-the CPU it runs :func:`span_scan`, the plain PyTorch version. Any other
-device raises.
+- :func:`span_scan` / :func:`span_argmin` (``search_span``): the lanes
+  ``i0 + [0, n)``, masked to ``[lo_i, hi_i]``, reduce to the lexicographic
+  ``(hash_hi, hash_lo, index)`` minimum; a span without a valid lane
+  returns the all-ones sentinel.
+- :func:`span_until_scan` / :func:`span_until` (``search_span_until``):
+  the same lanes walked in ascending order up to the first one whose hash
+  is below a 64-bit target; ``(found, f_idx, best_hi, best_lo,
+  best_idx)``.
+- :func:`devloop_span` / :func:`devloop_span_until` (``devloop_span`` /
+  ``devloop_span_until``): one block of a span's chain, its result folded
+  into an ``ops.searchop`` carry that stays on the device until the span
+  ends.
+
+Each router launches the hand-written kernel (``ops.sha256_cuda``) on a
+CUDA device or raises; on the CPU it runs the plain PyTorch version. Any
+other device raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import sha256_cuda
+from . import searchop, sha256_cuda
 from .sha256_torch import M32, hash_lanes, lex_argmin
 
-#: Default lanes per step of the plain scan, by device type.
+#: Default lanes per step of the plain scans, by device type.
 PLAIN_CHUNK = {"cpu": 1 << 14, "cuda": 1 << 22}
+
+
+def _device_chunk(device, chunk):
+    device = torch.device(device)
+    return device, chunk or PLAIN_CHUNK.get(device.type, 1 << 14)
+
+
+def _chunk_best(midstate, template, i, lo_i: int, hi_i: int, rem: int,
+                k: int, best: torch.Tensor):
+    """Hash the lane vector ``i``, fold its lexicographic minimum into
+    ``best`` with a strict less on the full key (an earlier chunk keeps
+    a tie, the Go scan's first-seen-wins); returns (best, hi, lo, valid)."""
+    hi, lo = hash_lanes(midstate, template, i, rem, k)
+    valid = (i >= lo_i) & (i <= hi_i)
+    cand = torch.stack(lex_argmin(torch.where(valid, hi, M32),
+                                  torch.where(valid, lo, M32),
+                                  torch.where(valid, i, M32)))
+    better = ((cand[0] < best[0])
+              | ((cand[0] == best[0])
+                 & ((cand[1] < best[1])
+                    | ((cand[1] == best[1]) & (cand[2] < best[2])))))
+    return torch.where(better, cand, best), hi, lo, valid
 
 
 def span_scan(midstate, template, i0: int, lo_i: int, hi_i: int, n: int, *,
               rem: int, k: int, device, chunk: int | None = None
               ) -> torch.Tensor:
     """Plain chunked scan: returns a (3,) int64 tensor on ``device``
-    holding ``(hi, lo, idx)``.
-
-    Steps of ``chunk`` lanes run in ascending order and fold into the
-    running best with a strict lexicographic less on the full key, so the
-    earlier step keeps a tie (the Go scan's first-seen-wins).
-    """
-    device = torch.device(device)
-    chunk = chunk or PLAIN_CHUNK.get(device.type, 1 << 14)
+    holding ``(hi, lo, idx)``. Steps of ``chunk`` lanes run in ascending
+    order."""
+    device, chunk = _device_chunk(device, chunk)
     best = torch.full((3,), M32, dtype=torch.int64, device=device)
     lane = torch.arange(min(chunk, n), dtype=torch.int64, device=device)
     for start in range(0, n, chunk):
         i = lane[:min(chunk, n - start)] + (i0 + start)
-        hi, lo = hash_lanes(midstate, template, i, rem, k)
-        valid = (i >= lo_i) & (i <= hi_i)
-        cand = torch.stack(lex_argmin(torch.where(valid, hi, M32),
-                                      torch.where(valid, lo, M32),
-                                      torch.where(valid, i, M32)))
-        better = ((cand[0] < best[0])
-                  | ((cand[0] == best[0])
-                     & ((cand[1] < best[1])
-                        | ((cand[1] == best[1]) & (cand[2] < best[2])))))
-        best = torch.where(better, cand, best)
+        best = _chunk_best(midstate, template, i, lo_i, hi_i, rem, k,
+                           best)[0]
     return best
+
+
+def span_until_scan(midstate, template, i0: int, lo_i: int, hi_i: int,
+                    n: int, t_hi: int, t_lo: int, *, rem: int, k: int,
+                    device, chunk: int | None = None) -> torch.Tensor:
+    """Plain chunked difficulty scan: returns a (5,) int64 tensor on
+    ``device`` holding ``(found, f_idx, best_hi, best_lo, best_idx)``.
+
+    Steps of ``chunk`` lanes run in ascending order and stop after the
+    first step that holds a valid lane whose hash is below the target
+    ``(t_hi, t_lo)``; ``f_idx`` is the lowest such lane (all-ones when
+    none). ``best_*`` is the arg-min over the steps that ran, so it is
+    the span's arg-min when ``found`` is 0 and is meaningful only then.
+    """
+    device, chunk = _device_chunk(device, chunk)
+    best = torch.full((3,), M32, dtype=torch.int64, device=device)
+    f_idx = torch.tensor(M32, dtype=torch.int64, device=device)
+    lane = torch.arange(min(chunk, n), dtype=torch.int64, device=device)
+    for start in range(0, n, chunk):
+        i = lane[:min(chunk, n - start)] + (i0 + start)
+        best, hi, lo, valid = _chunk_best(midstate, template, i, lo_i, hi_i,
+                                          rem, k, best)
+        qual = valid & ((hi < t_hi) | ((hi == t_hi) & (lo < t_lo)))
+        f_idx = torch.where(qual, i, M32).min()
+        if int(f_idx) != M32:
+            break
+    found = (f_idx != M32).to(torch.int64)
+    return torch.cat([torch.stack([found, f_idx]), best])
 
 
 def span_argmin(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
@@ -65,4 +112,79 @@ def span_argmin(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
     if device.type == "cpu":
         return span_scan(midstate, template, i0, lo_i, hi_i, n,
                          rem=rem, k=k, device=device)
+    raise ValueError(f"no span scan for device {device}")
+
+
+def span_until(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
+               t_hi: int, t_lo: int, *, rem: int, k: int, device,
+               grid: int | None = None) -> torch.Tensor:
+    """The span's ``(found, f_idx, best_hi, best_lo, best_idx)`` as a (5,)
+    tensor on ``device`` (int32 words from K2, int64 from the plain scan).
+    Does not synchronise on a CUDA device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return sha256_cuda.sha256_until(midstate, template, i0, lo_i, hi_i,
+                                        n, t_hi, t_lo, rem=rem, k=k,
+                                        device=device, grid=grid)
+    if device.type == "cpu":
+        return span_until_scan(midstate, template, i0, lo_i, hi_i, n,
+                               t_hi, t_lo, rem=rem, k=k, device=device)
+    raise ValueError(f"no span scan for device {device}")
+
+
+def devloop_carry(op: searchop.SearchOp, device) -> torch.Tensor:
+    """``op``'s neutral carry on ``device``: the uint32 words as int32 bit
+    patterns for the kernels on a CUDA device, the plain int64 words on
+    the CPU."""
+    words = op.init()
+    device = torch.device(device)
+    if device.type == "cuda":
+        words = torch.where(words > 0x7FFFFFFF, words - (1 << 32), words)
+        return words.to(dtype=torch.int32, device=device)
+    return words.to(device)
+
+
+def devloop_span(midstate, template, carry: torch.Tensor, i0: int,
+                 lo_i: int, hi_i: int, n: int, base: int, *, rem: int,
+                 k: int, device, grid: int | None = None) -> torch.Tensor:
+    """One block of the device-resident arg-min chain: the block's
+    ``(hi, lo, idx)`` folded into the 5-word ``carry`` (nonce = ``base +
+    idx``). Returns the updated carry: on a CUDA device K6 updates it in
+    place without synchronising; on the CPU the plain scan and fold
+    return a new one."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return sha256_cuda.sha256_argmin_fold(
+            midstate, template, carry, i0, lo_i, hi_i, n, base, rem=rem,
+            k=k, device=device, grid=grid)
+    if device.type == "cpu":
+        hi, lo, idx = span_scan(midstate, template, i0, lo_i, hi_i, n,
+                                rem=rem, k=k, device=device)
+        return searchop.fold_argmin(carry, hi, lo, idx, base >> 32,
+                                    base & M32)
+    raise ValueError(f"no span scan for device {device}")
+
+
+def devloop_span_until(midstate, template, carry: torch.Tensor, i0: int,
+                       lo_i: int, hi_i: int, n: int, t_hi: int, t_lo: int,
+                       base: int, *, rem: int, k: int, device,
+                       grid: int | None = None) -> torch.Tensor:
+    """One block of the device-resident difficulty chain: the block's
+    early-exit scan folded into the 8-word ``carry``. Once ``carry[0]``
+    says an earlier block hit, the block does no lane work and the carry
+    stays as it is, so the span costs one fetch wherever the hit lands.
+    Returns the updated carry (in place on a CUDA device)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return sha256_cuda.sha256_until_fold(
+            midstate, template, carry, i0, lo_i, hi_i, n, t_hi, t_lo, base,
+            rem=rem, k=k, device=device, grid=grid)
+    if device.type == "cpu":
+        if int(carry[0]):
+            return carry
+        _found, f_idx, b_hi, b_lo, b_idx = span_until_scan(
+            midstate, template, i0, lo_i, hi_i, n, t_hi, t_lo, rem=rem,
+            k=k, device=device)
+        return searchop.fold_until(carry, f_idx, b_hi, b_lo, b_idx,
+                                   base >> 32, base & M32)
     raise ValueError(f"no span scan for device {device}")

@@ -1,16 +1,23 @@
-"""The CUDA SHA-256 arg-min kernel: build, load and launch.
+"""The CUDA SHA-256 search kernels: build, load and launch.
 
 ``csrc/sha256_argmin.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/libdbmt_kernels.so`` at first use (again whenever the source
-changes) and loaded with ``ctypes``; its plain C entry takes the plan as
-a host pointer, so a launch copies nothing to the device. The wrapper
-:func:`sha256_argmin` takes CUDA tensors only: there is no fallback here.
-The plain PyTorch version of the same function is
-``ops.search.span_scan``; ``ops.search.span_argmin`` routes between the
-two by device.
+changes) and loaded with ``ctypes``; its plain C entries take the plan as
+a host pointer, so a launch copies nothing to the device. The wrappers
+take CUDA tensors only: there is no fallback here.
 
-Replaces the TPU kernel of the JAX package,
-``ops/sha256_pallas.py::pallas_search_span``.
+- :func:`sha256_argmin` (K1) replaces the JAX package's
+  ``ops/sha256_pallas.py::pallas_search_span``; its plain version is
+  ``ops.search.span_scan``.
+- :func:`sha256_until` (K2) replaces ``pallas_search_span_until``; its
+  plain version is ``ops.search.span_until_scan``.
+- :func:`sha256_argmin_fold` and :func:`sha256_until_fold` (K6) replace
+  the single-device devloop entries ``_pallas_devloop_span_jit`` and
+  ``_pallas_devloop_until_jit``; their plain versions are the scans above
+  followed by ``ops.searchop.fold_argmin`` / ``fold_until``.
+
+``ops.search`` routes between each kernel and its plain version by
+device.
 """
 
 from __future__ import annotations
@@ -31,21 +38,39 @@ BUILD_DIR = os.path.join(_PKG, "build")
 LIBRARY = os.path.join(BUILD_DIR, "libdbmt_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-PLAN_WORDS = 47
+PLAN_WORDS = 49
+M32 = 0xFFFFFFFF
 
-#: Kernel launches made through :func:`sha256_argmin`: two per call, the
-#: search kernel and the one-block reduce of its partials.
-launches = 0
+#: Kernel launches by the TPU kernel each replaces, counted where a wrapper
+#: launches them. Every call launches a search kernel and then a one-block
+#: reduce of its partials: K1's search counts under K1, K2's (plain or
+#: chained) under K2, and each reduce under its own wrapper's kernel, so a
+#: K6 call counts one search launch (K1 or K2) and one fold launch (K6).
+launches = {"K1": 0, "K2": 0, "K6": 0}
 #: The last build's facts: seconds, nvcc's ptxas report, whether it ran.
 build_info: dict = {}
 
 _lib = None
 _lock = threading.Lock()
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_ENTRIES = {
+    "dbmt_sha256_argmin": [_P, _P, _P, _I, _P],
+    "dbmt_sha256_until": [_P, _P, _P, _P, _I, _P],
+    "dbmt_sha256_argmin_fold": [_P, _P, _P, _U, _U, _I, _P],
+    "dbmt_sha256_until_fold": [_P, _P, _P, _P, _U, _U, _I, _P],
+    "dbmt_sha256_argmin_blocks_per_sm": [_I],
+    "dbmt_sha256_until_blocks_per_sm": [_I],
+    "dbmt_sha256_argmin_threads": [],
+}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for name in launches:
+        launches[name] = 0
+
+
+def total_launches() -> int:
+    return sum(launches.values())
 
 
 def _nvcc() -> str:
@@ -97,72 +122,156 @@ def load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.dbmt_sha256_argmin.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p]
-            lib.dbmt_sha256_argmin.restype = ctypes.c_int
-            lib.dbmt_sha256_argmin_blocks_per_sm.argtypes = [ctypes.c_int]
-            lib.dbmt_sha256_argmin_blocks_per_sm.restype = ctypes.c_int
-            lib.dbmt_sha256_argmin_threads.argtypes = []
-            lib.dbmt_sha256_argmin_threads.restype = ctypes.c_int
+            for name, argtypes in _ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
-def default_grid(device: torch.device, nblocks: int) -> int:
-    """One full wave: SMs x resident blocks per SM."""
-    per_sm = load().dbmt_sha256_argmin_blocks_per_sm(nblocks)
+def default_grid(device: torch.device, nblocks: int,
+                 until: bool = False) -> int:
+    """One full wave of the search kernel: SMs x resident blocks per SM."""
+    lib = load()
+    per_sm = (lib.dbmt_sha256_until_blocks_per_sm if until
+              else lib.dbmt_sha256_argmin_blocks_per_sm)(nblocks)
     if per_sm <= 0:
         raise RuntimeError("cudaOccupancyMaxActiveBlocksPerMultiprocessor "
-                           "failed for the sha256_argmin kernel")
+                           "failed for the sha256 search kernel")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms * per_sm
 
 
 def plan_words(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
-               rem: int, k: int) -> list[int]:
-    """The kernel's 47-word parameter block (see ``struct Plan``)."""
+               rem: int, k: int, t_hi: int = 0, t_lo: int = 0) -> list[int]:
+    """The kernels' 49-word parameter block (see ``struct Plan``); the
+    target words are read by K2 and the until chain only."""
     nblocks = int(template.shape[0])
     tmpl = [int(x) for x in template.reshape(-1)] + [0] * (16 * (2 - nblocks))
     words = ([int(m) for m in midstate] + tmpl
-             + [rem, k, nblocks, i0, lo_i, hi_i, n])
+             + [rem, k, nblocks, i0, lo_i, hi_i, n, t_hi, t_lo])
     assert len(words) == PLAN_WORDS
     return words
+
+
+def _cuda_device(device, what: str) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on a CUDA device, not {device}")
+    return device
+
+
+def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
+            lo_i: int, hi_i: int, n: int, rem: int, k: int,
+            device: torch.device, grid, *, until: bool, out_words: int = 0,
+            carry=None, target: tuple = (0, 0), base: int | None = None):
+    """Allocate the scratch, call the C entry ``entry`` on the current
+    stream of ``device``, raise on a nonzero cudaError, count the search
+    launch (K2 when ``until``, else K1) and the reduce launch under
+    ``reduce_kernel``. Returns the new output tensor (``out_words`` > 0)."""
+    if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32):
+        raise ValueError(f"lane window out of range: i0={i0} n={n}")
+    lib = load()
+    nblocks = int(template.shape[0])
+    if grid is None:
+        grid = default_grid(device, nblocks, until=until)
+    threads = lib.dbmt_sha256_argmin_threads()
+    grid = max(1, min(int(grid), -(-n // threads)))
+    # partials (3 words a block), then f_min for the until kernels.
+    scratch = torch.empty(3 * grid + until, dtype=torch.int32, device=device)
+    args = [scratch.data_ptr()]
+    if until:
+        args.append(scratch[3 * grid:].data_ptr())
+    out = None
+    if out_words:
+        out = torch.empty(out_words, dtype=torch.int32, device=device)
+        args.append(out.data_ptr())
+    if carry is not None:
+        args += [carry.data_ptr(), base >> 32 & M32, base & M32]
+    words = (ctypes.c_uint32 * PLAN_WORDS)(
+        *plan_words(midstate, template, i0, lo_i, hi_i, n, rem, k, *target))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(ctypes.addressof(words), *args, grid,
+                                  stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    launches["K2" if until else "K1"] += 1
+    launches[reduce_kernel] += 1
+    return out
+
+
+def _check_carry(carry, words: int, device: torch.device) -> None:
+    if not (isinstance(carry, torch.Tensor) and carry.is_cuda
+            and device.index in (None, carry.device.index)
+            and carry.dtype == torch.int32 and carry.shape == (words,)
+            and carry.is_contiguous()):
+        raise ValueError(f"the carry must be a contiguous ({words},) int32 "
+                         f"tensor on {device}")
 
 
 def sha256_argmin(midstate, template, i0: int, lo_i: int, hi_i: int,
                   n: int, *, rem: int, k: int, device,
                   grid: int | None = None) -> torch.Tensor:
-    """Launch the kernel over lanes ``i0 + [0, n)`` masked to
-    ``[lo_i, hi_i]`` on the current stream of the CUDA ``device``.
+    """K1 over lanes ``i0 + [0, n)`` masked to ``[lo_i, hi_i]`` on the
+    current stream of the CUDA ``device``.
 
     Returns a (3,) int32 tensor on the device holding the uint32 words
     ``(hi, lo, idx)``; the all-ones sentinel means no lane was valid.
     Nothing is synchronised. ``grid`` overrides the block count (the
     answer does not depend on it). Any device but a CUDA one raises.
     """
-    global launches
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"sha256_argmin runs on a CUDA device, not {device}")
-    if not (0 < n <= 1 << 31 and i0 + n - 1 <= 0xFFFFFFFF):
-        raise ValueError(f"lane window out of range: i0={i0} n={n}")
-    lib = load()
-    nblocks = int(template.shape[0])
-    if grid is None:
-        grid = default_grid(device, nblocks)
-    threads = lib.dbmt_sha256_argmin_threads()
-    grid = max(1, min(int(grid), -(-n // threads)))
-    partials = torch.empty(3 * grid, dtype=torch.int32, device=device)
-    out = torch.empty(3, dtype=torch.int32, device=device)
-    words = (ctypes.c_uint32 * PLAN_WORDS)(
-        *plan_words(midstate, template, i0, lo_i, hi_i, n, rem, k))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dbmt_sha256_argmin(ctypes.addressof(words),
-                                     partials.data_ptr(), out.data_ptr(),
-                                     grid, stream)
-    if err != 0:
-        raise RuntimeError(f"sha256_argmin launch failed: cudaError {err}")
-    launches += 2
-    return out
+    device = _cuda_device(device, "sha256_argmin")
+    return _launch("K1", "dbmt_sha256_argmin", midstate, template, i0, lo_i,
+                   hi_i, n, rem, k, device, grid, until=False, out_words=3)
+
+
+def sha256_until(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
+                 t_hi: int, t_lo: int, *, rem: int, k: int, device,
+                 grid: int | None = None) -> torch.Tensor:
+    """K2: K1's lanes with the 64-bit target ``(t_hi, t_lo)``.
+
+    Returns a (5,) int32 tensor on the device holding the uint32 words
+    ``(found, f_idx, best_hi, best_lo, best_idx)``: ``f_idx`` is the
+    lowest valid lane whose hash is below the target (all-ones when
+    ``found`` is 0). ``best_*`` is the lanes' arg-min, meaningful only
+    when ``found`` is 0. Nothing is synchronised.
+    """
+    device = _cuda_device(device, "sha256_until")
+    return _launch("K2", "dbmt_sha256_until", midstate, template, i0, lo_i,
+                   hi_i, n, rem, k, device, grid, until=True, out_words=5,
+                   target=(t_hi, t_lo))
+
+
+def sha256_argmin_fold(midstate, template, carry: torch.Tensor, i0: int,
+                       lo_i: int, hi_i: int, n: int, base: int, *, rem: int,
+                       k: int, device, grid: int | None = None
+                       ) -> torch.Tensor:
+    """K6, arg-min: K1's search, its winner folded into ``carry`` (a (5,)
+    int32 device tensor in the ``ops.searchop`` layout) in place, the
+    nonce being ``base + lane``. Returns ``carry``; nothing is
+    synchronised."""
+    device = _cuda_device(device, "sha256_argmin_fold")
+    _check_carry(carry, 5, device)
+    _launch("K6", "dbmt_sha256_argmin_fold", midstate, template, i0, lo_i,
+            hi_i, n, rem, k, device, grid, until=False, carry=carry,
+            base=base)
+    return carry
+
+
+def sha256_until_fold(midstate, template, carry: torch.Tensor, i0: int,
+                      lo_i: int, hi_i: int, n: int, t_hi: int, t_lo: int,
+                      base: int, *, rem: int, k: int, device,
+                      grid: int | None = None) -> torch.Tensor:
+    """K6, until: K2's search folded into ``carry`` (a (8,) int32 device
+    tensor in the ``ops.searchop`` until layout) in place. When
+    ``carry[0]`` says an earlier launch of the chain hit, the launch does
+    no lane work and leaves the carry as it is. Returns ``carry``;
+    nothing is synchronised."""
+    device = _cuda_device(device, "sha256_until_fold")
+    _check_carry(carry, 8, device)
+    _launch("K6", "dbmt_sha256_until_fold", midstate, template, i0, lo_i,
+            hi_i, n, rem, k, device, grid, until=True, carry=carry,
+            target=(t_hi, t_lo), base=base)
+    return carry

@@ -112,11 +112,13 @@ def test_port_server_miner_client_end_to_end():
             assert r2 == expected("x" * 60, 1_500)
             assert c.scheduler.stats["claims_failed"] == 0
             assert c.scheduler.stats["claims_checked"] == 2
-            assert miner.counts() == {"chunks": 2, "kernel_launches": 0}
+            assert miner.counts() == {
+                "chunks": 2,
+                "kernel_launches": {"K1": 0, "K2": 0, "K6": 0}}
             assert sum(s.device_launches
                        for s in miner._searchers.values()) == 9
     asyncio.run(scenario())
-    assert sha256_cuda.launches == 0
+    assert sha256_cuda.total_launches() == 0
 
 
 def test_fifo_queue_and_even_split_over_miners():

@@ -14,7 +14,7 @@ from distributed_bitcoinminer_tpu.bitcoin.hash import scan_min
 from distributed_bitcoinminer_tpu.models.miner_model import \
     NonceSearcher as RefSearcher
 from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
-from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+from distributed_bitcoinminer_tpu_torch.ops import searchop, sha256_cuda
 
 RANGES = [
     # (name, data, lower, upper, blocks)
@@ -35,7 +35,7 @@ def test_searcher_equals_jax_and_oracle(name, data, lower, upper, blocks,
     monkeypatch.setenv("DBM_DEVLOOP", "0")
     ref = RefSearcher(data, batch=16384, tier="jnp", hoist=False)
     assert got == ref.search(lower, upper)
-    assert sha256_cuda.launches == 0          # the CPU path ran no kernel
+    assert sha256_cuda.total_launches() == 0  # the CPU path ran no kernel
 
 
 @pytest.mark.parametrize("name,data,lower,upper,blocks", RANGES)
@@ -63,8 +63,11 @@ def test_empty_range_raises_and_finalize_skips_sentinels():
     s = NonceSearcher("cmu440", device="cpu")
     with pytest.raises(ValueError):
         s.dispatch(10, 9)
-    sentinel = torch.full((3,), 0xFFFFFFFF, dtype=torch.int64)
-    assert s.finalize([(0, sentinel)], 7) == ((1 << 64) - 1, 7)
+    # A block without a valid lane folds its all-ones sentinel into the
+    # span's carry, which must keep nothing of it.
+    carry = searchop.fold_argmin(searchop.carry_init(), *[0xFFFFFFFF] * 3,
+                                 0, 0)
+    assert s.finalize(carry, 7) == ((1 << 64) - 1, 7)
 
 
 def test_no_gpu_raises_never_falls_back(monkeypatch):

@@ -152,7 +152,7 @@ def test_span_argmin_cpu_runs_plain_and_launches_no_kernel():
     want = search.span_scan(mid, tmpl, 0, 1000, 9999, 9000, rem=rem, k=4,
                             device="cpu")
     assert got.tolist() == want.tolist()
-    assert sha256_cuda.launches == 0
+    assert sha256_cuda.total_launches() == 0
     with pytest.raises(ValueError):
         search.span_argmin(mid, tmpl, 0, 0, 9, 10, rem=rem, k=4,
                            device="meta")
@@ -166,21 +166,24 @@ def test_kernel_wrapper_refuses_cpu():
     with pytest.raises(ValueError):
         sha256_cuda.sha256_argmin(mid, tmpl, 0, 0, 99, 100, rem=rem, k=2,
                                   device=torch.empty(3).device)
-    assert sha256_cuda.launches == 0
+    assert sha256_cuda.total_launches() == 0
 
 
 def test_plan_words_layout():
-    """The kernel's by-value parameter block: midstate, 32 template words
-    (zero-padded for 1-block tails), then rem, k, nblocks, i0, lo, hi, n."""
+    """The kernels' by-value parameter block: midstate, 32 template words
+    (zero-padded for 1-block tails), then rem, k, nblocks, i0, lo, hi, n
+    and the target's two words (0 unless given)."""
     for data, k in (("cmu440", 9), ("y" * 60, 9)):
         _, mid, tmpl, rem = plan(data, k)
         words = sha256_cuda.plan_words(mid, tmpl, 5, 6, 7, 8, rem, k)
         nb = tmpl.shape[0]
-        assert len(words) == sha256_cuda.PLAN_WORDS == 47
+        assert len(words) == sha256_cuda.PLAN_WORDS == 49
         assert words[:8] == list(mid)
         assert words[8:8 + 16 * nb] == [int(x) for x in tmpl.reshape(-1)]
         assert words[8 + 16 * nb:40] == [0] * (16 * (2 - nb))
-        assert words[40:] == [rem, k, nb, 5, 6, 7, 8]
+        assert words[40:] == [rem, k, nb, 5, 6, 7, 8, 0, 0]
+        assert sha256_cuda.plan_words(mid, tmpl, 5, 6, 7, 8, rem, k, 9,
+                                      10)[47:] == [9, 10]
 
 
 @pytest.mark.gpu
