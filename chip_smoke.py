@@ -21,7 +21,12 @@ JSON line per phase:
    chain): arg-min and until chains of 4 blocks past 2^32, the until chain
    hitting in its third block, carry words equal after every block (the
    arg-min words until the hit), and the launch after the hit leaving the
-   carry untouched;
+   carry untouched. K5 (batched segment-min): one batch of rows over four
+   messages (1- and 2-block tails), digit classes 1-9, ragged windows, a
+   three-row segment and empty-window rows, word for word against
+   ``span_segmin_scan`` at the default grid and at 37 blocks; and the
+   searcher's batched dispatch of eight mice and of nine jobs over the
+   digit classes against each job's own ``search`` (K1/K6);
 4. e2e: the port's scheduler server and a miner on ``cuda`` as
    subprocesses through their CLIs, requests submitted with the port's
    client. The arg-min path: R1 ("cmu440", 2^26-1), R2 (a 60-character
@@ -39,9 +44,20 @@ JSON line per phase:
    second chunk's answer is dropped by the prefix release, so this is
    where the until chain's hit-and-fold on real lanes is held to the
    plain version); and R5 ("cmu440", 2^26-1, target 1) through the
-   client CLI's fifth argument, which must equal R1. The launch counts
-   of each path come from its own miner processes, which start at 0 just
-   before the path;
+   client CLI's fifth argument, which must equal R1. Then the mice path,
+   twice, on a new server (QoS chunking from 0.1 s, 0.05 s chunks) and two
+   miners each time: a warm-up request that gives the scheduler its
+   throughput sample, then an elephant ("cmu440", 2^34-1) and, while it
+   runs, 64 mice of 10^5-10^6 nonces over 8 messages from 8 client
+   connections; first with coalescing on (the mice share coalescing
+   windows and batched K5 launches; the path fails if K5 never
+   launched), then with ``DBMT_COALESCE=0`` (one launch chain per chunk),
+   each mouse held to the plain scan on the card and the elephant to the
+   claim check and a direct search at 1,001 blocks; the mice's p50/p99
+   request seconds, the elephant's wall time and the coalesced
+   dispatches and their mean width, both runs side by side. The launch
+   counts of each path come from its own miner processes, which start at
+   0 just before the path;
 5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
    (2-block tail with digits in both blocks) and a 10^9 block whose second
    tail block holds no digit; K2 over the first block with a target
@@ -54,7 +70,11 @@ JSON line per phase:
    chained until launch after a hit; and the two difficulty shapes on
    R4's two chunks served back to back by one searcher: the chain
    against one K2 launch per block read in ascending order, with and
-   without one launch of lookahead. Timed with CUDA events, beside the bound
+   without one launch of lookahead. K5: the eight mice of 10^6 nonces (56
+   rows) as one batched dispatch and fetch against the same jobs through
+   eight K1/K6 chains, K5 alone on those rows with proportional and with
+   even grid shares, the plain version on them, and K5 over eight rows of
+   10^8 lanes beside K1's time per 10^9. Timed with CUDA events, beside the bound
    from the INT32 work each nonce needs (``needed_int_ops``, plus the
    target compare for K2) and, under another name, the bound from the
    INT32 instructions of K1's own SASS loop.
@@ -417,10 +437,106 @@ def check_k6(dev) -> dict:
             "until_hit_block": hit_block, "max_abs_err": max_err}
 
 
+def segmin_batch():
+    """K5's mixed batch: rows of four messages (1-block and 2-block
+    tails, the 60-character one among them) over digit classes 1-9,
+    ragged (10 to 2^18 + 5 lanes), valid edges off the block edges, one
+    segment of three rows (a block cut in three), an empty-window row in
+    a segment of its own and one in a segment with a valid row. Returns
+    (rows, seg)."""
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    msgs = ("cmu440", R2_DATA, DIGIT_FREE_DATA, "x" * 33)
+    rows, seg = [], []
+
+    def row(p, i0, lo_i, hi_i, n):
+        return (p.midstate, p.template, i0, lo_i, hi_i, n, p.rem, p.k)
+    for d in range(1, 10):
+        s = NonceSearcher(msgs[d % 4], device="cpu")
+        lo = 0 if d == 1 else 10 ** (d - 1)
+        width = min(10 ** d - lo, (1 << 18) + 5)
+        (p,) = list(s.plan(lo + 3 * (d > 1), lo + width - 1 - 2 * (d > 2)))
+        if d % 2 and d > 1:   # lanes masked at both ends of the row
+            rows.append(row(p, p.lo_i - 3, p.lo_i, p.hi_i, p.lanes + 5))
+        else:
+            rows.append(row(p, p.lo_i, p.lo_i, p.hi_i, p.lanes))
+        seg.append(len(seg))
+    # A block cut into three rows of one segment, the cuts off thread edges.
+    (p,) = list(NonceSearcher("cmu440", device="cpu").plan(
+        5 * 10 ** 8 + 1_000, 5 * 10 ** 8 + 301_000))
+    cuts = (p.lo_i, p.lo_i + 100_003, p.lo_i + 200_107, p.hi_i + 1)
+    for a, b in zip(cuts, cuts[1:]):
+        rows.append(row(p, a, p.lo_i, p.hi_i, b - a))
+        seg.append(seg[-1] + 1 if a == cuts[0] else seg[-1])
+    # Empty windows (lo_i > hi_i): alone, then beside a valid row.
+    rows.append(row(p, p.lo_i, p.lo_i + 1, p.lo_i, 4_096))
+    seg.append(seg[-1] + 1)
+    rows.append(row(p, p.lo_i, p.lo_i + 1, p.lo_i, 4_096))
+    seg.append(seg[-1] + 1)
+    rows.append(rows[0])
+    seg.append(seg[-1])
+    return rows, seg
+
+
+def mice_jobs(dev, n_lanes: int = 10 ** 6):
+    """Eight argmin jobs ``[0, n_lanes]`` over eight messages (three of
+    them with 2-block tails): ``[(searcher, 0, n_lanes), ...]``, the
+    shape one coalesced launch of eight mice takes."""
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    return [(NonceSearcher(m, device=dev), 0, n_lanes) for m in MICE_DATA]
+
+
+def check_k5(dev) -> dict:
+    """K5 against its plain version on the mixed batch at the default
+    grid and at 37 blocks, word for word; then the searcher's batched
+    dispatch of the eight mice jobs and of nine jobs over digit classes
+    1-9 (default grid, and 37 blocks) against each job's own ``search``
+    (the K1/K6 chain)."""
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+    rows, seg = segmin_batch()
+    want = [words(t) for t in search.span_segmin_scan(rows, seg,
+                                                        device=dev)]
+    max_err = 0
+    for grid in (None, 37):
+        got = [words(t) for t in sha256_cuda.sha256_segmin(
+            rows, seg, device=dev, grid=grid)]
+        err = max(abs(a - b) for g, w in zip(got, want)
+                  for a, b in zip(g, w))
+        max_err = max(max_err, err)
+        if err:
+            emit("kernel", failed={"kernel": "K5", "grid": grid}, got=got,
+                 want=want)
+            fail(f"K5 disagrees with span_segmin_scan at grid {grid}")
+    if [w[-2] for w in want] != [M32] * 3 or want[2][-1] == M32:
+        fail("K5 batch: the empty-window segment is not the sentinel, or "
+             "the segment beside it lost its valid row")
+    jobs = {"mice": mice_jobs(dev),
+            "classes": [(NonceSearcher(m, device=dev), lo, hi) for m, lo, hi
+                        in zip(MICE_DATA * 2, [0] + [10 ** d + 17 * d
+                                                      for d in range(1, 9)],
+                               [7] + [10 ** d + 17 * d + 50_000
+                                      for d in range(1, 9)])]}
+    for name, entries in jobs.items():
+        for grid in (None, 37):
+            part = [(NonceSearcher(s.data, device=dev, grid=grid), lo, hi)
+                    for s, lo, hi in entries]
+            s0 = part[0][0]
+            got = s0.finalize_batch(s0.dispatch_batch(part))
+            per_job = [s.search(lo, hi) for s, lo, hi in part]
+            if got != per_job:
+                fail(f"K5 {name} batch at grid {grid}: {got} != per-job "
+                     f"search {per_job}")
+    return {"rows": len(rows), "segments": seg[-1] + 1,
+            "nblocks": sorted({int(r[1].shape[0]) for r in rows}),
+            "lanes": sum(r[5] for r in rows), "max_abs_err": max_err,
+            "searcher_batches": {k: len(v) for k, v in jobs.items()}}
+
+
 def phase_kernel() -> dict:
     import torch
     dev = torch.device("cuda", 0)
-    info = {"K1": check_k1(dev), "K2": check_k2(dev), "K6": check_k6(dev)}
+    info = {"K1": check_k1(dev), "K2": check_k2(dev), "K5": check_k5(dev),
+            "K6": check_k6(dev)}
     torch.cuda.synchronize()
     emit("kernel", **info)
     return info
@@ -455,8 +571,11 @@ def read_counts(log_path: str) -> dict:
     return last
 
 
+KERNELS = ("K1", "K2", "K5", "K6")
+
+
 def launches_of(counts: dict) -> dict:
-    return dict(counts.get("kernel_launches", {"K1": 0, "K2": 0, "K6": 0}))
+    return dict(counts.get("kernel_launches", dict.fromkeys(KERNELS, 0)))
 
 
 #: R2's message: 60 characters, so the prefix tail is 61 bytes and every
@@ -467,6 +586,10 @@ ARGMIN_REQUESTS = (("R1", "cmu440", (1 << 26) - 1),
                    ("R3", "cmu440", (1 << 32) - 1),
                    ("R1 again", "cmu440", (1 << 26) - 1),
                    ("mouse", "cmu440", 10 ** 5 - 1))
+#: The mice's messages: three have 2-block tails at 6 or 7 digits.
+MICE_DATA = ("cmu440", "mouse", "a" * 20, "bee", R2_DATA,
+             "a fifty-character message; its digits stay in one.",
+             "m" * 56, "tenant seven")
 #: R4's target: about one nonce in 10^8 qualifies.
 R4_TARGET = (1 << 64) // 10 ** 8
 UNTIL_REQUESTS = (("R4", "cmu440", (1 << 32) - 1, R4_TARGET),
@@ -488,17 +611,23 @@ class Cluster:
                         + os.environ.get("PYTHONPATH", ""))
         self.procs, self.handles, self.logs = [], [], {}
 
-    def start(self, name: str, module: str, args: list, ready: str,
+    def spawn(self, name: str, module: str, args: list,
               env: dict | None = None) -> str:
-        """Start one process and wait until its log shows ``ready`` (the
-        server listens; a miner joins after warming the device up, so
-        requests time requests, not process start). Returns its log."""
+        """Start one process logging to its own file; returns the log."""
         log = self.logs[name] = os.path.join(self.outdir, f"e2e_{name}.log")
         self.handles.append(open(log, "w"))
         self.procs.append(subprocess.Popen(
             [sys.executable, "-m", f"{PKG}.apps.{module}", *args],
             cwd=self.outdir, env={**self.env, **(env or {})},
             stdout=self.handles[-1], stderr=subprocess.STDOUT))
+        return log
+
+    def start(self, name: str, module: str, args: list, ready: str,
+              env: dict | None = None) -> str:
+        """Start one process and wait until its log shows ``ready`` (the
+        server listens; a miner joins after warming the device up, so
+        requests time requests, not process start). Returns its log."""
+        log = self.spawn(name, module, args, env)
         wait_for_line(log, ready, self.procs[-1])
         return log
 
@@ -561,11 +690,145 @@ def path_launches(miner_logs: list) -> dict:
     """The launches per kernel that the miners made on one path, read
     after its last request (each miner logs its counts per chunk)."""
     time.sleep(0.5)
-    total = {"K1": 0, "K2": 0, "K6": 0}
+    total = dict.fromkeys(KERNELS, 0)
     for log in miner_logs:
         for kern, n in launches_of(read_counts(log)).items():
             total[kern] += n
     return total
+
+
+#: The mice path: a warm-up that gives each miner a throughput sample
+#: (the scheduler's rate window is 0.5 s), then the elephant, about one
+#: card-second over two miners, and while it runs 64 mice of 10^5-10^6
+#: nonces over the 8 messages of MICE_DATA from 8 client connections, each
+#: connection sending its 8 mice at once.
+MICE_WARM_UP = ("warm-up", (1 << 33) - 1)
+ELEPHANT = ("cmu440", (1 << 34) - 1)
+MICE_TENANTS, MICE_PER_TENANT, MICE_SEED = 8, 8, 440
+#: The server's QoS settings: a request above 0.1 s of the pool's work
+#: while any is in flight is chunked, in chunks of 0.05 s.
+MICE_SERVER_ENV = {"DBMT_QOS_WHOLESALE_S": "0.1", "DBMT_QOS_CHUNK_S": "0.05"}
+
+
+def mice_traffic() -> list:
+    """Per connection, its mice ``[(data, max_nonce), ...]`` (seeded)."""
+    import numpy as np
+    rng = np.random.default_rng(MICE_SEED)
+    sizes = rng.integers(10 ** 5, 10 ** 6, size=(MICE_TENANTS,
+                                                 MICE_PER_TENANT))
+    return [[(MICE_DATA[(c + j) % len(MICE_DATA)], int(sizes[c, j]))
+             for j in range(MICE_PER_TENANT)] for c in range(MICE_TENANTS)]
+
+
+async def tenant_mice(hostport: str, mice: list) -> list:
+    """One client connection: write every mouse at once, then read the
+    Results (a tenant's requests are served in order). Returns
+    ``(hash, nonce, seconds from the writes)`` per mouse."""
+    from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
+        Message, MsgType, new_request)
+    from distributed_bitcoinminer_tpu_torch.lsp.client import \
+        new_async_client
+    client = await new_async_client(hostport)
+    t0 = time.monotonic()
+    for data, max_nonce in mice:
+        client.write(new_request(data, 0, max_nonce).to_json())
+    out = []
+    try:
+        while len(out) < len(mice):
+            msg = Message.from_json(await client.read())
+            if msg.type == MsgType.RESULT:
+                out.append((msg.hash, msg.nonce, time.monotonic() - t0))
+    finally:
+        await client.close()
+    return out
+
+
+def run_mice(outdir: str, coalesce: bool) -> dict:
+    """The mice path on a new server and two miners, all with
+    ``DBMT_COALESCE`` on or off: the warm-up, then the elephant and the
+    mice. Returns the answers, the request seconds, and the miners'
+    launches and coalesced dispatches."""
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import submit
+    tag = "mice" if coalesce else "mice_per_chunk"
+    env = {"DBMT_COALESCE": "1" if coalesce else "0"}
+    traffic = mice_traffic()
+    with Cluster(outdir) as c:
+        c.start(f"{tag}_server", "server", [str(c.port)],
+                "Server listening on port", env={**MICE_SERVER_ENV, **env})
+        names = [f"{tag}_miner", f"{tag}_miner2"]
+        logs = [c.spawn(n, "miner", [c.hostport, "--device", "cuda"], env)
+                for n in names]
+        for name, log, proc in zip(names, logs, c.procs[-2:]):
+            wait_for_line(log, "joined ", proc)
+            if read_counts(log):
+                fail(f"{name}'s counts were not 0 before its path")
+        warm = timed("warm-up", *MICE_WARM_UP, lambda: asyncio.run(
+            asyncio.wait_for(submit(c.hostport, *MICE_WARM_UP), 300)))
+
+        async def both():
+            t0 = time.monotonic()
+            elephant = asyncio.create_task(submit(c.hostport, *ELEPHANT))
+            await asyncio.sleep(0.3)
+            mice = await asyncio.gather(*(tenant_mice(c.hostport, m)
+                                          for m in traffic))
+            res = await elephant
+            return res, time.monotonic() - t0, mice
+        el, el_s, mice = asyncio.run(asyncio.wait_for(both(), 300))
+        time.sleep(0.5)
+        counts = {log: read_counts(log) for log in logs}
+    if el is None:
+        fail(f"{tag}: the elephant's client disconnected")
+    launches = dict.fromkeys(KERNELS, 0)
+    for log in logs:
+        for kern, n in launches_of(counts[log]).items():
+            launches[kern] += n
+    dispatches = sum(counts[log].get("coalesced_dispatches", 0)
+                     for log in logs)
+    chunks = sum(counts[log].get("coalesced_chunks", 0) for log in logs)
+    secs = sorted(r[2] for t in mice for r in t)
+    return {"coalesce": coalesce, "warm_up": warm,
+            "elephant": {"data": ELEPHANT[0], "max_nonce": ELEPHANT[1],
+                         "hash": el[0], "nonce": el[1], "seconds": el_s},
+            "mice": [[data, mx, h, n, sec] for t, m in zip(mice, traffic)
+                     for (data, mx), (h, n, sec) in zip(m, t)],
+            "mice_p50_s": secs[len(secs) // 2],
+            "mice_p99_s": secs[min(len(secs) - 1,
+                                   int(0.99 * len(secs)))],
+            "coalesced_dispatches": dispatches,
+            "coalesced_chunks": chunks,
+            "mean_width": chunks / dispatches if dispatches else 0.0,
+            "launches": launches}
+
+
+def check_mice(runs: list, dev) -> None:
+    """Every mouse of both runs equal to the plain scan on the card; the
+    elephant equal in both runs to a direct search at 1,001 blocks, after
+    the hashlib claim check; K5 launched on the coalescing run."""
+    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    plain = {}
+    for run in runs:
+        for data, mx, h, n, _ in run["mice"]:
+            if (data, mx) not in plain:
+                plain[data, mx] = plain_search(
+                    NonceSearcher(data, device=dev), 0, mx + 1)
+            if (h, n) != plain[data, mx]:
+                fail(f"mouse {data!r} {mx}: {(h, n)} != plain "
+                     f"{plain[data, mx]} (coalesce {run['coalesce']})")
+    data, mx = ELEPHANT
+    want = NonceSearcher(data, device=dev, grid=1001).search(0, mx + 1)
+    for run in runs:
+        el = run["elephant"]
+        if hash_op(data, el["nonce"]) != el["hash"] \
+                or not 0 <= el["nonce"] <= mx + 1:
+            fail(f"elephant: claim check failed: {el}")
+        if (el["hash"], el["nonce"]) != want:
+            fail(f"elephant: {el['hash'], el['nonce']} != direct {want}")
+        el["direct_grid1001"] = list(want)
+    if runs[0]["launches"]["K5"] <= 0:
+        fail(f"the mice path launched no K5: {runs[0]['launches']}")
 
 
 def phase_e2e(outdir: str) -> dict:
@@ -606,6 +869,7 @@ def phase_e2e(outdir: str) -> dict:
         until_launches = path_launches(miners)
         with open(server_log, errors="replace") as f:
             server_text = f.read()
+    mice_runs = [run_mice(outdir, True), run_mice(outdir, False)]
     for path, counts, kernels in (("arg-min", argmin_launches, ("K1", "K6")),
                                   ("difficulty", until_launches,
                                    ("K2", "K6"))):
@@ -671,9 +935,12 @@ def phase_e2e(outdir: str) -> dict:
     if (r5["hash"], r5["nonce"]) != (r1["hash"], r1["nonce"]):
         fail(f"R5 {r5['hash'], r5['nonce']} != R1 "
              f"{r1['hash'], r1['nonce']}")
-    info = {"requests": results,
+    check_mice(mice_runs, dev)
+    info = {"requests": results, "mice": mice_runs,
             "launches": {"arg-min": argmin_launches,
-                         "difficulty": until_launches}}
+                         "difficulty": until_launches,
+                         "mice": mice_runs[0]["launches"],
+                         "mice_per_chunk": mice_runs[1]["launches"]}}
     emit("e2e", **info)
     return info
 
@@ -1095,6 +1362,105 @@ def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
             "until_after_hit_ms": noop_ms}
 
 
+def batch_rows(jobs) -> tuple:
+    """The rows and segments one batched dispatch gives K5 for ``jobs``
+    (a row and a segment per job and 10^k block)."""
+    rows = [(p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes, p.rem,
+             p.k) for s, lo, hi in jobs for p in s.plan(lo, hi)]
+    return rows, list(range(len(rows)))
+
+
+def segmin_bound(rows, dev_info: dict) -> tuple:
+    """(least milliseconds, what bounds it) for K5 over ``rows``, one
+    segment each: the INT32 work each row's lanes need (``needed_int_ops``)
+    at 64 lanes/clk on every SM at the maximum SM clock, against the
+    bytes it must move (the plan table in, 12 bytes per segment out) at
+    3.35 TB/s."""
+    clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
+    ops = sum(r[5] * needed_int_ops(r[6], r[7], int(r[1].shape[0]))
+              for r in rows)
+    ops_s = ops / (dev_info["sms"] * RATE_INTS_PER_CLK_PER_SM * clk_hz)
+    bytes_s = (4 * 53 * len(rows) + 12 * len(rows)) / 3.35e12
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def launch_delta(fn) -> tuple:
+    """(fn's result, the kernel launches it made, by kernel)."""
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    before = dict(sha256_cuda.launches)
+    out = fn()
+    return out, {k: n - before[k] for k, n in sha256_cuda.launches.items()
+                 if n != before[k]}
+
+
+def even_blocks(lanes: list, grid: int, threads: int) -> list:
+    """The even grid share K5's lane-proportional one is timed against:
+    every row with a valid lane gets ``grid / rows`` blocks, at least one
+    and never more than its lanes fill."""
+    return [0 if v <= 0 else max(1, min(-(-v // threads),
+                                        round(grid / len(lanes))))
+            for v in lanes]
+
+
+def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
+    """K5 over the eight mice of 10^6 nonces (56 rows) through the
+    searcher's batched dispatch against the same eight jobs through their
+    own K1/K6 chains, in turns (chains, K5, K5, chains); K5 alone on those
+    rows with each row's share of the grid proportional to its lanes (the
+    wrapper's) and with an even share (:func:`even_blocks` in its place),
+    and the plain version on them; and K5 over eight
+    rows of 10^8 lanes (1-block tail) beside K1's time per 10^9."""
+    from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+    jobs = mice_jobs(dev)
+    s0 = jobs[0][0]
+    shapes = {"k5": lambda: s0.finalize_batch(s0.dispatch_batch(jobs)),
+              "chains": lambda: [s.search(lo, hi) for s, lo, hi in jobs]}
+    answers, launches, times = {}, {}, {"k5": [], "chains": []}
+    for name, fn in shapes.items():
+        answers[name], launches[name] = launch_delta(fn)
+    if answers["k5"] != answers["chains"]:
+        fail(f"K5 mice batch {answers['k5']} != per-job chains "
+             f"{answers['chains']}")
+    reps = 20
+    for name in ("chains", "k5", "k5", "chains"):
+        times[name].append(event_ms(lambda: [shapes[name]()
+                                             for _ in range(reps)]) / reps)
+    rows, seg = batch_rows(jobs)
+    kernel_ms = cuda_ms(lambda: sha256_cuda.sha256_segmin(
+        rows, seg, device=dev), 20)
+    lane_share = sha256_cuda._segmin_blocks
+    sha256_cuda._segmin_blocks = even_blocks
+    try:
+        even_ms = cuda_ms(lambda: sha256_cuda.sha256_segmin(
+            rows, seg, device=dev), 20)
+    finally:
+        sha256_cuda._segmin_blocks = lane_share
+    plain_ms = cuda_ms(lambda: search.span_segmin_scan(rows, seg,
+                                                       device=dev), 1)
+    b_ms, b_by = segmin_bound(rows, dev_info)
+    mice = {"jobs": len(jobs), "rows": len(rows),
+            "lanes": sum(r[5] for r in rows),
+            "kernel_ms": kernel_ms,
+            "batch_ms": sum(times["k5"]) / 2,
+            "chains_ms": sum(times["chains"]) / 2, "times": times,
+            "launches": launches, "fetches": {"k5": 1, "chains": len(jobs)},
+            "even_share_ms": even_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+    brows, bseg = batch_rows([(s0, b * 10 ** 9, b * 10 ** 9 + 10 ** 8 - 1)
+                              for b in range(1, 9)])
+    big_ms = cuda_ms(lambda: sha256_cuda.sha256_segmin(brows, bseg,
+                                                       device=dev), 3)
+    lanes = sum(r[5] for r in brows)
+    bb_ms, bb_by = segmin_bound(brows, dev_info)
+    wide = {"rows": len(brows), "lanes": lanes, "rem": brows[0][6],
+            "k": brows[0][7], "nblocks": int(brows[0][1].shape[0]),
+            "ms": big_ms, "ms_per_1e9": big_ms * 1e9 / lanes,
+            "k1_ms_per_1e9": one_block["ms"] * 1e9 / one_block["lanes"],
+            "bound_ms": bb_ms, "bound_by": bb_by}
+    return {"mice": mice, "wide": wide}
+
+
 def rates_until_shapes(dev) -> dict:
     """The two difficulty shapes on R4's two chunks served back to back by
     one searcher, as one miner would serve them: the chain
@@ -1144,6 +1510,7 @@ def phase_rates(dev_info: dict, outdir: str) -> dict:
     info = {"K1": rates_k1(dev_info, outdir, dev)}
     hit = hit_block(dev)
     info["K2"] = rates_k2(dev_info, dev, info["K1"]["one_block"], hit)
+    info["K5"] = rates_k5(dev_info, dev, info["K1"]["one_block"])
     info["K6"] = rates_k6(dev_info, dev, hit)
     info["until_shapes"] = rates_until_shapes(dev)
     info.update({"sms": dev_info["sms"],
@@ -1160,8 +1527,9 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
     times."""
     src = f"{PKG}/csrc/sha256_argmin.cu"
     launches = {k: sum(path[k] for path in e2e["launches"].values())
-                for k in ("K1", "K2", "K6")}
+                for k in KERNELS}
     one, k2, k6 = rates["K1"]["one_block"], rates["K2"], rates["K6"]
+    k5 = rates["K5"]
     return {"kernels": [
         {"name": "sha256_argmin", "route": "cuda", "source": src,
          "replaces": "ops/sha256_pallas.py:649 (pallas_search_span, in the "
@@ -1185,6 +1553,21 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "ms_to_first_hit": k2["first_hit"]["ms_to_hit"],
          "first_hit_lane": k2["first_hit"]["hit_lane"],
+         "library_ms": None},
+        {"name": "sha256_segmin", "route": "cuda", "source": src,
+         "replaces": "ops/sha256_pallas.py:191 (pallas_search_span_batch, "
+                     "via pallas_segmin :162, in the JAX package)",
+         "launches": launches["K5"], "checked": True,
+         "max_abs_err": kernel["K5"]["max_abs_err"],
+         "ms": k5["mice"]["kernel_ms"], "rows": k5["mice"]["rows"],
+         "lanes": k5["mice"]["lanes"],
+         "batch_dispatch_fetch_ms": k5["mice"]["batch_ms"],
+         "per_job_chains_ms": k5["mice"]["chains_ms"],
+         "plain_ms": k5["mice"]["plain_ms"],
+         "bound_ms": k5["mice"]["bound_ms"],
+         "bound_by": k5["mice"]["bound_by"],
+         "wide_rows_ms_per_1e9": k5["wide"]["ms_per_1e9"],
+         "wide_rows_bound_ms": k5["wide"]["bound_ms"],
          "library_ms": None},
         {"name": "sha256_argmin_fold+sha256_until_fold", "route": "cuda",
          "source": src,

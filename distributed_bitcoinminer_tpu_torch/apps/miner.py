@@ -1,13 +1,27 @@
 """The GPU miner worker: an LSP client wrapped around the device search.
 
-Counterpart of the serial path of the JAX package's
-``apps/miner.py::MinerWorker`` (the reference worker's loop, ref:
-bitcoin/miner/miner.go): Join, then serve Requests one at a time — read, search, write
-the Result — and exit silently on transport errors like the reference
-(miner.go:40-44, 63-66). A Request carrying a difficulty ``Target`` runs
-the early-exiting ``NonceSearcher.search_until`` and echoes the target.
+Counterpart of the JAX package's ``apps/miner.py::MinerWorker`` (the
+reference worker's loop, ref: bitcoin/miner/miner.go): Join, then serve
+Requests — read, search, write the Result — and exit silently on
+transport errors like the reference (miner.go:40-44, 63-66). A Request
+carrying a difficulty ``Target`` runs the early-exiting
+``NonceSearcher.search_until`` and echoes the target.
 
-The search runs in a worker thread so the asyncio loop keeps serving LSP
+Two loops:
+
+- the pipelined executor (default): a reader task lands Requests in a
+  bounded queue; the loop starts chunk k+1's launches (``dispatch``, on a
+  worker thread) BEFORE forcing chunk k's result (``finalize``, on
+  another), and writes Results strictly in request order. With
+  coalescing on, consecutive small argmin chunks already queued (up to
+  ``coalesce_lanes``, each at most ``coalesce_max`` nonces) are drained
+  into ONE batched launch (``dispatch_batch``, the segment-min kernel)
+  and ONE fetch (``finalize_batch``), their Results written in drain
+  order. Difficulty chunks, empty ranges and searchers without the
+  two-phase API run blocking, in order;
+- the serial loop (``pipeline=False``): one blocking search per Request.
+
+Compute runs in worker threads so the asyncio loop keeps serving LSP
 heartbeats and acks while the card is busy.
 
 Bound parity: the received ``Upper`` is treated as INCLUSIVE even though the
@@ -16,10 +30,12 @@ scheduler computed it as an exclusive end — the reference miner does the same
 
 A search that fails (a kernel that does not build or launch, a device
 error) ends the miner: the scheduler sees the connection die and gives
-the chunk to another miner. It never answers from another device.
+the chunk to another miner. It never answers from another device or
+through another kernel.
 
 Usage: ``python -m distributed_bitcoinminer_tpu_torch.apps.miner
-<host:port> [--device cuda|cpu]`` (default ``cuda``).
+<host:port> [--device cuda|cpu]`` (default ``cuda``; ``DBMT_COALESCE=0``
+turns coalescing off).
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ from ..lsp.client import AsyncClient, new_async_client
 from ..lsp.errors import LspError
 from ..lsp.params import Params
 from ..ops import sha256_cuda
+from ..utils.config import CoalesceParams, coalesce_from_env
 
 logger = logging.getLogger("dbmt.miner")
 
@@ -48,20 +65,37 @@ def default_searcher_factory(data: str, device="cuda"):
 
 
 class MinerWorker:
-    """One miner process: joins the scheduler and serves search requests."""
+    """One miner process: joins the scheduler and serves search requests.
+
+    ``pipeline`` selects the overlapped executor (default) over the serial
+    loop, ``pipeline_depth`` bounds its Request queue; ``coalesce``,
+    ``coalesce_lanes`` and ``coalesce_max`` set the drain into batched
+    launches (defaults: the JAX package's, ``CoalesceParams``).
+    """
 
     # Searchers kept per message string; LRU-bounded so a stream of distinct
     # messages can't grow midstate caches without bound.
     SEARCHER_CACHE_SIZE = 4
 
     def __init__(self, hostport: str, params: Optional[Params] = None,
-                 searcher_factory: Callable = default_searcher_factory):
+                 searcher_factory: Callable = default_searcher_factory,
+                 pipeline: bool = True, pipeline_depth: int = 8,
+                 coalesce: bool = True,
+                 coalesce_lanes: int = CoalesceParams.lanes,
+                 coalesce_max: int = CoalesceParams.max_nonces):
         self.hostport = hostport
         self.params = params
         self.searcher_factory = searcher_factory
         self._searchers: OrderedDict[str, object] = OrderedDict()
         self.client: Optional[AsyncClient] = None
         self.jobs_done = 0
+        self.pipeline = pipeline
+        self.pipeline_depth = max(1, pipeline_depth)
+        self.coalesce = coalesce and coalesce_max > 0
+        self.coalesce_lanes = max(2, coalesce_lanes)
+        self.coalesce_max = coalesce_max
+        self.coalesced_dispatches = 0
+        self.coalesced_chunks = 0
 
     async def join(self) -> None:
         """Connect and send Join (ref: miner.go:24-34)."""
@@ -73,7 +107,10 @@ class MinerWorker:
         ref)."""
         if self.client is None:
             await self.join()
-        await self._run_serial()
+        if self.pipeline:
+            await self._run_pipelined()
+        else:
+            await self._run_serial()
 
     async def _run_serial(self) -> None:
         """The stock loop: read Request -> blocking search -> write
@@ -91,6 +128,211 @@ class MinerWorker:
                 continue
             if not await self._serve_blocking(msg):
                 return
+
+    async def _run_pipelined(self) -> None:
+        """The overlapped executor (see the module docstring). Each turn
+        takes the next Request (without waiting while a chunk is in
+        flight), drains the coalescible ones queued behind it, STARTS the
+        new launches on a worker thread, then forces the in-flight chunk
+        and writes its Result(s) before the new chunk can be forced, so
+        Results leave in request order."""
+        queue: asyncio.Queue = asyncio.Queue(maxsize=self.pipeline_depth)
+        stop, idle = object(), object()
+        client = self.client
+
+        async def reader():
+            while True:
+                try:
+                    payload = await client.read()
+                except LspError:
+                    await queue.put(stop)
+                    return
+                try:
+                    msg = Message.from_json(payload)
+                except ValueError:
+                    continue
+                if msg.type == MsgType.REQUEST:
+                    await queue.put(msg)
+
+        reader_task = asyncio.create_task(reader())
+        inflight = None   # (msg or [msgs], searcher, handle, t0, dispatch_s)
+        carry = None      # a drained Request that did not coalesce (or stop)
+        try:
+            while True:
+                if carry is not None:
+                    msg, carry = carry, None
+                elif inflight is None:
+                    msg = await queue.get()
+                else:
+                    try:
+                        msg = queue.get_nowait()
+                    except asyncio.QueueEmpty:
+                        msg = idle
+                if msg is stop:
+                    return   # transport died; nothing can be written
+                msgs = None
+                if self.coalesce and msg is not idle \
+                        and self._coalescible(msg):
+                    msgs = [msg]
+                    while len(msgs) < self.coalesce_lanes:
+                        try:
+                            nxt = queue.get_nowait()
+                        except asyncio.QueueEmpty:
+                            break
+                        if nxt is stop or not self._coalescible(nxt):
+                            carry = nxt
+                            break
+                        msgs.append(nxt)
+                    if len(msgs) == 1:
+                        msgs = None      # solo: the single-chunk path
+                dtask = t0 = None
+                if msgs is not None:
+                    t0 = time.monotonic()
+                    dtask = asyncio.create_task(asyncio.to_thread(
+                        self._resolve_and_dispatch_batch, msgs))
+                elif msg is not idle and msg.target == 0 \
+                        and msg.lower <= msg.upper:
+                    t0 = time.monotonic()
+                    dtask = asyncio.create_task(asyncio.to_thread(
+                        self._resolve_and_dispatch, msg))
+                if inflight is not None:
+                    fin = (self._finalize_and_reply_batch
+                           if isinstance(inflight[0], list)
+                           else self._finalize_and_reply)
+                    if not await fin(*inflight):
+                        if dtask is not None:
+                            # Reap the dispatch thread quietly (it cannot
+                            # be interrupted).
+                            dtask.cancel()
+                            dtask.add_done_callback(
+                                lambda t: t.cancelled() or t.exception())
+                        return
+                    inflight = None
+                if msg is idle:
+                    continue
+                if dtask is None:
+                    if not await self._serve_blocking(msg):
+                        return
+                    continue
+                try:
+                    searcher, handle, dispatch_s = await dtask
+                except Exception:
+                    await self._exit_broken(msgs[0] if msgs else msg)
+                    return
+                if handle is not None:
+                    inflight = (msgs or msg, searcher, handle, t0,
+                                dispatch_s)
+                elif msgs is not None:
+                    # The searchers cannot share a launch (decided before
+                    # any launch): serve the drained chunks one by one,
+                    # in drain order.
+                    for m in msgs:
+                        if not await self._serve_two_phase(m):
+                            return
+                elif not await self._serve_blocking(msg):
+                    return   # no two-phase API: blocking, in order
+        finally:
+            reader_task.cancel()
+
+    def _coalescible(self, msg) -> bool:
+        """May this Request share a batched launch? Argmin mode,
+        non-empty range, at most ``coalesce_max`` nonces."""
+        return (msg.target == 0 and msg.lower <= msg.upper
+                and msg.upper - msg.lower + 1 <= self.coalesce_max)
+
+    def _resolve_and_dispatch(self, msg):
+        """Worker-thread half of a two-phase chunk: resolve the searcher
+        and start its launches. Returns ``(searcher, handle,
+        dispatch_s)``; ``handle`` is None when the searcher has no
+        two-phase API."""
+        t0 = time.monotonic()
+        searcher = self._get_searcher(msg.data)
+        if hasattr(searcher, "dispatch") and hasattr(searcher, "finalize"):
+            handle = searcher.dispatch(msg.lower, msg.upper)
+            return searcher, handle, time.monotonic() - t0
+        return searcher, None, 0.0
+
+    async def _finalize_and_reply(self, msg, searcher, handle, t0: float,
+                                  dispatch_s: float) -> bool:
+        """Force a dispatched chunk's result and write its Result; False
+        ends the serve loop (transport death or broken compute)."""
+        t2 = time.monotonic()
+        try:
+            best_hash, best_nonce = await asyncio.to_thread(
+                searcher.finalize, handle, msg.lower)
+        except Exception:
+            await self._exit_broken(msg)
+            return False
+        busy_s = dispatch_s + (time.monotonic() - t2)
+        return self._reply(msg, best_hash, best_nonce, 0, t0, busy_s=busy_s)
+
+    def _resolve_and_dispatch_batch(self, msgs: list):
+        """Worker-thread half of a coalesced chunk set: resolve every
+        chunk's searcher and start ONE batched dispatch through the first
+        one's ``dispatch_batch``. Returns ``(searcher, handle,
+        dispatch_s)``; ``handle`` is None when the searchers cannot serve
+        a batch (no batch API, or they cannot share a launch)."""
+        t0 = time.monotonic()
+        searchers = [self._get_searcher(m.data) for m in msgs]
+        s0 = searchers[0]
+        if hasattr(s0, "dispatch_batch") and hasattr(s0, "finalize_batch"):
+            handle = s0.dispatch_batch(
+                [(s, m.lower, m.upper) for s, m in zip(searchers, msgs)])
+            if handle is not None:
+                return s0, handle, time.monotonic() - t0
+        return s0, None, 0.0
+
+    async def _finalize_and_reply_batch(self, msgs: list, searcher, handle,
+                                        t0: float, dispatch_s: float
+                                        ) -> bool:
+        """Force a coalesced dispatch with ONE fetch and write the
+        Results in request order; False ends the serve loop."""
+        t2 = time.monotonic()
+        try:
+            results = await asyncio.to_thread(searcher.finalize_batch,
+                                              handle)
+        except Exception:
+            await self._exit_broken(msgs[0])
+            return False
+        busy_s = dispatch_s + (time.monotonic() - t2)
+        return self._reply_batch(msgs, results, t0, busy_s)
+
+    def _reply_batch(self, msgs: list, results: list, t0: float,
+                     busy_s: float) -> bool:
+        """Write a shared launch's Results in request order; its busy
+        time is logged once for the whole launch."""
+        t1 = time.monotonic()
+        self.coalesced_dispatches += 1
+        self.coalesced_chunks += len(msgs)
+        for msg, (best_hash, best_nonce) in zip(msgs, results):
+            try:
+                self.client.write(
+                    new_result(best_hash, best_nonce, 0).to_json())
+            except LspError:
+                return False
+            self.jobs_done += 1
+        logger.info("served %d coalesced chunks (%s) in %.3fs, busy %.3fs",
+                    len(msgs), ", ".join(f"{m.data!r} [{m.lower}, "
+                                         f"{m.upper}]" for m in msgs),
+                    t1 - t0, busy_s)
+        logger.info("miner counts %s", json.dumps(self.counts()))
+        return True
+
+    async def _serve_two_phase(self, msg) -> bool:
+        """One chunk through the single-chunk two-phase path (blocking
+        when the searcher has no split); used for drained chunks whose
+        searchers could not share a launch."""
+        t0 = time.monotonic()
+        try:
+            searcher, handle, dispatch_s = await asyncio.to_thread(
+                self._resolve_and_dispatch, msg)
+        except Exception:
+            await self._exit_broken(msg)
+            return False
+        if handle is None:
+            return await self._serve_blocking(msg)
+        return await self._finalize_and_reply(msg, searcher, handle, t0,
+                                              dispatch_s)
 
     async def _serve_blocking(self, msg) -> bool:
         """One chunk through the blocking search; False ends the serve
@@ -116,23 +358,33 @@ class MinerWorker:
         await self.client.close()
 
     def counts(self) -> dict:
-        """Chunks served and CUDA kernel launches made by this process, by
-        the TPU kernel each replaces (K1 arg-min search, K2 difficulty
-        search, K6 the folds of the device-resident chain)."""
+        """Chunks served, batched launches and the chunks they served,
+        and CUDA kernel launches made by this process, by the
+        TPU kernel each replaces (K1 arg-min search, K2 difficulty
+        search, K5 the batched segment-min, K6 the folds of the
+        device-resident chain)."""
         return {"chunks": self.jobs_done,
+                "coalesced_dispatches": self.coalesced_dispatches,
+                "coalesced_chunks": self.coalesced_chunks,
                 "kernel_launches": dict(sha256_cuda.launches)}
 
     def _reply(self, msg, best_hash: int, best_nonce: int,
-               echo_target: int, t0: float) -> bool:
-        """Write the Result; False on transport death."""
+               echo_target: int, t0: float,
+               busy_s: Optional[float] = None) -> bool:
+        """Write the Result; False on transport death. ``busy_s`` (a
+        pipelined chunk's dispatch and finalize time, without its wait
+        behind the previous chunk) defaults to the wall time since
+        ``t0``."""
+        t1 = time.monotonic()
         try:
             self.client.write(
                 new_result(best_hash, best_nonce, echo_target).to_json())
         except LspError:
             return False
         self.jobs_done += 1
-        logger.info("served %r [%d, %d] in %.3fs", msg.data, msg.lower,
-                    msg.upper, time.monotonic() - t0)
+        logger.info("served %r [%d, %d] in %.3fs, busy %.3fs", msg.data,
+                    msg.lower, msg.upper, t1 - t0,
+                    t1 - t0 if busy_s is None else busy_s)
         logger.info("miner counts %s", json.dumps(self.counts()))
         return True
 
@@ -177,7 +429,8 @@ class MinerWorker:
 async def _run_miner(hostport: str, device: str) -> int:
     worker = MinerWorker(
         hostport, params=Params(),
-        searcher_factory=lambda data: default_searcher_factory(data, device))
+        searcher_factory=lambda data: default_searcher_factory(data, device),
+        coalesce=coalesce_from_env().enabled)
     try:
         try:
             await worker.join()
@@ -218,9 +471,9 @@ def main(argv=None) -> int:
 def warm_up(device) -> None:
     """Create the CUDA context, build (if needed) and load the kernels, and
     run both chains (arg-min and difficulty) once over the 6 blocks of
-    [0, 10^5) before joining, so the first request does not pay for any
-    of it. The launch counters restart at 0 afterwards: they count the
-    launches made serving requests."""
+    [0, 10^5) and one batched launch before joining, so the first request
+    does not pay for any of it. The launch counters restart at 0
+    afterwards: they count the launches made serving requests."""
     import torch
 
     from ..models import NonceSearcher
@@ -229,6 +482,9 @@ def warm_up(device) -> None:
     s = NonceSearcher("warm-up", device=device)
     s.search(0, 10 ** 5 - 1)
     s.search_until(0, 10 ** 5 - 1, 1)
+    # A batch with a 1-block and a 2-block tail: both K5 search kernels.
+    t = NonceSearcher("w" * 60, device=device)
+    s.finalize_batch(s.dispatch_batch([(s, 0, 999), (t, 10 ** 4, 10 ** 5)]))
     sha256_cuda.reset_launches()
     logger.info("device %s ready in %.3fs (%s)", device,
                 time.monotonic() - t0, torch.cuda.get_device_name(device))

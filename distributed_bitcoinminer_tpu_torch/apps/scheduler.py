@@ -1,19 +1,32 @@
 """The scheduler: shard nonce ranges over an elastic miner pool, merge argmins.
 
-The stock path of the JAX package's ``apps/scheduler.py``
+The request state machine of the JAX package's ``apps/scheduler.py``
 (itself the state machine of the reference coordinator, ref: bitcoin/
-server/server.go:19-403), written lean, with the reference's method
-names:
+server/server.go:19-403), with the reference's method names. The pool
+roster, pending FIFOs and coalescing windows live in
+:mod:`.miner_plane`; the per-tenant queue index in :mod:`.tenant_plane`;
+the deficit-round-robin state in :mod:`.qos`.
 
-- FIFO request queue, ONE request in flight at a time.
-- ``_load_balance``: bounds become exclusive (``upper += 1``); even split
-  ``total // num_miners`` with the remainder given to the FIRST miner; when
-  there are more miners than nonces, only ``total`` miners get 1-nonce chunks
-  (ref: server.go:165-205).
+- Stock FIFO dispatch (``QosParams(enabled=False)``): ONE request in
+  flight at a time. ``_load_balance`` makes bounds exclusive (``upper +=
+  1``) and splits ``total // num_miners`` with the remainder to the FIRST
+  miner; with more miners than nonces, only ``total`` miners get 1-nonce
+  chunks (ref: server.go:165-205).
 - Bound quirk preserved for bit parity: chunks are sent with EXCLUSIVE upper
   bounds but the miner treats ``Upper`` as inclusive (ref: miner.go:51-52),
   so each chunk scans one extra nonce and the system as a whole scans
   ``[0, maxNonce+1]``.
+- Fair-share QoS dispatch (default on): tenants are client conn ids. A
+  request estimated to scan longer than ``wholesale_s`` at the pool's
+  throughput, or one that starts while chunked work is in flight, is
+  CHUNKED and its chunks are granted one at a time by deficit-round-robin
+  across tenants, each miner holding at most ``depth`` live chunks. A
+  small request on an idle pool (and every request on a cold pool)
+  dispatches wholesale, exactly like the stock path, so single-tenant
+  traffic is bit-identical to it. Within one pump pass, small argmin
+  chunks of different requests may be granted into one miner's
+  COALESCING WINDOW: they share a ``coalesce_id``, count as one live
+  chunk, and the miner runs them as one batched launch.
 - Claim check: every Result is a claim; its hash is recomputed on the
   host with ``hash_op`` and its nonce must lie in the chunk. A failed
   claim is not merged and its range runs again on another miner.
@@ -23,9 +36,9 @@ names:
 - Miner drop: its unanswered chunks go to available miners, else they
   park; a parked chunk is re-issued when a miner joins or frees up
   (ref: server.go:326-376, 222-244, 285-304).
-- Client drop: its queued requests are purged and its in-flight request
-  is cancelled at once — miners are freed, parked chunks cleared, the
-  next queued request starts.
+- Client drop: its queued requests are purged and its in-flight requests
+  are cancelled at once — miners are freed, parked chunks cleared, the
+  next queued work starts.
 
 Difficulty merge: a Request carrying a ``Target`` is forwarded with the
 target on every chunk. Chunks cover ascending disjoint sub-ranges and each
@@ -37,53 +50,28 @@ chunk qualifies, the barrier answers the exact arg-min. A miner that
 answers without echoing the target (a stock miner) makes the merge weak:
 the answer is still qualifying when one exists, but not guaranteed first,
 and the scheduler logs it.
-
-Bookkeeping: every Request written to a miner pushes a chunk record onto
-that miner's pending FIFO; since miners answer in order over exactly-once
-LSP, each arriving Result pops exactly the chunk it answers, so stale
-Results are identified precisely and a dead miner's unanswered chunks are
-recovered one by one.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
 from ..bitcoin.hash import MAX_U64, hash_op
-from ..bitcoin.message import Message, MsgType, new_request, new_result
+from ..bitcoin.message import Message, MsgType, new_result
 from ..lsp.errors import LspError
 from ..lsp.server import AsyncServer
+from ..utils.config import (CoalesceParams, QosParams, coalesce_from_env,
+                            qos_from_env)
+from .miner_plane import Chunk, MinerPlane, MinerState
+from .qos import QosPlane
+from .tenant_plane import TenantQueue
 
 logger = logging.getLogger("dbmt.scheduler")
 
-
-@dataclass
-class Chunk:
-    job_id: int
-    data: str
-    lower: int
-    upper: int              # exclusive end, as sent on the wire
-    target: int = 0
-    idx: int = 0            # position in the request's ascending chunk order
-    # Set when the request retires: the chunk stays in the miner's pending
-    # FIFO (its Result must still pop in order) but no longer counts
-    # against the miner's availability.
-    cancelled: bool = False
-
-
-@dataclass
-class MinerState:
-    conn_id: int
-    pending: list = field(default_factory=list)
-
-    @property
-    def available(self) -> bool:
-        """A miner is available iff it has no live pending chunk."""
-        return not any(not c.cancelled for c in self.pending)
+__all__ = ["Chunk", "MinerState", "Request", "Scheduler"]
 
 
 @dataclass
@@ -91,7 +79,7 @@ class Request:
     conn_id: int
     data: str
     lower: int
-    upper: int              # inclusive on arrival; +1 at load_balance
+    upper: int              # inclusive on arrival; +1 at dispatch
     target: int = 0
     job_id: int = 0
     num_chunks: int = 0
@@ -104,22 +92,50 @@ class Request:
     chunk_q: dict = field(default_factory=dict)
     weak: bool = False
     started: float = 0.0
+    qkey: int = 0                  # tenant-queue index stamp
+    # QoS: "wholesale" (every chunk assigned at dispatch) or "chunked"
+    # (chunk plan held here, granted one chunk at a time).
+    qos_mode: str = ""
+    chunk_bounds: list = field(default_factory=list)  # chunked: [(lo, up)]
+    next_chunk: int = 0            # chunked: first ungranted idx
+    granted_chunks: int = 0
 
 
 class Scheduler:
-    """Single-actor scheduler over an :class:`AsyncServer`."""
+    """Single-actor scheduler over an :class:`AsyncServer`. ``qos`` and
+    ``coalesce`` default to the environment's (``DBMT_*`` knobs)."""
 
-    def __init__(self, server: AsyncServer):
+    def __init__(self, server: AsyncServer, qos: Optional[QosParams] = None,
+                 coalesce: Optional[CoalesceParams] = None):
         self.server = server
-        self.miners: list[MinerState] = []      # join order
-        self._by_conn: dict[int, MinerState] = {}
-        self.queue: deque[Request] = deque()
-        self.current: Optional[Request] = None  # the one request in flight
-        self.parked: list[Chunk] = []           # chunks of dropped miners
+        self.qos = qos if qos is not None else qos_from_env()
+        coalesce = coalesce if coalesce is not None else coalesce_from_env()
+        # In-flight requests by job id, oldest first. The stock FIFO path
+        # keeps at most one; the QoS plane runs several.
+        self._inflight: dict[int, Request] = {}
+        self._chunked_inflight = 0
+        self.queue = TenantQueue()
+        self.qos_plane = QosPlane()
+        self.miner_plane = MinerPlane(coalesce, write=self._write,
+                                      inflight=self._inflight)
         self._next_job_id = 0
         self._dispatching = False
         self.stats = {"results_sent": 0, "dup_results": 0,
-                      "claims_checked": 0, "claims_failed": 0}
+                      "claims_checked": 0, "claims_failed": 0,
+                      "qos_grants": 0, "qos_window_grants": 0}
+
+    @property
+    def current(self) -> Optional[Request]:
+        """The oldest in-flight request, or None."""
+        return next(iter(self._inflight.values()), None)
+
+    @property
+    def inflight(self) -> dict:
+        return dict(self._inflight)
+
+    @property
+    def miners(self) -> list:
+        return self.miner_plane.miners
 
     async def run(self) -> None:
         """Serve until the LSP server is closed."""
@@ -150,39 +166,32 @@ class Scheduler:
     # ---------------------------------------------------------------- events
 
     def _on_request(self, conn_id: int, msg: Message) -> None:
-        self.queue.append(Request(conn_id=conn_id, data=msg.data,
-                                  lower=msg.lower, upper=msg.upper,
-                                  target=msg.target))
+        if self.qos.enabled:
+            self.qos_plane.tenant(conn_id, self.qos.weight_for(conn_id))
+        self.queue.enqueue(Request(conn_id=conn_id, data=msg.data,
+                                   lower=msg.lower, upper=msg.upper,
+                                   target=msg.target))
         self._maybe_dispatch()
 
     def _on_join(self, conn_id: int, msg: Optional[Message] = None) -> None:
-        """A joining miner immediately absorbs one parked chunk, if any
-        (ref: server.go:222-244)."""
-        miner = MinerState(conn_id=conn_id)
-        chunk = self._next_parked()
-        if chunk is not None:
-            self._assign_chunk(miner, chunk)
-        self.miners.append(miner)
-        self._by_conn[conn_id] = miner
+        self.miner_plane.on_join(conn_id)
         self._maybe_dispatch()
 
     def _on_result(self, conn_id: int, msg: Message) -> None:
-        miner = self._by_conn.get(conn_id)
-        if miner is None or not miner.pending:
+        popped = self.miner_plane.pop_result(conn_id)
+        if popped is None:
             return
-        chunk = miner.pending.pop(0)   # the Result answers the oldest Request
-        # A freed miner absorbs one parked chunk (ref: server.go:285-304),
-        # before the stale check so a stale answer still frees it; the
-        # chunk this Result answers is not handed back.
-        if self.parked and miner.available:
-            parked = self._next_parked(skip_key=(chunk.job_id, chunk.idx))
-            if parked is not None:
-                self._assign_chunk(miner, parked)
-        curr = self.current
-        if curr is None or curr.job_id != chunk.job_id or chunk.cancelled:
-            return  # stale Result for a cancelled/finished request
+        miner, chunk = popped
+        curr = self._inflight.get(chunk.job_id)
+        if curr is None:
+            # Stale Result of a retired request; under QoS it freed a slot.
+            if self.qos.enabled:
+                self._maybe_dispatch()
+            return
         if curr.answered[chunk.idx]:
             self.stats["dup_results"] += 1
+            if self.qos.enabled:
+                self._maybe_dispatch()
             return
         if not self._claim_ok(curr, chunk, miner, msg):
             return
@@ -190,6 +199,8 @@ class Scheduler:
             curr.min_hash = msg.hash
             curr.min_nonce = msg.nonce
         curr.answered[chunk.idx] = True
+        if self.qos.enabled:
+            self.qos_plane.on_chunk_answered(curr.conn_id)
         if curr.target and msg.target != curr.target and not curr.weak:
             curr.weak = True
             logger.info(
@@ -212,6 +223,9 @@ class Scheduler:
             # Full barrier: an arg-min request, or a target missed
             # everywhere (the exact arg-min).
             self._finish(curr, curr.min_hash, curr.min_nonce)
+        elif self.qos.enabled:
+            # The answering miner freed a slot: grant the next chunk.
+            self._maybe_dispatch()
 
     def _claim_ok(self, curr: Request, chunk: Chunk, miner: MinerState,
                   msg: Message) -> bool:
@@ -234,40 +248,28 @@ class Scheduler:
                        msg.hash, msg.nonce, chunk.lower, chunk.upper)
         copy = Chunk(chunk.job_id, chunk.data, chunk.lower, chunk.upper,
                      target=chunk.target, idx=chunk.idx)
-        takeover = next((m for m in self._eligible() if m is not miner),
-                        None)
+        takeover = next((m for m in self.miner_plane.eligible()
+                         if m is not miner), None)
         if takeover is not None:
-            self._assign_chunk(takeover, copy)
+            self.miner_plane.assign_chunk(takeover, copy)
         else:
-            self.parked.append(copy)
+            self.miner_plane.parked.append(copy)
         return False
 
     def _on_drop(self, conn_id: int) -> None:
-        miner = self._by_conn.pop(conn_id, None)
+        miner = self.miner_plane.drop_miner(conn_id)
         if miner is not None:
             logger.info("miner %d dropped", conn_id)
-            self.miners.remove(miner)
-            self._recover(miner)
+            self.miner_plane.recover(miner)
             self._maybe_dispatch()
             return
         logger.info("client %d dropped", conn_id)
-        self.queue = deque(r for r in self.queue if r.conn_id != conn_id)
-        if self.current is not None and self.current.conn_id == conn_id:
-            self._retire(self.current)
-
-    def _recover(self, miner: MinerState) -> None:
-        """Hand every unanswered chunk of a dropped miner to an available
-        miner, else park it."""
-        curr = self.current
-        for chunk in miner.pending:
-            if curr is None or chunk.cancelled or chunk.job_id != curr.job_id \
-                    or curr.answered[chunk.idx]:
-                continue
-            takeover = next(iter(self._eligible()), None)
-            if takeover is not None:
-                self._assign_chunk(takeover, chunk)
-            else:
-                self.parked.append(chunk)
+        self.queue.purge_tenant(conn_id)
+        if self.qos.enabled:
+            self.qos_plane.forget(conn_id)
+        for req in [r for r in self._inflight.values()
+                    if r.conn_id == conn_id]:
+            self._retire(req)
 
     # --------------------------------------------------------------- dispatch
 
@@ -285,46 +287,56 @@ class Scheduler:
         self._retire(curr)
 
     def _retire(self, curr: Request) -> None:
-        """Retire the in-flight request: its pending chunks are marked
+        """Retire an in-flight request: its pending chunks are marked
         cancelled (their late Results pop as stale), its parked chunks
-        are dropped, and the queue is pumped."""
-        for m in self.miners:
-            for c in m.pending:
-                if c.job_id == curr.job_id:
-                    c.cancelled = True
-        self.parked = [c for c in self.parked if c.job_id != curr.job_id]
-        if self.current is curr:
-            self.current = None
+        are dropped, under QoS its tenant's granted-unanswered slots are
+        released (ungranted chunks simply evaporate), and the queue is
+        pumped."""
+        self.miner_plane.cancel_job(curr.job_id)
+        if self._inflight.pop(curr.job_id, None) is not None \
+                and curr.qos_mode == "chunked":
+            self._chunked_inflight -= 1
+        if self.qos.enabled:
+            self.qos_plane.release(
+                curr.conn_id, curr.granted_chunks - sum(curr.answered))
         self._maybe_dispatch()
 
     def _maybe_dispatch(self) -> None:
-        """Start queued work when the pool can take it. Re-entrancy guard:
-        an empty-range request finishes inside its own dispatch, and the
-        outer pump loop then drains the queue iteratively."""
+        """Start queued work when the pool can take it: the stock FIFO
+        pump or the QoS grant pump. Re-entrancy guard: an empty-range
+        request finishes inside its own dispatch, and the outer pump loop
+        then drains the queue iteratively."""
         if self._dispatching:
             return
         self._dispatching = True
         try:
-            self._fifo_pump()
+            if self.qos.enabled:
+                self._qos_pump()
+            else:
+                self._fifo_pump()
         finally:
             self._dispatching = False
 
     def _fifo_pump(self) -> None:
         """Pop the queue head whenever nothing is in flight."""
-        while self.current is None and self.queue:
-            pool = self._eligible()
+        while not self._inflight and len(self.queue):
+            pool = self.miner_plane.eligible()
             if not pool:
                 break
-            self._load_balance(self.queue.popleft(), pool)
+            self._load_balance(self.queue.pop_head(), pool)
+
+    def _start(self, req: Request, mode: str) -> None:
+        self._next_job_id += 1
+        req.job_id = self._next_job_id
+        req.qos_mode = mode
+        req.started = time.monotonic()
+        self._inflight[req.job_id] = req
+        req.upper += 1  # inclusive -> exclusive
 
     def _load_balance(self, request: Request, pool: list[MinerState]) -> None:
-        """Split the range evenly over ``pool``."""
-        self._next_job_id += 1
-        request.job_id = self._next_job_id
-        request.started = time.monotonic()
-        self.current = request
+        """Wholesale dispatch: split the range evenly over ``pool``."""
+        self._start(request, "wholesale")
         num = len(pool)
-        request.upper += 1  # inclusive -> exclusive
         total = request.upper - request.lower
         if total <= 0:
             # Empty/inverted range: answer like an empty scan.
@@ -334,38 +346,218 @@ class Scheduler:
         leftover = total - individual * num
         if individual == 0:  # more miners than nonces
             individual, leftover, num = 1, 0, total
-        request.num_chunks = num
+        request.num_chunks = request.granted_chunks = num
         request.answered = [False] * num
         start = request.lower
+        bounds = []
         for idx in range(num):
             end = start + individual + (leftover if idx == 0 else 0)
-            self._assign_chunk(pool[idx], Chunk(
-                request.job_id, request.data, start, end,
-                target=request.target, idx=idx))
+            bounds.append((start, end))
             start = end
+        if self.qos.enabled:
+            # Wholesale chunks count against the tenant's share like
+            # granted ones, so later contended rounds stay fair.
+            for lo, up in bounds:
+                self.qos_plane.on_grant(request.conn_id, up - lo)
+        for idx, (lo, up) in enumerate(bounds):
+            self.miner_plane.assign_chunk(pool[idx], Chunk(
+                request.job_id, request.data, lo, up,
+                target=request.target, idx=idx))
+
+    # ------------------------------------------------------------ QoS plane
+
+    @staticmethod
+    def _qos_is_small(total: int, cold: bool, bound: float) -> bool:
+        """THE wholesale-smallness predicate, shared by head pricing, pump
+        candidacy and the dispatch decision: empty ranges and cold pools
+        are small; otherwise one comparison against the hoisted bound."""
+        return total <= 0 or cold or total <= bound
+
+    def _qos_small_bound(self):
+        """``(cold, bound_nonces)``: the pool is cold until a throughput
+        sample exists; otherwise a request is small when it fits
+        ``wholesale_s`` at the pool rate times the miners it would use."""
+        mp = self.miner_plane
+        rate = mp.pool_rate
+        if rate is None or rate <= 0:
+            return True, 0.0
+        n = max(1, len(mp.eligible()) or len(mp.miners) or 1)
+        return False, self.qos.wholesale_s * rate * n
+
+    def _qos_chunk_plan(self, total: int, pool_n: int) -> tuple[int, int]:
+        """``(n_chunks, first_chunk_size)`` for a chunked activation of
+        ``total`` nonces: chunks of ``chunk_s`` seconds at the pool rate,
+        at most ``max_chunks``; an even split over ``pool_n`` when cold.
+        Shared by the activation and the DRR head cost, which must agree."""
+        rate = self.miner_plane.pool_rate or 0.0
+        if rate > 0:
+            n = -(-total // max(1, int(rate * self.qos.chunk_s)))
+        else:
+            n = max(1, pool_n)
+        n = max(1, min(self.qos.max_chunks, n, total))
+        return n, total // n + (1 if total % n else 0)
+
+    def _qos_heads(self) -> dict:
+        """Each tenant's next grantable item: ``{tenant: (kind, request,
+        cost_nonces)}``. ``"chunk"``: the next ungranted chunk of the
+        tenant's oldest chunked in-flight request. ``"start"``: the
+        tenant's oldest queued request (tenants serve their own requests
+        FIFO), withheld while a WHOLESALE request is in flight (the stock
+        one-at-a-time order) or while the tenant has a request in flight.
+        Tenants at their ``max_inflight`` cap are skipped."""
+        heads: dict = {}
+        cap = self.qos.max_inflight
+        tenants = self.qos_plane.tenants
+        for req in self._inflight.values():     # oldest first
+            if req.qos_mode != "chunked" or req.next_chunk >= req.num_chunks:
+                continue
+            t = req.conn_id
+            if t in heads:
+                continue
+            if cap > 0 and self.qos_plane.tenant(t).inflight >= cap:
+                continue
+            lo, up = req.chunk_bounds[req.next_chunk]
+            heads[t] = ("chunk", req, up - lo)
+        if self._inflight and not self._chunked_inflight:
+            return heads        # wholesale in flight: stock FIFO wait
+        cold, small_bound = self._qos_small_bound()
+        none_inflight = not self._inflight
+        pool_n = len(self.miner_plane.miners) or 1
+        busy = {r.conn_id for r in self._inflight.values()}
+        for t, req in self.queue.tenant_heads():
+            if t in heads or t in busy:
+                continue
+            st = tenants.get(t)
+            if cap > 0 and st is not None and st.inflight >= cap:
+                continue
+            # The cost is what granting it will debit: the whole range
+            # for a wholesale start, the first planned chunk for a
+            # chunked one.
+            total = req.upper - req.lower + 1
+            if none_inflight and self._qos_is_small(total, cold,
+                                                    small_bound):
+                cost = max(1, total)
+            else:
+                _, cost = self._qos_chunk_plan(max(1, total), pool_n)
+            heads[t] = ("start", req, cost)
+        return heads
+
+    def _qos_pump(self) -> None:
+        """The QoS grant loop: while grantable work and capacity exist,
+        pick the next tenant by DRR and execute ONE grant — a chunk, a
+        chunked activation, or a stock wholesale dispatch.
+
+        The pass carries a coalescing-window map (miner conn id ->
+        ``[coalesce_id, lanes_used, {job_ids}]``): a small grant may land
+        in an open window even when the capacity pool is empty (the
+        window counts as one live slot however many lanes it holds),
+        which is what batches several tenants' mice onto one miner in one
+        pass. Windows live for ONE pass."""
+        mp = self.miner_plane
+        if self._inflight and not self._chunked_inflight:
+            return      # wholesale in flight: no start may flow
+        if not len(self.queue) and not self._chunked_inflight:
+            return
+        backlogged = list(dict.fromkeys(
+            self.queue.backlog_tenants()
+            + [r.conn_id for r in self._inflight.values()
+               if r.qos_mode == "chunked" and r.next_chunk < r.num_chunks]))
+        self.qos_plane.sync_backlog(backlogged)
+        if not backlogged:
+            return
+        if not mp.capacity_pool(self.qos.depth) and \
+                (self._inflight or not mp.eligible()):
+            return     # saturated: nothing grantable this event
+        window: dict = {}
+        while True:
+            heads = self._qos_heads()
+            if not heads:
+                break
+            cap_pool = mp.capacity_pool(self.qos.depth)
+            cold, small_bound = self._qos_small_bound()
+            none_inflight = not self._inflight
+            can_start = bool(mp.eligible())
+            candidates = {}
+            for t, (kind, req, cost) in heads.items():
+                joinable = (mp.window_room(window, req.job_id)
+                            and mp.coalescible_cost(req.target, cost))
+                if kind == "start" and none_inflight and self._qos_is_small(
+                        req.upper - req.lower + 1, cold, small_bound):
+                    if can_start:      # wholesale: the stock eligibility
+                        candidates[t] = cost
+                elif cap_pool or joinable:
+                    candidates[t] = cost
+            if not candidates:
+                break
+            kind, req, cost = heads[self.qos_plane.pick(candidates)]
+            if kind == "chunk":
+                self._qos_grant(req, cap_pool, window)
+                continue
+            self.queue.dequeue(req)
+            if not self._inflight and self._qos_is_small(
+                    req.upper - req.lower + 1, cold, small_bound):
+                self._load_balance(req, mp.eligible())
+            else:
+                self._qos_activate(req, cap_pool, window)
+
+    def _qos_activate(self, req: Request, pool: list[MinerState],
+                      window: dict) -> None:
+        """Activate a request in CHUNKED mode: plan contiguous ascending
+        chunks (:meth:`_qos_chunk_plan`, cold fallback over the whole
+        pool) and grant the first; later pump turns grant the rest, so
+        concurrent tenants' chunks interleave."""
+        self._start(req, "chunked")
+        self._chunked_inflight += 1
+        total = req.upper - req.lower
+        if total <= 0:
+            self._finish(req, MAX_U64, 0)
+            return
+        n, _ = self._qos_chunk_plan(total, len(self.miner_plane.miners) or 1)
+        size, rem = divmod(total, n)
+        base = req.lower
+        for i in range(n):
+            step = size + (1 if i < rem else 0)
+            req.chunk_bounds.append((base, base + step))
+            base += step
+        req.num_chunks = n
+        req.answered = [False] * n
+        self._qos_grant(req, pool, window)
+
+    def _qos_grant(self, req: Request, pool: list[MinerState],
+                   window: dict) -> None:
+        """Hand the request's next planned chunk to a miner and account
+        it with the DRR plane. A small chunk first joins an open window
+        (sharing its coalesce id); else it goes to the least-loaded
+        capacity miner and, still small, opens a window there for later
+        grants of this pass. Large or difficulty chunks never touch
+        windows."""
+        mp = self.miner_plane
+        idx = req.next_chunk
+        lo, up = req.chunk_bounds[idx]
+        miner = cid = None
+        small = mp.coalescible_cost(req.target, up - lo)
+        if small and window:
+            miner, slot = mp.window_slot(window, req.job_id)
+            if miner is not None:
+                cid = slot[0]
+                slot[1] += 1
+                slot[2].add(req.job_id)
+                self.stats["qos_window_grants"] += 1
+        if miner is None:
+            if not pool:
+                return    # window gone and no capacity: next pump turn
+            miner = pool[0]
+            if small and miner.conn_id not in window:
+                cid = mp.open_window(window, miner, req.job_id)
+        req.next_chunk += 1
+        req.granted_chunks += 1
+        self.stats["qos_grants"] += 1
+        self.qos_plane.on_grant(req.conn_id, up - lo)
+        mp.assign_chunk(miner, Chunk(req.job_id, req.data, lo, up,
+                                     target=req.target, idx=idx,
+                                     coalesce_id=cid))
 
     # ---------------------------------------------------------------- helpers
-
-    def _eligible(self) -> list[MinerState]:
-        return [m for m in self.miners if m.available]
-
-    def _next_parked(self, skip_key=None) -> Optional[Chunk]:
-        """Pop the next parked chunk that still needs executing."""
-        while self.parked:
-            chunk = self.parked.pop(0)
-            curr = self.current
-            if curr is None or curr.job_id != chunk.job_id \
-                    or curr.answered[chunk.idx] \
-                    or (chunk.job_id, chunk.idx) == skip_key:
-                continue
-            return chunk
-        return None
-
-    def _assign_chunk(self, miner: MinerState, chunk: Chunk) -> None:
-        chunk.cancelled = False
-        miner.pending.append(chunk)
-        self._write(miner.conn_id, new_request(chunk.data, chunk.lower,
-                                               chunk.upper, chunk.target))
 
     def _write(self, conn_id: int, msg: Message) -> None:
         try:

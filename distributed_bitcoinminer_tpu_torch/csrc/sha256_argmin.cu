@@ -1,7 +1,8 @@
 // SHA-256 nonce search over one aligned 10^k nonce block, hand-written for
 // Hopper: the arg-min kernel (K1), the difficulty-target kernel with its
-// early exit (K2), and the device-resident chain that folds each block's
-// winner into a carry on the card (K6).
+// early exit (K2), the batched segment-min over many rows (K5), and the
+// device-resident chain that folds each block's winner into a carry on the
+// card (K6).
 //
 // K1 replaces the TPU kernel of the JAX package, ops/sha256_pallas.py::
 // pallas_search_span (the rolled _kernel_body, not-peel branch), and its
@@ -20,6 +21,24 @@
 // read only when found is 0, since after a hit the lanes a thread skips
 // depend on timing.
 //
+// K5 replaces ops/sha256_pallas.py::pallas_search_span_batch (via
+// pallas_segmin), the batched segment-min of cross-request coalescing: R
+// rows, each K1's search over its own plan (message, digit class, window),
+// reduced to the lexicographic (hi, lo, idx) minimum per SEGMENT, segments
+// being contiguous runs of rows (a segment id per row, sorted ascending).
+// The TPU entry runs one kernel per row and combines the rows in jnp; here
+// it is one search launch over every row of a tail-block count (NB is a
+// template parameter, so a batch is at most two search launches) plus one
+// segment-reduce launch. Rows differ in rem, k and lane count, which are
+// run-time fields of the plan. Ragged rows: each row gets a share of the
+// launch's blocks (the host's block table, proportional to its valid
+// lanes), and its blocks grid-stride over the row's valid lanes only. The
+// R x 49-word plan table lies in device memory (one copy per batch); a
+// block copies its row's plan into shared memory once. A block writes one
+// partial key; the reduce gives each segment one block, which reduces the
+// partials of the segment's rows. No atomics; an empty segment, or one
+// whose rows have no valid lane, comes out as the all-ones sentinel.
+//
 // K6 replaces the single-device entries of the TPU devloop
 // (_pallas_devloop_span_jit, _pallas_devloop_until_jit): the K1 or K2
 // search, with a reduce that folds the block's winner into a carry of 5
@@ -36,7 +55,8 @@
 // plan travels by value as a kernel parameter, the round constants sit in
 // the constant bank) and a block writes 12 bytes, so the work is the ~2,000
 // to ~4,000 integer instructions of one or two compressions per lane. K2
-// adds a compare and one volatile load per lane.
+// adds a compare and one volatile load per lane. K5 reads its row's plan
+// from shared memory instead of the parameter bank.
 //
 // Design. The TPU grid runs its steps in order and carries accumulators from
 // step to step; GPU blocks run in parallel in no order. So each thread walks
@@ -393,6 +413,90 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// K5's search: the blocks of one NB group. Block b serves row
+// group_rows[g] for the g with group_blk[g] <= b < group_blk[g + 1]
+// (group_blk ascends strictly: a row without a block is not in the group),
+// as block b - group_blk[g] of that row's group_blk[g + 1] - group_blk[g],
+// and writes its partial at slot part_base + b.
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+    sha256_segmin_kernel(const uint32_t* __restrict__ plans,
+                         const int* __restrict__ group_rows,
+                         const int* __restrict__ group_blk, int group_n,
+                         int part_base, uint32_t* __restrict__ partials) {
+  __shared__ Plan sp;
+  __shared__ int s_row, s_local, s_nblk;
+  if (threadIdx.x == 0) {
+    int lo = 0, hi = group_n - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (group_blk[mid] <= static_cast<int>(blockIdx.x)) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    s_row = group_rows[lo];
+    s_local = static_cast<int>(blockIdx.x) - group_blk[lo];
+    s_nblk = group_blk[lo + 1] - group_blk[lo];
+  }
+  __syncthreads();
+  const uint32_t* src = plans + 49 * s_row;
+  uint32_t* dst = reinterpret_cast<uint32_t*>(&sp);
+  for (int w = threadIdx.x; w < 49; w += blockDim.x) dst[w] = src[w];
+  __syncthreads();
+  // The row's valid lanes [first, last]; the launcher keeps i0 + n - 1
+  // within 32 bits and n <= 2^31, so the offset j never wraps.
+  const uint32_t first = max(sp.lo_i, sp.i0);
+  const uint32_t last = min(sp.hi_i, sp.i0 + sp.n - 1u);
+  Key best = sentinel();
+  if (first <= last) {
+    const uint32_t s = sp.rem & 3u;
+    const int a = static_cast<int>(sp.rem >> 2);
+    const uint32_t stride = static_cast<uint32_t>(s_nblk) * blockDim.x;
+    for (uint32_t j = static_cast<uint32_t>(s_local) * blockDim.x +
+                      threadIdx.x;
+         j <= last - first; j += stride) {
+      const Key cand = lane_key<NB>(sp, first + j, s, a);
+      if (key_less(cand, best)) best = cand;
+    }
+  }
+  best = block_min(best);
+  if (threadIdx.x == 0) {
+    const int q = part_base + static_cast<int>(blockIdx.x);
+    partials[3 * q + 0] = best.hi;
+    partials[3 * q + 1] = best.lo;
+    partials[3 * q + 2] = best.idx;
+  }
+}
+
+// K5's reduce: block s walks the partial slots [pstart[r], pstart[r] +
+// pcount[r]) of the rows r in [seg_rows[s], seg_rows[s + 1]); out is the
+// (3, nsegs) words seg_hi, seg_lo, seg_idx.
+__global__ void __launch_bounds__(kThreads)
+    segmin_reduce_kernel(const int* __restrict__ seg_rows,
+                         const int* __restrict__ pstart,
+                         const int* __restrict__ pcount,
+                         const uint32_t* __restrict__ partials, int nsegs,
+                         uint32_t* __restrict__ out) {
+  const int s = blockIdx.x;
+  Key best = sentinel();
+  for (int r = seg_rows[s]; r < seg_rows[s + 1]; ++r) {
+    for (int b = threadIdx.x; b < pcount[r]; b += blockDim.x) {
+      const int q = pstart[r] + b;
+      const Key c{partials[3 * q + 0], partials[3 * q + 1],
+                  partials[3 * q + 2]};
+      if (key_less(c, best)) best = c;
+    }
+  }
+  best = block_min(best);
+  if (threadIdx.x == 0) {
+    out[s] = best.hi;
+    out[nsegs + s] = best.lo;
+    out[2 * nsegs + s] = best.idx;
+  }
+}
+
 bool plan_ok(const Plan& p, int grid) {
   return grid > 0 && grid <= (1 << 20) && p.n <= (1u << 31) &&
          (p.nblocks == 1u || p.nblocks == 2u) && p.k >= 1u && p.k <= 9u &&
@@ -458,6 +562,53 @@ int dbmt_sha256_argmin_blocks_per_sm(int nblocks) {
 int dbmt_sha256_until_blocks_per_sm(int nblocks) {
   return nblocks == 2 ? blocks_per_sm(sha256_until_kernel<2, false>)
                       : blocks_per_sm(sha256_until_kernel<1, false>);
+}
+
+// Resident K5 search blocks per SM for a tail of nblocks blocks.
+int dbmt_sha256_segmin_blocks_per_sm(int nblocks) {
+  return nblocks == 2 ? blocks_per_sm(sha256_segmin_kernel<2>)
+                      : blocks_per_sm(sha256_segmin_kernel<1>);
+}
+
+// K5: `table` is one device buffer of int32 words, in this order: the
+// nrows x 49-word plans; pstart[nrows] and pcount[nrows], each row's
+// partial slots; seg_rows[nsegs + 1]; then for the 1-block group its
+// rows[n1] and block prefix[n1 + 1] (grid1 = prefix[n1] blocks), and the
+// same for the 2-block group (n2, grid2). partials: 3 * (grid1 + grid2)
+// device words, the 1-block group's slots first; out: 3 * nsegs device
+// words. Enqueues the search launch of each non-empty group and the
+// reduce on `stream`; returns the first cudaGetLastError() that is not 0.
+int dbmt_sha256_segmin(const int* table, int nrows, int nsegs, int n1,
+                       int grid1, int n2, int grid2, uint32_t* partials,
+                       uint32_t* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nrows <= 0 || nsegs <= 0 || n1 < 0 || n2 < 0 || grid1 < 0 ||
+      grid2 < 0 || grid1 + grid2 > (1 << 21)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint32_t* plans = reinterpret_cast<const uint32_t*>(table);
+  const int* pstart = table + 49 * nrows;
+  const int* pcount = pstart + nrows;
+  const int* seg_rows = pcount + nrows;
+  const int* g1_rows = seg_rows + nsegs + 1;
+  const int* g1_blk = g1_rows + n1;
+  const int* g2_rows = g1_blk + n1 + 1;
+  const int* g2_blk = g2_rows + n2;
+  if (n1 > 0 && grid1 > 0) {
+    sha256_segmin_kernel<1><<<grid1, kThreads, 0, s>>>(plans, g1_rows, g1_blk,
+                                                       n1, 0, partials);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  if (n2 > 0 && grid2 > 0) {
+    sha256_segmin_kernel<2><<<grid2, kThreads, 0, s>>>(plans, g2_rows, g2_blk,
+                                                       n2, grid1, partials);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  segmin_reduce_kernel<<<nsegs, kThreads, 0, s>>>(seg_rows, pstart, pcount,
+                                                  partials, nsegs, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Every entry below takes plan_words, 49 host uint32 words (the Plan

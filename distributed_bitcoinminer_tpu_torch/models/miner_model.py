@@ -13,6 +13,11 @@ range is scaled by:
    device until the span ends, so a span costs one small fetch however
    many blocks it holds.
 
+Batched dispatch (:meth:`NonceSearcher.dispatch_batch`) serves many
+argmin jobs, possibly of different messages, in one launch of the
+segment-min kernel: a row per (job, 10^k block), a segment per row, and
+one fetch for the whole batch (:meth:`NonceSearcher.finalize_batch`).
+
 Difficulty mode (:meth:`NonceSearcher.search_until`) returns the FIRST
 nonce whose hash is below a target, or the exact arg-min when none is:
 the same chain with the early-exiting launch, whose launches after the
@@ -29,11 +34,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..bitcoin.hash import hash_op
+from ..bitcoin.hash import MAX_U64, hash_op
 from ..ops import searchop
-from ..ops.search import devloop_carry, devloop_span, devloop_span_until
+from ..ops.search import (devloop_carry, devloop_span, devloop_span_until,
+                          span_segmin)
 from ..ops.sha256_host import sha256_midstate
 from ..ops.sha256_torch import M32, build_tail_template
+
+
+#: Row cap per batched launch: a batch with more rows splits into several
+#: launches (the JAX package's _BATCH_ROWS_MAX; 8 mice of 10^6 nonces are
+#: 56 rows).
+BATCH_ROWS_MAX = 64
 
 
 def _digit_classes(lower: int, upper: int):
@@ -91,8 +103,9 @@ class NonceSearcher:
         self.grid = grid
         self._prefix = data.encode("utf-8") + b" "
         self._midstate_cache: dict[tuple, tuple] = {}
-        #: Block searches dispatched by this searcher: one per aligned 10^k
-        #: block (on ``cuda``, one kernel wrapper call).
+        #: Searches dispatched by this searcher: one per aligned 10^k block,
+        #: and one per batched launch it made for :meth:`dispatch_batch`
+        #: (on ``cuda``, one kernel wrapper call each).
         self.device_launches = 0
 
     def _plan_block(self, d: int, k: int, block_base: int, lo: int,
@@ -147,6 +160,77 @@ class NonceSearcher:
     def search(self, lower: int, upper: int) -> tuple[int, int]:
         """Exact (min_hash, argmin_nonce) over the inclusive range."""
         return self.finalize(self.dispatch(lower, upper), lower)
+
+    # ------------------------------------------------------ batched dispatch
+
+    def coalesce_key(self) -> tuple:
+        """Searchers with equal keys may share a batched launch."""
+        return (type(self), self.device, self.grid)
+
+    def dispatch_batch(self, entries: list):
+        """Launch MANY independent argmin jobs ``[(searcher, lower,
+        upper), ...]``, possibly of different messages, without forcing
+        results: every job's aligned 10^k blocks become rows of the
+        segment-min search (one segment per ``(job, block)``), at most
+        :data:`BATCH_ROWS_MAX` rows per launch. ``self`` is the searcher
+        the caller dispatches through.
+
+        Returns the handle for :meth:`finalize_batch`, or None when the
+        searchers cannot share a launch (another type, device or grid);
+        that is decided before anything is launched. Raises on an empty
+        range. Each answer is bit-identical to that searcher's own
+        :meth:`search`."""
+        key0 = self.coalesce_key()
+        for s, lower, upper in entries:
+            if not isinstance(s, NonceSearcher) or s.coalesce_key() != key0:
+                return None
+            if lower > upper:
+                raise ValueError("empty range")
+        rows = [(ei, plan) for ei, (s, lower, upper) in enumerate(entries)
+                for plan in s.plan(lower, upper)]
+        launches = [self._launch_rows(rows[at:at + BATCH_ROWS_MAX])
+                    for at in range(0, len(rows), BATCH_ROWS_MAX)]
+        return len(entries), [lower for _, lower, _ in entries], launches
+
+    def _launch_rows(self, rows: list):
+        """One batched launch over ``[(entry_index, plan), ...]``; segment
+        ids ascend with row order. Returns ``(seg_meta, device_words)``,
+        ``seg_meta[sid] = (entry_index, block base)``."""
+        seg_meta, seg_ids, segs = [], {}, []
+        for ei, plan in rows:
+            sid = seg_ids.setdefault((ei, plan.base), len(seg_meta))
+            if sid == len(seg_meta):
+                seg_meta.append((ei, plan.base))
+            segs.append(sid)
+        self.device_launches += 1
+        words = span_segmin(
+            [(p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes, p.rem,
+              p.k) for _, p in rows], segs, device=self.device,
+            grid=self.grid)
+        return seg_meta, words
+
+    def finalize_batch(self, handle) -> list:
+        """Force a batched dispatch with ONE device fetch and merge each
+        job's segments on the host under the lexicographic ``(hash,
+        nonce)`` minimum (the earliest nonce wins a tie). Returns one
+        ``(min_hash, argmin_nonce)`` per entry, in entry order; a job
+        without a valid lane answers the all-ones hash at its lower
+        bound, like :meth:`finalize`."""
+        n_entries, lowers, launches = handle
+        cands: list[list] = [[] for _ in range(n_entries)]
+        if launches:
+            fetched = torch.cat([w for _, w in launches], dim=1).cpu()
+            hi_w, lo_w, idx_w = fetched.tolist()
+            col = 0
+            for seg_meta, _ in launches:
+                for ei, base in seg_meta:
+                    hi, lo, idx = (hi_w[col] & M32, lo_w[col] & M32,
+                                   idx_w[col] & M32)
+                    col += 1
+                    if (hi, lo, idx) != (M32, M32, M32):
+                        cands[ei].append(((hi << 32) | lo, base + idx))
+        return [min(c) if c else (MAX_U64, lowers[ei])
+                for ei, c in enumerate(cands)]
 
     # ------------------------------------------------------ difficulty mode
 

@@ -11,6 +11,11 @@ Counterpart of the JAX package's ``ops/search.py``:
   the same lanes walked in ascending order up to the first one whose hash
   is below a 64-bit target; ``(found, f_idx, best_hi, best_lo,
   best_idx)``.
+- :func:`span_segmin_scan` / :func:`span_segmin` (``search_span_segmin``):
+  many rows, each a :func:`span_scan` over its own plan (rows may hold
+  different messages, digit classes and lane counts), reduced to the
+  lexicographic minimum per segment (:func:`segmin_rows`), for batched
+  dispatch across requests.
 - :func:`devloop_span` / :func:`devloop_span_until` (``devloop_span`` /
   ``devloop_span_until``): one block of a span's chain, its result folded
   into an ``ops.searchop`` carry that stays on the device until the span
@@ -129,6 +134,59 @@ def span_until(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
     if device.type == "cpu":
         return span_until_scan(midstate, template, i0, lo_i, hi_i, n,
                                t_hi, t_lo, rem=rem, k=k, device=device)
+    raise ValueError(f"no span scan for device {device}")
+
+
+def segmin_rows(hi: torch.Tensor, lo: torch.Tensor, idx: torch.Tensor,
+                seg, num_segments: int):
+    """Per-segment lexicographic ``(hi, lo, idx)`` minimum over row
+    vectors (int64 words, masked to 32 bits); ``seg`` maps each row to
+    its segment, ascending. Three passes: min hi, then min lo among the
+    hi-ties, then min idx among the (hi, lo)-ties, so the lowest nonce
+    wins a tie, and a segment without a row, or whose rows are all the
+    sentinel, comes out as ``(MAX, MAX, MAX)``. Returns
+    ``(seg_hi, seg_lo, seg_idx)``, each of ``num_segments`` words."""
+    seg = torch.as_tensor(seg, dtype=torch.int64, device=hi.device)
+    full = torch.full((num_segments,), M32, dtype=torch.int64,
+                      device=hi.device)
+
+    def seg_min(v):
+        return full.scatter_reduce(0, seg, v, reduce="amin")
+    seg_hi = seg_min(hi)
+    on_hi = hi == seg_hi[seg]
+    seg_lo = seg_min(torch.where(on_hi, lo, M32))
+    on_both = on_hi & (lo == seg_lo[seg])
+    seg_idx = seg_min(torch.where(on_both, idx, M32))
+    return seg_hi, seg_lo, seg_idx
+
+
+def span_segmin_scan(rows, seg, num_segments: int | None = None, *,
+                     device, chunk: int | None = None) -> torch.Tensor:
+    """Plain version of K5: each row ``(midstate, template, i0, lo_i,
+    hi_i, n, rem, k)`` through :func:`span_scan`, then
+    :func:`segmin_rows` over ``seg`` (default ``seg[-1] + 1`` segments).
+    Returns a (3, S) int64 tensor on ``device``: seg_hi, seg_lo,
+    seg_idx."""
+    seg = [int(x) for x in seg]
+    num_segments = seg[-1] + 1 if num_segments is None else num_segments
+    triples = torch.stack([
+        span_scan(mid, tmpl, i0, lo_i, hi_i, n, rem=rem, k=k, device=device,
+                  chunk=chunk)
+        for mid, tmpl, i0, lo_i, hi_i, n, rem, k in rows])
+    return torch.stack(segmin_rows(triples[:, 0], triples[:, 1],
+                                   triples[:, 2], seg, num_segments))
+
+
+def span_segmin(rows, seg, *, device, grid: int | None = None
+                ) -> torch.Tensor:
+    """The rows' per-segment ``(seg_hi, seg_lo, seg_idx)`` as a (3, S)
+    tensor on ``device`` (int32 words from K5, int64 from the plain scan;
+    mask with ``& 0xFFFFFFFF`` on the host). Does not synchronise."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return sha256_cuda.sha256_segmin(rows, seg, device=device, grid=grid)
+    if device.type == "cpu":
+        return span_segmin_scan(rows, seg, device=device)
     raise ValueError(f"no span scan for device {device}")
 
 

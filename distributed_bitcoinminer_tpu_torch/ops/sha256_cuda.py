@@ -11,6 +11,9 @@ take CUDA tensors only: there is no fallback here.
   ``ops.search.span_scan``.
 - :func:`sha256_until` (K2) replaces ``pallas_search_span_until``; its
   plain version is ``ops.search.span_until_scan``.
+- :func:`sha256_segmin` (K5) replaces ``pallas_search_span_batch`` (via
+  ``pallas_segmin``), the batched segment-min of coalesced launches; its
+  plain version is ``ops.search.span_segmin_scan``.
 - :func:`sha256_argmin_fold` and :func:`sha256_until_fold` (K6) replace
   the single-device devloop entries ``_pallas_devloop_span_jit`` and
   ``_pallas_devloop_until_jit``; their plain versions are the scans above
@@ -46,7 +49,9 @@ M32 = 0xFFFFFFFF
 #: reduce of its partials: K1's search counts under K1, K2's (plain or
 #: chained) under K2, and each reduce under its own wrapper's kernel, so a
 #: K6 call counts one search launch (K1 or K2) and one fold launch (K6).
-launches = {"K1": 0, "K2": 0, "K6": 0}
+#: A K5 call counts each kernel it launches: one search launch per tail
+#: block count among its rows and the segment reduce.
+launches = {"K1": 0, "K2": 0, "K5": 0, "K6": 0}
 #: The last build's facts: seconds, nvcc's ptxas report, whether it ran.
 build_info: dict = {}
 
@@ -61,6 +66,8 @@ _ENTRIES = {
     "dbmt_sha256_argmin_blocks_per_sm": [_I],
     "dbmt_sha256_until_blocks_per_sm": [_I],
     "dbmt_sha256_argmin_threads": [],
+    "dbmt_sha256_segmin": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "dbmt_sha256_segmin_blocks_per_sm": [_I],
 }
 
 
@@ -131,11 +138,13 @@ def load():
 
 
 def default_grid(device: torch.device, nblocks: int,
-                 until: bool = False) -> int:
-    """One full wave of the search kernel: SMs x resident blocks per SM."""
+                 until: bool = False, entry: str | None = None) -> int:
+    """One full wave of the search kernel: SMs x resident blocks per SM
+    (``entry``: the C entry reporting them, default K1's or K2's)."""
     lib = load()
-    per_sm = (lib.dbmt_sha256_until_blocks_per_sm if until
-              else lib.dbmt_sha256_argmin_blocks_per_sm)(nblocks)
+    entry = entry or ("dbmt_sha256_until_blocks_per_sm" if until
+                      else "dbmt_sha256_argmin_blocks_per_sm")
+    per_sm = getattr(lib, entry)(nblocks)
     if per_sm <= 0:
         raise RuntimeError("cudaOccupancyMaxActiveBlocksPerMultiprocessor "
                            "failed for the sha256 search kernel")
@@ -275,3 +284,98 @@ def sha256_until_fold(midstate, template, carry: torch.Tensor, i0: int,
             hi_i, n, rem, k, device, grid, until=True, carry=carry,
             target=(t_hi, t_lo), base=base)
     return carry
+
+
+def _segmin_blocks(lanes: list[int], grid: int, threads: int) -> list[int]:
+    """Blocks of each row of one tail-block-count group: a share of the
+    ``grid`` blocks proportional to the row's valid lanes, at least one
+    for a row with a valid lane, never more than its lanes fill, none for
+    a row without one."""
+    total = sum(lanes)
+    out = []
+    for v in lanes:
+        if v <= 0:
+            out.append(0)
+            continue
+        out.append(max(1, min(-(-v // threads), round(grid * v / total))))
+    return out
+
+
+def sha256_segmin(rows, seg, *, device,
+                  grid: int | None = None) -> torch.Tensor:
+    """K5 over ``rows``, each ``(midstate, template, i0, lo_i, hi_i, n,
+    rem, k)`` (K1's lanes ``i0 + [0, n)`` masked to ``[lo_i, hi_i]``),
+    reduced per segment; ``seg`` gives each row's segment id, ascending
+    from 0.
+
+    Returns a (3, S) int32 tensor on the CUDA ``device`` holding the
+    uint32 words ``(seg_hi, seg_lo, seg_idx)`` of the S = ``seg[-1] + 1``
+    segments, the lexicographic minimum over each segment's valid lanes
+    (the all-ones sentinel for a segment without one). Rows may differ in
+    message, rem, k and lanes; the plans travel to the device in one
+    copy. Nothing is synchronised. ``grid`` overrides the blocks of each
+    search launch (the answer does not depend on it), which are divided
+    among its rows by :func:`_segmin_blocks`. Any device but a CUDA one
+    raises.
+    """
+    import numpy as np
+    device = _cuda_device(device, "sha256_segmin")
+    rows, seg = list(rows), [int(x) for x in seg]
+    if not rows or len(seg) != len(rows) or seg[0] < 0 \
+            or any(b < a for a, b in zip(seg, seg[1:])):
+        raise ValueError("sha256_segmin needs rows with ascending segment "
+                         "ids from 0, one per row")
+    lib = load()
+    threads = lib.dbmt_sha256_argmin_threads()
+    nrows, nsegs = len(rows), seg[-1] + 1
+    words, lanes, groups = [], [], {1: [], 2: []}
+    for r, (mid, tmpl, i0, lo_i, hi_i, n, rem, k) in enumerate(rows):
+        nb = int(tmpl.shape[0])
+        if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32 and nb in (1, 2)
+                and 1 <= k <= 9 and 0 <= rem <= 63):
+            raise ValueError(f"row {r} out of range: i0={i0} n={n} "
+                             f"nblocks={nb} rem={rem} k={k}")
+        words += plan_words(mid, tmpl, i0, lo_i, hi_i, n, rem, k)
+        lanes.append(max(0, min(hi_i, i0 + n - 1) - max(lo_i, i0) + 1))
+        groups[nb].append(r)
+    pstart, pcount = [0] * nrows, [0] * nrows
+    group_words, grids, base = [], [], 0
+    for nb in (1, 2):
+        members, blocks = groups[nb], []
+        if members:
+            g = grid if grid is not None else default_grid(
+                device, nb, entry="dbmt_sha256_segmin_blocks_per_sm")
+            blocks = _segmin_blocks([lanes[r] for r in members],
+                                    max(1, int(g)), threads)
+        g_rows, g_blk = [], [0]
+        for r, b in zip(members, blocks):
+            if b:
+                pstart[r], pcount[r] = base + g_blk[-1], b
+                g_rows.append(r)
+                g_blk.append(g_blk[-1] + b)
+        group_words.append((g_rows, g_blk))
+        grids.append(g_blk[-1])
+        base += g_blk[-1]
+    seg_rows = [0] * (nsegs + 1)
+    for s in seg:
+        seg_rows[s + 1] += 1
+    for s in range(nsegs):
+        seg_rows[s + 1] += seg_rows[s]
+    (g1_rows, g1_blk), (g2_rows, g2_blk) = group_words
+    table = np.asarray(words + pstart + pcount + seg_rows + g1_rows + g1_blk
+                       + g2_rows + g2_blk, dtype=np.int64)
+    table = torch.from_numpy(table.astype(np.uint32).view(np.int32)).to(
+        device)
+    scratch = torch.empty(max(3, 3 * base), dtype=torch.int32, device=device)
+    out = torch.empty((3, nsegs), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dbmt_sha256_segmin(
+            table.data_ptr(), nrows, nsegs, len(g1_rows), grids[0],
+            len(g2_rows), grids[1], scratch.data_ptr(), out.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"dbmt_sha256_segmin launch failed: cudaError "
+                           f"{err}")
+    launches["K5"] += sum(1 for g in grids if g) + 1
+    return out

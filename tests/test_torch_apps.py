@@ -44,16 +44,17 @@ def expected(data, max_nonce):
 
 
 def cpu_factory(delay: float = 0.0):
-    """The port's searcher on the CPU, optionally slowed down."""
+    """The port's searcher on the CPU, its arg-min search optionally
+    slowed down (``search`` for the serial miner, ``dispatch`` for the
+    pipelined one)."""
     def make(data):
         s = default_searcher_factory(data, device="cpu")
         if delay:
-            search = s.search
-
-            def slow(lower, upper):
-                time.sleep(delay)
-                return search(lower, upper)
-            s.search = slow
+            for name in ("search", "dispatch"):
+                def slow(lower, upper, _fn=getattr(s, name)):
+                    time.sleep(delay)
+                    return _fn(lower, upper)
+                setattr(s, name, slow)
         return s
     return make
 
@@ -112,9 +113,11 @@ def test_port_server_miner_client_end_to_end():
             assert r2 == expected("x" * 60, 1_500)
             assert c.scheduler.stats["claims_failed"] == 0
             assert c.scheduler.stats["claims_checked"] == 2
-            assert miner.counts() == {
-                "chunks": 2,
-                "kernel_launches": {"K1": 0, "K2": 0, "K6": 0}}
+            counts = miner.counts()
+            assert counts["chunks"] == 2
+            assert counts["coalesced_dispatches"] == 0
+            assert counts["kernel_launches"] == {"K1": 0, "K2": 0, "K5": 0,
+                                                 "K6": 0}
             assert sum(s.device_launches
                        for s in miner._searchers.values()) == 9
     asyncio.run(scenario())

@@ -48,9 +48,11 @@ def test_importing_the_port_loads_no_jax():
     assert report["bad"] == []
     modules = set(report["imported"])
     for name in ("apps.server", "apps.miner", "apps.client",
-                 "apps.scheduler", "models.miner_model", "ops.search",
+                 "apps.scheduler", "apps.qos", "apps.tenant_plane",
+                 "apps.miner_plane", "models.miner_model", "ops.search",
                  "ops.sha256_cuda", "ops.sha256_torch", "lsp.core",
-                 "lspnet.net", "bitcoin.hash", "utils.metrics"):
+                 "lspnet.net", "bitcoin.hash", "utils.config",
+                 "utils.metrics"):
         assert f"distributed_bitcoinminer_tpu_torch.{name}" in modules
 
 
