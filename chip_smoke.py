@@ -8,7 +8,11 @@ JSON line per phase:
 
 1. device: the card's name, CUDA version, and ``nvidia-smi``'s name and
    power limit (also printed raw on a line of its own);
-2. build: compiles the CUDA kernel library with nvcc (sm_90a);
+2. build: compiles the three lane bodies' libraries with nvcc (sm_90a;
+   rolled, K3's peel, K4's peel fed by the host hoist), one nvcc each,
+   all at once, beside the SASS-reading builds of the peeled bodies (the
+   shapes of the rates blocks fixed at compile time); reports each
+   kernel's registers and spills and its resident blocks per SM;
 3. kernel: each kernel against its plain PyTorch version on the card, over
    rem x k in {0,1,3,4,31,32,55,56,62,63} x {1,5,9} (1- and 2-block
    tails), windows whose valid edges fall off thread and block edges. K1
@@ -26,7 +30,11 @@ JSON line per phase:
    three-row segment and empty-window rows, word for word against
    ``span_segmin_scan`` at the default grid and at 37 blocks; and the
    searcher's batched dispatch of eight mice and of nine jobs over the
-   digit classes against each job's own ``search`` (K1/K6);
+   digit classes against each job's own ``search`` (K1/K6). Then K3 and
+   K4 the same way in every shape (the single arg-min launch, the until
+   launch with the three targets at two grid sizes, both chains, the
+   batch and the searcher's batches), K4 also from a hoist built with the
+   deep window;
 4. e2e: the port's scheduler server and a miner on ``cuda`` as
    subprocesses through their CLIs, requests submitted with the port's
    client. The arg-min path: R1 ("cmu440", 2^26-1), R2 (a 60-character
@@ -55,9 +63,15 @@ JSON line per phase:
    each mouse held to the plain scan on the card and the elephant to the
    claim check and a direct search at 1,001 blocks; the mice's p50/p99
    request seconds, the elephant's wall time and the coalesced
-   dispatches and their mean width, both runs side by side. The launch
-   counts of each path come from its own miner processes, which start at
-   0 just before the path;
+   dispatches and their mean width, both runs side by side. Then the
+   peeled paths, each on a new server: two miners with ``DBMT_PEEL=1``
+   (K4) serve R1, R2, R3 and R4 (R4 with the prefix release check); the
+   mice path once more, with coalescing, on ``DBMT_PEEL=1`` miners; one
+   miner with ``DBMT_PEEL=1 DBMT_HOIST=0`` (K3) serves R1, R2 and R4;
+   every answer equal to the default path's, their launches K4 (then K3)
+   and K6 (and K5's reduce) with no K1 or K2. The launch counts of each
+   path come from its own miner processes, which start at 0 just before
+   the path;
 5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
    (2-block tail with digits in both blocks) and a 10^9 block whose second
    tail block holds no digit; K2 over the first block with a target
@@ -74,10 +88,13 @@ JSON line per phase:
    rows) as one batched dispatch and fetch against the same jobs through
    eight K1/K6 chains, K5 alone on those rows with proportional and with
    even grid shares, the plain version on them, and K5 over eight rows of
-   10^8 lanes beside K1's time per 10^9. Timed with CUDA events, beside the bound
-   from the INT32 work each nonce needs (``needed_int_ops``, plus the
-   target compare for K2) and, under another name, the bound from the
-   INT32 instructions of K1's own SASS loop.
+   10^8 lanes beside K1's time per 10^9. K3 and K4 beside K1 on the
+   three K1 blocks (with the INT32 instructions per lane of their
+   fixed-shape SASS), on R3's chain, to K2's first hit and on the mice
+   rows. Timed with CUDA events, beside the bound from the integer work
+   each nonce needs (``needed_int_ops``, plus the target compare for K2)
+   at the SM's issue rate and, under other names, the same work on the
+   INT32 pipe alone and the INT32 instructions of K1's own SASS loop.
 
 Then the ``kernels`` line and, last, the ``ok`` line. Any failure exits
 non-zero without the ``ok`` line. It imports nothing of JAX.
@@ -97,11 +114,27 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "distributed_bitcoinminer_tpu_torch"
-RATE_INTS_PER_CLK_PER_SM = 64      # INT32 lanes of one Hopper SM per clock
+#: Instructions one Hopper SM issues a clock: four schedulers, one warp
+#: instruction (32 lanes) each. No integer work issues faster. The INT32
+#: pipe takes 64 lanes a clock, but the compiler also puts integer adds,
+#: shifts and moves on the FMA pipe (IMAD, VIADD), so the INT32 pipe alone
+#: does not bound the work: K4 runs its 2-block tails at about 100% of a
+#: bound taken at 64 lanes a clock.
+RATE_ISSUE_PER_CLK_PER_SM = 128
+RATE_INT32_PER_CLK_PER_SM = 64     # INT32 lanes of one Hopper SM per clock
+
+
+#: Where every phase line is also written in full (the standard output a
+#: caller keeps may be cut to its end).
+PHASES_LOG: list = []
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    for path in PHASES_LOG:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def fail(msg: str) -> None:
@@ -186,9 +219,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def sass_loop_instructions(lib: str, nblocks: int, outdir: str):
-    """Instructions of the search kernel's lane loop (the widest backward
-    branch) for the NB=nblocks instantiation, from ``cuobjdump -sass``."""
+def sass_loop_instructions(lib: str, variant: int, outdir: str,
+                           tag: str = ""):
+    """Instructions of the arg-min search kernel's lane loop (the widest
+    backward branch) for the variant's instantiation (0: 1-block tail,
+    1: 2-block, 2: K4's digit-free second block), from ``cuobjdump
+    -sass``."""
     cands = [shutil.which("cuobjdump"),
              os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                           "bin", "cuobjdump")]
@@ -200,11 +236,11 @@ def sass_loop_instructions(lib: str, nblocks: int, outdir: str):
     if out.returncode != 0:
         fail(f"cuobjdump: {out.stderr.strip()}")
     funcs = re.split(r"\n\s*Function : ", out.stdout)
-    want = f"sha256_argmin_kernelILi{nblocks}E"
+    want = f"sha256_argmin_kernelILi{variant}E"
     body = next((f for f in funcs[1:] if want in f.splitlines()[0]), None)
     if body is None:
-        fail(f"no SASS for {want}")
-    with open(os.path.join(outdir, f"sass_nb{nblocks}.txt"), "w") as f:
+        fail(f"no SASS for {want} in {lib}")
+    with open(os.path.join(outdir, f"sass{tag}_v{variant}.txt"), "w") as f:
         f.write(body)
     insns, labels, pending = [], {}, []
     for line in body.splitlines():
@@ -278,22 +314,87 @@ def phase_device() -> dict:
 
 
 
-def phase_build() -> dict:
+#: The peeled bodies: (kernel, lane body of ops.sha256_cuda, its
+#: plain version reads the hoist).
+PEELED = (("K3", "peel", False), ("K4", "hoist", True))
+
+
+def peeled_shapes(body: str, rem: int, k: int) -> tuple:
+    """The (shape, shape1) a plan takes in the peeled bodies' switches
+    (``LaneBody`` in the source): 4 t* (+ block 0's digit words under
+    K4), and the second block's spill shape."""
+    a, last = rem >> 2, (rem + k - 1) >> 2
+    shape = 4 * a + ((min(last, 15) - a + 1) if body == "hoist" else 0)
+    return shape, 2 * (a - 14) + last - 16
+
+
+def sass_probe_commands(outdir: str) -> dict:
+    """nvcc commands of the SASS-reading builds: each peeled body with
+    the shapes of the three rates blocks fixed at compile time
+    (``DBMT_FIXED_SHAPE``), so that the arg-min kernel's lane loop is the
+    path those lanes run. ``{(body, case): (library, command)}``."""
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    cmds = {}
+    for _, body, _ in PEELED:
+        for case, (rem, k) in RATE_SHAPES.items():
+            shape, shape1 = peeled_shapes(body, rem, k)
+            lib = os.path.join(sha256_cuda.BUILD_DIR,
+                               f"sass_probe_{body}_{case}.so")
+            cmd = sha256_cuda._nvcc_command(body, lib)
+            cmds[body, case] = (lib, cmd[:-3] + [
+                f"-DDBMT_FIXED_SHAPE={shape}",
+                f"-DDBMT_FIXED_SHAPE1={shape1}"] + cmd[-3:])
+    return cmds
+
+
+def phase_build(outdir: str) -> dict:
+    """The three lane bodies' libraries, one nvcc each, all at once, and
+    beside them the SASS-reading builds of the peeled bodies. Reports
+    each kernel's registers and spills (ptxas) and its resident blocks
+    per SM."""
     from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
     t0 = time.monotonic()
-    lib = sha256_cuda.load()
-    info = {"seconds": round(time.monotonic() - t0, 3),
-            "nvcc_seconds": round(sha256_cuda.build_info.get("seconds", 0), 3),
-            "built": sha256_cuda.build_info.get("built"),
+    os.makedirs(sha256_cuda.BUILD_DIR, exist_ok=True)
+    probes = {key: (lib, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                          stderr=subprocess.PIPE, text=True))
+              for key, (lib, cmd) in sass_probe_commands(outdir).items()}
+    sha256_cuda.build_all()
+    info = {"seconds": round(time.monotonic() - t0, 3), "bodies": {}}
+    for body in sha256_cuda.BODIES:
+        lib = sha256_cuda.load(body)
+        b_info = sha256_cuda.build_info[body]
+        ptxas = b_info.get("ptxas", "")
+        with open(os.path.join(outdir, f"ptxas_{body}.txt"), "w") as f:
+            f.write(ptxas)
+        kernels, name = {}, None
+        for line in ptxas.splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:   # the kernel and its template arguments, demangled
+                m = re.search(r"\d+((?:sha256|segmin|reduce)\w*?_kernel)"
+                              r"(I(?:L[^E]*E)+E)?", m.group(1))
+                name = m.group(1) + (m.group(2) or "")
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                kernels.setdefault(name, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                kernels.setdefault(name, {})["spill_stores"] = int(m.group(1))
+        variants = range(3 if body == "hoist" else 2)
+        info["bodies"][body] = {
+            "nvcc_seconds": round(b_info.get("seconds", 0), 3),
+            "built": b_info.get("built"),
             "threads": lib.dbmt_sha256_argmin_threads(),
+            "plan_words": lib.dbmt_sha256_plan_words(),
             "blocks_per_sm": {
-                "argmin": [lib.dbmt_sha256_argmin_blocks_per_sm(1),
-                           lib.dbmt_sha256_argmin_blocks_per_sm(2)],
-                "until": [lib.dbmt_sha256_until_blocks_per_sm(1),
-                          lib.dbmt_sha256_until_blocks_per_sm(2)]},
-            "ptxas": [ln for ln in sha256_cuda.build_info.get(
-                "ptxas", "").splitlines() if "registers" in ln
-                or "spill" in ln or "entry function" in ln]}
+                entry: [lib.dbmt_sha256_blocks_per_sm(e, v) for v in variants]
+                for e, entry in enumerate(("argmin", "until", "segmin"))},
+            "kernels": kernels}
+    for (body, case), (lib, proc) in probes.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"the SASS-reading build {body} {case} failed: "
+                 f"{err[-3000:]}")
+    info["sass_probe_seconds"] = round(time.monotonic() - t0, 3)
     emit("build", **info)
     return info
 
@@ -313,56 +414,97 @@ def kernel_windows():
             yield rem, k, prefix, mid, tmpl, i0, n, lo_i, hi_i
 
 
-def check_k1(dev) -> dict:
-    """K1 against the plain scan and hashlib on every window."""
+def body_kw(body, mid, tmpl, rem: int, k: int, deep: bool = False) -> dict:
+    """The search wrappers' lane-body arguments: none for the rolled body,
+    ``peel`` for K3, ``peel`` and the host hoist for K4 (``deep``: built
+    with the 48-round window)."""
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
+        build_hoist
+    if body is None:
+        return {}
+    if body == "K3":
+        return {"peel": True}
+    return {"peel": True,
+            "hoist": build_hoist(mid, tmpl, rem, k, deep_window=deep).ops}
+
+
+def check_k1(dev, body=None) -> dict:
+    """K1 (K3, K4 with ``body``) against its plain scan and hashlib on
+    every window; K4 also from a hoist built with the deep window."""
     from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
     cases, max_err, n_total = [], 0, 0
     for rem, k, prefix, mid, tmpl, i0, n, lo_i, hi_i in kernel_windows():
+        kw = body_kw(body, mid, tmpl, rem, k)
         got = words(sha256_cuda.sha256_argmin(
-            mid, tmpl, i0, lo_i, hi_i, n, rem=rem, k=k, device=dev))
+            mid, tmpl, i0, lo_i, hi_i, n, rem=rem, k=k, device=dev, **kw))
         want = words(search.span_scan(mid, tmpl, i0, lo_i, hi_i, n,
-                                      rem=rem, k=k, device=dev))
+                                      rem=rem, k=k, device=dev,
+                                      hoist=kw.get("hoist")))
         err = max(abs(a - b) for a, b in zip(got, want))
+        if body == "K4":
+            deep = body_kw(body, mid, tmpl, rem, k, deep=True)
+            got_deep = words(sha256_cuda.sha256_argmin(
+                mid, tmpl, i0, lo_i, hi_i, n, rem=rem, k=k, device=dev,
+                **deep))
+            err = max(err, *(abs(a - b) for a, b in zip(got_deep, want)))
         max_err = max(max_err, err)
         digest = hashlib.sha256(prefix + f"{got[2]:0{k}d}".encode()).digest()
         hashed = (int.from_bytes(digest[:4], "big"),
                   int.from_bytes(digest[4:8], "big"))
-        ok = got == want and hashed == got[:2] and lo_i <= got[2] <= hi_i
+        ok = err == 0 and hashed == got[:2] and lo_i <= got[2] <= hi_i
         cases.append({"rem": rem, "k": k, "nblocks": int(tmpl.shape[0]),
                       "lanes": n, "ok": ok})
         n_total += n
         if not ok:
-            emit("kernel", failed=cases[-1], got=got, want=want,
-                 hashlib=hashed)
-            fail(f"K1 disagrees at rem={rem} k={k}")
+            emit("kernel", failed=cases[-1], kernel=body or "K1", got=got,
+                 want=want, hashlib=hashed)
+            fail(f"{body or 'K1'} disagrees at rem={rem} k={k}")
     return {"cases": len(cases), "lanes": n_total, "max_abs_err": max_err,
             "two_block_cases": sum(c["nblocks"] == 2 for c in cases)}
 
 
-def check_k2(dev) -> dict:
-    """K2 against the plain until scan on every window, with three
-    targets; the dense one at the default grid and at 37 blocks. found and
-    f_idx must equal the plain scan's and the first qualifying lane of
-    the window's hashes; the arg-min words must equal when found is 0."""
+_TARGETS: dict = {}
+
+
+def window_targets(rem, k, mid, tmpl, i0, n, lo_i, hi_i, dev) -> dict:
+    """The window's three targets and the first qualifying lane of each
+    (None: none), from its lanes' hashes on the card (computed once)."""
     import numpy as np
-    from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
-    runs, max_err = 0, 0
-    for rem, k, _, mid, tmpl, i0, n, lo_i, hi_i in kernel_windows():
+    if (rem, k) not in _TARGETS:
         valid = lane_hashes(mid, tmpl, i0, n, rem, k, dev)[
             lo_i - i0:hi_i - i0 + 1]
         targets = {"mid_window": int(valid.min()) + 1,
                    "dense": int(np.sort(valid)[len(valid) // 2]),
                    "miss": int(valid.min())}
+        firsts = {}
         for name, t in targets.items():
             q = np.nonzero(valid < np.uint64(t))[0]
-            first = lo_i + int(q[0]) if len(q) else None
+            firsts[name] = lo_i + int(q[0]) if len(q) else None
+        _TARGETS[rem, k] = (targets, firsts)
+    return _TARGETS[rem, k]
+
+
+def check_k2(dev, body=None) -> dict:
+    """K2 (its search under K3, K4 with ``body``) against the plain until
+    scan on every window, with three targets; the dense one at the
+    default grid and at 37 blocks. found and f_idx must equal the plain
+    scan's and the first qualifying lane of the window's hashes; the
+    arg-min words must equal when found is 0."""
+    from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+    runs, max_err = 0, 0
+    for rem, k, _, mid, tmpl, i0, n, lo_i, hi_i in kernel_windows():
+        targets, firsts = window_targets(rem, k, mid, tmpl, i0, n, lo_i,
+                                         hi_i, dev)
+        kw = body_kw(body, mid, tmpl, rem, k)
+        for name, t in targets.items():
+            first = firsts[name]
             want = words(search.span_until_scan(
                 mid, tmpl, i0, lo_i, hi_i, n, t >> 32, t & M32, rem=rem,
-                k=k, device=dev))
+                k=k, device=dev, hoist=kw.get("hoist")))
             for grid in ((None, 37) if name == "dense" else (None,)):
                 got = words(sha256_cuda.sha256_until(
                     mid, tmpl, i0, lo_i, hi_i, n, t >> 32, t & M32, rem=rem,
-                    k=k, device=dev, grid=grid))
+                    k=k, device=dev, grid=grid, **kw))
                 cmp = 5 if not want[0] else 2
                 err = max(abs(a - b) for a, b in zip(got[:cmp], want[:cmp]))
                 max_err = max(max_err, err)
@@ -370,12 +512,12 @@ def check_k2(dev) -> dict:
                 ok = (err == 0 and bool(want[0]) == (first is not None)
                       and (first is None or want[1] == first))
                 if not ok:
-                    emit("kernel", failed={"kernel": "K2", "rem": rem,
-                                           "k": k, "target": name,
-                                           "grid": grid},
+                    emit("kernel", failed={"kernel": body or "K2",
+                                           "rem": rem, "k": k,
+                                           "target": name, "grid": grid},
                          got=got, want=want, first=first)
-                    fail(f"K2 disagrees at rem={rem} k={k} target={name} "
-                         f"grid={grid}")
+                    fail(f"{body or 'K2'} until disagrees at rem={rem} "
+                         f"k={k} target={name} grid={grid}")
     return {"runs": runs, "max_abs_err": max_err}
 
 
@@ -398,11 +540,12 @@ def chain_windows(dev):
         off += 99_991
 
 
-def check_k6(dev) -> dict:
-    """K6's arg-min and until chains against the plain scans and folds,
-    carry words after every block; after the until chain's hit, its
-    timing-dependent arg-min words are not compared, and the next launch
-    must leave the kernel's carry as it was."""
+def check_k6(dev, body=None) -> dict:
+    """K6's arg-min and until chains (their searches under K3, K4 with
+    ``body``) against the plain scans and folds, carry words after every
+    block; after the until chain's hit, its timing-dependent arg-min
+    words are not compared, and the next launch must leave the kernel's
+    carry as it was."""
     from distributed_bitcoinminer_tpu_torch.ops import search, searchop
     plans, t = chain_windows(dev)
     max_err, hit_block = 0, None
@@ -414,10 +557,11 @@ def check_k6(dev) -> dict:
         for b, p in enumerate(plans):
             args = (p.lo_i, p.lo_i, p.hi_i, p.lanes)
             args += (t >> 32, t & M32, p.base) if until else (p.base,)
+            kw = body_kw(body, p.midstate, p.template, p.rem, p.k)
             carry_k = step(p.midstate, p.template, carry_k, *args,
-                           rem=p.rem, k=p.k, device=dev)
+                           rem=p.rem, k=p.k, device=dev, **kw)
             carry_p = step(p.midstate, p.template, carry_p, *args,
-                           rem=p.rem, k=p.k, device="cpu")
+                           rem=p.rem, k=p.k, device="cpu", **kw)
             got, want = words(carry_k), words(carry_p)
             cmp = 3 if until and want[0] else len(want)
             err = max(abs(a - b) for a, b in zip(got[:cmp], want[:cmp]))
@@ -426,10 +570,11 @@ def check_k6(dev) -> dict:
             if until and want[0] and hit_block is None:
                 hit_block = b
             if err or (after_hit and got != prev_k):
-                emit("kernel", failed={"kernel": "K6", "op": op.name,
-                                       "block": b}, got=got, want=want,
-                     before=prev_k)
-                fail(f"K6 {op.name} chain disagrees at block {b}")
+                emit("kernel", failed={"kernel": body or "K6",
+                                       "op": op.name, "block": b},
+                     got=got, want=want, before=prev_k)
+                fail(f"{body or 'K6'} {op.name} chain disagrees at block "
+                     f"{b}")
             prev_k = got
     if hit_block != 2:
         fail(f"K6 until chain hit in block {hit_block}, not 2")
@@ -485,28 +630,34 @@ def mice_jobs(dev, n_lanes: int = 10 ** 6):
     return [(NonceSearcher(m, device=dev), 0, n_lanes) for m in MICE_DATA]
 
 
-def check_k5(dev) -> dict:
-    """K5 against its plain version on the mixed batch at the default
-    grid and at 37 blocks, word for word; then the searcher's batched
-    dispatch of the eight mice jobs and of nine jobs over digit classes
-    1-9 (default grid, and 37 blocks) against each job's own ``search``
-    (the K1/K6 chain)."""
+def check_k5(dev, body=None) -> dict:
+    """K5 (its searches under K3, K4 with ``body``) against its plain
+    version on the mixed batch at the default grid and at 37 blocks, word
+    for word; then the searcher's batched dispatch of the eight mice jobs
+    and of nine jobs over digit classes 1-9 (default grid, and 37 blocks)
+    against each job's own ``search`` (the K1/K6 chain, or K3's or
+    K4's)."""
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
     rows, seg = segmin_batch()
+    peel = {} if body is None else {"peel": True}
+    if body == "K4":
+        rows = [r + (body_kw(body, r[0], r[1], r[6], r[7])["hoist"],)
+                for r in rows]
     want = [words(t) for t in search.span_segmin_scan(rows, seg,
                                                         device=dev)]
     max_err = 0
     for grid in (None, 37):
         got = [words(t) for t in sha256_cuda.sha256_segmin(
-            rows, seg, device=dev, grid=grid)]
+            rows, seg, device=dev, grid=grid, **peel)]
         err = max(abs(a - b) for g, w in zip(got, want)
                   for a, b in zip(g, w))
         max_err = max(max_err, err)
         if err:
-            emit("kernel", failed={"kernel": "K5", "grid": grid}, got=got,
-                 want=want)
-            fail(f"K5 disagrees with span_segmin_scan at grid {grid}")
+            emit("kernel", failed={"kernel": body or "K5", "grid": grid},
+                 got=got, want=want)
+            fail(f"{body or 'K5'} batch disagrees with span_segmin_scan at "
+                 f"grid {grid}")
     if [w[-2] for w in want] != [M32] * 3 or want[2][-1] == M32:
         fail("K5 batch: the empty-window segment is not the sentinel, or "
              "the segment beside it lost its valid row")
@@ -516,16 +667,19 @@ def check_k5(dev) -> dict:
                                                       for d in range(1, 9)],
                                [7] + [10 ** d + 17 * d + 50_000
                                       for d in range(1, 9)])]}
+    searcher_kw = {} if body is None else {"peel": True,
+                                           "hoist": body == "K4"}
     for name, entries in jobs.items():
         for grid in (None, 37):
-            part = [(NonceSearcher(s.data, device=dev, grid=grid), lo, hi)
+            part = [(NonceSearcher(s.data, device=dev, grid=grid,
+                                   **searcher_kw), lo, hi)
                     for s, lo, hi in entries]
             s0 = part[0][0]
             got = s0.finalize_batch(s0.dispatch_batch(part))
             per_job = [s.search(lo, hi) for s, lo, hi in part]
             if got != per_job:
-                fail(f"K5 {name} batch at grid {grid}: {got} != per-job "
-                     f"search {per_job}")
+                fail(f"{body or 'K5'} {name} batch at grid {grid}: {got} != "
+                     f"per-job search {per_job}")
     return {"rows": len(rows), "segments": seg[-1] + 1,
             "nblocks": sorted({int(r[1].shape[0]) for r in rows}),
             "lanes": sum(r[5] for r in rows), "max_abs_err": max_err,
@@ -533,10 +687,19 @@ def check_k5(dev) -> dict:
 
 
 def phase_kernel() -> dict:
+    """Every kernel against its plain version; K3 and K4 in every shape:
+    the single arg-min and until launches, the chains and the batch."""
     import torch
     dev = torch.device("cuda", 0)
     info = {"K1": check_k1(dev), "K2": check_k2(dev), "K5": check_k5(dev),
             "K6": check_k6(dev)}
+    for kern, _, _ in PEELED:
+        shapes = {"argmin": check_k1(dev, kern),
+                  "until": check_k2(dev, kern),
+                  "chains": check_k6(dev, kern),
+                  "batch": check_k5(dev, kern)}
+        info[kern] = {**shapes, "max_abs_err": max(
+            v["max_abs_err"] for v in shapes.values())}
     torch.cuda.synchronize()
     emit("kernel", **info)
     return info
@@ -571,7 +734,7 @@ def read_counts(log_path: str) -> dict:
     return last
 
 
-KERNELS = ("K1", "K2", "K5", "K6")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def launches_of(counts: dict) -> dict:
@@ -743,23 +906,25 @@ async def tenant_mice(hostport: str, mice: list) -> list:
     return out
 
 
-def run_mice(outdir: str, coalesce: bool) -> dict:
+def run_mice(outdir: str, coalesce: bool, miner_env: dict | None = None,
+             tag: str | None = None) -> dict:
     """The mice path on a new server and two miners, all with
-    ``DBMT_COALESCE`` on or off: the warm-up, then the elephant and the
-    mice. Returns the answers, the request seconds, and the miners'
-    launches and coalesced dispatches."""
+    ``DBMT_COALESCE`` on or off (the miners also with ``miner_env``): the
+    warm-up, then the elephant and the mice. Returns the answers, the
+    request seconds, and the miners' launches and coalesced
+    dispatches."""
     import asyncio
 
     from distributed_bitcoinminer_tpu_torch.apps.client import submit
-    tag = "mice" if coalesce else "mice_per_chunk"
+    tag = tag or ("mice" if coalesce else "mice_per_chunk")
     env = {"DBMT_COALESCE": "1" if coalesce else "0"}
     traffic = mice_traffic()
     with Cluster(outdir) as c:
         c.start(f"{tag}_server", "server", [str(c.port)],
                 "Server listening on port", env={**MICE_SERVER_ENV, **env})
         names = [f"{tag}_miner", f"{tag}_miner2"]
-        logs = [c.spawn(n, "miner", [c.hostport, "--device", "cuda"], env)
-                for n in names]
+        logs = [c.spawn(n, "miner", [c.hostport, "--device", "cuda"],
+                        {**env, **(miner_env or {})}) for n in names]
         for name, log, proc in zip(names, logs, c.procs[-2:]):
             wait_for_line(log, "joined ", proc)
             if read_counts(log):
@@ -788,7 +953,8 @@ def run_mice(outdir: str, coalesce: bool) -> dict:
                      for log in logs)
     chunks = sum(counts[log].get("coalesced_chunks", 0) for log in logs)
     secs = sorted(r[2] for t in mice for r in t)
-    return {"coalesce": coalesce, "warm_up": warm,
+    return {"coalesce": coalesce, "miner_env": miner_env or {},
+            "warm_up": warm,
             "elephant": {"data": ELEPHANT[0], "max_nonce": ELEPHANT[1],
                          "hash": el[0], "nonce": el[1], "seconds": el_s},
             "mice": [[data, mx, h, n, sec] for t, m in zip(mice, traffic)
@@ -870,12 +1036,15 @@ def phase_e2e(outdir: str) -> dict:
         with open(server_log, errors="replace") as f:
             server_text = f.read()
     mice_runs = [run_mice(outdir, True), run_mice(outdir, False)]
+    peeled = run_peeled(outdir)
     for path, counts, kernels in (("arg-min", argmin_launches, ("K1", "K6")),
                                   ("difficulty", until_launches,
                                    ("K2", "K6"))):
         for kern in kernels:
             if counts.get(kern, 0) <= 0:
                 fail(f"the {path} path launched no {kern}: {counts}")
+        if counts["K3"] or counts["K4"]:
+            fail(f"the {path} path launched a peeled body: {counts}")
     # Checks, after the clusters are down (the card is free again).
     by_name = {r["request"]: r for r in results}
     plain = {}
@@ -936,13 +1105,103 @@ def phase_e2e(outdir: str) -> dict:
         fail(f"R5 {r5['hash'], r5['nonce']} != R1 "
              f"{r1['hash'], r1['nonce']}")
     check_mice(mice_runs, dev)
-    info = {"requests": results, "mice": mice_runs,
+    check_peeled(peeled, by_name, dev)
+    info = {"requests": results, "mice": mice_runs, "peeled": peeled,
             "launches": {"arg-min": argmin_launches,
                          "difficulty": until_launches,
                          "mice": mice_runs[0]["launches"],
-                         "mice_per_chunk": mice_runs[1]["launches"]}}
+                         "mice_per_chunk": mice_runs[1]["launches"],
+                         **{f"peeled_{leg}": run["launches"]
+                            for leg, run in peeled.items()}}}
     emit("e2e", **info)
     return info
+
+
+#: The peeled paths' miners: K4 (the default hoist), then K3.
+PEEL_ENV = {"DBMT_PEEL": "1"}
+PEEL_K3_ENV = {"DBMT_PEEL": "1", "DBMT_HOIST": "0"}
+
+
+def serve_requests(outdir: str, tag: str, miner_envs: list,
+                   argmin: tuple, until: tuple) -> dict:
+    """A new server and one miner per entry of ``miner_envs``; the
+    arg-min requests ``argmin`` (name, data, max_nonce) through
+    ``submit``, then the difficulty requests ``until`` (name, data,
+    max_nonce, target) through ``submit_until``. Returns the timed
+    results, the miners' launches, and whether the server logged a
+    prefix release."""
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import (
+        submit, submit_until)
+    results = []
+    with Cluster(outdir) as c:
+        server_log = c.start(f"{tag}_server", "server", [str(c.port)],
+                             "Server listening on port")
+        miners = start_miners(
+            c, [f"{tag}_miner{j or ''}" for j in range(len(miner_envs))],
+            miner_envs)
+        for name, data, max_nonce in argmin:
+            results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+                asyncio.wait_for(submit(c.hostport, data, max_nonce), 300))))
+        for name, data, max_nonce, target in until:
+            results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+                asyncio.wait_for(submit_until(c.hostport, data, max_nonce,
+                                              target), 300))))
+        launches = path_launches(miners)
+        with open(server_log, errors="replace") as f:
+            release = "(prefix release)" in f.read()
+    return {"requests": results, "launches": launches,
+            "prefix_release_logged": release}
+
+
+def run_peeled(outdir: str) -> dict:
+    """The peeled paths, each on a new cluster: two miners with
+    ``DBMT_PEEL=1`` (K4) serve R1, R2, R3 and R4; then the mice path
+    with coalescing on, its miners with ``DBMT_PEEL=1``; then one miner
+    with ``DBMT_PEEL=1 DBMT_HOIST=0`` (K3) serves R1, R2 and R4."""
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    r4 = UNTIL_REQUESTS[0]
+    k4 = serve_requests(outdir, "peel", [PEEL_ENV, PEEL_ENV],
+                        tuple(by_name[n] for n in ("R1", "R2", "R3")), (r4,))
+    mice = run_mice(outdir, True, PEEL_ENV, tag="mice_peel")
+    k3 = serve_requests(outdir, "peel_k3", [PEEL_K3_ENV],
+                        tuple(by_name[n] for n in ("R1", "R2")), (r4,))
+    return {"k4": k4, "k4_mice": mice, "k3": k3}
+
+
+def check_peeled(peeled: dict, default: dict, dev) -> None:
+    """Every answer of the peeled paths equal to the same request's on
+    the default path (each held there to the plain scans, the claim check
+    or a direct search), R4 held to the target and to the prefix release
+    as there, every mouse to the plain scan; the launch counts: K4 (then
+    K3) and the chain's folds, K5's reduce on the mice path, and no K1,
+    K2 or other peeled search."""
+    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+    for leg, kern, other in (("k4", "K4", "K3"), ("k3", "K3", "K4")):
+        run = peeled[leg]
+        for r in run["requests"]:
+            want = default[r["request"]]
+            if hash_op(r["data"], r["nonce"]) != r["hash"] or \
+                    (r["hash"], r["nonce"]) != (want["hash"],
+                                                want["nonce"]):
+                fail(f"peeled path {leg} {r['request']}: "
+                     f"{r['hash'], r['nonce']} != the default path's "
+                     f"{want['hash'], want['nonce']}")
+            if r["request"] == "R4" and leg == "k4":   # two miners
+                r["chunk"] = 0 if r["nonce"] <= R4_CHUNKS[0][1] else 1
+                if r["chunk"] == 0 and not run["prefix_release_logged"]:
+                    fail(f"peeled path {leg}: R4 hit in chunk 0 but the "
+                         "server logged no prefix release")
+        counts = run["launches"]
+        if counts[kern] <= 0 or counts["K6"] <= 0 or counts["K1"] \
+                or counts["K2"] or counts[other]:
+            fail(f"the peeled path {leg} launched {counts}")
+    mice = peeled["k4_mice"]
+    check_mice([mice], dev)
+    counts = mice["launches"]
+    if counts["K4"] <= 0 or counts["K1"] or counts["K2"] or counts["K3"]:
+        fail(f"the peeled mice path launched {counts}")
 
 
 def per_block_search(searcher, lower: int, upper: int, scan):
@@ -1076,14 +1335,16 @@ def needed_int_ops(rem: int, k: int, nblocks: int) -> int:
     return ops
 
 
-def bound_ms(lanes: int, int_per_lane: int, dev_info: dict) -> tuple:
+def bound_ms(lanes: int, int_per_lane: int, dev_info: dict,
+             per_clk: int = RATE_ISSUE_PER_CLK_PER_SM) -> tuple:
     """(least milliseconds, what bounds it) for ``lanes`` lanes of
-    ``int_per_lane`` INT32-pipe instructions: 64 lanes/clk on each SM at
-    the card's maximum SM clock, against the bytes the call must move
-    (the 196-byte plan in, at most 32 bytes out) at 3.35 TB/s."""
+    ``int_per_lane`` integer instructions, issued at ``per_clk`` lanes a
+    clock on each SM (default: the issue rate; the INT32 pipe's 64 gives
+    the time if every instruction went through that pipe) at the card's
+    maximum SM clock, against the bytes the call must move (the 196-byte
+    plan in, at most 32 bytes out) at 3.35 TB/s."""
     clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
-    ops_s = lanes * int_per_lane / (dev_info["sms"]
-                                    * RATE_INTS_PER_CLK_PER_SM * clk_hz)
+    ops_s = lanes * int_per_lane / (dev_info["sms"] * per_clk * clk_hz)
     bytes_s = (4 * 49 + 32) / 3.35e12
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes")
@@ -1095,13 +1356,30 @@ def bound_ms(lanes: int, int_per_lane: int, dev_info: dict) -> tuple:
 DIGIT_FREE_DATA = "a fifty-character message; its digits stay in one."
 
 
+#: The three rates blocks' tails (rem, k), which fix the shapes of the
+#: SASS-reading builds: "cmu440" at 10^9, R2's message at 10^8, the
+#: 50-character one at 10^9.
+RATE_SHAPES = {"one_block": (8, 9), "two_block": (61, 9),
+               "two_block_digit_free": (52, 9)}
+
+
+def sass_alu_count(ops: dict) -> int:
+    return sum(n for op, n in ops.items()
+               if not op.startswith(NON_ALU_PREFIXES))
+
+
 def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
     """K1 over one full 10^9 block (1-block tail, the R3 shape), over the
     9*10^8-lane block of R2's message (2-block tail, digits in both
     blocks) and over a 10^9 block whose second tail block holds no digit,
-    and the plain scan over 2^22 lanes of the first."""
+    and the plain scan over 2^22 lanes of the first; then K3 and K4 on
+    each block beside K1, each with the SASS of its lane loop for that
+    block's shape (the SASS-reading builds of ``phase_build``) and the
+    whole loop of its production kernel (every shape's copy)."""
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
+        build_hoist
     cases = {}
     for name, data, lower, upper in (
             ("one_block", "cmu440", 10 ** 9, 2 * 10 ** 9 - 1),
@@ -1109,29 +1387,58 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
             ("two_block_digit_free", DIGIT_FREE_DATA, 10 ** 9,
              2 * 10 ** 9 - 1)):
         (p,) = list(NonceSearcher(data, device=dev).plan(lower, upper))
+        if (p.rem, p.k) != RATE_SHAPES[name]:
+            fail(f"rates block {name} has rem {p.rem}, k {p.k}")
         args = (p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes)
         kw = dict(rem=p.rem, k=p.k, device=dev)
         with ClockSampler() as clocks:
             ms = cuda_ms(lambda: sha256_cuda.sha256_argmin(*args, **kw), 3)
         nb = int(p.template.shape[0])
         per_lane, total, ops = sass_loop_instructions(sha256_cuda.LIBRARY,
-                                                      nb, outdir)
-        sass_alu = sum(n for op, n in ops.items()
-                       if not op.startswith(NON_ALU_PREFIXES))
+                                                      nb - 1, outdir)
+        sass_alu = sass_alu_count(ops)
         needed = needed_int_ops(p.rem, p.k, nb)
         b_ms, b_by = bound_ms(p.lanes, needed, dev_info)
-        sass_ms, _ = bound_ms(p.lanes, sass_alu, dev_info)
+        sass_ms, _ = bound_ms(p.lanes, sass_alu, dev_info,
+                              RATE_INT32_PER_CLK_PER_SM)
         cases[name] = {"data": data, "lanes": p.lanes, "rem": p.rem,
                        "k": p.k, "nblocks": nb, "ms": ms,
                        "nonces_per_s": p.lanes / (ms / 1e3),
                        "needed_int_ops_per_lane": needed,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "share_of_bound": b_ms / ms,
+                       "int32_pipe_ms": bound_ms(
+                           p.lanes, needed, dev_info,
+                           RATE_INT32_PER_CLK_PER_SM)[0],
                        "sass_loop_insns_per_lane": per_lane,
                        "sass_alu_insns_per_lane": sass_alu,
                        "sass_issue_bound_ms": sass_ms,
                        "sass_kernel_insns": total, "sass_loop_ops": ops,
                        "clocks_sm_power_during": clocks.samples}
+        hoist = build_hoist(p.midstate, p.template, p.rem, p.k).ops
+        for kern, body, hoisted in PEELED:
+            pkw = {"peel": True, "hoist": hoist if hoisted else None}
+            with ClockSampler() as clocks:
+                pms = cuda_ms(lambda: sha256_cuda.sha256_argmin(
+                    *args, **kw, **pkw), 3)
+            variant = sha256_cuda.variant_of(body, p.rem, p.k, nb)
+            lane, _, lane_ops = sass_loop_instructions(
+                os.path.join(sha256_cuda.BUILD_DIR,
+                             f"sass_probe_{body}_{name}.so"), variant,
+                outdir, tag=f"_{body}_{name}")
+            whole, _, _ = sass_loop_instructions(
+                sha256_cuda.LIBRARIES[body], variant, outdir,
+                tag=f"_{body}")
+            cases[name][kern] = {
+                "ms": pms, "k1_ms": ms, "nonces_per_s": p.lanes / (pms / 1e3),
+                "bound_ms": b_ms, "share_of_bound": b_ms / pms,
+                "int32_pipe_ms": cases[name]["int32_pipe_ms"],
+                "variant": variant,
+                "sass_loop_insns_per_lane": lane,
+                "sass_alu_insns_per_lane": sass_alu_count(lane_ops),
+                "sass_loop_ops": lane_ops,
+                "sass_loop_insns_all_shapes": whole,
+                "clocks_sm_power_during": clocks.samples}
         if name == "one_block":
             small = 1 << 22
             sargs = args[:4] + (small - 1, small)
@@ -1141,6 +1448,13 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
                 lambda: search.span_scan(*sargs, **kw), 2)
             cases[name]["plain_nonces_per_s"] = small / (
                 cases[name]["plain_ms_2p22"] / 1e3)
+            for kern, body, hoisted in PEELED:
+                pkw = {"peel": True, "hoist": hoist if hoisted else None}
+                cases[name][kern]["ms_2p22"] = cuda_ms(
+                    lambda: sha256_cuda.sha256_argmin(*sargs, **kw, **pkw), 5)
+                cases[name][kern]["plain_ms_2p22"] = cuda_ms(
+                    lambda: search.span_scan(*sargs, **kw,
+                                             hoist=pkw["hoist"]), 2)
     return cases
 
 
@@ -1209,6 +1523,23 @@ def rates_k2(dev_info: dict, dev, one_block: dict, hit: tuple) -> dict:
     if to_hit > 0.2 * miss:
         fail(f"K2 took {to_hit:.2f} ms to a hit at lane {f_idx}, above 20% "
              f"of its {miss:.2f} ms over the whole block")
+    # The same until launch to that hit under the peeled bodies.
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
+        build_hoist
+    hoist = build_hoist(hp.midstate, hp.template, hp.rem, hp.k).ops
+    for kern, _, hoisted in PEELED:
+        pkw = {"peel": True, "hoist": hoist if hoisted else None}
+        got = words(sha256_cuda.sha256_until(*hargs, t >> 32, t & M32,
+                                             **hkw, **pkw))
+        if got[:2] != (1, f_idx):
+            fail(f"{kern} until over the hit block: {got[:2]} != "
+                 f"(1, {f_idx})")
+        info["first_hit"][kern] = {
+            "ms_to_hit": cuda_ms(lambda: sha256_cuda.sha256_until(
+                *hargs, t >> 32, t & M32, **hkw, **pkw), 5),
+            "ms_no_target_same_block": cuda_ms(
+                lambda: sha256_cuda.sha256_until(*hargs, 0, 0, **hkw,
+                                                 **pkw), 3)}
     return info
 
 
@@ -1259,6 +1590,17 @@ def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
 
     lower, upper = 0, 1 << 32
     times = in_turns(lower, upper, 1)
+    # R3's chain under each body, in turns (K1, K3, K4, K4, K3, K1).
+    bodies = {"K1": chain,
+              "K3": NonceSearcher("cmu440", device=dev, peel=True,
+                                  hoist=False),
+              "K4": NonceSearcher("cmu440", device=dev, peel=True)}
+    body_ms, body_answers = {kern: [] for kern in bodies}, {}
+    for kern in ("K1", "K3", "K4", "K4", "K3", "K1"):
+        body_ms[kern].append(event_ms(lambda: body_answers.__setitem__(
+            kern, bodies[kern].search(lower, upper))))
+    if len(set(body_answers.values())) != 1:
+        fail(f"R3's chain differs between bodies: {body_answers}")
     # The mouse's range: 6 blocks, 10^5 + 1 nonces.
     mouse_times = in_turns(0, 10 ** 5, 20)
     plans = list(chain.plan(lower, upper))
@@ -1343,6 +1685,9 @@ def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
     return {"blocks": len(plans), "launches": 2 * len(plans),
             "lanes": sum(p.lanes for p in plans),
             "ms": sum(times["chain"]) / 2,
+            "bodies_ms": {kern: sum(v) / len(v) for kern, v in
+                          body_ms.items()},
+            "bodies_times": body_ms,
             "per_block_ms": sum(times["per_block"]) / 2,
             "times": times, "bound_ms": bound, "bound_by": "operations",
             "mouse": {"range": [0, 10 ** 5], "blocks": 6,
@@ -1370,17 +1715,17 @@ def batch_rows(jobs) -> tuple:
     return rows, list(range(len(rows)))
 
 
-def segmin_bound(rows, dev_info: dict) -> tuple:
+def segmin_bound(rows, dev_info: dict, plan_words: int = 49) -> tuple:
     """(least milliseconds, what bounds it) for K5 over ``rows``, one
-    segment each: the INT32 work each row's lanes need (``needed_int_ops``)
-    at 64 lanes/clk on every SM at the maximum SM clock, against the
-    bytes it must move (the plan table in, 12 bytes per segment out) at
-    3.35 TB/s."""
+    segment each: the integer work each row's lanes need
+    (``needed_int_ops``) at the issue rate on every SM at the maximum SM
+    clock, against the bytes it must move (the plan table and four words
+    of block table a row in, 12 bytes per segment out) at 3.35 TB/s."""
     clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
     ops = sum(r[5] * needed_int_ops(r[6], r[7], int(r[1].shape[0]))
               for r in rows)
-    ops_s = ops / (dev_info["sms"] * RATE_INTS_PER_CLK_PER_SM * clk_hz)
-    bytes_s = (4 * 53 * len(rows) + 12 * len(rows)) / 3.35e12
+    ops_s = ops / (dev_info["sms"] * RATE_ISSUE_PER_CLK_PER_SM * clk_hz)
+    bytes_s = (4 * (plan_words + 4) * len(rows) + 12 * len(rows)) / 3.35e12
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes")
 
@@ -1439,6 +1784,37 @@ def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
     plain_ms = cuda_ms(lambda: search.span_segmin_scan(rows, seg,
                                                        device=dev), 1)
     b_ms, b_by = segmin_bound(rows, dev_info)
+    # The same rows under the peeled bodies (K4's rows carry their hoist),
+    # and, to tell the rows' mix of tail shapes from the bodies' own cost,
+    # the eight jobs all on one message (one shape per digit class); each
+    # set timed in turns (rolled, K3, K4, K4, K3, rolled).
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
+        build_hoist
+
+    def bodies_in_turns(rset, sset) -> dict:
+        with_hoist = [r + (build_hoist(r[0], r[1], r[6], r[7]).ops,)
+                      for r in rset]
+        calls = {"K5": lambda: sha256_cuda.sha256_segmin(rset, sset,
+                                                          device=dev),
+                 "K3": lambda: sha256_cuda.sha256_segmin(
+                     rset, sset, device=dev, peel=True),
+                 "K4": lambda: sha256_cuda.sha256_segmin(
+                     with_hoist, sset, device=dev, peel=True)}
+        want = words(calls["K5"]().reshape(-1))
+        for kern in ("K3", "K4"):
+            if words(calls[kern]().reshape(-1)) != want:
+                fail(f"{kern} on the batch rows disagrees with K5")
+        ms = {kern: [] for kern in calls}
+        for kern in ("K5", "K3", "K4", "K4", "K3", "K5"):
+            ms[kern].append(cuda_ms(calls[kern], 10))
+        return {kern: sum(v) / len(v) for kern, v in ms.items()}
+    one_rows, one_seg = batch_rows([(jobs[0][0], 0, 10 ** 6)] * len(jobs))
+    in_turns = {"mixed_messages": bodies_in_turns(rows, seg),
+                "one_message": bodies_in_turns(one_rows, one_seg)}
+    peeled = {kern: {"kernel_ms": in_turns["mixed_messages"][kern],
+                     "bound_ms": segmin_bound(
+                         rows, dev_info, 185 if kern == "K4" else 49)[0]}
+              for kern in ("K3", "K4")}
     mice = {"jobs": len(jobs), "rows": len(rows),
             "lanes": sum(r[5] for r in rows),
             "kernel_ms": kernel_ms,
@@ -1446,7 +1822,8 @@ def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
             "chains_ms": sum(times["chains"]) / 2, "times": times,
             "launches": launches, "fetches": {"k5": 1, "chains": len(jobs)},
             "even_share_ms": even_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "peeled": peeled,
+            "bodies_in_turns": in_turns}
     brows, bseg = batch_rows([(s0, b * 10 ** 9, b * 10 ** 9 + 10 ** 8 - 1)
                               for b in range(1, 9)])
     big_ms = cuda_ms(lambda: sha256_cuda.sha256_segmin(brows, bseg,
@@ -1540,6 +1917,7 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "plain_ms": one["plain_ms_2p22"], "plain_lanes": 1 << 22,
          "ms_at_plain_lanes": one["ms_2p22"],
          "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+         "int32_pipe_ms": one["int32_pipe_ms"],
          "sass_issue_bound_ms": one["sass_issue_bound_ms"],
          "library_ms": None},
         {"name": "sha256_until", "route": "cuda", "source": src,
@@ -1587,7 +1965,46 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "until_r4_ms": k6["until_r4"]["ms"],
          "until_r4_bound_ms": k6["until_r4"]["bound_ms"],
          "until_after_hit_ms": k6["until_after_hit_ms"],
-         "library_ms": None}]}
+         "library_ms": None},
+        *(peeled_entry(kern, src, launches[kern], kernel[kern], rates)
+          for kern, _, _ in PEELED)]}
+
+
+#: The TPU kernel each peeled body replaces (file:line in the JAX
+#: package).
+PEELED_REPLACES = {
+    "K3": ("sha256_peel", "ops/sha256_pallas.py:548-595 (the peel branch "
+           "of _kernel_body, DBM_PEEL=1 DBM_HOIST=0, in the JAX package)"),
+    "K4": ("sha256_peel_hoisted", "ops/sha256_pallas.py:310-415 "
+           "(_peel_hoisted, via _kernel_body :522-524, DBM_PEEL=1, in the "
+           "JAX package)")}
+
+
+def peeled_entry(kern: str, src: str, launches: int, check: dict,
+                 rates: dict) -> dict:
+    """A peeled body's entry of the ``kernels`` line: its times on the
+    rates blocks beside K1's, on R3's chain, to K2's first hit and on
+    the mice rows."""
+    name, replaces = PEELED_REPLACES[kern]
+    one = rates["K1"]["one_block"]
+    mine = one[kern]
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches, "checked": True,
+        "max_abs_err": check["max_abs_err"],
+        "ms": mine["ms"], "lanes": one["lanes"], "k1_ms": one["ms"],
+        "plain_ms": mine["plain_ms_2p22"], "plain_lanes": 1 << 22,
+        "ms_at_plain_lanes": mine["ms_2p22"],
+        "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+        "int32_pipe_ms": one["int32_pipe_ms"],
+        "sass_alu_insns_per_lane": mine["sass_alu_insns_per_lane"],
+        "two_block_ms": rates["K1"]["two_block"][kern]["ms"],
+        "two_block_digit_free_ms":
+            rates["K1"]["two_block_digit_free"][kern]["ms"],
+        "r3_chain_ms": rates["K6"]["bodies_ms"][kern],
+        "until_ms_to_first_hit": rates["K2"]["first_hit"][kern]["ms_to_hit"],
+        "mice_rows_ms": rates["K5"]["mice"]["peeled"][kern]["kernel_ms"],
+        "library_ms": None}
 
 
 def main() -> int:
@@ -1603,14 +2020,28 @@ def main() -> int:
         return 1
     outdir = os.path.join(ROOT, "chiprun_out", "chip_smoke")
     os.makedirs(outdir, exist_ok=True)
+    PHASES_LOG.append(os.path.join(outdir, "phases.jsonl"))
+    open(PHASES_LOG[0], "w").close()
     t0 = time.monotonic()
+    marks = [t0]
+
+    def lap():
+        marks.append(time.monotonic())
+        return marks[-1] - marks[-2]
     dev_info = phase_device()
-    phase_build()
+    phase_build(outdir)
+    seconds = {"device+build": lap()}
     kernel = phase_kernel()
+    seconds["kernel"] = lap()
     e2e = phase_e2e(outdir)
+    seconds["e2e"] = lap()
     rates = phase_rates(dev_info, outdir)
-    emit("done", seconds=time.monotonic() - t0)
-    print(json.dumps(kernels_line(kernel, e2e, rates)), flush=True)
+    seconds["rates"] = lap()
+    emit("done", seconds=time.monotonic() - t0, phase_seconds=seconds)
+    line = json.dumps(kernels_line(kernel, e2e, rates))
+    print(line, flush=True)
+    with open(PHASES_LOG[0], "a") as f:
+        f.write(line + "\n")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

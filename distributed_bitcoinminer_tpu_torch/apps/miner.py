@@ -53,15 +53,19 @@ from ..lsp.client import AsyncClient, new_async_client
 from ..lsp.errors import LspError
 from ..lsp.params import Params
 from ..ops import sha256_cuda
-from ..utils.config import CoalesceParams, coalesce_from_env
+from ..utils.config import (CoalesceParams, PeelParams, coalesce_from_env,
+                            peel_from_env)
 
 logger = logging.getLogger("dbmt.miner")
 
 
-def default_searcher_factory(data: str, device="cuda"):
-    """The port's :class:`NonceSearcher` for ``data`` on ``device``."""
+def default_searcher_factory(data: str, device="cuda",
+                             body: PeelParams = PeelParams()):
+    """The port's :class:`NonceSearcher` for ``data`` on ``device``, with
+    the lane body ``body`` (``DBMT_PEEL``, ``DBMT_HOIST``)."""
     from ..models import NonceSearcher
-    return NonceSearcher(data, device=device)
+    return NonceSearcher(data, device=device, peel=body.peel,
+                         hoist=body.hoist)
 
 
 class MinerWorker:
@@ -361,8 +365,8 @@ class MinerWorker:
         """Chunks served, batched launches and the chunks they served,
         and CUDA kernel launches made by this process, by the
         TPU kernel each replaces (K1 arg-min search, K2 difficulty
-        search, K5 the batched segment-min, K6 the folds of the
-        device-resident chain)."""
+        search, K3 and K4 the peeled bodies' searches, K5 the batched
+        segment-min, K6 the folds of the device-resident chain)."""
         return {"chunks": self.jobs_done,
                 "coalesced_dispatches": self.coalesced_dispatches,
                 "coalesced_chunks": self.coalesced_chunks,
@@ -426,10 +430,12 @@ class MinerWorker:
             await self.client.close()
 
 
-async def _run_miner(hostport: str, device: str) -> int:
+async def _run_miner(hostport: str, device: str,
+                     body: PeelParams = PeelParams()) -> int:
     worker = MinerWorker(
         hostport, params=Params(),
-        searcher_factory=lambda data: default_searcher_factory(data, device),
+        searcher_factory=lambda data: default_searcher_factory(data, device,
+                                                               body),
         coalesce=coalesce_from_env().enabled)
     try:
         try:
@@ -461,33 +467,35 @@ def main(argv=None) -> int:
         print(f"Usage: ./{argv[0]} <hostport> [--device cuda|cpu]", end="")
         return 1
     device = resolve_device(device)
+    body = peel_from_env()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     if device.type == "cuda":
-        warm_up(device)
-    return asyncio.run(_run_miner(args[0], device))
+        warm_up(device, body)
+    return asyncio.run(_run_miner(args[0], device, body))
 
 
-def warm_up(device) -> None:
-    """Create the CUDA context, build (if needed) and load the kernels, and
-    run both chains (arg-min and difficulty) once over the 6 blocks of
-    [0, 10^5) and one batched launch before joining, so the first request
-    does not pay for any of it. The launch counters restart at 0
-    afterwards: they count the launches made serving requests."""
+def warm_up(device, body: PeelParams = PeelParams()) -> None:
+    """Create the CUDA context, build (if needed) and load the kernels of
+    the miner's lane body ``body``, and run both chains (arg-min and
+    difficulty) once over the 6 blocks of [0, 10^5) and one batched
+    launch before joining, so the first request does not pay for any of
+    it. The launch counters restart at 0 afterwards: they count the
+    launches made serving requests."""
     import torch
 
-    from ..models import NonceSearcher
     t0 = time.monotonic()
     torch.zeros(1, device=device)
-    s = NonceSearcher("warm-up", device=device)
+    s = default_searcher_factory("warm-up", device, body)
     s.search(0, 10 ** 5 - 1)
     s.search_until(0, 10 ** 5 - 1, 1)
     # A batch with a 1-block and a 2-block tail: both K5 search kernels.
-    t = NonceSearcher("w" * 60, device=device)
+    t = default_searcher_factory("w" * 60, device, body)
     s.finalize_batch(s.dispatch_batch([(s, 0, 999), (t, 10 ** 4, 10 ** 5)]))
     sha256_cuda.reset_launches()
-    logger.info("device %s ready in %.3fs (%s)", device,
-                time.monotonic() - t0, torch.cuda.get_device_name(device))
+    logger.info("device %s ready in %.3fs (%s; %s)", device,
+                time.monotonic() - t0, torch.cuda.get_device_name(device),
+                body)
 
 
 if __name__ == "__main__":

@@ -33,10 +33,10 @@
 // run-time fields of the plan. Ragged rows: each row gets a share of the
 // launch's blocks (the host's block table, proportional to its valid
 // lanes), and its blocks grid-stride over the row's valid lanes only. The
-// R x 49-word plan table lies in device memory (one copy per batch); a
-// block copies its row's plan into shared memory once. A block writes one
-// partial key; the reduce gives each segment one block, which reduces the
-// partials of the segment's rows. No atomics; an empty segment, or one
+// R-row plan table (49 words a row, 185 under K4) lies in device memory
+// (one copy per batch); a block copies its row's plan into shared memory
+// once. A block writes one partial key; the reduce gives each segment one
+// block, which reduces the partials of the segment's rows. No atomics; an empty segment, or one
 // whose rows have no valid lane, comes out as the all-ones sentinel.
 //
 // K6 replaces the single-device entries of the TPU devloop
@@ -51,12 +51,15 @@
 // launch takes its lane count at run time, so only the found check remains:
 // a chained until launch returns at once when an earlier one hit.
 //
-// What bounds them: the 32-bit integer pipes. A lane reads no memory (the
+// What bounds them: integer instruction issue. A lane reads no memory (the
 // plan travels by value as a kernel parameter, the round constants sit in
-// the constant bank) and a block writes 12 bytes, so the work is the ~2,000
-// to ~4,000 integer instructions of one or two compressions per lane. K2
-// adds a compare and one volatile load per lane. K5 reads its row's plan
-// from shared memory instead of the parameter bank.
+// the constant bank) and a block writes 12 bytes, so the work is the ~1,300
+// to ~3,000 integer instructions of one or two compressions per lane: the
+// rotates and logic on the INT32 pipe (64 lanes a clock per SM), adds and
+// moves also on the FMA pipe (IMAD, VIADD), at most 128 lanes issued a
+// clock per SM. K2 adds a compare and one volatile load per lane. K5 reads
+// its row's plan (under K4, the hoist too) from shared memory instead of
+// the parameter bank.
 //
 // Design. The TPU grid runs its steps in order and carries accumulators from
 // step to step; GPU blocks run in parallel in no order. So each thread walks
@@ -74,9 +77,42 @@
 // lane lies above f_min. Only lanes above the lowest hit found so far are
 // skipped, and that never passes over the true first qualifier.
 //
+// The lane body. Every search entry above runs one of three bodies,
+// chosen when the library is built (DBMT_BODY; the wrapper builds one
+// library per body from this file, in parallel):
+//
+// 0, rolled (K1's): the tail's blocks compressed whole from the midstate,
+//    the digits placed into the template's words by their run-time word.
+// 1, peel (K3): replaces the peel branch of _kernel_body in
+//    ops/sha256_pallas.py (DBM_PEEL=1 DBM_HOIST=0). The same function:
+//    the rounds of block 0 before its first digit word t* = rem >> 2 read
+//    only constant words, so each thread runs them once, before its lane
+//    loop (the TPU ran them on its scalar plane); a lane enters block 0 at
+//    round t*, with the digit words at fixed places and no schedule math
+//    in rounds t*..15; the rest is the full schedule.
+// 2, peel fed by the host hoist (K4): replaces _peel_hoisted
+//    (DBM_PEEL=1, hoist on). The plan carries the host's HoistPlan
+//    operands: block 0 enters round t* at the host's deep state, rounds
+//    t*..15 add the lane's digits to the host's K[j] + W[j], the
+//    expanded words 16..31 compute only their lane-varying taps on top of
+//    the host's constant part (cw), and a digit-free second block runs its
+//    64 rounds off the host's K[t] + W[t] (ckw) with no schedule math.
+//
+// Which words and taps vary is fixed per (rem, k) on the TPU, which
+// compiles one kernel per pair; here rem and k are run-time plan fields
+// (K5 mixes them in one launch). Bodies 1 and 2 therefore hold one
+// straight-line copy of block 0's head per shape, built at compile time
+// from the same constancy analysis as the host's hoist_structure: per
+// t* for K3, per (t*, digit words in block 0) for K4, and per spill shape
+// for a second block that holds digits. A lane jumps to its shape's copy
+// through one switch on a warp-uniform value, so skipped rounds and
+// constant taps cost no per-lane ALU work. The tail block count and, for
+// K4, a digit-free second block are template parameters (the variant).
+// Only digest words 0 and 1 leave a body, so the compiler drops round
+// 63's e update and the other six feed-forward adds in every body.
+//
 // This first design is simple and right; speed comes later (per-thread lane
-// unrolling, hoisting the high digits, a digit-free second block without
-// schedule arithmetic, peeling the constant head rounds).
+// unrolling, hoisting the high digits).
 
 #include <cstdint>
 #include <cstring>
@@ -87,7 +123,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// The host plan, by value: 49 uint32 words, in this order.
+#ifndef DBMT_BODY
+#define DBMT_BODY 0
+#endif
+static_assert(DBMT_BODY >= 0 && DBMT_BODY <= 2, "DBMT_BODY: 0, 1 or 2");
+
+// The host plan, by value: 49 uint32 words in this order, then for K4 the
+// host hoist's 136 in the TPU kernel's order (deep, kw, cw, ckw), the
+// per-block sections padded to two blocks.
 struct Plan {
   uint32_t mid[8];     // state after the prefix's full 64-byte blocks
   uint32_t tmpl[32];   // padded tail block(s), digit bytes zeroed
@@ -100,8 +143,15 @@ struct Plan {
   uint32_t n;          // lanes
   uint32_t t_hi;       // target, high word (K2 and the until chain only)
   uint32_t t_lo;       // target, low word
+#if DBMT_BODY == 2
+  uint32_t deep[8];    // block 0's round state after rounds 0..t*-1
+  uint32_t kw[32];     // K[j] + W[j], rounds 0..15 of each block
+  uint32_t cw[32];     // constant part of w[16..31] of each block
+  uint32_t ckw[64];    // K[t] + W[t] of a digit-free block (else 0)
+#endif
 };
-static_assert(sizeof(Plan) == 49 * sizeof(uint32_t), "plan layout");
+constexpr int kPlanWords = DBMT_BODY == 2 ? 49 + 136 : 49;
+static_assert(sizeof(Plan) == kPlanWords * sizeof(uint32_t), "plan layout");
 
 __constant__ uint32_t kK[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu,
@@ -178,15 +228,14 @@ __device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
   st[7] += h;
 }
 
-// The key of lane i: its k digits written into the tail template, the
-// tail's NB blocks compressed from the host midstate, digest words 0 and 1.
-// The k digits fill bytes s .. s+k-1 of a 12-byte field that starts at
-// tail word a = rem / 4; the field's three words are q0, q1, q2.
-template <int NB>
-__device__ __forceinline__ Key lane_key(const Plan& p, uint32_t i,
-                                        uint32_t s, int a) {
-  const uint32_t k = p.k;
-  uint32_t q0 = 0u, q1 = 0u, q2 = 0u;
+// The k ASCII digits of lane i in bytes s .. s+k-1 of a 12-byte field
+// whose three big-endian words are q0, q1, q2 (the rest zero).
+__device__ __forceinline__ void digit_field(uint32_t i, uint32_t k,
+                                            uint32_t s, uint32_t& q0,
+                                            uint32_t& q1, uint32_t& q2) {
+  q0 = 0u;
+  q1 = 0u;
+  q2 = 0u;
   uint32_t x = i;
 #pragma unroll
   for (uint32_t t = 0; t < 9u; ++t) {  // t = 0 is the least significant digit
@@ -201,6 +250,17 @@ __device__ __forceinline__ Key lane_key(const Plan& p, uint32_t i,
       q2 |= wq == 2u ? v : 0u;
     }
   }
+}
+
+// The key of lane i: its k digits written into the tail template, the
+// tail's NB blocks compressed from the host midstate, digest words 0 and 1.
+// The k digits fill bytes s .. s+k-1 of a 12-byte field that starts at
+// tail word a = rem / 4; the field's three words are q0, q1, q2.
+template <int NB>
+__device__ __forceinline__ Key lane_key(const Plan& p, uint32_t i,
+                                        uint32_t s, int a) {
+  uint32_t q0, q1, q2;
+  digit_field(i, p.k, s, q0, q1, q2);
   uint32_t st[8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) st[r] = p.mid[r];
@@ -217,6 +277,308 @@ __device__ __forceinline__ Key lane_key(const Plan& p, uint32_t i,
   }
   return Key{st[0], st[1], i};
 }
+
+// ------------------------------------------------------- the peeled bodies
+
+struct State {
+  uint32_t a, b, c, d, e, f, g, h;
+};
+
+__device__ __forceinline__ void sha_round(State& s, uint32_t kw) {
+  const uint32_t S1 = rotr(s.e, 6) ^ rotr(s.e, 11) ^ rotr(s.e, 25);
+  const uint32_t ch = s.g ^ (s.e & (s.f ^ s.g));
+  const uint32_t t1 = s.h + S1 + ch + kw;
+  const uint32_t S0 = rotr(s.a, 2) ^ rotr(s.a, 13) ^ rotr(s.a, 22);
+  const uint32_t maj = (s.a & (s.b ^ s.c)) ^ (s.b & s.c);
+  s.h = s.g;
+  s.g = s.f;
+  s.f = s.e;
+  s.e = s.d + t1;
+  s.d = s.c;
+  s.c = s.b;
+  s.b = s.a;
+  s.a = t1 + S0 + maj;
+}
+
+__device__ __forceinline__ uint32_t ssig0(uint32_t x) {
+  return rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3);
+}
+
+__device__ __forceinline__ uint32_t ssig1(uint32_t x) {
+  return rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10);
+}
+
+// The shape of a tail, from rem and k (ops/sha256_torch.py::
+// hoist_structure): variant 0 is a 1-block tail, 1 a 2-block tail with
+// digits in both blocks, 2 a 2-block tail whose second block holds none.
+__host__ __device__ constexpr int tail_variant(int rem, int k) {
+  return rem + k + 9 <= 64 ? 0 : ((rem + k - 1) >> 2) <= 15 ? 2 : 1;
+}
+
+// Digit words of block 0: t* = rem >> 2 up to the last one below 16.
+__host__ __device__ constexpr int block0_width(int rem, int k) {
+  return (((rem + k - 1) >> 2) < 15 ? ((rem + k - 1) >> 2) : 15) -
+         (rem >> 2) + 1;
+}
+
+// Whether some (rem, k) of the variant has t* = a and w0 digit words in
+// block 0 (w0 = 0: any number of them).
+__host__ __device__ constexpr bool shape_occurs(int variant, int a, int w0) {
+  for (int s = 0; s < 4; ++s) {
+    for (int k = 1; k <= 9; ++k) {
+      const int v = tail_variant(4 * a + s, k);
+      // K3's second block is one body whatever it holds: its variant 1
+      // covers the 2-block tails of both kinds.
+      if ((v == variant || (DBMT_BODY != 2 && variant == 1 && v == 2)) &&
+          (w0 == 0 || block0_width(4 * a + s, k) == w0)) {
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// Bit t of the result: schedule word t (0..31) of a block varies per lane,
+// its window words first .. first+width-1 carrying the digits
+// (hoist_structure's recurrence: a word varies when one of its taps does).
+__host__ __device__ constexpr uint32_t varying_words(int first, int width) {
+  uint32_t v = 0u;
+  for (int t = 0; t < 32; ++t) {
+    const bool var =
+        t < 16 ? (t >= first && t < first + width)
+               : (((v >> (t - 16)) | (v >> (t - 15)) | (v >> (t - 7)) |
+                   (v >> (t - 2))) & 1u) != 0u;
+    v |= var ? 1u << t : 0u;
+  }
+  return v;
+}
+
+// Words 16..31 of a block's schedule into W from its window x[0..15]. K3
+// expands every word (taps on constant words fold at compile time where the
+// words are the plan's); K4 starts from the host's constant part cw and
+// adds only the taps whose source word varies (mask: varying_words).
+template <int BODY, uint32_t MASK>
+__device__ __forceinline__ void expand_16_31(uint32_t (&x)[32],
+                                             const uint32_t* cw,
+                                             uint32_t (&W)[16]) {
+#pragma unroll
+  for (int t = 16; t < 32; ++t) {
+    if constexpr (BODY == 2) {
+      uint32_t acc = cw[t - 16];
+      if ((MASK >> (t - 16)) & 1u) acc += x[t - 16];
+      if ((MASK >> (t - 15)) & 1u) acc += ssig0(x[t - 15]);
+      if ((MASK >> (t - 7)) & 1u) acc += x[t - 7];
+      if ((MASK >> (t - 2)) & 1u) acc += ssig1(x[t - 2]);
+      x[t] = acc;
+    } else {
+      x[t] = x[t - 16] + ssig0(x[t - 15]) + x[t - 7] + ssig1(x[t - 2]);
+    }
+    W[t - 16] = x[t];
+  }
+}
+
+// Block 0 of lane i for t* = A (and, for K4, W0 digit words in block 0):
+// from the entry state (the round state after rounds 0..A-1), rounds
+// A..15 with the digit words q0..q2 at A..A+2 and no schedule math, then
+// words 16..31 of the schedule into W.
+template <int BODY, int A, int W0>
+__device__ __forceinline__ void block0_head(const Plan& p,
+                                            const uint32_t* entry,
+                                            uint32_t q0, uint32_t q1,
+                                            uint32_t q2, State& st,
+                                            uint32_t (&W)[16]) {
+  st = State{entry[0], entry[1], entry[2], entry[3],
+             entry[4], entry[5], entry[6], entry[7]};
+  uint32_t x[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t qj = j == A ? q0 : j == A + 1 ? q1 : j == A + 2 ? q2 : 0u;
+    x[j] = p.tmpl[j] | qj;
+    if (j >= A) {
+#if DBMT_BODY == 2
+      sha_round(st, p.kw[j] + qj);
+#else
+      sha_round(st, kK[j] + x[j]);
+#endif
+    }
+  }
+#if DBMT_BODY == 2
+  expand_16_31<BODY, varying_words(A, W0)>(x, p.cw, W);
+#else
+  expand_16_31<BODY, 0u>(x, nullptr, W);
+#endif
+}
+
+// Rounds 16..63 of a block whose schedule words 16..31 are W (the window
+// then rolls in place, mod 16).
+__device__ __forceinline__ void rounds_16_63(State& st, uint32_t (&W)[16]) {
+#pragma unroll
+  for (int t = 16; t < 32; ++t) sha_round(st, W[t - 16] + kK[t]);
+#pragma unroll
+  for (int t = 32; t < 64; ++t) {
+    const uint32_t wt = W[t & 15] + ssig0(W[(t + 1) & 15]) +
+                        W[(t + 9) & 15] + ssig1(W[(t + 14) & 15]);
+    W[t & 15] = wt;
+    sha_round(st, wt + kK[t]);
+  }
+}
+
+#define DBMT_FOR_EACH_T(X, W0) \
+  X(0, W0) X(1, W0) X(2, W0) X(3, W0) X(4, W0) X(5, W0) X(6, W0) X(7, W0) \
+  X(8, W0) X(9, W0) X(10, W0) X(11, W0) X(12, W0) X(13, W0) X(14, W0)    \
+  X(15, W0)
+
+// Block 0 through round 31's schedule word, by shape: `shape` is 4 t* + w0
+// for K4, 4 t* for K3 (a warp-uniform value), one copy per shape of the
+// variant.
+template <int VARIANT>
+__device__ __forceinline__ void block0(const Plan& p, const uint32_t* entry,
+                                       int shape, uint32_t q0, uint32_t q1,
+                                       uint32_t q2, State& st,
+                                       uint32_t (&W)[16]) {
+  switch (shape) {
+#define DBMT_SHAPE(A, W0)                                             \
+  case 4 * A + W0:                                                    \
+    if constexpr ((DBMT_BODY == 2) == (W0 > 0) &&                     \
+                  shape_occurs(VARIANT, A, W0)) {                     \
+      block0_head<DBMT_BODY, A, W0>(p, entry, q0, q1, q2, st, W);     \
+    }                                                                 \
+    break;
+#if DBMT_BODY == 2
+    DBMT_FOR_EACH_T(DBMT_SHAPE, 1)
+    DBMT_FOR_EACH_T(DBMT_SHAPE, 2)
+    DBMT_FOR_EACH_T(DBMT_SHAPE, 3)
+#else
+    DBMT_FOR_EACH_T(DBMT_SHAPE, 0)
+#endif
+#undef DBMT_SHAPE
+    default:
+      break;
+  }
+}
+
+#if DBMT_BODY == 2
+// K4's second block when it holds digits (variant 1; t* = A is 14 or 15):
+// field word r (q_r) sits at tail word A + r, so block 1's word m gets
+// field word 16 + m - A; its W1 digit words are 0 .. W1-1. Rounds 0..15
+// off the host's K + W, words 16..31 off the host's cw.
+template <int A, int W1>
+__device__ __forceinline__ void block1_head(const Plan& p, uint32_t q1,
+                                            uint32_t q2, State& st,
+                                            uint32_t (&W)[16]) {
+  uint32_t x[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int r = 16 + j - A;
+    const uint32_t qj = r == 1 ? q1 : r == 2 ? q2 : 0u;
+    x[j] = p.tmpl[16 + j] | qj;
+    sha_round(st, p.kw[16 + j] + qj);
+  }
+  expand_16_31<2, varying_words(0, W1)>(x, p.cw + 16, W);
+}
+#endif
+
+// A lane's key under the library's body, for the variant's tail shape.
+// The per-thread part (the shape, and K3's head rounds) is computed once,
+// before the lane loop, by the constructor.
+template <int VARIANT>
+struct LaneBody {
+  uint32_t s;   // rem & 3: the first digit's byte in its word
+  int a;        // t* = rem >> 2
+  int shape;    // block 0's shape (see block0)
+  int shape1;   // K4, variant 1: block 1's spill shape
+#if DBMT_BODY == 1
+  uint32_t entry[8];   // the state after block 0's rounds 0..t*-1
+#endif
+
+  __device__ __forceinline__ explicit LaneBody(const Plan& p)
+      : s(p.rem & 3u), a(static_cast<int>(p.rem >> 2)) {
+    const int rem = static_cast<int>(p.rem), k = static_cast<int>(p.k);
+    shape = 4 * a + (DBMT_BODY == 2 ? block0_width(rem, k) : 0);
+    shape1 = 2 * (a - 14) + ((rem + k - 1) >> 2) - 16;
+#ifdef DBMT_FIXED_SHAPE
+    // For reading the SASS only: with the shapes fixed at compile time a
+    // kernel's lane loop is the one path that those shapes run.
+    shape = DBMT_FIXED_SHAPE;
+    shape1 = DBMT_FIXED_SHAPE1;
+#endif
+#if DBMT_BODY == 1
+    State st{p.mid[0], p.mid[1], p.mid[2], p.mid[3],
+             p.mid[4], p.mid[5], p.mid[6], p.mid[7]};
+#pragma unroll 1
+    for (int j = 0; j < a; ++j) sha_round(st, kK[j] + p.tmpl[j]);
+    entry[0] = st.a;
+    entry[1] = st.b;
+    entry[2] = st.c;
+    entry[3] = st.d;
+    entry[4] = st.e;
+    entry[5] = st.f;
+    entry[6] = st.g;
+    entry[7] = st.h;
+#endif
+  }
+
+  __device__ __forceinline__ Key operator()(const Plan& p, uint32_t i) const {
+#if DBMT_BODY == 0
+    return lane_key<VARIANT == 0 ? 1 : 2>(p, i, s, a);
+#else
+    uint32_t q0, q1, q2;
+    digit_field(i, p.k, s, q0, q1, q2);
+    State st;
+    uint32_t W[16];
+#if DBMT_BODY == 1
+    block0<VARIANT>(p, entry, shape, q0, q1, q2, st, W);
+#else
+    block0<VARIANT>(p, p.deep, shape, q0, q1, q2, st, W);
+#endif
+    rounds_16_63(st, W);
+    if constexpr (VARIANT == 0) {
+      return Key{p.mid[0] + st.a, p.mid[1] + st.b, i};
+    } else {
+      const uint32_t out0[8] = {p.mid[0] + st.a, p.mid[1] + st.b,
+                                p.mid[2] + st.c, p.mid[3] + st.d,
+                                p.mid[4] + st.e, p.mid[5] + st.f,
+                                p.mid[6] + st.g, p.mid[7] + st.h};
+#if DBMT_BODY == 1
+      // Block 1 in full; the digit field spills into its words 0 and 1
+      // when t* is 15 (q1, q2) or 14 (q2).
+      uint32_t w[16];
+#pragma unroll
+      for (int m = 0; m < 16; ++m) w[m] = p.tmpl[16 + m];
+      w[0] |= a == 15 ? q1 : a == 14 ? q2 : 0u;
+      w[1] |= a == 15 ? q2 : 0u;
+      uint32_t s8[8] = {out0[0], out0[1], out0[2], out0[3],
+                        out0[4], out0[5], out0[6], out0[7]};
+      compress(s8, w);
+      return Key{s8[0], s8[1], i};
+#else
+      st = State{out0[0], out0[1], out0[2], out0[3],
+                 out0[4], out0[5], out0[6], out0[7]};
+      if constexpr (VARIANT == 2) {
+#pragma unroll
+        for (int t = 0; t < 64; ++t) sha_round(st, p.ckw[t]);
+      } else {
+        switch (shape1) {
+          case 0:
+            block1_head<14, 1>(p, q1, q2, st, W);
+            break;
+          case 2:
+            block1_head<15, 1>(p, q1, q2, st, W);
+            break;
+          case 3:
+            block1_head<15, 2>(p, q1, q2, st, W);
+            break;
+          default:
+            break;
+        }
+        rounds_16_63(st, W);
+      }
+      return Key{out0[0] + st.a, out0[1] + st.b, i};
+#endif
+    }
+#endif
+  }
+};
 
 __device__ __forceinline__ Key warp_min(Key v) {
 #pragma unroll
@@ -257,11 +619,12 @@ __device__ __forceinline__ void write_partial(Key best,
   }
 }
 
-template <int NB>
+// ------------------------------------------------------------ kernels
+
+template <int VARIANT>
 __global__ void __launch_bounds__(kThreads)
     sha256_argmin_kernel(const Plan p, uint32_t* __restrict__ partials) {
-  const uint32_t s = p.rem & 3u;
-  const int a = static_cast<int>(p.rem >> 2);
+  const LaneBody<VARIANT> body(p);
   const uint32_t stride = gridDim.x * blockDim.x;
   Key best = sentinel();
   // The launcher keeps n <= 2^31 and the grid far below 2^31 threads, so
@@ -271,7 +634,7 @@ __global__ void __launch_bounds__(kThreads)
        j += stride) {
     const uint32_t i = p.i0 + j;
     if (i < p.lo_i || i > p.hi_i) continue;
-    const Key cand = lane_key<NB>(p, i, s, a);
+    const Key cand = body(p, i);
     if (key_less(cand, best)) best = cand;
   }
   write_partial(best, partials);
@@ -281,13 +644,12 @@ __global__ void __launch_bounds__(kThreads)
 // nothing once an earlier launch of the chain has hit (carry[0] != 0; no
 // thread of this launch writes the carry, so every thread sees one value).
 // f_min holds the lowest qualifying lane found so far (all-ones: none).
-template <int NB, bool CHAINED>
+template <int VARIANT, bool CHAINED>
 __global__ void __launch_bounds__(kThreads)
     sha256_until_kernel(const Plan p, const uint32_t* __restrict__ carry,
                         uint32_t* f_min, uint32_t* __restrict__ partials) {
   if (CHAINED && carry[0] != 0u) return;
-  const uint32_t s = p.rem & 3u;
-  const int a = static_cast<int>(p.rem >> 2);
+  const LaneBody<VARIANT> body(p);
   const uint32_t stride = gridDim.x * blockDim.x;
   const volatile uint32_t* lowest_hit = f_min;
   Key best = sentinel();
@@ -300,7 +662,7 @@ __global__ void __launch_bounds__(kThreads)
     // barrier with every other thread of the block.
     if (i > *lowest_hit) break;
     if (i < p.lo_i || i > p.hi_i) continue;
-    const Key cand = lane_key<NB>(p, i, s, a);
+    const Key cand = body(p, i);
     if (key_less(cand, best)) best = cand;
     if (cand.hi < p.t_hi || (cand.hi == p.t_hi && cand.lo < p.t_lo)) {
       atomicMin(f_min, i);
@@ -413,11 +775,29 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// K5's search over the valid lanes [first, last] of one row, as block
+// `local` of `nblk` blocks of that row.
+template <int VARIANT>
+__device__ __forceinline__ Key segmin_lanes(const Plan& sp, uint32_t first,
+                                            uint32_t last, int local,
+                                            int nblk) {
+  const LaneBody<VARIANT> body(sp);
+  const uint32_t stride = static_cast<uint32_t>(nblk) * blockDim.x;
+  Key best = sentinel();
+  for (uint32_t j = static_cast<uint32_t>(local) * blockDim.x + threadIdx.x;
+       j <= last - first; j += stride) {
+    const Key cand = body(sp, first + j);
+    if (key_less(cand, best)) best = cand;
+  }
+  return best;
+}
+
 // K5's search: the blocks of one NB group. Block b serves row
 // group_rows[g] for the g with group_blk[g] <= b < group_blk[g + 1]
 // (group_blk ascends strictly: a row without a block is not in the group),
 // as block b - group_blk[g] of that row's group_blk[g + 1] - group_blk[g],
-// and writes its partial at slot part_base + b.
+// and writes its partial at slot part_base + b. Under K4 a 2-block row
+// takes the digit-free variant when its second block holds no digit.
 template <int NB>
 __global__ void __launch_bounds__(kThreads)
     sha256_segmin_kernel(const uint32_t* __restrict__ plans,
@@ -441,9 +821,9 @@ __global__ void __launch_bounds__(kThreads)
     s_nblk = group_blk[lo + 1] - group_blk[lo];
   }
   __syncthreads();
-  const uint32_t* src = plans + 49 * s_row;
+  const uint32_t* src = plans + kPlanWords * s_row;
   uint32_t* dst = reinterpret_cast<uint32_t*>(&sp);
-  for (int w = threadIdx.x; w < 49; w += blockDim.x) dst[w] = src[w];
+  for (int w = threadIdx.x; w < kPlanWords; w += blockDim.x) dst[w] = src[w];
   __syncthreads();
   // The row's valid lanes [first, last]; the launcher keeps i0 + n - 1
   // within 32 bits and n <= 2^31, so the offset j never wraps.
@@ -451,15 +831,20 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t last = min(sp.hi_i, sp.i0 + sp.n - 1u);
   Key best = sentinel();
   if (first <= last) {
-    const uint32_t s = sp.rem & 3u;
-    const int a = static_cast<int>(sp.rem >> 2);
-    const uint32_t stride = static_cast<uint32_t>(s_nblk) * blockDim.x;
-    for (uint32_t j = static_cast<uint32_t>(s_local) * blockDim.x +
-                      threadIdx.x;
-         j <= last - first; j += stride) {
-      const Key cand = lane_key<NB>(sp, first + j, s, a);
-      if (key_less(cand, best)) best = cand;
+#if DBMT_BODY == 2
+    if constexpr (NB == 2) {
+      if (tail_variant(static_cast<int>(sp.rem), static_cast<int>(sp.k)) ==
+          2) {
+        best = segmin_lanes<2>(sp, first, last, s_local, s_nblk);
+      } else {
+        best = segmin_lanes<1>(sp, first, last, s_local, s_nblk);
+      }
+    } else {
+      best = segmin_lanes<0>(sp, first, last, s_local, s_nblk);
     }
+#else
+    best = segmin_lanes<NB - 1>(sp, first, last, s_local, s_nblk);
+#endif
   }
   best = block_min(best);
   if (threadIdx.x == 0) {
@@ -498,9 +883,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool plan_ok(const Plan& p, int grid) {
-  return grid > 0 && grid <= (1 << 20) && p.n <= (1u << 31) &&
-         (p.nblocks == 1u || p.nblocks == 2u) && p.k >= 1u && p.k <= 9u &&
-         p.rem <= 63u;
+  const bool ok = grid > 0 && grid <= (1 << 20) && p.n <= (1u << 31) &&
+                  (p.nblocks == 1u || p.nblocks == 2u) && p.k >= 1u &&
+                  p.k <= 9u && p.rem <= 63u;
+  // The peeled bodies pick their code by the tail's shape, which the
+  // block count must match.
+  return ok && (DBMT_BODY == 0 ||
+                (tail_variant(static_cast<int>(p.rem),
+                              static_cast<int>(p.k)) == 0) ==
+                    (p.nblocks == 1u));
 }
 
 Plan read_plan(const uint32_t* plan_words) {
@@ -509,13 +900,35 @@ Plan read_plan(const uint32_t* plan_words) {
   return p;
 }
 
-// Launch K1's search kernel; returns cudaGetLastError() after it.
+// The search kernels' variant for plan p: 0 for a 1-block tail, 1 for a
+// 2-block one, 2 under K4 when its second block holds no digit.
+int plan_variant(const Plan& p) {
+  if (p.nblocks == 1u) return 0;
+  if (DBMT_BODY == 2 && tail_variant(static_cast<int>(p.rem),
+                                     static_cast<int>(p.k)) == 2) {
+    return 2;
+  }
+  return 1;
+}
+
+// Launch K1's search kernel (K3's or K4's under the peeled bodies);
+// returns cudaGetLastError() after it.
 int launch_argmin_search(const Plan& p, uint32_t* partials, int grid,
                          cudaStream_t s) {
-  if (p.nblocks == 1u) {
-    sha256_argmin_kernel<1><<<grid, kThreads, 0, s>>>(p, partials);
-  } else {
-    sha256_argmin_kernel<2><<<grid, kThreads, 0, s>>>(p, partials);
+  switch (plan_variant(p)) {
+    case 0:
+      sha256_argmin_kernel<0><<<grid, kThreads, 0, s>>>(p, partials);
+      break;
+    case 1:
+      sha256_argmin_kernel<1><<<grid, kThreads, 0, s>>>(p, partials);
+      break;
+#if DBMT_BODY == 2
+    case 2:
+      sha256_argmin_kernel<2><<<grid, kThreads, 0, s>>>(p, partials);
+      break;
+#endif
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -527,12 +940,23 @@ int launch_until_search(const Plan& p, const uint32_t* carry, uint32_t* f_min,
                         uint32_t* partials, int grid, cudaStream_t s) {
   cudaError_t err = cudaMemsetAsync(f_min, 0xFF, sizeof(uint32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (p.nblocks == 1u) {
-    sha256_until_kernel<1, CHAINED><<<grid, kThreads, 0, s>>>(p, carry, f_min,
-                                                              partials);
-  } else {
-    sha256_until_kernel<2, CHAINED><<<grid, kThreads, 0, s>>>(p, carry, f_min,
-                                                              partials);
+  switch (plan_variant(p)) {
+    case 0:
+      sha256_until_kernel<0, CHAINED><<<grid, kThreads, 0, s>>>(
+          p, carry, f_min, partials);
+      break;
+    case 1:
+      sha256_until_kernel<1, CHAINED><<<grid, kThreads, 0, s>>>(
+          p, carry, f_min, partials);
+      break;
+#if DBMT_BODY == 2
+    case 2:
+      sha256_until_kernel<2, CHAINED><<<grid, kThreads, 0, s>>>(
+          p, carry, f_min, partials);
+      break;
+#endif
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -549,30 +973,49 @@ int blocks_per_sm(Kernel kernel) {
 
 extern "C" {
 
+// The lane body this library was built with (0 rolled, 1 peel, 2 peel fed
+// by the host hoist) and its plan's length in words.
+int dbmt_sha256_body() { return DBMT_BODY; }
+
+int dbmt_sha256_plan_words() { return kPlanWords; }
+
 // Threads per block of the search kernels.
 int dbmt_sha256_argmin_threads() { return kThreads; }
 
-// Resident K1 search blocks per SM for a tail of nblocks blocks (0 on error).
-int dbmt_sha256_argmin_blocks_per_sm(int nblocks) {
-  return nblocks == 2 ? blocks_per_sm(sha256_argmin_kernel<2>)
-                      : blocks_per_sm(sha256_argmin_kernel<1>);
-}
-
-// Resident K2 search blocks per SM for a tail of nblocks blocks (0 on error).
-int dbmt_sha256_until_blocks_per_sm(int nblocks) {
-  return nblocks == 2 ? blocks_per_sm(sha256_until_kernel<2, false>)
-                      : blocks_per_sm(sha256_until_kernel<1, false>);
-}
-
-// Resident K5 search blocks per SM for a tail of nblocks blocks.
-int dbmt_sha256_segmin_blocks_per_sm(int nblocks) {
-  return nblocks == 2 ? blocks_per_sm(sha256_segmin_kernel<2>)
-                      : blocks_per_sm(sha256_segmin_kernel<1>);
+// Resident search blocks per SM (0 on error) of the entry's kernel
+// (0: arg-min, 1: until, 2: K5's segment-min) for the variant (0: 1-block
+// tail, 1: 2-block, 2: 2-block with a digit-free second block, K4 only;
+// K5 holds every 2-block variant in its kernel for 2-block rows).
+int dbmt_sha256_blocks_per_sm(int entry, int variant) {
+  if (variant < 0 || variant > (DBMT_BODY == 2 ? 2 : 1)) return 0;
+  if (entry == 2) {
+    return variant == 0 ? blocks_per_sm(sha256_segmin_kernel<1>)
+                        : blocks_per_sm(sha256_segmin_kernel<2>);
+  }
+  switch (3 * entry + variant) {
+    case 0:
+      return blocks_per_sm(sha256_argmin_kernel<0>);
+    case 1:
+      return blocks_per_sm(sha256_argmin_kernel<1>);
+    case 3:
+      return blocks_per_sm(sha256_until_kernel<0, false>);
+    case 4:
+      return blocks_per_sm(sha256_until_kernel<1, false>);
+#if DBMT_BODY == 2
+    case 2:
+      return blocks_per_sm(sha256_argmin_kernel<2>);
+    case 5:
+      return blocks_per_sm(sha256_until_kernel<2, false>);
+#endif
+    default:
+      return 0;
+  }
 }
 
 // K5: `table` is one device buffer of int32 words, in this order: the
-// nrows x 49-word plans; pstart[nrows] and pcount[nrows], each row's
-// partial slots; seg_rows[nsegs + 1]; then for the 1-block group its
+// nrows plans of dbmt_sha256_plan_words() words each; pstart[nrows] and
+// pcount[nrows], each row's partial slots; seg_rows[nsegs + 1]; then for
+// the 1-block group its
 // rows[n1] and block prefix[n1 + 1] (grid1 = prefix[n1] blocks), and the
 // same for the 2-block group (n2, grid2). partials: 3 * (grid1 + grid2)
 // device words, the 1-block group's slots first; out: 3 * nsegs device
@@ -587,7 +1030,7 @@ int dbmt_sha256_segmin(const int* table, int nrows, int nsegs, int n1,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint32_t* plans = reinterpret_cast<const uint32_t*>(table);
-  const int* pstart = table + 49 * nrows;
+  const int* pstart = table + kPlanWords * nrows;
   const int* pcount = pstart + nrows;
   const int* seg_rows = pcount + nrows;
   const int* g1_rows = seg_rows + nsegs + 1;
@@ -611,10 +1054,11 @@ int dbmt_sha256_segmin(const int* table, int nrows, int nsegs, int n1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Every entry below takes plan_words, 49 host uint32 words (the Plan
-// layout), enqueues on `stream` without synchronising, and returns the
-// cudaGetLastError() seen right after its launches (0 when all were
-// accepted). partials: 3 * grid device words of scratch.
+// Every entry below takes plan_words, dbmt_sha256_plan_words() host
+// uint32 words (the Plan layout), enqueues on `stream` without
+// synchronising, and returns the cudaGetLastError() seen right after its
+// launches (0 when all were accepted). partials: 3 * grid device words of
+// scratch.
 
 // K1: the search over `grid` blocks and the partials reduce; out: 3 device
 // words (hi, lo, idx).

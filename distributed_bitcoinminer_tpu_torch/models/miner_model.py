@@ -23,6 +23,10 @@ nonce whose hash is below a target, or the exact arg-min when none is:
 the same chain with the early-exiting launch, whose launches after the
 span's first hit do no lane work.
 
+The peeled search (``peel=True``) runs every launch above with the peeled
+lane body: K4, fed by the host hoist (``ops.sha256_torch.build_hoist``,
+built once per midstate-cache entry), or K3 with ``hoist=False``.
+
 Results are bit-identical to the Go reference, ties included (the
 earliest nonce wins everywhere).
 """
@@ -39,8 +43,14 @@ from ..ops import searchop
 from ..ops.search import (devloop_carry, devloop_span, devloop_span_until,
                           span_segmin)
 from ..ops.sha256_host import sha256_midstate
-from ..ops.sha256_torch import M32, build_tail_template
+from ..ops.sha256_torch import M32, build_hoist, build_tail_template
+from ..utils.metrics import registry as _registry
 
+
+# Midstate-cache misses by whether they built a hoist plan (the JAX
+# package's model.hoist_plans): a miss pays the host's hoist build.
+_MET_HOIST_ON = _registry().counter("model.hoist_plans", enabled="true")
+_MET_HOIST_OFF = _registry().counter("model.hoist_plans", enabled="false")
 
 #: Row cap per batched launch: a batch with more rows splits into several
 #: launches (the JAX package's _BATCH_ROWS_MAX; 8 mice of 10^6 nonces are
@@ -70,10 +80,18 @@ class _BlockPlan:
     template: np.ndarray
     rem: int
     k: int
+    #: The host hoist (ops.sha256_torch.HoistPlan) the peeled body K4
+    #: reads; None when the searcher does not run K4.
+    hoist: object = None
 
     @property
     def lanes(self) -> int:
         return self.hi_i - self.lo_i + 1
+
+    @property
+    def hoist_ops(self):
+        """The hoist's operand dict (None without a hoist)."""
+        return self.hoist.ops if self.hoist is not None else None
 
 
 def resolve_device(device) -> torch.device:
@@ -95,12 +113,19 @@ class NonceSearcher:
     ``device`` is where the lanes are hashed: ``cuda`` (the default)
     launches the CUDA kernels, ``cpu`` runs the plain PyTorch scans.
     ``grid`` overrides the kernels' block count (None: one full wave).
+    ``peel`` runs every launch with the peeled lane body: K4, fed by the
+    host hoist, or K3 with ``hoist=False`` (the JAX package's
+    ``DBM_PEEL``/``DBM_HOIST``; the plain versions on the CPU). The hoist
+    is built only for the peeled body, which alone reads it.
     """
 
-    def __init__(self, data: str, device="cuda", grid: int | None = None):
+    def __init__(self, data: str, device="cuda", grid: int | None = None,
+                 peel: bool = False, hoist: bool = True):
         self.data = data
         self.device = resolve_device(device)
         self.grid = grid
+        self.peel = peel
+        self.use_hoist = hoist
         self._prefix = data.encode("utf-8") + b" "
         self._midstate_cache: dict[tuple, tuple] = {}
         #: Searches dispatched by this searcher: one per aligned 10^k block,
@@ -117,14 +142,20 @@ class NonceSearcher:
             prefix = self._prefix + top.encode("ascii")
             midstate, tail = sha256_midstate(prefix)
             template = build_tail_template(tail, k, len(prefix) + k)
-            cached = (midstate, template, len(tail))
+            # The hoist is part of the cache entry: built once per
+            # midstate, not once per block.
+            hoist = None
+            if self.peel and self.use_hoist:
+                hoist = build_hoist(midstate, template, len(tail), k)
+            (_MET_HOIST_ON if hoist is not None else _MET_HOIST_OFF).inc()
+            cached = (midstate, template, len(tail), hoist)
             self._midstate_cache[key] = cached
-        midstate, template, rem = cached
+        midstate, template, rem, hoist = cached
         return _BlockPlan(
             base=block_base,
             lo_i=max(lo, block_base) - block_base,
             hi_i=min(hi, block_base + 10 ** k - 1) - block_base,
-            midstate=midstate, template=template, rem=rem, k=k)
+            midstate=midstate, template=template, rem=rem, k=k, hoist=hoist)
 
     def plan(self, lower: int, upper: int):
         """All aligned blocks covering [lower, upper], ascending."""
@@ -149,7 +180,8 @@ class NonceSearcher:
             carry = devloop_span(plan.midstate, plan.template, carry,
                                  plan.lo_i, plan.lo_i, plan.hi_i, plan.lanes,
                                  plan.base, rem=plan.rem, k=plan.k,
-                                 device=self.device, grid=self.grid)
+                                 device=self.device, grid=self.grid,
+                                 peel=self.peel, hoist=plan.hoist_ops)
         return carry
 
     def finalize(self, carry: torch.Tensor, lower: int) -> tuple[int, int]:
@@ -164,8 +196,10 @@ class NonceSearcher:
     # ------------------------------------------------------ batched dispatch
 
     def coalesce_key(self) -> tuple:
-        """Searchers with equal keys may share a batched launch."""
-        return (type(self), self.device, self.grid)
+        """Searchers with equal keys may share a batched launch (one lane
+        body per launch: the peel and hoist settings are part of it)."""
+        return (type(self), self.device, self.grid, self.peel,
+                self.use_hoist)
 
     def dispatch_batch(self, entries: list):
         """Launch MANY independent argmin jobs ``[(searcher, lower,
@@ -176,10 +210,10 @@ class NonceSearcher:
         the caller dispatches through.
 
         Returns the handle for :meth:`finalize_batch`, or None when the
-        searchers cannot share a launch (another type, device or grid);
-        that is decided before anything is launched. Raises on an empty
-        range. Each answer is bit-identical to that searcher's own
-        :meth:`search`."""
+        searchers cannot share a launch (another type, device, grid or
+        lane body); that is decided before anything is launched. Raises
+        on an empty range. Each answer is bit-identical to that
+        searcher's own :meth:`search`."""
         key0 = self.coalesce_key()
         for s, lower, upper in entries:
             if not isinstance(s, NonceSearcher) or s.coalesce_key() != key0:
@@ -205,8 +239,8 @@ class NonceSearcher:
         self.device_launches += 1
         words = span_segmin(
             [(p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes, p.rem,
-              p.k) for _, p in rows], segs, device=self.device,
-            grid=self.grid)
+              p.k, p.hoist_ops) for _, p in rows], segs, device=self.device,
+            grid=self.grid, peel=self.peel)
         return seg_meta, words
 
     def finalize_batch(self, handle) -> list:
@@ -256,7 +290,8 @@ class NonceSearcher:
             carry = devloop_span_until(
                 plan.midstate, plan.template, carry, plan.lo_i, plan.lo_i,
                 plan.hi_i, plan.lanes, t_hi, t_lo, plan.base, rem=plan.rem,
-                k=plan.k, device=self.device, grid=self.grid)
+                k=plan.k, device=self.device, grid=self.grid,
+                peel=self.peel, hoist=plan.hoist_ops)
         found, f_nonce, best_hash, best_nonce = searchop.decode_until(
             carry.cpu(), lower)
         if found:

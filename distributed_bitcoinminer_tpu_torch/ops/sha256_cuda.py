@@ -1,10 +1,19 @@
 """The CUDA SHA-256 search kernels: build, load and launch.
 
-``csrc/sha256_argmin.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-``build/libdbmt_kernels.so`` at first use (again whenever the source
-changes) and loaded with ``ctypes``; its plain C entries take the plan as
-a host pointer, so a launch copies nothing to the device. The wrappers
-take CUDA tensors only: there is no fallback here.
+``csrc/sha256_argmin.cu`` is compiled by ``nvcc`` for ``sm_90a`` once per
+lane body (:data:`BODIES`: ``-DDBMT_BODY``) into ``build/`` at first use
+(again whenever the source changes; :func:`build_all` runs the three
+``nvcc`` at once) and loaded with ``ctypes``; its plain C entries take
+the plan as a host pointer, so a launch copies nothing to the device.
+The wrappers take CUDA tensors only: there is no fallback here.
+
+Every search wrapper takes ``peel`` and ``hoist``: ``peel=True`` launches
+the peeled body, K3 (the JAX package's peel branch of ``_kernel_body``,
+``DBM_PEEL=1 DBM_HOIST=0``), or, with a hoist (``HoistPlan.ops`` from
+``ops.sha256_torch.build_hoist``), K4 (``_peel_hoisted``). K3 computes
+K1's function from K1's operands, so its plain version is the plain scan
+of the same entry; K4's is that scan through the hoisted compression
+(``hash_lanes(..., hoist=...)``).
 
 - :func:`sha256_argmin` (K1) replaces the JAX package's
   ``ops/sha256_pallas.py::pallas_search_span``; its plain version is
@@ -38,24 +47,36 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "sha256_argmin.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
-LIBRARY = os.path.join(BUILD_DIR, "libdbmt_kernels.so")
+#: The lane bodies, by name: their ``DBMT_BODY`` value and library.
+BODIES = {"rolled": 0, "peel": 1, "hoist": 2}
+LIBRARIES = {"rolled": os.path.join(BUILD_DIR, "libdbmt_kernels.so"),
+             "peel": os.path.join(BUILD_DIR, "libdbmt_kernels_peel.so"),
+             "hoist": os.path.join(BUILD_DIR, "libdbmt_kernels_hoist.so")}
+LIBRARY = LIBRARIES["rolled"]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 PLAN_WORDS = 49
+#: K4's plan: the 49 words, then the hoist section in the TPU kernel's
+#: order, deep (8), kw (2 x 16), cw (2 x 16), ckw (64), a 1-block tail's
+#: second rows and an absent ckw zero.
+HOIST_PLAN_WORDS = PLAN_WORDS + 8 + 32 + 32 + 64
 M32 = 0xFFFFFFFF
 
 #: Kernel launches by the TPU kernel each replaces, counted where a wrapper
 #: launches them. Every call launches a search kernel and then a one-block
-#: reduce of its partials: K1's search counts under K1, K2's (plain or
-#: chained) under K2, and each reduce under its own wrapper's kernel, so a
-#: K6 call counts one search launch (K1 or K2) and one fold launch (K6).
+#: reduce of its partials: the search counts under K1 (arg-min) or K2
+#: (until, plain or chained), or under K3 or K4 when it runs a peeled
+#: body, and each reduce under its own wrapper's kernel, so a K6 call
+#: counts one search launch (K1, K2, K3 or K4) and one fold launch (K6).
 #: A K5 call counts each kernel it launches: one search launch per tail
-#: block count among its rows and the segment reduce.
-launches = {"K1": 0, "K2": 0, "K5": 0, "K6": 0}
-#: The last build's facts: seconds, nvcc's ptxas report, whether it ran.
+#: block count among its rows (K5, or K3 or K4 under a peeled body) and
+#: the segment reduce (K5).
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+#: The last build of each body: seconds, nvcc's ptxas report, whether it
+#: ran.
 build_info: dict = {}
 
-_lib = None
+_libs: dict = {}
 _lock = threading.Lock()
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _ENTRIES = {
@@ -63,12 +84,34 @@ _ENTRIES = {
     "dbmt_sha256_until": [_P, _P, _P, _P, _I, _P],
     "dbmt_sha256_argmin_fold": [_P, _P, _P, _U, _U, _I, _P],
     "dbmt_sha256_until_fold": [_P, _P, _P, _P, _U, _U, _I, _P],
-    "dbmt_sha256_argmin_blocks_per_sm": [_I],
-    "dbmt_sha256_until_blocks_per_sm": [_I],
+    "dbmt_sha256_blocks_per_sm": [_I, _I],
     "dbmt_sha256_argmin_threads": [],
+    "dbmt_sha256_body": [],
+    "dbmt_sha256_plan_words": [],
     "dbmt_sha256_segmin": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "dbmt_sha256_segmin_blocks_per_sm": [_I],
 }
+#: dbmt_sha256_blocks_per_sm's entry numbers.
+ENTRY_ARGMIN, ENTRY_UNTIL, ENTRY_SEGMIN = 0, 1, 2
+#: The counter of a search launch under each body (None: the entry's own,
+#: K1 or K2 or K5).
+SEARCH_KERNEL = {"rolled": None, "peel": "K3", "hoist": "K4"}
+
+
+def body_of(peel: bool, hoist) -> str:
+    """The lane body a search runs: K4 with a hoist (which only the
+    peeled body takes), K3 for ``peel`` alone, else the rolled one."""
+    if hoist is not None and not peel:
+        raise ValueError("a hoist feeds the peeled body only (peel=True)")
+    return "hoist" if hoist is not None else "peel" if peel else "rolled"
+
+
+def variant_of(body: str, rem: int, k: int, nblocks: int) -> int:
+    """The search kernels' variant for a tail (``plan_variant`` in the
+    source): 0 one block, 1 two, 2 two under K4 with a digit-free second
+    block."""
+    if nblocks == 1:
+        return 0
+    return 2 if body == "hoist" and (rem + k - 1) >> 2 <= 15 else 1
 
 
 def reset_launches() -> None:
@@ -90,61 +133,91 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _source_digest() -> str:
+def _nvcc_command(body: str, out: str) -> list:
+    return [_nvcc(), *NVCC_FLAGS, f"-DDBMT_BODY={BODIES[body]}", "-o", out,
+            SOURCE]
+
+
+def _source_digest(body: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(f"DBMT_BODY={BODIES[body]}".encode())
     with open(SOURCE, "rb") as f:
         h.update(f.read())
     return h.hexdigest()
 
 
-def build() -> str:
-    """Compile the kernel library unless an up-to-date one exists;
+def _up_to_date(body: str) -> bool:
+    lib, stamp = LIBRARIES[body], LIBRARIES[body] + ".sha256"
+    if not (os.path.exists(lib) and os.path.exists(stamp)):
+        return False
+    with open(stamp) as f:
+        return f.read().strip() == _source_digest(body)
+
+
+def build_all(bodies=tuple(BODIES)) -> dict:
+    """Compile every body's library that is not up to date, one ``nvcc``
+    process each, all started together; returns ``{body: path}``. Raises
+    RuntimeError when an nvcc fails."""
+    stale = [b for b in bodies if not _up_to_date(b)]
+    for b in bodies:
+        if b not in stale:   # keep the facts of this process's build
+            build_info.setdefault(b, {"built": False, "seconds": 0.0})
+    if stale:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        t0 = time.monotonic()
+        procs = {}
+        for b in stale:
+            tmp = f"{LIBRARIES[b]}.{os.getpid()}.tmp"
+            procs[b] = (tmp, subprocess.Popen(
+                _nvcc_command(b, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        failed = []
+        for b, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc -DDBMT_BODY={BODIES[b]} failed "
+                              f"({proc.returncode}):\n{out}{err}")
+                continue
+            os.replace(tmp, LIBRARIES[b])
+            with open(LIBRARIES[b] + ".sha256", "w") as f:
+                f.write(_source_digest(b))
+            build_info[b] = {"built": True,
+                             "seconds": time.monotonic() - t0,
+                             "ptxas": err.strip()}
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return {b: LIBRARIES[b] for b in bodies}
+
+
+def build(body: str = "rolled") -> str:
+    """Compile one body's library unless an up-to-date one exists;
     returns its path. Raises RuntimeError when nvcc fails."""
-    digest = _source_digest()
-    stamp = LIBRARY + ".sha256"
-    if os.path.exists(LIBRARY) and os.path.exists(stamp):
-        with open(stamp) as f:
-            if f.read().strip() == digest:
-                build_info.update(built=False, seconds=0.0)
-                return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    t0 = time.monotonic()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    with open(stamp, "w") as f:
-        f.write(digest)
-    build_info.update(built=True, seconds=time.monotonic() - t0,
-                      ptxas=proc.stderr.strip())
-    return LIBRARY
+    return build_all((body,))[body]
 
 
-def load():
-    """The loaded kernel library (built on first use)."""
-    global _lib
+def load(body: str = "rolled"):
+    """The loaded kernel library of a lane body (built on first use)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
+        lib = _libs.get(body)
+        if lib is None:
+            lib = ctypes.CDLL(build(body))
             for name, argtypes in _ENTRIES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            words = HOIST_PLAN_WORDS if body == "hoist" else PLAN_WORDS
+            if lib.dbmt_sha256_body() != BODIES[body] \
+                    or lib.dbmt_sha256_plan_words() != words:
+                raise RuntimeError(f"{LIBRARIES[body]} holds another body")
+            _libs[body] = lib
+        return lib
 
 
-def default_grid(device: torch.device, nblocks: int,
-                 until: bool = False, entry: str | None = None) -> int:
-    """One full wave of the search kernel: SMs x resident blocks per SM
-    (``entry``: the C entry reporting them, default K1's or K2's)."""
-    lib = load()
-    entry = entry or ("dbmt_sha256_until_blocks_per_sm" if until
-                      else "dbmt_sha256_argmin_blocks_per_sm")
-    per_sm = getattr(lib, entry)(nblocks)
+def default_grid(device: torch.device, body: str, entry: int,
+                 variant: int) -> int:
+    """One full wave of a search kernel: SMs x its resident blocks per SM
+    (``entry``: ``ENTRY_ARGMIN``, ``ENTRY_UNTIL`` or ``ENTRY_SEGMIN``)."""
+    per_sm = load(body).dbmt_sha256_blocks_per_sm(entry, variant)
     if per_sm <= 0:
         raise RuntimeError("cudaOccupancyMaxActiveBlocksPerMultiprocessor "
                            "failed for the sha256 search kernel")
@@ -153,14 +226,31 @@ def default_grid(device: torch.device, nblocks: int,
 
 
 def plan_words(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
-               rem: int, k: int, t_hi: int = 0, t_lo: int = 0) -> list[int]:
-    """The kernels' 49-word parameter block (see ``struct Plan``); the
-    target words are read by K2 and the until chain only."""
+               rem: int, k: int, t_hi: int = 0, t_lo: int = 0,
+               hoist=None) -> list[int]:
+    """The kernels' parameter block (see ``struct Plan``): 49 words, the
+    target's read by K2 and the until chain only; with ``hoist`` (the
+    operand dict of ``ops.sha256_torch.build_hoist``) K4's 185, the hoist
+    section in the TPU kernel's order. Only the 16 ``cw`` words per block
+    travel: a deep window's ``cw2`` is not read, as on the TPU."""
     nblocks = int(template.shape[0])
     tmpl = [int(x) for x in template.reshape(-1)] + [0] * (16 * (2 - nblocks))
     words = ([int(m) for m in midstate] + tmpl
              + [rem, k, nblocks, i0, lo_i, hi_i, n, t_hi, t_lo])
     assert len(words) == PLAN_WORDS
+    if hoist is None:
+        return words
+    kw, cw = hoist["kw"], hoist["cw"]
+    if kw.shape != (nblocks, 16) or cw.shape != (nblocks, 16) \
+            or ("ckw" in hoist) != (nblocks == 2 and (rem + k - 1) >> 2 < 16):
+        raise ValueError("the hoist does not match the tail's shape")
+    pad = [0] * (16 * (2 - nblocks))
+    words += ([int(x) for x in hoist["deep"]]
+              + [int(x) for x in kw.reshape(-1)] + pad
+              + [int(x) for x in cw.reshape(-1)] + pad
+              + ([int(x) for x in hoist["ckw"]] if "ckw" in hoist
+                 else [0] * 64))
+    assert len(words) == HOIST_PLAN_WORDS
     return words
 
 
@@ -173,18 +263,24 @@ def _cuda_device(device, what: str) -> torch.device:
 
 def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
             lo_i: int, hi_i: int, n: int, rem: int, k: int,
-            device: torch.device, grid, *, until: bool, out_words: int = 0,
-            carry=None, target: tuple = (0, 0), base: int | None = None):
-    """Allocate the scratch, call the C entry ``entry`` on the current
-    stream of ``device``, raise on a nonzero cudaError, count the search
-    launch (K2 when ``until``, else K1) and the reduce launch under
-    ``reduce_kernel``. Returns the new output tensor (``out_words`` > 0)."""
+            device: torch.device, grid, *, until: bool, peel: bool, hoist,
+            out_words: int = 0, carry=None, target: tuple = (0, 0),
+            base: int | None = None):
+    """Allocate the scratch, call the C entry ``entry`` of the body's
+    library on the current stream of ``device``, raise on a nonzero
+    cudaError, count the search launch (K3 or K4 under a peeled body,
+    else K2 when ``until``, else K1) and the reduce launch under
+    ``reduce_kernel``. Returns the new output tensor (``out_words`` >
+    0)."""
     if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32):
         raise ValueError(f"lane window out of range: i0={i0} n={n}")
-    lib = load()
+    body = body_of(peel, hoist)
+    lib = load(body)
     nblocks = int(template.shape[0])
     if grid is None:
-        grid = default_grid(device, nblocks, until=until)
+        grid = default_grid(device, body,
+                            ENTRY_UNTIL if until else ENTRY_ARGMIN,
+                            variant_of(body, rem, k, nblocks))
     threads = lib.dbmt_sha256_argmin_threads()
     grid = max(1, min(int(grid), -(-n // threads)))
     # partials (3 words a block), then f_min for the until kernels.
@@ -198,15 +294,16 @@ def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
         args.append(out.data_ptr())
     if carry is not None:
         args += [carry.data_ptr(), base >> 32 & M32, base & M32]
-    words = (ctypes.c_uint32 * PLAN_WORDS)(
-        *plan_words(midstate, template, i0, lo_i, hi_i, n, rem, k, *target))
+    plan = plan_words(midstate, template, i0, lo_i, hi_i, n, rem, k,
+                      *target, hoist=hoist)
+    words = (ctypes.c_uint32 * len(plan))(*plan)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(ctypes.addressof(words), *args, grid,
                                   stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    launches["K2" if until else "K1"] += 1
+    launches[SEARCH_KERNEL[body] or ("K2" if until else "K1")] += 1
     launches[reduce_kernel] += 1
     return out
 
@@ -222,9 +319,11 @@ def _check_carry(carry, words: int, device: torch.device) -> None:
 
 def sha256_argmin(midstate, template, i0: int, lo_i: int, hi_i: int,
                   n: int, *, rem: int, k: int, device,
-                  grid: int | None = None) -> torch.Tensor:
-    """K1 over lanes ``i0 + [0, n)`` masked to ``[lo_i, hi_i]`` on the
-    current stream of the CUDA ``device``.
+                  grid: int | None = None, peel: bool = False,
+                  hoist=None) -> torch.Tensor:
+    """K1 (K3 with ``peel``, K4 with ``peel`` and a ``hoist``) over lanes
+    ``i0 + [0, n)`` masked to ``[lo_i, hi_i]`` on the current stream of
+    the CUDA ``device``.
 
     Returns a (3,) int32 tensor on the device holding the uint32 words
     ``(hi, lo, idx)``; the all-ones sentinel means no lane was valid.
@@ -233,13 +332,16 @@ def sha256_argmin(midstate, template, i0: int, lo_i: int, hi_i: int,
     """
     device = _cuda_device(device, "sha256_argmin")
     return _launch("K1", "dbmt_sha256_argmin", midstate, template, i0, lo_i,
-                   hi_i, n, rem, k, device, grid, until=False, out_words=3)
+                   hi_i, n, rem, k, device, grid, until=False, peel=peel,
+                   hoist=hoist, out_words=3)
 
 
 def sha256_until(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
                  t_hi: int, t_lo: int, *, rem: int, k: int, device,
-                 grid: int | None = None) -> torch.Tensor:
-    """K2: K1's lanes with the 64-bit target ``(t_hi, t_lo)``.
+                 grid: int | None = None, peel: bool = False,
+                 hoist=None) -> torch.Tensor:
+    """K2 (its search under K3 or K4 as for :func:`sha256_argmin`): K1's
+    lanes with the 64-bit target ``(t_hi, t_lo)``.
 
     Returns a (5,) int32 tensor on the device holding the uint32 words
     ``(found, f_idx, best_hi, best_lo, best_idx)``: ``f_idx`` is the
@@ -249,40 +351,42 @@ def sha256_until(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
     """
     device = _cuda_device(device, "sha256_until")
     return _launch("K2", "dbmt_sha256_until", midstate, template, i0, lo_i,
-                   hi_i, n, rem, k, device, grid, until=True, out_words=5,
-                   target=(t_hi, t_lo))
+                   hi_i, n, rem, k, device, grid, until=True, peel=peel,
+                   hoist=hoist, out_words=5, target=(t_hi, t_lo))
 
 
 def sha256_argmin_fold(midstate, template, carry: torch.Tensor, i0: int,
                        lo_i: int, hi_i: int, n: int, base: int, *, rem: int,
-                       k: int, device, grid: int | None = None
-                       ) -> torch.Tensor:
-    """K6, arg-min: K1's search, its winner folded into ``carry`` (a (5,)
+                       k: int, device, grid: int | None = None,
+                       peel: bool = False, hoist=None) -> torch.Tensor:
+    """K6, arg-min: K1's search (K3's or K4's as for
+    :func:`sha256_argmin`), its winner folded into ``carry`` (a (5,)
     int32 device tensor in the ``ops.searchop`` layout) in place, the
     nonce being ``base + lane``. Returns ``carry``; nothing is
     synchronised."""
     device = _cuda_device(device, "sha256_argmin_fold")
     _check_carry(carry, 5, device)
     _launch("K6", "dbmt_sha256_argmin_fold", midstate, template, i0, lo_i,
-            hi_i, n, rem, k, device, grid, until=False, carry=carry,
-            base=base)
+            hi_i, n, rem, k, device, grid, until=False, peel=peel,
+            hoist=hoist, carry=carry, base=base)
     return carry
 
 
 def sha256_until_fold(midstate, template, carry: torch.Tensor, i0: int,
                       lo_i: int, hi_i: int, n: int, t_hi: int, t_lo: int,
                       base: int, *, rem: int, k: int, device,
-                      grid: int | None = None) -> torch.Tensor:
-    """K6, until: K2's search folded into ``carry`` (a (8,) int32 device
-    tensor in the ``ops.searchop`` until layout) in place. When
-    ``carry[0]`` says an earlier launch of the chain hit, the launch does
-    no lane work and leaves the carry as it is. Returns ``carry``;
-    nothing is synchronised."""
+                      grid: int | None = None, peel: bool = False,
+                      hoist=None) -> torch.Tensor:
+    """K6, until: K2's search (K3's or K4's) folded into ``carry`` (a
+    (8,) int32 device tensor in the ``ops.searchop`` until layout) in
+    place. When ``carry[0]`` says an earlier launch of the chain hit, the
+    launch does no lane work and leaves the carry as it is. Returns
+    ``carry``; nothing is synchronised."""
     device = _cuda_device(device, "sha256_until_fold")
     _check_carry(carry, 8, device)
     _launch("K6", "dbmt_sha256_until_fold", midstate, template, i0, lo_i,
-            hi_i, n, rem, k, device, grid, until=True, carry=carry,
-            target=(t_hi, t_lo), base=base)
+            hi_i, n, rem, k, device, grid, until=True, peel=peel,
+            hoist=hoist, carry=carry, target=(t_hi, t_lo), base=base)
     return carry
 
 
@@ -301,12 +405,13 @@ def _segmin_blocks(lanes: list[int], grid: int, threads: int) -> list[int]:
     return out
 
 
-def sha256_segmin(rows, seg, *, device,
-                  grid: int | None = None) -> torch.Tensor:
+def sha256_segmin(rows, seg, *, device, grid: int | None = None,
+                  peel: bool = False) -> torch.Tensor:
     """K5 over ``rows``, each ``(midstate, template, i0, lo_i, hi_i, n,
-    rem, k)`` (K1's lanes ``i0 + [0, n)`` masked to ``[lo_i, hi_i]``),
-    reduced per segment; ``seg`` gives each row's segment id, ascending
-    from 0.
+    rem, k[, hoist])`` (K1's lanes ``i0 + [0, n)`` masked to ``[lo_i,
+    hi_i]``), reduced per segment; ``seg`` gives each row's segment id,
+    ascending from 0. With ``peel`` the rows' lanes run the peeled body:
+    K4 when the rows carry their hoist (all of them, or none: K3).
 
     Returns a (3, S) int32 tensor on the CUDA ``device`` holding the
     uint32 words ``(seg_hi, seg_lo, seg_idx)`` of the S = ``seg[-1] + 1``
@@ -325,17 +430,24 @@ def sha256_segmin(rows, seg, *, device,
             or any(b < a for a, b in zip(seg, seg[1:])):
         raise ValueError("sha256_segmin needs rows with ascending segment "
                          "ids from 0, one per row")
-    lib = load()
+    hoists = [r[8] if len(r) > 8 else None for r in rows]
+    if len({h is None for h in hoists}) > 1:
+        raise ValueError("sha256_segmin rows must all carry a hoist, or "
+                         "none")
+    body = body_of(peel, hoists[0])
+    lib = load(body)
     threads = lib.dbmt_sha256_argmin_threads()
     nrows, nsegs = len(rows), seg[-1] + 1
     words, lanes, groups = [], [], {1: [], 2: []}
-    for r, (mid, tmpl, i0, lo_i, hi_i, n, rem, k) in enumerate(rows):
+    for r, (row, hoist) in enumerate(zip(rows, hoists)):
+        mid, tmpl, i0, lo_i, hi_i, n, rem, k = row[:8]
         nb = int(tmpl.shape[0])
         if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32 and nb in (1, 2)
                 and 1 <= k <= 9 and 0 <= rem <= 63):
             raise ValueError(f"row {r} out of range: i0={i0} n={n} "
                              f"nblocks={nb} rem={rem} k={k}")
-        words += plan_words(mid, tmpl, i0, lo_i, hi_i, n, rem, k)
+        words += plan_words(mid, tmpl, i0, lo_i, hi_i, n, rem, k,
+                            hoist=hoist)
         lanes.append(max(0, min(hi_i, i0 + n - 1) - max(lo_i, i0) + 1))
         groups[nb].append(r)
     pstart, pcount = [0] * nrows, [0] * nrows
@@ -344,7 +456,7 @@ def sha256_segmin(rows, seg, *, device,
         members, blocks = groups[nb], []
         if members:
             g = grid if grid is not None else default_grid(
-                device, nb, entry="dbmt_sha256_segmin_blocks_per_sm")
+                device, body, ENTRY_SEGMIN, nb - 1)
             blocks = _segmin_blocks([lanes[r] for r in members],
                                     max(1, int(g)), threads)
         g_rows, g_blk = [], [0]
@@ -377,5 +489,6 @@ def sha256_segmin(rows, seg, *, device,
     if err != 0:
         raise RuntimeError(f"dbmt_sha256_segmin launch failed: cudaError "
                            f"{err}")
-    launches["K5"] += sum(1 for g in grids if g) + 1
+    launches[SEARCH_KERNEL[body] or "K5"] += sum(1 for g in grids if g)
+    launches["K5"] += 1
     return out

@@ -11,7 +11,11 @@ them from the environment through :func:`qos_from_env` and
 - ``DBMT_QOS_WHOLESALE_S`` (default 5.0): requests estimated below this
   dispatch wholesale, like the stock path;
 - ``DBMT_COALESCE`` (default 1): 0 turns off the scheduler's coalescing
-  windows and the miner's drain into one batched launch.
+  windows and the miner's drain into one batched launch;
+- ``DBMT_PEEL`` (default 0, as the JAX package's ``DBM_PEEL``): 1 runs
+  every search launch of the miner with the peeled lane body;
+- ``DBMT_HOIST`` (default 1, as ``DBM_HOIST``): under ``DBMT_PEEL=1``,
+  feed the peeled body the host hoist (K4); 0 runs it without (K3).
 """
 
 from __future__ import annotations
@@ -90,3 +94,17 @@ def qos_from_env() -> QosParams:
 
 def coalesce_from_env() -> CoalesceParams:
     return CoalesceParams(enabled=int_env("DBMT_COALESCE", 1) != 0)
+
+
+@dataclass(frozen=True)
+class PeelParams:
+    """The miner's lane body: ``peel`` runs the peeled body, K4 with the
+    host ``hoist`` or K3 without (``NonceSearcher``'s ``peel`` and
+    ``hoist``)."""
+    peel: bool = False
+    hoist: bool = True
+
+
+def peel_from_env() -> PeelParams:
+    return PeelParams(peel=int_env("DBMT_PEEL", 0) == 1,
+                      hoist=int_env("DBMT_HOIST", 1) != 0)
