@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch/CUDA port: build, kernel checks, end to end, rates.
 
-    python3 chip_smoke.py            # every phase, on one CUDA card
+    python3 chip_smoke.py                # every phase, on one CUDA card
+    python3 chip_smoke.py --cross-card   # the mesh over every card of a
+                                         # box with several, and no more
 
 Drives ``distributed_bitcoinminer_tpu_torch`` on the card and prints one
 JSON line per phase:
@@ -9,9 +11,9 @@ JSON line per phase:
 1. device: the card's name, CUDA version, and ``nvidia-smi``'s name and
    power limit (also printed raw on a line of its own);
 2. build: compiles the three lane bodies' libraries with nvcc (sm_90a;
-   rolled, K3's peel, K4's peel fed by the host hoist), one nvcc each,
-   all at once, beside the SASS-reading builds of the peeled bodies (the
-   shapes of the rates blocks fixed at compile time); reports each
+   rolled, K3's peel, K4's peel fed by the host hoist) and K7's, one nvcc
+   each, all at once, beside the SASS-reading builds of the peeled bodies
+   (the shapes of the rates blocks fixed at compile time); reports each
    kernel's registers and spills and its resident blocks per SM;
 3. kernel: each kernel against its plain PyTorch version on the card, over
    rem x k in {0,1,3,4,31,32,55,56,62,63} x {1,5,9} (1- and 2-block
@@ -34,7 +36,14 @@ JSON line per phase:
    K4 the same way in every shape (the single arg-min launch, the until
    launch with the three targets at two grid sizes, both chains, the
    batch and the searcher's batches), K4 also from a hoist built with the
-   deep window;
+   deep window. K6's mesh bodies: the two mesh folds on 48 seeded cases
+   (1 to 4 rows, ties, all-ones rows, found and not-found carries, bases
+   whose low word wraps) against their plain versions, and the shard
+   searches over four-way ``device_windows`` of four of the windows,
+   merged by the folds, against the plain scan and fold of the whole
+   window (arg-min; until to the arg-min lane, with no hit, and after a
+   hit, when the shards must do no lane work). K7 over one full wave
+   against its plain version;
 4. e2e: the port's scheduler server and a miner on ``cuda`` as
    subprocesses through their CLIs, requests submitted with the port's
    client. The arg-min path: R1 ("cmu440", 2^26-1), R2 (a 60-character
@@ -69,9 +78,16 @@ JSON line per phase:
    mice path once more, with coalescing, on ``DBMT_PEEL=1`` miners; one
    miner with ``DBMT_PEEL=1 DBMT_HOIST=0`` (K3) serves R1, R2 and R4;
    every answer equal to the default path's, their launches K4 (then K3)
-   and K6 (and K5's reduce) with no K1 or K2. The launch counts of each
-   path come from its own miner processes, which start at 0 just before
-   the path;
+   and K6 (and K5's reduce) with no K1 or K2. Then the mesh paths, each
+   on a new server, with ``DBMT_MESH_DEVICES`` naming every card, or card
+   0 four times on a box with one: two mesh miners serve R1, R2, R3, the
+   mouse and R4 (with the prefix release check), one peeled mesh miner
+   (``DBMT_PEEL=1``) R1 and R4; every answer equal to the default
+   path's, their launches the shard searches and reduces (K1 and K2, or
+   K4 with K1/K2 reduces) and one mesh fold (K6mesh) per block served
+   and distinct device, with no single-device K6 fold. Every other
+   miner is pinned to card 0. The launch counts of each path come from
+   its own miner processes, which start at 0 just before the path;
 5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
    (2-block tail with digits in both blocks) and a 10^9 block whose second
    tail block holds no digit; K2 over the first block with a target
@@ -91,7 +107,17 @@ JSON line per phase:
    10^8 lanes beside K1's time per 10^9. K3 and K4 beside K1 on the
    three K1 blocks (with the INT32 instructions per lane of their
    fixed-shape SASS), on R3's chain, to K2's first hit and on the mice
-   rows. Timed with CUDA events, beside the bound from the integer work
+   rows. The mesh: R3's chain on meshes of 1, 2 and 4 shards of card 0
+   against the K6 chain, in turns, the until chain to K2's first hit on 4
+   shards against the K6 chain, one launch of each mesh fold against its
+   plain version, and on a box with more than one card R3's chain over a
+   mesh of every card (on one card the output says it was not run); and
+   ``tools.tune`` once as a subprocess, given this run's INT32
+   instructions a nonce of K1 and K4 (K7's ceiling and the nonce/s it
+   allows them, K1's grid sweep, K1 beside its plain scan, K2's miss and
+   first-lane hit); K7's bound is the work its function needs
+   (``K7_CLOCKS_PER_LANE_ITER``), not its emitted SASS. Timed with
+   CUDA events, beside the bound from the integer work
    each nonce needs (``needed_int_ops``, plus the target compare for K2)
    at the SM's issue rate and, under other names, the same work on the
    INT32 pipe alone and the INT32 instructions of K1's own SASS loop.
@@ -102,6 +128,7 @@ non-zero without the ``ok`` line. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import ast
 import hashlib
 import json
 import os
@@ -224,56 +251,14 @@ def sass_loop_instructions(lib: str, variant: int, outdir: str,
     """Instructions of the arg-min search kernel's lane loop (the widest
     backward branch) for the variant's instantiation (0: 1-block tail,
     1: 2-block, 2: K4's digit-free second block), from ``cuobjdump
-    -sass``."""
-    cands = [shutil.which("cuobjdump"),
-             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                          "bin", "cuobjdump")]
-    exe = next((c for c in cands if c and os.path.exists(c)), None)
-    if exe is None:
-        fail("cuobjdump not found")
-    out = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
-                         timeout=120)
-    if out.returncode != 0:
-        fail(f"cuobjdump: {out.stderr.strip()}")
-    funcs = re.split(r"\n\s*Function : ", out.stdout)
-    want = f"sha256_argmin_kernelILi{variant}E"
-    body = next((f for f in funcs[1:] if want in f.splitlines()[0]), None)
-    if body is None:
-        fail(f"no SASS for {want} in {lib}")
+    -sass`` (``tools.tune.sass_loop``): (loop instructions, the kernel's
+    instructions, opcode counts of the loop)."""
+    from distributed_bitcoinminer_tpu_torch.tools.tune import (opcode_counts,
+                                                               sass_loop)
+    body, loop, total = sass_loop(lib, f"sha256_argmin_kernelILi{variant}E")
     with open(os.path.join(outdir, f"sass{tag}_v{variant}.txt"), "w") as f:
         f.write(body)
-    insns, labels, pending = [], {}, []
-    for line in body.splitlines():
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if m:
-            pending.append(m.group(1))
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if m:
-            addr = int(m.group(1), 16)
-            for lab in pending:
-                labels[lab] = addr
-            pending = []
-            insns.append((addr, m.group(2)))
-    loops = []
-    for addr, text in insns:
-        m = re.search(r"BRA\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", text)
-        if not m:
-            continue
-        tgt = m.group(1)
-        tgt = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
-        if tgt is not None and tgt < addr:
-            loops.append((tgt, addr))
-    if not loops:
-        fail("no backward branch in the search kernel's SASS")
-    lo, hi = max(loops, key=lambda ab: ab[1] - ab[0])
-    body_insns = [t for a, t in insns if lo <= a <= hi
-                  and not t.split()[0].endswith("NOP")]
-    ops = {}
-    for t in body_insns:
-        op = re.match(r"(?:@!?U?P[T0-9]\s+)?([A-Z0-9_]+)", t).group(1)
-        ops[op] = ops.get(op, 0) + 1
-    return len(body_insns), len(insns), ops
+    return len(loop), total, opcode_counts(loop)
 
 
 # ---------------------------------------------------------------- phases
@@ -352,13 +337,19 @@ def phase_build(outdir: str) -> dict:
     beside them the SASS-reading builds of the peeled bodies. Reports
     each kernel's registers and spills (ptxas) and its resident blocks
     per SM."""
-    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    import threading
+
+    from distributed_bitcoinminer_tpu_torch.ops import alu_probe, sha256_cuda
     t0 = time.monotonic()
     os.makedirs(sha256_cuda.BUILD_DIR, exist_ok=True)
     probes = {key: (lib, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                                           stderr=subprocess.PIPE, text=True))
               for key, (lib, cmd) in sass_probe_commands(outdir).items()}
+    k7 = threading.Thread(target=alu_probe.build)   # K7's nvcc beside
+    k7.start()
     sha256_cuda.build_all()
+    k7.join()
+    alu_probe.build()   # up to date by now, or raises nvcc's error
     info = {"seconds": round(time.monotonic() - t0, 3), "bodies": {}}
     for body in sha256_cuda.BODIES:
         lib = sha256_cuda.load(body)
@@ -370,7 +361,8 @@ def phase_build(outdir: str) -> dict:
         for line in ptxas.splitlines():
             m = re.search(r"entry function '(\S+)'", line)
             if m:   # the kernel and its template arguments, demangled
-                m = re.search(r"\d+((?:sha256|segmin|reduce)\w*?_kernel)"
+                m = re.search(r"\d+((?:sha256|segmin|reduce|mesh|alu)"
+                              r"\w*?_kernel)"
                               r"(I(?:L[^E]*E)+E)?", m.group(1))
                 name = m.group(1) + (m.group(2) or "")
             m = re.search(r"Used (\d+) registers", line)
@@ -395,6 +387,13 @@ def phase_build(outdir: str) -> dict:
             fail(f"the SASS-reading build {body} {case} failed: "
                  f"{err[-3000:]}")
     info["sass_probe_seconds"] = round(time.monotonic() - t0, 3)
+    info["K7"] = {"nvcc_seconds": round(alu_probe.build_info.get(
+                      "seconds", 0), 3),
+                  "built": alu_probe.build_info.get("built"),
+                  "ptxas": alu_probe.build_info.get("ptxas", "")[-400:],
+                  "threads": alu_probe.threads(),
+                  "blocks_per_sm": alu_probe.load()
+                  .dbmt_alu_probe_blocks_per_sm()}
     emit("build", **info)
     return info
 
@@ -686,13 +685,186 @@ def check_k5(dev, body=None) -> dict:
             "searcher_batches": {k: len(v) for k, v in jobs.items()}}
 
 
+def int32_words(values) -> "torch.Tensor":
+    """uint32 values (nested lists or numpy) as an int32 tensor of their bit
+    patterns, on the CPU."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.asarray(values, dtype=np.int64)
+                            .astype(np.uint32).view(np.int32))
+
+
+#: The seed of the mesh fold cases.
+MESH_SEED = 445
+#: The rem x k windows whose four-way shard searches are held to the plain
+#: scan of the whole window: 1-block tails (0, 9), (31, 5), 2-block ones
+#: (56, 9), (63, 9).
+MESH_WINDOWS = ((0, 9), (31, 5), (56, 9), (63, 9))
+#: The block base of those checks: the nonces' low word wraps past lane
+#: 1,000.
+MESH_BASE = (1 << 32) - 1_000
+
+
+def mesh_fold_cases() -> list:
+    """``(until, rows, carry, base)`` cases of the mesh folds: n = 1 to 4
+    rows with hash and index ties and all-ones rows (an empty shard),
+    found and not-found carries, bases whose low word wraps."""
+    import numpy as np
+    rng = np.random.default_rng(MESH_SEED)
+    cases = []
+    for n in (1, 2, 3, 4):
+        for c in range(12):
+            until = c % 2 == 1
+            rows = np.empty((n, 5), dtype=np.int64)
+            rows[:, 2] = rng.choice([0, 7, M32], size=n)
+            rows[:, 3] = rng.choice([1, 2, M32], size=n)
+            rows[:, 4] = rng.choice([5, 6, M32 - 1], size=n)
+            rows[:, 1] = np.where(rng.random(n) < 0.5,
+                                  rng.integers(0, 10 ** 9, size=n), M32)
+            rows[:, 0] = rows[:, 1] != M32
+            if c % 3 == 0:
+                rows[-1] = [0, M32, M32, M32, M32]
+            if until:
+                carry = [0, M32, M32] + [M32] * 4 + [0]
+            else:
+                carry = [M32] * 4 + [0]
+            if c % 4 >= 2:   # a carry that has seen (until: found) some
+                carry = [int(x) for x in rng.choice([0, 3, M32 - 1],
+                                                    size=len(carry))]
+                carry[-1] = 1
+                if until:
+                    carry[0] = int(c % 8 >= 4)
+            base = (int(rng.integers(0, 4)) << 32) | int(
+                rng.choice([0, M32 - 3, 123]))
+            cases.append((until, rows if until else rows[:, 2:], carry,
+                          base))
+    return cases
+
+
+def check_mesh(dev) -> dict:
+    """K6's mesh bodies against their plain versions: the two mesh folds
+    on :func:`mesh_fold_cases`; the per-shard searches over four-way
+    ``device_windows`` of the :data:`MESH_WINDOWS` cases, merged by the
+    fold kernels, against the plain scan and fold of the whole window (the
+    arg-min chain; the until chain with a target that only the window's
+    arg-min lane meets, and with one that nothing meets, and after a hit,
+    when the shards must do no lane work and the carry stay as it was)."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.ops import (search, searchop,
+                                                        sha256_cuda)
+    from distributed_bitcoinminer_tpu_torch.parallel.mesh_search import (
+        fold_rows_argmin, fold_rows_until)
+    from distributed_bitcoinminer_tpu_torch.parallel.partition import \
+        device_windows
+    max_err, folds = 0, 0
+    for until, rows, carry, base in mesh_fold_cases():
+        kernel_carry = int32_words(carry).to(dev)
+        fold = sha256_cuda.mesh_fold_until if until else \
+            sha256_cuda.mesh_fold_argmin
+        fold(int32_words(rows).to(dev), kernel_carry, base, device=dev)
+        plain = (fold_rows_until if until else fold_rows_argmin)(
+            torch.tensor(carry), torch.from_numpy(rows), base)
+        got, want = words(kernel_carry), words(plain)
+        err = max(abs(a - b) for a, b in zip(got, want))
+        max_err, folds = max(max_err, err), folds + 1
+        if err:
+            emit("kernel", failed={"kernel": "K6mesh fold", "until": until},
+                 rows=rows.tolist(), carry=carry, base=base, got=got,
+                 want=want)
+            fail("a mesh fold disagrees with its plain version")
+    shards = []
+    for rem, k, _, mid, tmpl, i0, n, lo_i, hi_i in kernel_windows():
+        if (rem, k) not in MESH_WINDOWS:
+            continue
+        _, lo_d, hi_d, _ = device_windows(lo_i, hi_i, 4, 1)
+        wins = [(int(a), int(b)) for a, b in zip(lo_d, hi_d) if a <= b]
+        hi_w, lo_w, idx_w = words(search.span_scan(
+            mid, tmpl, lo_i, lo_i, hi_i, hi_i - lo_i + 1, rem=rem, k=k,
+            device=dev))
+        runs = {}
+        # The arg-min chain's block.
+        rows = torch.full((4, 3), -1, dtype=torch.int32, device=dev)
+        for s, (a, b) in enumerate(wins):
+            sha256_cuda.sha256_argmin(mid, tmpl, a, a, b, b - a + 1,
+                                      rem=rem, k=k, device=dev, out=rows[s])
+        carry = search.devloop_carry(searchop.ARGMIN_OP, dev)
+        sha256_cuda.mesh_fold_argmin(rows, carry, MESH_BASE, device=dev)
+        runs["argmin"] = (words(carry), words(searchop.fold_argmin(
+            searchop.carry_init(), hi_w, lo_w, idx_w, MESH_BASE >> 32,
+            MESH_BASE & M32)), 5)
+        t = (hi_w << 32 | lo_w) + 1
+        for name, target, found in (("until_hit", t, False),
+                                    ("until_miss", 0, False),
+                                    ("until_after_hit", t, True)):
+            carry = search.devloop_carry(searchop.UNTIL_OP, dev)
+            if found:
+                carry[0] = 1
+            before = words(carry)
+            rows = torch.empty((4, 5), dtype=torch.int32, device=dev)
+            rows[len(wins):] = -1
+            rows[len(wins):, 0] = 0
+            for s, (a, b) in enumerate(wins):
+                sha256_cuda.sha256_until_shard(
+                    mid, tmpl, carry, a, a, b, b - a + 1, target >> 32,
+                    target & M32, rem=rem, k=k, device=dev, out=rows[s])
+            shard_rows = words(rows.reshape(-1))
+            sha256_cuda.mesh_fold_until(rows, carry, MESH_BASE, device=dev)
+            if found:
+                want = before
+                if shard_rows != (0, M32, M32, M32, M32) * 4:
+                    fail(f"mesh until shards did lane work after a hit: "
+                         f"{shard_rows}")
+            else:
+                f_idx, b_hi, b_lo, b_idx = words(search.span_until_scan(
+                    mid, tmpl, lo_i, lo_i, hi_i, hi_i - lo_i + 1,
+                    target >> 32, target & M32, rem=rem, k=k,
+                    device=dev))[1:]
+                want = words(searchop.fold_until(
+                    searchop.until_carry_init(), f_idx, b_hi, b_lo, b_idx,
+                    MESH_BASE >> 32, MESH_BASE & M32))
+            runs[name] = (words(carry), want, 3 if want[0] else 8)
+        for name, (got, want, cmp) in runs.items():
+            err = max(abs(a - b) for a, b in zip(got[:cmp], want[:cmp]))
+            max_err = max(max_err, err)
+            if err:
+                emit("kernel", failed={"kernel": "K6mesh shards",
+                                       "rem": rem, "k": k, "run": name},
+                     got=got, want=want)
+                fail(f"the mesh shards disagree with the plain scan of the "
+                     f"window at rem {rem} k {k} ({name})")
+        if not runs["until_hit"][0][0]:
+            fail(f"the mesh until shards missed the arg-min lane at rem "
+                 f"{rem} k {k}")
+        shards.append({"rem": rem, "k": k, "nblocks": int(tmpl.shape[0]),
+                       "lanes": hi_i - lo_i + 1, "windows": wins})
+    return {"folds": folds, "shard_cases": shards, "max_abs_err": max_err}
+
+
+def check_k7(dev) -> dict:
+    """K7 over one full wave against its plain version on the card, both
+    timed there."""
+    from distributed_bitcoinminer_tpu_torch.ops import alu_probe
+    wave = alu_probe.wave(dev)
+    got = alu_probe.alu_probe(wave, device=dev)
+    want = alu_probe.alu_probe_plain(got.numel(), device=dev)
+    err = int(((got.to(want.dtype) & M32) - want).abs().max())
+    if err:
+        fail(f"K7 disagrees with its plain version (max error {err})")
+    return {"grid": wave, "lanes": got.numel(), "iters": alu_probe.ITERS,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: alu_probe.alu_probe(wave, device=dev), 5),
+            "plain_ms": cuda_ms(lambda: alu_probe.alu_probe_plain(
+                got.numel(), device=dev), 1)}
+
+
 def phase_kernel() -> dict:
     """Every kernel against its plain version; K3 and K4 in every shape:
     the single arg-min and until launches, the chains and the batch."""
     import torch
     dev = torch.device("cuda", 0)
     info = {"K1": check_k1(dev), "K2": check_k2(dev), "K5": check_k5(dev),
-            "K6": check_k6(dev)}
+            "K6": check_k6(dev), "K6mesh": check_mesh(dev),
+            "K7": check_k7(dev)}
     for kern, _, _ in PEELED:
         shapes = {"argmin": check_k1(dev, kern),
                   "until": check_k2(dev, kern),
@@ -734,7 +906,7 @@ def read_counts(log_path: str) -> dict:
     return last
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K6mesh")
 
 
 def launches_of(counts: dict) -> dict:
@@ -764,14 +936,18 @@ R4_CHUNKS = ((0, 1 << 31), (1 << 31, 1 << 32))
 
 class Cluster:
     """The port's server and miners as subprocesses through their CLIs,
-    logging under ``outdir``; stopped, all of them, on exit."""
+    logging under ``outdir``; stopped, all of them, on exit. A miner runs
+    on card 0 alone unless its own environment names a mesh
+    (``DBMT_MESH_DEVICES``), so the single-device paths stay so on a box
+    with several cards."""
 
     def __init__(self, outdir: str):
         self.outdir = outdir
         self.port = free_port()
         self.hostport = f"127.0.0.1:{self.port}"
         self.env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
-                        + os.environ.get("PYTHONPATH", ""))
+                        + os.environ.get("PYTHONPATH", ""),
+                        DBMT_MESH_DEVICES="cuda:0")
         self.procs, self.handles, self.logs = [], [], {}
 
     def spawn(self, name: str, module: str, args: list,
@@ -847,6 +1023,22 @@ def start_miners(c: Cluster, names: list, envs: list) -> list:
             fail(f"{name}'s counts were not 0 before its path: "
                  f"{read_counts(logs[-1])}")
     return logs
+
+
+def served_chunks(miner_logs: list) -> list:
+    """The chunks ``[data, lower, upper]`` that the miners served one at a
+    time (a coalesced batch logs another line), from their ``served``
+    log lines."""
+    pattern = re.compile(r" served ('.*'|\".*\") \[(\d+), (\d+)\] in ")
+    chunks = []
+    for log in miner_logs:
+        with open(log, errors="replace") as f:
+            for line in f:
+                m = pattern.search(line)
+                if m:
+                    chunks.append([ast.literal_eval(m.group(1)),
+                                   int(m.group(2)), int(m.group(3))])
+    return chunks
 
 
 def path_launches(miner_logs: list) -> dict:
@@ -1037,6 +1229,7 @@ def phase_e2e(outdir: str) -> dict:
             server_text = f.read()
     mice_runs = [run_mice(outdir, True), run_mice(outdir, False)]
     peeled = run_peeled(outdir)
+    mesh = run_mesh(outdir)
     for path, counts, kernels in (("arg-min", argmin_launches, ("K1", "K6")),
                                   ("difficulty", until_launches,
                                    ("K2", "K6"))):
@@ -1106,13 +1299,18 @@ def phase_e2e(outdir: str) -> dict:
              f"{r1['hash'], r1['nonce']}")
     check_mice(mice_runs, dev)
     check_peeled(peeled, by_name, dev)
+    check_mesh_paths(mesh, by_name)
     info = {"requests": results, "mice": mice_runs, "peeled": peeled,
+            "mesh": mesh,
             "launches": {"arg-min": argmin_launches,
                          "difficulty": until_launches,
                          "mice": mice_runs[0]["launches"],
                          "mice_per_chunk": mice_runs[1]["launches"],
                          **{f"peeled_{leg}": run["launches"]
-                            for leg, run in peeled.items()}}}
+                            for leg, run in peeled.items()},
+                         **{f"mesh_{leg}": run["launches"]
+                            for leg, run in mesh.items()
+                            if isinstance(run, dict)}}}
     emit("e2e", **info)
     return info
 
@@ -1149,9 +1347,10 @@ def serve_requests(outdir: str, tag: str, miner_envs: list,
                 asyncio.wait_for(submit_until(c.hostport, data, max_nonce,
                                               target), 300))))
         launches = path_launches(miners)
+        chunks = served_chunks(miners)
         with open(server_log, errors="replace") as f:
             release = "(prefix release)" in f.read()
-    return {"requests": results, "launches": launches,
+    return {"requests": results, "launches": launches, "chunks": chunks,
             "prefix_release_logged": release}
 
 
@@ -1202,6 +1401,80 @@ def check_peeled(peeled: dict, default: dict, dev) -> None:
     counts = mice["launches"]
     if counts["K4"] <= 0 or counts["K1"] or counts["K2"] or counts["K3"]:
         fail(f"the peeled mice path launched {counts}")
+
+
+def mesh_devices() -> str:
+    """The mesh paths' ``DBMT_MESH_DEVICES``: every card of a box with
+    several, else card 0 four times."""
+    import torch
+    count = torch.cuda.device_count()
+    return ",".join(f"cuda:{i}" for i in range(count)) if count > 1 \
+        else ",".join(["cuda:0"] * 4)
+
+
+def run_mesh(outdir: str) -> dict:
+    """The mesh paths, each on a new server: two miners over the mesh of
+    :func:`mesh_devices` serve R1, R2, R3, the mouse and R4 (two, so that
+    R4 splits into two chunks and its hit in chunk 0 is released before
+    chunk 1 answers); then one peeled mesh miner (``DBMT_PEEL=1``, K4)
+    serves R1 and R4."""
+    env = {"DBMT_MESH_DEVICES": mesh_devices()}
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    r4 = UNTIL_REQUESTS[0]
+    default = serve_requests(
+        outdir, "mesh", [env, env],
+        tuple(by_name[n] for n in ("R1", "R2", "R3", "mouse")), (r4,))
+    peeled = serve_requests(outdir, "mesh_peel", [{**env, **PEEL_ENV}],
+                            (by_name["R1"],), (r4,))
+    return {"devices": env["DBMT_MESH_DEVICES"], "default": default,
+            "peel": peeled}
+
+
+def check_mesh_paths(mesh: dict, default: dict) -> None:
+    """Every answer of the mesh paths equal to the same request's on the
+    default path (each held there to the plain scans, the claim check or
+    a direct search), R4 held to the prefix release with two miners; the
+    launches: one mesh fold (K6mesh) per block served and distinct
+    device of the mesh; per block one to n shard searches, each with its
+    reduce (on the default leg K1 or K2 both; on the peeled leg the
+    search K4 and the reduce K1 or K2); no single-device K6 fold, no
+    other body."""
+    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    devices = mesh["devices"].split(",")
+    holders = len(set(devices))
+    for leg in ("default", "peel"):
+        run = mesh[leg]
+        for r in run["requests"]:
+            want = default[r["request"]]
+            if hash_op(r["data"], r["nonce"]) != r["hash"] or \
+                    (r["hash"], r["nonce"]) != (want["hash"],
+                                                want["nonce"]):
+                fail(f"mesh path {leg} {r['request']}: "
+                     f"{r['hash'], r['nonce']} != the default path's "
+                     f"{want['hash'], want['nonce']}")
+            if r["request"] == "R4" and leg == "default":   # two miners
+                r["chunk"] = 0 if r["nonce"] <= R4_CHUNKS[0][1] else 1
+                if r["chunk"] == 0 and not run["prefix_release_logged"]:
+                    fail("mesh path: R4 hit in chunk 0 but the server "
+                         "logged no prefix release")
+        counts = run["launches"]
+        run["blocks"] = blocks = sum(
+            len(list(NonceSearcher(data, device="cpu").plan(lower, upper)))
+            for data, lower, upper in run["chunks"])
+        calls = counts["K1"] + counts["K2"]
+        if leg == "default":
+            run["shard_searches"] = searches = calls // 2
+            ok = calls % 2 == 0 and counts["K1"] > 0 and counts["K2"] > 0 \
+                and not counts["K4"]
+        else:
+            run["shard_searches"] = searches = counts["K4"]
+            ok = calls == searches
+        if not (ok and blocks and blocks <= searches <= len(devices) * blocks
+                and counts["K6mesh"] == blocks * holders
+                and not any(counts[k] for k in ("K3", "K5", "K6"))):
+            fail(f"the mesh path {leg} launched {counts} over {blocks} "
+                 f"blocks on {len(devices)} shards, {holders} devices")
 
 
 def per_block_search(searcher, lower: int, upper: int, scan):
@@ -1281,13 +1554,6 @@ def plain_search_until(searcher, lower: int, upper: int, target: int):
             t_lo, rem=p.rem, k=p.k, device=searcher.device))
 
 
-#: SASS opcodes that do not issue to the INT32 ALU pipe: IMAD (the FMA
-#: pipe), memory and constant loads, control flow, and uniform-datapath
-#: ops (``U...``).
-NON_ALU_PREFIXES = ("IMAD", "LD", "ST", "BRA", "BSSY", "BSYNC", "EXIT",
-                    "BAR", "NOP", "S2R", "S2UR", "CS2R", "SHFL", "WARPSYNC",
-                    "RET", "CALL", "U")
-
 #: INT32 instructions of one SHA-256 round whose state differs per lane,
 #: in Hopper's fused forms: S0 and S1 (3 SHF rotates and 1 LOP3 each), ch
 #: and maj (1 LOP3 each), and t1, e and a (4 IADD3).
@@ -1364,8 +1630,8 @@ RATE_SHAPES = {"one_block": (8, 9), "two_block": (61, 9),
 
 
 def sass_alu_count(ops: dict) -> int:
-    return sum(n for op, n in ops.items()
-               if not op.startswith(NON_ALU_PREFIXES))
+    from distributed_bitcoinminer_tpu_torch.tools.tune import int32_count
+    return int32_count(ops)
 
 
 def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
@@ -1881,6 +2147,130 @@ def rates_until_shapes(dev) -> dict:
                               for name, v in runs.items()}}
 
 
+def rates_mesh(dev_info: dict, dev, hit: tuple) -> dict:
+    """The mesh chains on card 0: R3's arg-min chain on meshes of 1, 2 and
+    4 shards against the single-device K6 chain, in turns (K6, 1, 2, 4, 4,
+    2, 1, K6); the until chain to the first hit of the ``hit`` block on 4
+    shards against the single-device one, in turns; one launch of each
+    mesh fold (4 rows) against its plain version; and, on a box with more
+    than one card, :func:`rates_multi_card`."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.models import (MeshNonceSearcher,
+                                                           NonceSearcher)
+    from distributed_bitcoinminer_tpu_torch.ops import searchop, sha256_cuda
+    from distributed_bitcoinminer_tpu_torch.ops.search import devloop_carry
+    from distributed_bitcoinminer_tpu_torch.parallel.mesh_search import (
+        fold_rows_argmin, fold_rows_until)
+
+    r3 = {"K6": NonceSearcher("cmu440", device=dev),
+          **{n: MeshNonceSearcher("cmu440", devices=[dev] * n)
+             for n in (1, 2, 4)}}
+    before = dict(sha256_cuda.launches)
+    r3_ms, r3_answer = in_turns(r3, ("K6", 1, 2, 4, 4, 2, 1, "K6"),
+                                lambda s: s.search(0, 1 << 32))
+    hp, t, f_idx = hit
+    lower, upper = hp.base + hp.lo_i, hp.base + hp.hi_i
+    until = {"K6": r3["K6"], 4: r3[4]}
+    until_ms, until_answer = in_turns(
+        until, ("K6", 4, 4, "K6"),
+        lambda s: s.search_until(lower, upper, t))
+    if until_answer[1:] != (hp.base + f_idx, True):
+        fail(f"the mesh until chain over the hit block: {until_answer}")
+    launches = {k: n - before[k] for k, n in sha256_cuda.launches.items()}
+    rows = int32_words([[7, 1, 5], [7, 1, 3], [M32] * 3, [0, 9, 2]]).to(dev)
+    rows5 = int32_words([[0, M32, 7, 1, 5], [1, 40, 7, 1, 3],
+                         [0] + [M32] * 4, [1, 9, 0, 9, 2]]).to(dev)
+    carry = devloop_carry(searchop.ARGMIN_OP, dev)
+    ucarry = devloop_carry(searchop.UNTIL_OP, dev)
+    folds = {
+        "argmin_ms": cuda_ms(lambda: sha256_cuda.mesh_fold_argmin(
+            rows, carry, M32, device=dev), 200),
+        "until_ms": cuda_ms(lambda: sha256_cuda.mesh_fold_until(
+            rows5, ucarry, M32, device=dev), 200),
+        "argmin_plain_ms": cuda_ms(lambda: fold_rows_argmin(
+            carry, rows, M32), 20),
+        "until_plain_ms": cuda_ms(lambda: fold_rows_until(
+            ucarry, rows5, M32), 20),
+        "rows": 4,
+        # Each fold reads its rows and carry once and writes the carry.
+        "bound_ms": (4 * 5 * 4 + 2 * 4 * 8) / 3.35e12 * 1e3,
+        "bound_by": "bytes"}
+    if torch.cuda.device_count() > 1:
+        multi_card = rates_multi_card(dev, hit)
+    else:
+        multi_card = {"not_run": "the box has one card: the cross-card "
+                                 "branch (row copies between cards, one "
+                                 "fold per card) runs with "
+                                 "--cross-card on a box with several"}
+    return {"r3_ms": r3_ms, "r3_answer": list(r3_answer),
+            "r3_bound_ms": sum(bound_ms(p.lanes, needed_int_ops(
+                p.rem, p.k, int(p.template.shape[0])), dev_info)[0]
+                for p in r3["K6"].plan(0, 1 << 32)),
+            "until_to_hit_ms": until_ms, "until_answer": list(until_answer),
+            "launches": launches, "folds": folds, "multi_card": multi_card}
+
+
+def in_turns(searchers: dict, order: tuple, fn) -> tuple:
+    """``fn(searcher)`` timed by :func:`event_ms` for each key of
+    ``order`` in turn: the mean milliseconds by key, and the one answer
+    they all gave (they must agree)."""
+    times, answers = {key: [] for key in searchers}, {}
+    for key in order:
+        times[key].append(event_ms(lambda: answers.__setitem__(
+            key, fn(searchers[key]))))
+    if len(set(answers.values())) != 1:
+        fail(f"the mesh chains disagree: {answers}")
+    return {str(key): sum(v) / len(v) for key, v in times.items()}, \
+        next(iter(answers.values()))
+
+
+def rates_multi_card(dev, hit: tuple) -> dict:
+    """R3's arg-min chain, and the until chain to the first hit of the
+    ``hit`` block, over a mesh of every card against the K6 chain on card
+    ``dev``, in turns, after one untimed run of both chains over 10^6
+    nonces on each (a card's first launches load its kernels); the
+    answers must agree."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.models import (MeshNonceSearcher,
+                                                           NonceSearcher)
+    count = torch.cuda.device_count()
+    cards = {"K6": NonceSearcher("cmu440", device=dev),
+             "all_cards": MeshNonceSearcher(
+                 "cmu440", devices=[f"cuda:{i}" for i in range(count)])}
+    for searcher in cards.values():
+        searcher.search(0, 10 ** 6)
+        searcher.search_until(0, 10 ** 6, 0)
+    order = ("K6", "all_cards", "all_cards", "K6")
+    r3_ms, r3_answer = in_turns(cards, order, lambda s: s.search(0, 1 << 32))
+    hp, t, f_idx = hit
+    until_ms, until_answer = in_turns(
+        cards, order, lambda s: s.search_until(hp.base + hp.lo_i,
+                                               hp.base + hp.hi_i, t))
+    if until_answer[1:] != (hp.base + f_idx, True):
+        fail(f"the multi-card until chain over the hit block: "
+             f"{until_answer}")
+    return {"cards": count, "r3_ms": r3_ms, "r3_answer": list(r3_answer),
+            "until_to_hit_ms": until_ms, "until_answer": list(until_answer)}
+
+
+def run_tune(outdir: str, int32_per_lane: dict) -> dict:
+    """``tools.tune`` as a subprocess at its default span, given this
+    run's INT32 instructions a nonce of the kernels in ``int32_per_lane``:
+    its four lines by probe name."""
+    out = subprocess.run([sys.executable, "-m", f"{PKG}.tools.tune", "24",
+                          *(f"{k}={n}" for k, n in int32_per_lane.items())],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    with open(os.path.join(outdir, "tune.txt"), "w") as f:
+        f.write(out.stdout + out.stderr)
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    if out.returncode != 0 or len(lines) != 4:
+        fail(f"tools.tune: rc {out.returncode}, {out.stdout[-2000:]!r} "
+             f"{out.stderr[-2000:]!r}")
+    return {ln["probe"]: ln for ln in lines}
+
+
 def phase_rates(dev_info: dict, outdir: str) -> dict:
     import torch
     dev = torch.device("cuda", 0)
@@ -1890,6 +2280,9 @@ def phase_rates(dev_info: dict, outdir: str) -> dict:
     info["K5"] = rates_k5(dev_info, dev, info["K1"]["one_block"])
     info["K6"] = rates_k6(dev_info, dev, hit)
     info["until_shapes"] = rates_until_shapes(dev)
+    info["K6mesh"] = rates_mesh(dev_info, dev, hit)
+    one = info["K1"]["one_block"]
+    info["tune"] = run_tune(outdir, k7_int32_per_lane(one))
     info.update({"sms": dev_info["sms"],
                  "clocks_max_sm_mhz": dev_info["clocks_max_sm_mhz"],
                  "clocks_sm_after": nvidia_smi("clocks.sm"),
@@ -1967,7 +2360,91 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "until_after_hit_ms": k6["until_after_hit_ms"],
          "library_ms": None},
         *(peeled_entry(kern, src, launches[kern], kernel[kern], rates)
-          for kern, _, _ in PEELED)]}
+          for kern, _, _ in PEELED),
+        mesh_entry(src, launches["K6mesh"], kernel["K6mesh"], rates),
+        k7_entry(kernel["K7"], rates)]}
+
+
+def mesh_entry(src: str, launches: int, check: dict, rates: dict) -> dict:
+    """K6's mesh bodies in the ``kernels`` line: one mesh fold launch (4
+    rows) beside its plain version and its bound, and R3's chain by shard
+    count beside the single-device K6 chain."""
+    mesh = rates["K6mesh"]
+    folds = mesh["folds"]
+    return {
+        "name": "mesh_fold_argmin+mesh_fold_until", "route": "cuda",
+        "source": src,
+        "replaces": "ops/sha256_pallas.py:833 and :853 (pallas_devloop_scan,"
+                    " pallas_devloop_until_scan, with the pmin merge and fold"
+                    " of parallel/mesh_search.py:389-407 and :434-455, in "
+                    "the JAX package)",
+        "launches": launches, "checked": True,
+        "max_abs_err": check["max_abs_err"],
+        "ms": folds["argmin_ms"], "until_fold_ms": folds["until_ms"],
+        "rows": folds["rows"], "plain_ms": folds["argmin_plain_ms"],
+        "until_plain_ms": folds["until_plain_ms"],
+        "bound_ms": folds["bound_ms"], "bound_by": folds["bound_by"],
+        "r3_chain_ms_by_shards": mesh["r3_ms"],
+        "r3_chain_bound_ms": mesh["r3_bound_ms"],
+        "until_to_hit_ms": mesh["until_to_hit_ms"],
+        "multi_card": mesh["multi_card"], "library_ms": None}
+
+
+#: What one lane-iteration of K7 needs, whatever the compiler emits: per
+#: chain a rotate (SHF) and an xor (LOP3), which only the INT32 pipe
+#: executes, and a 3-input add, one IADD3 there or two IMADs on the FMA
+#: pipe. With the adds on the FMA pipe, 16 INT32 instructions at 64 a
+#: clock and 32 issued at 128 a clock both take 0.25 clock per SM, the
+#: least over every split of the adds (the loop's own instructions are
+#: left out: unrolling amortises them).
+K7_CLOCKS_PER_LANE_ITER = max(16 / RATE_INT32_PER_CLK_PER_SM,
+                              32 / RATE_ISSUE_PER_CLK_PER_SM)
+
+
+def k7_int32_per_lane(one_block: dict) -> dict:
+    """This run's INT32 instructions a nonce of K1's and K4's lane loops
+    on the 1-block tail, from their fixed-shape SASS."""
+    return {"K1": one_block["sass_alu_insns_per_lane"],
+            "K4": one_block["K4"]["sass_alu_insns_per_lane"]}
+
+
+def k7_entry(check: dict, rates: dict) -> dict:
+    """K7 in the ``kernels`` line: the tuning tool's launch at full
+    occupancy; its bound, the operations the function needs at the
+    maximum SM clock (:data:`K7_CLOCKS_PER_LANE_ITER`), beside the bound
+    of its emitted SASS at the issue rate; the plain version on one wave;
+    and the nonce/s ceilings of K1 and K4 that the measured INT32 rate
+    implies, from this run's SASS counts of their lane loops."""
+    k7 = rates["tune"]["K7"]
+    clk_hz = float(rates["clocks_max_sm_mhz"].split()[0]) * 1e6
+    per_sm_s = rates["sms"] * clk_hz / 1e3
+    lane_iters = k7["lanes"] * k7["iters"]
+    bound = lane_iters * K7_CLOCKS_PER_LANE_ITER / per_sm_s
+    sass_bound = (lane_iters * k7["sass_insns_per_iter"]
+                  / RATE_ISSUE_PER_CLK_PER_SM / per_sm_s)
+    counts = k7_int32_per_lane(rates["K1"]["one_block"])
+    return {
+        "name": "alu_probe", "route": "cuda",
+        "source": f"{PKG}/csrc/alu_probe.cu",
+        "replaces": "scripts/tpu_tune.py:51 (vpu_kernel, its pallas_call at "
+                    ":69, in the JAX package's tuning tool)",
+        "launches": k7["launches"], "checked": True,
+        "max_abs_err": check["max_abs_err"],
+        "ms": k7["ms"], "lanes": k7["lanes"], "iters": k7["iters"],
+        "plain_ms": check["plain_ms"], "plain_lanes": check["lanes"],
+        "ms_at_plain_lanes": check["ms"],
+        "bound_ms": bound, "bound_by": "operations",
+        "clocks_per_lane_iter_needed": K7_CLOCKS_PER_LANE_ITER,
+        "sass_issue_bound_ms": sass_bound,
+        "sass_insns_per_iter": k7["sass_insns_per_iter"],
+        "sass_int32_insns_per_iter": k7["sass_int32_insns_per_iter"],
+        "issued_per_clk_per_sm": k7["issued_per_clk_per_sm"],
+        "int32_per_clk_per_sm": k7["int32_per_clk_per_sm"],
+        "int32_fits_pipe": k7["int32_fits_pipe"],
+        "ceiling_int32_per_lane": counts,
+        "ceiling_nonces_per_s": {
+            kern: k7["int32_insns_per_s"] / n for kern, n in counts.items()},
+        "library_ms": None}
 
 
 #: The TPU kernel each peeled body replaces (file:line in the JAX
@@ -2007,6 +2484,33 @@ def peeled_entry(kern: str, src: str, launches: int, check: dict,
         "library_ms": None}
 
 
+def cross_card(outdir: str) -> dict:
+    """``--cross-card``, on a box with several cards: only the mesh over
+    every card and what it is held to. The mesh paths of
+    :func:`run_mesh` (``DBMT_MESH_DEVICES`` naming every card), each
+    answer held to a direct search on card 0 and the launches to
+    :func:`check_mesh_paths`; then :func:`rates_multi_card`."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    if torch.cuda.device_count() < 2:
+        fail("--cross-card needs a box with at least two cards")
+    dev = torch.device("cuda", 0)
+    sha256_cuda.build_all()
+    mesh = run_mesh(outdir)
+    direct = {}
+    for name, data, max_nonce, *target in ARGMIN_REQUESTS + UNTIL_REQUESTS:
+        s = NonceSearcher(data, device=dev)
+        got = s.search_until(0, max_nonce + 1, target[0]) if target \
+            else s.search(0, max_nonce + 1)
+        direct[name] = {"hash": got[0], "nonce": got[1]}
+    check_mesh_paths(mesh, direct)
+    info = {"mesh": mesh, "direct": direct,
+            "multi_card": rates_multi_card(dev, hit_block(dev))}
+    emit("cross_card", **info)
+    return info
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script",
@@ -2018,12 +2522,26 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
-    outdir = os.path.join(ROOT, "chiprun_out", "chip_smoke")
+    cross = sys.argv[1:] == ["--cross-card"]
+    if sys.argv[1:] and not cross:
+        print("usage: chip_smoke.py [--cross-card]", file=sys.stderr)
+        return 2
+    outdir = os.path.join(ROOT, "chiprun_out",
+                          "chip_smoke_cross_card" if cross else "chip_smoke")
     os.makedirs(outdir, exist_ok=True)
     PHASES_LOG.append(os.path.join(outdir, "phases.jsonl"))
     open(PHASES_LOG[0], "w").close()
     t0 = time.monotonic()
     marks = [t0]
+    ok = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    if cross:
+        phase_device()
+        cross_card(outdir)
+        emit("done", seconds=time.monotonic() - t0)
+        print(ok, flush=True)
+        return 0
 
     def lap():
         marks.append(time.monotonic())
@@ -2042,9 +2560,7 @@ def main() -> int:
     print(line, flush=True)
     with open(PHASES_LOG[0], "a") as f:
         f.write(line + "\n")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(ok, flush=True)
     return 0
 
 

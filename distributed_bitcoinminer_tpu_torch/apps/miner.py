@@ -35,7 +35,10 @@ through another kernel.
 
 Usage: ``python -m distributed_bitcoinminer_tpu_torch.apps.miner
 <host:port> [--device cuda|cpu]`` (default ``cuda``; ``DBMT_COALESCE=0``
-turns coalescing off).
+turns coalescing off). On a box with more than one card, or with
+``DBMT_MESH_DEVICES`` naming at least two devices, the miner searches over
+that mesh (``MeshNonceSearcher``), which then takes the place of
+``--device``.
 """
 
 from __future__ import annotations
@@ -54,16 +57,23 @@ from ..lsp.errors import LspError
 from ..lsp.params import Params
 from ..ops import sha256_cuda
 from ..utils.config import (CoalesceParams, PeelParams, coalesce_from_env,
-                            peel_from_env)
+                            mesh_from_env, peel_from_env)
 
 logger = logging.getLogger("dbmt.miner")
 
 
 def default_searcher_factory(data: str, device="cuda",
-                             body: PeelParams = PeelParams()):
-    """The port's :class:`NonceSearcher` for ``data`` on ``device``, with
-    the lane body ``body`` (``DBMT_PEEL``, ``DBMT_HOIST``)."""
-    from ..models import NonceSearcher
+                             body: PeelParams = PeelParams(),
+                             mesh: tuple = ()):
+    """The port's searcher for ``data`` with the lane body ``body``
+    (``DBMT_PEEL``, ``DBMT_HOIST``): a :class:`MeshNonceSearcher` over
+    ``mesh`` when it names at least two devices (``DBMT_MESH_DEVICES``,
+    :func:`~..utils.config.mesh_from_env`), else a :class:`NonceSearcher`
+    on ``device``."""
+    from ..models import MeshNonceSearcher, NonceSearcher
+    if len(mesh) >= 2:
+        return MeshNonceSearcher(data, devices=mesh, peel=body.peel,
+                                 hoist=body.hoist)
     return NonceSearcher(data, device=device, peel=body.peel,
                          hoist=body.hoist)
 
@@ -431,11 +441,12 @@ class MinerWorker:
 
 
 async def _run_miner(hostport: str, device: str,
-                     body: PeelParams = PeelParams()) -> int:
+                     body: PeelParams = PeelParams(),
+                     mesh: tuple = ()) -> int:
     worker = MinerWorker(
         hostport, params=Params(),
-        searcher_factory=lambda data: default_searcher_factory(data, device,
-                                                               body),
+        searcher_factory=lambda data: default_searcher_factory(
+            data, device, body, mesh),
         coalesce=coalesce_from_env().enabled)
     try:
         try:
@@ -443,7 +454,9 @@ async def _run_miner(hostport: str, device: str,
         except LspError as exc:
             print("Failed to join with server:", exc)
             return 1
-        logger.info("joined %s on %s", hostport, device)
+        logger.info("joined %s on %s", hostport,
+                    f"the mesh {','.join(mesh)}" if len(mesh) >= 2
+                    else device)
         await worker.run()
         return 0
     finally:
@@ -468,34 +481,43 @@ def main(argv=None) -> int:
         return 1
     device = resolve_device(device)
     body = peel_from_env()
+    mesh = mesh_from_env(device)
+    if len(mesh) < 2:
+        mesh = ()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    if device.type == "cuda":
-        warm_up(device, body)
-    return asyncio.run(_run_miner(args[0], device, body))
+    if any(resolve_device(d).type == "cuda" for d in mesh or (device,)):
+        warm_up(device, body, mesh)
+    return asyncio.run(_run_miner(args[0], device, body, mesh))
 
 
-def warm_up(device, body: PeelParams = PeelParams()) -> None:
-    """Create the CUDA context, build (if needed) and load the kernels of
-    the miner's lane body ``body``, and run both chains (arg-min and
-    difficulty) once over the 6 blocks of [0, 10^5) and one batched
-    launch before joining, so the first request does not pay for any of
-    it. The launch counters restart at 0 afterwards: they count the
-    launches made serving requests."""
+def warm_up(device, body: PeelParams = PeelParams(),
+            mesh: tuple = ()) -> None:
+    """Create the CUDA context (on every distinct device of a ``mesh`` of
+    at least two entries), build (if needed) and load the kernels of the
+    miner's lane body ``body``, and run both chains (arg-min and
+    difficulty; over the mesh, its chains) once over the 6 blocks of
+    [0, 10^5) and one batched launch before joining, so the first request
+    does not pay for any of it. The launch counters restart at 0
+    afterwards: they count the launches made serving requests."""
     import torch
 
+    from ..parallel.mesh_search import distinct, make_mesh
     t0 = time.monotonic()
-    torch.zeros(1, device=device)
-    s = default_searcher_factory("warm-up", device, body)
+    devices = distinct(make_mesh(devices=mesh)) if len(mesh) >= 2 \
+        else (device,)
+    for d in devices:
+        torch.zeros(1, device=d)
+    s = default_searcher_factory("warm-up", device, body, mesh)
     s.search(0, 10 ** 5 - 1)
     s.search_until(0, 10 ** 5 - 1, 1)
     # A batch with a 1-block and a 2-block tail: both K5 search kernels.
-    t = default_searcher_factory("w" * 60, device, body)
+    t = default_searcher_factory("w" * 60, device, body, mesh)
     s.finalize_batch(s.dispatch_batch([(s, 0, 999), (t, 10 ** 4, 10 ** 5)]))
     sha256_cuda.reset_launches()
-    logger.info("device %s ready in %.3fs (%s; %s)", device,
-                time.monotonic() - t0, torch.cuda.get_device_name(device),
-                body)
+    logger.info("device %s ready in %.3fs (%s; %s)",
+                ",".join(str(d) for d in devices), time.monotonic() - t0,
+                torch.cuda.get_device_name(devices[0]), body)
 
 
 if __name__ == "__main__":

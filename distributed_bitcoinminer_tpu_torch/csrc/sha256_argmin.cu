@@ -2,7 +2,7 @@
 // Hopper: the arg-min kernel (K1), the difficulty-target kernel with its
 // early exit (K2), the batched segment-min over many rows (K5), and the
 // device-resident chain that folds each block's winner into a carry on the
-// card (K6).
+// card (K6), with K6's mesh bodies.
 //
 // K1 replaces the TPU kernel of the JAX package, ops/sha256_pallas.py::
 // pallas_search_span (the rolled _kernel_body, not-peel branch), and its
@@ -50,6 +50,21 @@
 // needed a run-time `live` step count because its grid is static; a CUDA
 // launch takes its lane count at run time, so only the found check remains:
 // a chained until launch returns at once when an earlier one hit.
+//
+// K6's mesh bodies replace the JAX package's pallas_devloop_scan and
+// pallas_devloop_until_scan (ops/sha256_pallas.py) with the pmin merge and
+// the fold around them in the shard_map bodies of parallel/mesh_search.py
+// (mesh_devloop_span, mesh_devloop_span_until): a block's valid window is
+// cut into contiguous ascending shard windows, one per entry of the mesh.
+// Each shard runs K1's search (the arg-min chain) or K2's chained search
+// with a reduce into the shard's own 5-word row (the until chain: no lane
+// work once the carry on its device says an earlier block hit), and one
+// fold launch per device merges the n rows into the exact lexicographic
+// minimum (and the lowest first hit) and folds it into that device's copy
+// of the carry (mesh_fold_argmin_kernel, mesh_fold_until_kernel). The fold
+// is the whole-mesh merge of the TPU's replicated carry; on one card with
+// repeated shards it runs once. It reads n x 20 bytes at most: launch
+// latency bounds it, so one thread does it.
 //
 // What bounds them: integer instruction issue. A lane reads no memory (the
 // plan travels by value as a kernel parameter, the round constants sit in
@@ -122,6 +137,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Shards a mesh fold takes at most.
+constexpr int kMeshRowsMax = 1024;
 
 #ifndef DBMT_BODY
 #define DBMT_BODY 0
@@ -173,9 +190,12 @@ struct Key {
   uint32_t hi, lo, idx;
 };
 
-__device__ __forceinline__ Key sentinel() { return Key{~0u, ~0u, ~0u}; }
+__host__ __device__ __forceinline__ Key sentinel() {
+  return Key{~0u, ~0u, ~0u};
+}
 
-__device__ __forceinline__ bool key_less(const Key& a, const Key& b) {
+__host__ __device__ __forceinline__ bool key_less(const Key& a,
+                                                  const Key& b) {
   if (a.hi != b.hi) return a.hi < b.hi;
   if (a.lo != b.lo) return a.lo < b.lo;
   return a.idx < b.idx;
@@ -619,6 +639,98 @@ __device__ __forceinline__ void write_partial(Key best,
   }
 }
 
+// ------------------------------------------------------------ carry folds
+//
+// Host and device code: the CPU tests compile this section with a host
+// C++ compiler.
+
+// Strict lexicographic a < b over n words (element 0 most significant).
+__host__ __device__ __forceinline__ bool words_less(const uint32_t* a,
+                                                    const uint32_t* b, int n) {
+  for (int w = 0; w < n; ++w) {
+    if (a[w] != b[w]) return a[w] < b[w];
+  }
+  return false;
+}
+
+// searchop.fold_argmin on the 5-word carry c = [hash_hi, hash_lo,
+// nonce_hi, nonce_lo, seen]; the nonce is base + m.idx in 64 bits.
+__host__ __device__ __forceinline__ void fold_argmin_words(uint32_t* c,
+                                                           const Key& m,
+                                                           uint32_t base_hi,
+                                                           uint32_t base_lo) {
+  const bool valid = !(m.hi == ~0u && m.lo == ~0u && m.idx == ~0u);
+  const uint32_t n_lo = base_lo + m.idx;
+  const uint32_t n_hi = base_hi + (n_lo < m.idx ? 1u : 0u);
+  const uint32_t cand[4] = {m.hi, m.lo, n_hi, n_lo};
+  if (valid && (c[4] == 0u || words_less(cand, c, 4))) {
+    for (int w = 0; w < 4; ++w) c[w] = cand[w];
+    c[4] = 1u;
+  }
+}
+
+// searchop.fold_until on the 8-word carry c = [found, f_nonce_hi,
+// f_nonce_lo] + the arg-min carry: the lower qualifying 64-bit nonce wins.
+__host__ __device__ __forceinline__ void fold_until_words(uint32_t* c,
+                                                          uint32_t f_idx,
+                                                          const Key& m,
+                                                          uint32_t base_hi,
+                                                          uint32_t base_lo) {
+  if (f_idx != ~0u) {
+    const uint32_t f_lo = base_lo + f_idx;
+    const uint32_t f[2] = {base_hi + (f_lo < f_idx ? 1u : 0u), f_lo};
+    if (c[0] == 0u || words_less(f, c + 1, 2)) {
+      c[1] = f[0];
+      c[2] = f[1];
+    }
+    c[0] = 1u;
+  }
+  fold_argmin_words(c + 3, m, base_hi, base_lo);
+}
+
+// K6's mesh bodies: the merge of the shards' results, the counterpart of the
+// three staged pmins of the JAX package's parallel/mesh_search.py (and, in
+// until mode, the pmin of f_idx). rows holds n rows of `width` words, one per
+// shard in shard order: 3 (hi, lo, idx) in the arg-min chain, 5 (found,
+// f_idx, hi, lo, idx) in the until chain, where f_idx alone says whether
+// the shard hit. The shards' windows are disjoint and ascend with the row,
+// so the lowest idx of a hash tie and the lowest f_idx are the earliest
+// nonces; an empty shard's row is all-ones (found 0), which never wins.
+// Returns the exact lexicographic (hi, lo, idx) minimum and, when f_min is
+// given, the lowest f_idx.
+__host__ __device__ __forceinline__ Key rows_min(const uint32_t* rows, int n,
+                                                 int width, uint32_t* f_min) {
+  Key best = sentinel();
+  uint32_t f = ~0u;
+  for (int r = 0; r < n; ++r) {
+    const uint32_t* row = rows + width * r;
+    const Key c{row[width - 3], row[width - 2], row[width - 1]};
+    if (key_less(c, best)) best = c;
+    if (width == 5 && row[1] < f) f = row[1];
+  }
+  if (f_min != nullptr) *f_min = f;
+  return best;
+}
+
+// The arg-min chain's mesh fold: the n rows' minimum into the 5-word carry.
+__host__ __device__ __forceinline__ void mesh_fold_argmin_words(
+    uint32_t* c, const uint32_t* rows, int n, uint32_t base_hi,
+    uint32_t base_lo) {
+  fold_argmin_words(c, rows_min(rows, n, 3, nullptr), base_hi, base_lo);
+}
+
+// The until chain's mesh fold into the 8-word carry. Once c[0] says an
+// earlier block hit, the shards did no lane work and the carry stays as it
+// is (the single-device chain's rule).
+__host__ __device__ __forceinline__ void mesh_fold_until_words(
+    uint32_t* c, const uint32_t* rows, int n, uint32_t base_hi,
+    uint32_t base_lo) {
+  if (c[0] != 0u) return;
+  uint32_t f_idx;
+  const Key m = rows_min(rows, n, 5, &f_idx);
+  fold_until_words(c, f_idx, m, base_hi, base_lo);
+}
+
 // ------------------------------------------------------------ kernels
 
 template <int VARIANT>
@@ -693,11 +805,20 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// K2's reduce: (found, f_idx, best_hi, best_lo, best_idx).
+// K2's reduce: (found, f_idx, best_hi, best_lo, best_idx). With a carry,
+// the reduce of a mesh until shard (K6's mesh until body), whose search ran
+// chained: once carry[0] says an earlier block hit, that search wrote no
+// partials, and the shard's row gets (0, all-ones x 4), which the mesh fold
+// never takes. No thread writes the carry here.
 __global__ void __launch_bounds__(1024)
     reduce_until_kernel(const uint32_t* __restrict__ partials, int count,
                         const uint32_t* __restrict__ f_min,
+                        const uint32_t* __restrict__ carry,
                         uint32_t* __restrict__ out) {
+  if (carry != nullptr && carry[0] != 0u) {
+    if (threadIdx.x < 5) out[threadIdx.x] = threadIdx.x == 0 ? 0u : ~0u;
+    return;
+  }
   const Key best = block_min(partials_min(partials, count));
   if (threadIdx.x == 0) {
     const uint32_t f = *f_min;
@@ -707,48 +828,6 @@ __global__ void __launch_bounds__(1024)
     out[3] = best.lo;
     out[4] = best.idx;
   }
-}
-
-// Strict lexicographic a < b over n words (element 0 most significant).
-__device__ __forceinline__ bool words_less(const uint32_t* a,
-                                           const uint32_t* b, int n) {
-  for (int w = 0; w < n; ++w) {
-    if (a[w] != b[w]) return a[w] < b[w];
-  }
-  return false;
-}
-
-// searchop.fold_argmin on the 5-word carry c = [hash_hi, hash_lo,
-// nonce_hi, nonce_lo, seen]; the nonce is base + m.idx in 64 bits.
-__device__ __forceinline__ void fold_argmin_words(uint32_t* c, const Key& m,
-                                                  uint32_t base_hi,
-                                                  uint32_t base_lo) {
-  const bool valid = !(m.hi == ~0u && m.lo == ~0u && m.idx == ~0u);
-  const uint32_t n_lo = base_lo + m.idx;
-  const uint32_t n_hi = base_hi + (n_lo < m.idx ? 1u : 0u);
-  const uint32_t cand[4] = {m.hi, m.lo, n_hi, n_lo};
-  if (valid && (c[4] == 0u || words_less(cand, c, 4))) {
-    for (int w = 0; w < 4; ++w) c[w] = cand[w];
-    c[4] = 1u;
-  }
-}
-
-// searchop.fold_until on the 8-word carry c = [found, f_nonce_hi,
-// f_nonce_lo] + the arg-min carry: the lower qualifying 64-bit nonce wins.
-__device__ __forceinline__ void fold_until_words(uint32_t* c, uint32_t f_idx,
-                                                 const Key& m,
-                                                 uint32_t base_hi,
-                                                 uint32_t base_lo) {
-  if (f_idx != ~0u) {
-    const uint32_t f_lo = base_lo + f_idx;
-    const uint32_t f[2] = {base_hi + (f_lo < f_idx ? 1u : 0u), f_lo};
-    if (c[0] == 0u || words_less(f, c + 1, 2)) {
-      c[1] = f[0];
-      c[2] = f[1];
-    }
-    c[0] = 1u;
-  }
-  fold_argmin_words(c + 3, m, base_hi, base_lo);
 }
 
 __global__ void __launch_bounds__(1024)
@@ -773,6 +852,23 @@ __global__ void __launch_bounds__(1024)
   if (threadIdx.x == 0) {
     fold_until_words(carry, *f_min, best, base_hi, base_lo);
   }
+}
+
+// K6's mesh folds (see rows_min): one thread merges the n shard rows and
+// folds the result into the carry in place. A fold reads n x 12 or n x 20
+// bytes and writes at most 32, so launch latency bounds it.
+__global__ void __launch_bounds__(1)
+    mesh_fold_argmin_kernel(const uint32_t* __restrict__ rows, int n,
+                            uint32_t* __restrict__ carry, uint32_t base_hi,
+                            uint32_t base_lo) {
+  mesh_fold_argmin_words(carry, rows, n, base_hi, base_lo);
+}
+
+__global__ void __launch_bounds__(1)
+    mesh_fold_until_kernel(const uint32_t* __restrict__ rows, int n,
+                           uint32_t* __restrict__ carry, uint32_t base_hi,
+                           uint32_t base_lo) {
+  mesh_fold_until_words(carry, rows, n, base_hi, base_lo);
 }
 
 // K5's search over the valid lanes [first, last] of one row, as block
@@ -1083,7 +1179,8 @@ int dbmt_sha256_until(const uint32_t* plan_words, uint32_t* partials,
   const int err =
       launch_until_search<false>(p, nullptr, f_min, partials, grid, s);
   if (err != 0) return err;
-  reduce_until_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, out);
+  reduce_until_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, nullptr,
+                                         out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1114,6 +1211,41 @@ int dbmt_sha256_until_fold(const uint32_t* plan_words, uint32_t* partials,
   if (err != 0) return err;
   reduce_until_fold_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, carry,
                                               base_hi, base_lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's mesh until shard: K2's chained search over the shard's window (no
+// lane work once carry[0] != 0; carry is this device's copy of the chain's
+// 8-word carry), then its reduce into out, the shard's 5 device words
+// (found, f_idx, best_hi, best_lo, best_idx), without a fold.
+int dbmt_sha256_until_shard(const uint32_t* plan_words, uint32_t* partials,
+                            uint32_t* f_min, const uint32_t* carry,
+                            uint32_t* out, int grid, void* stream) {
+  const Plan p = read_plan(plan_words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!plan_ok(p, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_until_search<true>(p, carry, f_min, partials, grid, s);
+  if (err != 0) return err;
+  reduce_until_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, carry, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's mesh folds: rows are the n shards' device rows, 3 words each
+// (arg-min) or 5 (until), in shard order, merged and folded into the device
+// carry (5 or 8 words) in place; the nonces are base + idx in 64 bits.
+int dbmt_mesh_fold_argmin(const uint32_t* rows, int n, uint32_t* carry,
+                          uint32_t base_hi, uint32_t base_lo, void* stream) {
+  if (n < 1 || n > kMeshRowsMax) return static_cast<int>(cudaErrorInvalidValue);
+  mesh_fold_argmin_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, n, carry, base_hi, base_lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dbmt_mesh_fold_until(const uint32_t* rows, int n, uint32_t* carry,
+                         uint32_t base_hi, uint32_t base_lo, void* stream) {
+  if (n < 1 || n > kMeshRowsMax) return static_cast<int>(cudaErrorInvalidValue);
+  mesh_fold_until_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, n, carry, base_hi, base_lo);
   return static_cast<int>(cudaGetLastError());
 }
 

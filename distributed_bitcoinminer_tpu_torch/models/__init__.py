@@ -1,5 +1,7 @@
-"""Search models: the chunk-schedulable exact arg-min nonce searcher."""
+"""Search models: the chunk-schedulable exact arg-min nonce searcher, on
+one device or over a mesh of them."""
 
 from .miner_model import NonceSearcher
+from .sharded import MeshNonceSearcher
 
-__all__ = ["NonceSearcher"]
+__all__ = ["MeshNonceSearcher", "NonceSearcher"]

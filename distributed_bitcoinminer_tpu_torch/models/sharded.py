@@ -1,0 +1,93 @@
+"""The mesh searcher: one miner over several devices.
+
+Counterpart of the JAX package's ``models/sharded.py::MeshNonceSearcher``
+on its devloop shape (the north star's "a pod registers as one very wide
+miner"): each aligned 10^k block of a span is cut into one contiguous
+window per shard of the mesh, every shard searches its window, and the
+shards' results are merged and folded into the span's carry on the
+devices (``parallel.mesh_search``), which crosses the host once per span.
+The plan, the midstate cache, the lane bodies (``peel``, ``hoist``) and
+the batched dispatch are :class:`NonceSearcher`'s: coalesced mice ride the
+segment-min launch on the mesh's first device, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from ..bitcoin.hash import hash_op
+from ..ops import searchop
+from ..ops.sha256_torch import M32
+from ..parallel.mesh_search import (make_mesh, mesh_carry,
+                                    mesh_devloop_span,
+                                    mesh_devloop_span_until)
+from .miner_model import NonceSearcher
+
+
+class MeshNonceSearcher(NonceSearcher):
+    """Exact hash search for one message over a mesh of devices.
+
+    ``devices``: the mesh, one entry per shard (default every visible CUDA
+    device; ``parallel.mesh_search.make_mesh``). An entry may repeat: four
+    shards on one card run one after another on its stream. A CPU mesh
+    (``["cpu"] * n``) runs the plain scans, merge and folds. ``grid``
+    overrides each shard launch's block count; ``peel`` and ``hoist`` pick
+    the lane body as for :class:`NonceSearcher`.
+    """
+
+    def __init__(self, data: str, devices=None, grid: int | None = None,
+                 peel: bool = False, hoist: bool = True):
+        self.devices = make_mesh(devices=devices)
+        super().__init__(data, device=self.devices[0], grid=grid, peel=peel,
+                         hoist=hoist)
+        self.n_devices = len(self.devices)
+
+    def _chain(self, lower: int, upper: int, target: int | None = None):
+        """Every block of ``[lower, upper]`` through the mesh's arg-min
+        chain, or with a ``target`` its difficulty chain; returns the
+        first device's carry (unforced)."""
+        op = searchop.ARGMIN_OP if target is None else searchop.UNTIL_OP
+        carries = mesh_carry(op, self.devices)
+        for plan in self.plan(lower, upper):
+            self.device_launches += 1
+            kw = dict(rem=plan.rem, k=plan.k, devices=self.devices,
+                      grid=self.grid, peel=self.peel, hoist=plan.hoist_ops)
+            if target is None:
+                carries = mesh_devloop_span(
+                    plan.midstate, plan.template, carries, plan.lo_i,
+                    plan.hi_i, plan.base, **kw)
+            else:
+                carries = mesh_devloop_span_until(
+                    plan.midstate, plan.template, carries, plan.lo_i,
+                    plan.hi_i, target >> 32, target & M32, plan.base, **kw)
+        return carries[0]
+
+    def dispatch(self, lower: int, upper: int):
+        """Launch every block of the range over the mesh WITHOUT forcing
+        results: per block, one search per shard with a window and one
+        mesh fold per distinct device into the span's 5-word carry.
+        Returns the first device's carry, the handle for
+        :meth:`finalize` (one 20-byte fetch)."""
+        if lower > upper:
+            raise ValueError("empty range")
+        return self._chain(lower, upper)
+
+    def search_until(self, lower: int, upper: int,
+                     target: int) -> tuple[int, int, bool]:
+        """Difficulty mode over the mesh: (hash, nonce, found), with ONE
+        fetch of the 8-word carry per span; after the span's first hit
+        every later shard launch does no lane work. The first qualifying
+        nonce is the lowest over the shards of the hit block, and its hash
+        is recomputed on the host."""
+        if lower > upper:
+            raise ValueError("empty range")
+        found, f_nonce, best_hash, best_nonce = searchop.decode_until(
+            self._chain(lower, upper, target).cpu(),
+            lower)
+        if found:
+            return hash_op(self.data, f_nonce), f_nonce, True
+        return best_hash, best_nonce, False
+
+    def coalesce_key(self) -> tuple:
+        """Mesh searchers share a batched launch only with mesh searchers
+        of the same devices and lane body."""
+        return (type(self), self.devices, self.grid, self.peel,
+                self.use_hoist)

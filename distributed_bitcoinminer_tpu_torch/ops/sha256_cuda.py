@@ -27,6 +27,13 @@ of the same entry; K4's is that scan through the hoisted compression
   the single-device devloop entries ``_pallas_devloop_span_jit`` and
   ``_pallas_devloop_until_jit``; their plain versions are the scans above
   followed by ``ops.searchop.fold_argmin`` / ``fold_until``.
+- K6's mesh bodies replace ``pallas_devloop_scan`` and
+  ``pallas_devloop_until_scan`` with the merge and fold around them
+  (``parallel/mesh_search.py`` in the JAX package): each shard runs
+  :func:`sha256_argmin` (into its row of the fold's input) or
+  :func:`sha256_until_shard` over its window, and :func:`mesh_fold_argmin` / :func:`mesh_fold_until` merge
+  the shards' rows into a device's carry; their plain versions are
+  ``parallel.mesh_search.fold_rows_argmin`` / ``fold_rows_until``.
 
 ``ops.search`` routes between each kernel and its plain version by
 device.
@@ -70,8 +77,10 @@ M32 = 0xFFFFFFFF
 #: counts one search launch (K1, K2, K3 or K4) and one fold launch (K6).
 #: A K5 call counts each kernel it launches: one search launch per tail
 #: block count among its rows (K5, or K3 or K4 under a peeled body) and
-#: the segment reduce (K5).
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+#: the segment reduce (K5). A mesh shard's search and reduce into its row
+#: count as a K1 or K2 call does; each mesh fold counts under ``K6mesh``.
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+            "K6mesh": 0}
 #: The last build of each body: seconds, nvcc's ptxas report, whether it
 #: ran.
 build_info: dict = {}
@@ -89,7 +98,12 @@ _ENTRIES = {
     "dbmt_sha256_body": [],
     "dbmt_sha256_plan_words": [],
     "dbmt_sha256_segmin": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "dbmt_sha256_until_shard": [_P, _P, _P, _P, _P, _I, _P],
+    "dbmt_mesh_fold_argmin": [_P, _I, _P, _U, _U, _P],
+    "dbmt_mesh_fold_until": [_P, _I, _P, _U, _U, _P],
 }
+#: Shards a mesh fold takes at most (``kMeshRowsMax`` in the source).
+MESH_ROWS_MAX = 1024
 #: dbmt_sha256_blocks_per_sm's entry numbers.
 ENTRY_ARGMIN, ENTRY_UNTIL, ENTRY_SEGMIN = 0, 1, 2
 #: The counter of a search launch under each body (None: the entry's own,
@@ -264,14 +278,13 @@ def _cuda_device(device, what: str) -> torch.device:
 def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
             lo_i: int, hi_i: int, n: int, rem: int, k: int,
             device: torch.device, grid, *, until: bool, peel: bool, hoist,
-            out_words: int = 0, carry=None, target: tuple = (0, 0),
-            base: int | None = None):
+            tail: list, target: tuple = (0, 0)) -> None:
     """Allocate the scratch, call the C entry ``entry`` of the body's
-    library on the current stream of ``device``, raise on a nonzero
-    cudaError, count the search launch (K3 or K4 under a peeled body,
-    else K2 when ``until``, else K1) and the reduce launch under
-    ``reduce_kernel``. Returns the new output tensor (``out_words`` >
-    0)."""
+    library on the current stream of ``device`` with the plan, the scratch
+    pointers and then ``tail`` (the entry's output and carry arguments),
+    raise on a nonzero cudaError, count the search launch (K3 or K4 under
+    a peeled body, else K2 when ``until``, else K1) and the reduce launch
+    under ``reduce_kernel``."""
     if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32):
         raise ValueError(f"lane window out of range: i0={i0} n={n}")
     body = body_of(peel, hoist)
@@ -288,12 +301,7 @@ def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
     args = [scratch.data_ptr()]
     if until:
         args.append(scratch[3 * grid:].data_ptr())
-    out = None
-    if out_words:
-        out = torch.empty(out_words, dtype=torch.int32, device=device)
-        args.append(out.data_ptr())
-    if carry is not None:
-        args += [carry.data_ptr(), base >> 32 & M32, base & M32]
+    args += tail
     plan = plan_words(midstate, template, i0, lo_i, hi_i, n, rem, k,
                       *target, hoist=hoist)
     words = (ctypes.c_uint32 * len(plan))(*plan)
@@ -305,35 +313,54 @@ def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     launches[SEARCH_KERNEL[body] or ("K2" if until else "K1")] += 1
     launches[reduce_kernel] += 1
-    return out
+
+
+def _check_words(t, words: int, device: torch.device, what: str) -> None:
+    if not (isinstance(t, torch.Tensor) and t.is_cuda
+            and device.index in (None, t.device.index)
+            and t.dtype == torch.int32 and t.shape == (words,)
+            and t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous ({words},) int32 "
+                         f"tensor on {device}")
 
 
 def _check_carry(carry, words: int, device: torch.device) -> None:
-    if not (isinstance(carry, torch.Tensor) and carry.is_cuda
-            and device.index in (None, carry.device.index)
-            and carry.dtype == torch.int32 and carry.shape == (words,)
-            and carry.is_contiguous()):
-        raise ValueError(f"the carry must be a contiguous ({words},) int32 "
-                         f"tensor on {device}")
+    _check_words(carry, words, device, "the carry")
+
+
+def _out(out, words: int, device: torch.device) -> torch.Tensor:
+    """``out`` (checked: a row of a mesh fold's input), or a new
+    ``(words,)`` int32 tensor on ``device``."""
+    if out is None:
+        return torch.empty(words, dtype=torch.int32, device=device)
+    _check_words(out, words, device, "out")
+    return out
+
+
+def _base_words(base: int) -> list:
+    return [base >> 32 & M32, base & M32]
 
 
 def sha256_argmin(midstate, template, i0: int, lo_i: int, hi_i: int,
                   n: int, *, rem: int, k: int, device,
                   grid: int | None = None, peel: bool = False,
-                  hoist=None) -> torch.Tensor:
+                  hoist=None, out=None) -> torch.Tensor:
     """K1 (K3 with ``peel``, K4 with ``peel`` and a ``hoist``) over lanes
     ``i0 + [0, n)`` masked to ``[lo_i, hi_i]`` on the current stream of
     the CUDA ``device``.
 
     Returns a (3,) int32 tensor on the device holding the uint32 words
-    ``(hi, lo, idx)``; the all-ones sentinel means no lane was valid.
-    Nothing is synchronised. ``grid`` overrides the block count (the
-    answer does not depend on it). Any device but a CUDA one raises.
+    ``(hi, lo, idx)``, written into ``out`` when given (a mesh shard's row
+    of the mesh fold's input); the all-ones sentinel means no lane was
+    valid. Nothing is synchronised. ``grid`` overrides the block count
+    (the answer does not depend on it). Any device but a CUDA one raises.
     """
     device = _cuda_device(device, "sha256_argmin")
-    return _launch("K1", "dbmt_sha256_argmin", midstate, template, i0, lo_i,
-                   hi_i, n, rem, k, device, grid, until=False, peel=peel,
-                   hoist=hoist, out_words=3)
+    out = _out(out, 3, device)
+    _launch("K1", "dbmt_sha256_argmin", midstate, template, i0, lo_i, hi_i,
+            n, rem, k, device, grid, until=False, peel=peel, hoist=hoist,
+            tail=[out.data_ptr()])
+    return out
 
 
 def sha256_until(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
@@ -350,9 +377,11 @@ def sha256_until(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
     when ``found`` is 0. Nothing is synchronised.
     """
     device = _cuda_device(device, "sha256_until")
-    return _launch("K2", "dbmt_sha256_until", midstate, template, i0, lo_i,
-                   hi_i, n, rem, k, device, grid, until=True, peel=peel,
-                   hoist=hoist, out_words=5, target=(t_hi, t_lo))
+    out = _out(None, 5, device)
+    _launch("K2", "dbmt_sha256_until", midstate, template, i0, lo_i, hi_i, n,
+            rem, k, device, grid, until=True, peel=peel, hoist=hoist,
+            tail=[out.data_ptr()], target=(t_hi, t_lo))
+    return out
 
 
 def sha256_argmin_fold(midstate, template, carry: torch.Tensor, i0: int,
@@ -368,7 +397,7 @@ def sha256_argmin_fold(midstate, template, carry: torch.Tensor, i0: int,
     _check_carry(carry, 5, device)
     _launch("K6", "dbmt_sha256_argmin_fold", midstate, template, i0, lo_i,
             hi_i, n, rem, k, device, grid, until=False, peel=peel,
-            hoist=hoist, carry=carry, base=base)
+            hoist=hoist, tail=[carry.data_ptr(), *_base_words(base)])
     return carry
 
 
@@ -386,8 +415,79 @@ def sha256_until_fold(midstate, template, carry: torch.Tensor, i0: int,
     _check_carry(carry, 8, device)
     _launch("K6", "dbmt_sha256_until_fold", midstate, template, i0, lo_i,
             hi_i, n, rem, k, device, grid, until=True, peel=peel,
-            hoist=hoist, carry=carry, target=(t_hi, t_lo), base=base)
+            hoist=hoist, tail=[carry.data_ptr(), *_base_words(base)],
+            target=(t_hi, t_lo))
     return carry
+
+
+def sha256_until_shard(midstate, template, carry: torch.Tensor, i0: int,
+                       lo_i: int, hi_i: int, n: int, t_hi: int, t_lo: int,
+                       *, rem: int, k: int, device, grid: int | None = None,
+                       peel: bool = False, hoist=None,
+                       out=None) -> torch.Tensor:
+    """K6's mesh until body for one shard: K2's search (K3's or K4's)
+    over the shard's lanes, chained on ``carry`` (this device's (8,)
+    int32 copy of the mesh's until carry, read only): once ``carry[0]``
+    says an earlier block hit, the launch does no lane work. Returns the
+    shard's (5,) int32 row ``(found, f_idx, best_hi, best_lo, best_idx)``
+    as :func:`sha256_until` gives it, or ``(0, all-ones x 4)`` after a
+    hit, written into ``out`` when given; nothing is folded or
+    synchronised."""
+    device = _cuda_device(device, "sha256_until_shard")
+    _check_carry(carry, 8, device)
+    out = _out(out, 5, device)
+    _launch("K2", "dbmt_sha256_until_shard", midstate, template, i0,
+            lo_i, hi_i, n, rem, k, device, grid, until=True, peel=peel,
+            hoist=hoist, tail=[carry.data_ptr(), out.data_ptr()],
+            target=(t_hi, t_lo))
+    return out
+
+
+def _mesh_fold(entry: str, rows, width: int, carry, words: int, base: int,
+               device, body: str) -> torch.Tensor:
+    device = _cuda_device(device, entry)
+    _check_carry(carry, words, device)
+    if not (isinstance(rows, torch.Tensor) and rows.is_cuda
+            and rows.device == carry.device and rows.dtype == torch.int32
+            and rows.dim() == 2 and rows.shape[1] == width
+            and 1 <= rows.shape[0] <= MESH_ROWS_MAX
+            and rows.is_contiguous()):
+        raise ValueError(f"the rows must be a contiguous (n, {width}) int32 "
+                         f"tensor beside the carry, 1 <= n <= "
+                         f"{MESH_ROWS_MAX}")
+    lib = load(body)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(rows.data_ptr(), int(rows.shape[0]),
+                                  carry.data_ptr(), *_base_words(base),
+                                  stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    launches["K6mesh"] += 1
+    return carry
+
+
+def mesh_fold_argmin(rows: torch.Tensor, carry: torch.Tensor, base: int, *,
+                     device, body: str = "rolled") -> torch.Tensor:
+    """K6's mesh fold, arg-min: the exact lexicographic minimum of the
+    shards' ``(hi, lo, idx)`` rows (an (n, 3) int32 device tensor, shard
+    order; all-ones for an empty shard) folded into ``carry`` (the (5,)
+    int32 arg-min carry on the same device) in place, the nonce being
+    ``base + idx``. ``body`` names the library to launch from (the one the
+    shards' searches use). Returns ``carry``; nothing is synchronised."""
+    return _mesh_fold("dbmt_mesh_fold_argmin", rows, 3, carry, 5, base,
+                      device, body)
+
+
+def mesh_fold_until(rows: torch.Tensor, carry: torch.Tensor, base: int, *,
+                    device, body: str = "rolled") -> torch.Tensor:
+    """K6's mesh fold, until: the shards' (n, 5) rows ``(found, f_idx,
+    best_hi, best_lo, best_idx)`` merged, the lowest ``f_idx`` and the
+    arg-min fallback, and folded into ``carry`` (the (8,) int32 until
+    carry) in place; a carry that says found stays as it is. Returns
+    ``carry``; nothing is synchronised."""
+    return _mesh_fold("dbmt_mesh_fold_until", rows, 5, carry, 8, base,
+                      device, body)
 
 
 def _segmin_blocks(lanes: list[int], grid: int, threads: int) -> list[int]:

@@ -15,14 +15,20 @@ them from the environment through :func:`qos_from_env` and
 - ``DBMT_PEEL`` (default 0, as the JAX package's ``DBM_PEEL``): 1 runs
   every search launch of the miner with the peeled lane body;
 - ``DBMT_HOIST`` (default 1, as ``DBM_HOIST``): under ``DBMT_PEEL=1``,
-  feed the peeled body the host hoist (K4); 0 runs it without (K3).
+  feed the peeled body the host hoist (K4); 0 runs it without (K3);
+- ``DBMT_MESH_DEVICES`` (default: every visible CUDA device): the miner's
+  mesh, a comma list of devices such as ``cuda:0,cuda:1``; a device may
+  repeat (``cuda:0,cuda:0,cuda:0,cuda:0`` puts four shards on one card).
+  A miner with at least two entries searches over the mesh
+  (``MeshNonceSearcher``), as the JAX package's factory takes its mesh
+  searcher on a box with more than one device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ._env import float_env, int_env
+from ._env import float_env, int_env, str_env
 
 
 @dataclass(frozen=True)
@@ -108,3 +114,18 @@ class PeelParams:
 def peel_from_env() -> PeelParams:
     return PeelParams(peel=int_env("DBMT_PEEL", 0) == 1,
                       hoist=int_env("DBMT_HOIST", 1) != 0)
+
+
+def mesh_from_env(device="cuda") -> tuple:
+    """The miner's mesh, as device names: ``DBMT_MESH_DEVICES`` split at
+    its commas; unset or empty, every visible CUDA device when the miner
+    runs on ``device`` of type ``cuda``, and none on the CPU. A miner
+    takes the mesh when it has at least two entries."""
+    names = tuple(x.strip() for x in str_env("DBMT_MESH_DEVICES", "")
+                  .split(",") if x.strip())
+    if names:
+        return names
+    import torch
+    if torch.device(device).type != "cuda":
+        return ()
+    return tuple(f"cuda:{i}" for i in range(torch.cuda.device_count()))

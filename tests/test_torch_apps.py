@@ -117,7 +117,8 @@ def test_port_server_miner_client_end_to_end():
             assert counts["chunks"] == 2
             assert counts["coalesced_dispatches"] == 0
             assert counts["kernel_launches"] == {"K1": 0, "K2": 0, "K3": 0,
-                                                 "K4": 0, "K5": 0, "K6": 0}
+                                                 "K4": 0, "K5": 0, "K6": 0,
+                                                 "K6mesh": 0}
             assert sum(s.device_launches
                        for s in miner._searchers.values()) == 9
     asyncio.run(scenario())

@@ -375,7 +375,8 @@ def test_three_miners_answer_the_first_qualifying_nonce():
             assert got == want
             assert not c.scheduler.stats["claims_failed"]
             assert all(m.counts()["kernel_launches"] == {
-                "K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+                "K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+                "K6mesh": 0}
                        for m in miners)
     asyncio.run(scenario())
 
