@@ -4,6 +4,10 @@
     python3 chip_smoke.py                # every phase, on one CUDA card
     python3 chip_smoke.py --cross-card   # the mesh over every card of a
                                          # box with several, and no more
+    python3 chip_smoke.py --against OTHER.cu
+        # another copy of csrc/sha256_argmin.cu (the parent commit's)
+        # built beside the package's: the kernel checks, then old against
+        # new in turns (against())
 
 Drives ``distributed_bitcoinminer_tpu_torch`` on the card and prints one
 JSON line per phase:
@@ -17,7 +21,9 @@ JSON line per phase:
    kernel's registers and spills and its resident blocks per SM;
 3. kernel: each kernel against its plain PyTorch version on the card, over
    rem x k in {0,1,3,4,31,32,55,56,62,63} x {1,5,9} (1- and 2-block
-   tails), windows whose valid edges fall off thread and block edges. K1
+   tails), windows whose valid edges fall off thread, block and run
+   edges, and six windows that cut runs of lanes at both ends or are
+   shorter than one run (``CUT_RUN_WINDOWS``). K1
    (arg-min): triples bit-identical, each winner hashing to its triple
    under hashlib. K2 (difficulty target): three targets per case, one
    hitting at the window's arg-min lane, one that half the lanes satisfy
@@ -105,9 +111,13 @@ JSON line per phase:
    eight K1/K6 chains, K5 alone on those rows with proportional and with
    even grid shares, the plain version on them, and K5 over eight rows of
    10^8 lanes beside K1's time per 10^9. K3 and K4 beside K1 on the
-   three K1 blocks (with the INT32 instructions per lane of their
-   fixed-shape SASS), on R3's chain, to K2's first hit and on the mice
-   rows. The mesh: R3's chain on meshes of 1, 2 and 4 shards of card 0
+   three K1 blocks, on R3's chain, to K2's first hit and on the mice
+   rows (each K5 call also cut into its launches alone and the host's
+   plan table). From fixed-shape builds of all three bodies, each
+   kernel's SASS instructions a nonce (its lane loop and a tenth of the
+   run loop around it), and for K1 and K4 by pipe, INT32, FMA and other,
+   with the measured rate's share of K7's INT32 ceiling and of the issue
+   bound (``pipes``). The mesh: R3's chain on meshes of 1, 2 and 4 shards of card 0
    against the K6 chain, in turns, the until chain to K2's first hit on 4
    shards against the K6 chain, one launch of each mesh fold against its
    plain version, and on a box with more than one card R3's chain over a
@@ -118,7 +128,8 @@ JSON line per phase:
    first-lane hit); K7's bound is the work its function needs
    (``K7_CLOCKS_PER_LANE_ITER``), not its emitted SASS. Timed with
    CUDA events, beside the bound from the integer work
-   each nonce needs (``needed_int_ops``, plus the target compare for K2)
+   each nonce needs (``needed_int_ops``: a run of lanes' shared work over
+   its lanes, and each lane's own; plus the target compare for K2)
    at the SM's issue rate and, under other names, the same work on the
    INT32 pipe alone and the INT32 instructions of K1's own SASS loop.
 
@@ -149,6 +160,7 @@ PKG = "distributed_bitcoinminer_tpu_torch"
 #: bound taken at 64 lanes a clock.
 RATE_ISSUE_PER_CLK_PER_SM = 128
 RATE_INT32_PER_CLK_PER_SM = 64     # INT32 lanes of one Hopper SM per clock
+RATE_FMA_PER_CLK_PER_SM = 64       # IMAD lanes of its FMA pipe per clock
 
 
 #: Where every phase line is also written in full (the standard output a
@@ -248,17 +260,33 @@ def cuda_ms(fn, reps: int) -> float:
 
 def sass_loop_instructions(lib: str, variant: int, outdir: str,
                            tag: str = ""):
-    """Instructions of the arg-min search kernel's lane loop (the widest
-    backward branch) for the variant's instantiation (0: 1-block tail,
-    1: 2-block, 2: K4's digit-free second block), from ``cuobjdump
-    -sass`` (``tools.tune.sass_loop``): (loop instructions, the kernel's
-    instructions, opcode counts of the loop)."""
+    """Instructions a nonce of the arg-min search kernel's lane work for
+    the variant's instantiation (0: 1-block tail, 1: 2-block, 2: K4's
+    digit-free second block), from ``cuobjdump -sass``
+    (``tools.tune.sass_loops``). The widest loop walks the runs and the
+    widest loop inside it is the lane loop, so a nonce costs the lane
+    loop and a ``RUN_LANES``-th of the rest of the run loop (a kernel
+    with one loop, the parent design's, costs that loop). Returns
+    (instructions a nonce, the kernel's instructions, opcode counts a
+    nonce, the loops' instructions ``{"run_loop": .., "lane_loop": ..}``)."""
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_cuda import RUN_LANES
     from distributed_bitcoinminer_tpu_torch.tools.tune import (opcode_counts,
-                                                               sass_loop)
-    body, loop, total = sass_loop(lib, f"sha256_argmin_kernelILi{variant}E")
+                                                               sass_loops)
+    body, loops, total = sass_loops(lib, f"sha256_argmin_kernelILi{variant}E")
     with open(os.path.join(outdir, f"sass{tag}_v{variant}.txt"), "w") as f:
         f.write(body)
-    return len(loop), total, opcode_counts(loop)
+    lo, hi, outer = max(loops, key=lambda lp: lp[1] - lp[0])
+    inner = [lp for lp in loops
+             if lo <= lp[0] and lp[1] <= hi and (lp[0], lp[1]) != (lo, hi)]
+    ops = opcode_counts(outer)
+    sizes = {"run_loop": len(outer)}
+    if inner:
+        lane_loop = max(inner, key=lambda lp: lp[1] - lp[0])[2]
+        lane = opcode_counts(lane_loop)
+        ops = {op: lane.get(op, 0) + (n - lane.get(op, 0)) / RUN_LANES
+               for op, n in ops.items()}
+        sizes["lane_loop"] = len(lane_loop)
+    return sum(ops.values()), total, ops, sizes
 
 
 # ---------------------------------------------------------------- phases
@@ -302,33 +330,41 @@ def phase_device() -> dict:
 #: The peeled bodies: (kernel, lane body of ops.sha256_cuda, its
 #: plain version reads the hoist).
 PEELED = (("K3", "peel", False), ("K4", "hoist", True))
+#: The bodies whose SASS the rates phase reads from fixed-shape builds.
+SASS_BODIES = (("K1", "rolled"), ("K3", "peel"), ("K4", "hoist"))
 
 
-def peeled_shapes(body: str, rem: int, k: int) -> tuple:
-    """The (shape, shape1) a plan takes in the peeled bodies' switches
+def fixed_shape(body: str, rem: int, k: int) -> tuple:
+    """The (shape, shape1, lw) a plan takes in the lane bodies
     (``LaneBody`` in the source): 4 t* (+ block 0's digit words under
-    K4), and the second block's spill shape."""
+    K4), the second block's spill shape, and the last digit's tail
+    word."""
     a, last = rem >> 2, (rem + k - 1) >> 2
     shape = 4 * a + ((min(last, 15) - a + 1) if body == "hoist" else 0)
-    return shape, 2 * (a - 14) + last - 16
+    return shape, 2 * (a - 14) + last - 16, last
 
 
-def sass_probe_commands(outdir: str) -> dict:
-    """nvcc commands of the SASS-reading builds: each peeled body with
-    the shapes of the three rates blocks fixed at compile time
-    (``DBMT_FIXED_SHAPE``), so that the arg-min kernel's lane loop is the
-    path those lanes run. ``{(body, case): (library, command)}``."""
+def sass_probe_commands(source: str | None = None, bodies=SASS_BODIES,
+                        tag: str = "") -> dict:
+    """nvcc commands of the SASS-reading builds: each body with the shapes
+    of the three rates blocks fixed at compile time
+    (``DBMT_FIXED_SHAPE``, ``DBMT_FIXED_SHAPE1``, ``DBMT_FIXED_LW``), so
+    that the arg-min kernel's loops are the path those lanes run; from
+    ``source`` instead of the package's when given.
+    ``{(body, case): (library, command)}``."""
     from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
     cmds = {}
-    for _, body, _ in PEELED:
+    for _, body in bodies:
         for case, (rem, k) in RATE_SHAPES.items():
-            shape, shape1 = peeled_shapes(body, rem, k)
+            shape, shape1, lw = fixed_shape(body, rem, k)
             lib = os.path.join(sha256_cuda.BUILD_DIR,
-                               f"sass_probe_{body}_{case}.so")
+                               f"sass_probe{tag}_{body}_{case}.so")
             cmd = sha256_cuda._nvcc_command(body, lib)
             cmds[body, case] = (lib, cmd[:-3] + [
                 f"-DDBMT_FIXED_SHAPE={shape}",
-                f"-DDBMT_FIXED_SHAPE1={shape1}"] + cmd[-3:])
+                f"-DDBMT_FIXED_SHAPE1={shape1}",
+                f"-DDBMT_FIXED_LW={lw}"] + cmd[-3:-1] + [
+                    source or cmd[-1]])
     return cmds
 
 
@@ -344,7 +380,7 @@ def phase_build(outdir: str) -> dict:
     os.makedirs(sha256_cuda.BUILD_DIR, exist_ok=True)
     probes = {key: (lib, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                                           stderr=subprocess.PIPE, text=True))
-              for key, (lib, cmd) in sass_probe_commands(outdir).items()}
+              for key, (lib, cmd) in sass_probe_commands().items()}
     k7 = threading.Thread(target=alu_probe.build)   # K7's nvcc beside
     k7.start()
     sha256_cuda.build_all()
@@ -357,20 +393,7 @@ def phase_build(outdir: str) -> dict:
         ptxas = b_info.get("ptxas", "")
         with open(os.path.join(outdir, f"ptxas_{body}.txt"), "w") as f:
             f.write(ptxas)
-        kernels, name = {}, None
-        for line in ptxas.splitlines():
-            m = re.search(r"entry function '(\S+)'", line)
-            if m:   # the kernel and its template arguments, demangled
-                m = re.search(r"\d+((?:sha256|segmin|reduce|mesh|alu)"
-                              r"\w*?_kernel)"
-                              r"(I(?:L[^E]*E)+E)?", m.group(1))
-                name = m.group(1) + (m.group(2) or "")
-            m = re.search(r"Used (\d+) registers", line)
-            if m and name:
-                kernels.setdefault(name, {})["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and name:
-                kernels.setdefault(name, {})["spill_stores"] = int(m.group(1))
+        kernels = ptxas_kernels(ptxas)
         variants = range(3 if body == "hoist" else 2)
         info["bodies"][body] = {
             "nvcc_seconds": round(b_info.get("seconds", 0), 3),
@@ -398,9 +421,23 @@ def phase_build(outdir: str) -> dict:
     return info
 
 
+#: Windows that cut runs of lanes (``RUN_LANES``) or lie inside one, as
+#: (rem, k, i0, n, lo_i, hi_i): three runs cut at both ends; shorter than
+#: a run, inside one (a spilling 2-block tail); the top five lanes of a
+#: 10^9 block (a digit-free second block); seven lanes across a run
+#: boundary; one lane; the last lane of k = 1.
+CUT_RUN_WINDOWS = ((8, 9, 123_456_781, 40, 123_456_783, 123_456_806),
+                   (61, 9, 100_000_003, 7, 100_000_004, 100_000_008),
+                   (52, 9, 999_999_995, 5, 999_999_995, 999_999_999),
+                   (31, 5, 17, 7, 17, 23),
+                   (63, 2, 45, 1, 45, 45),
+                   (0, 1, 0, 10, 9, 9))
+
+
 def kernel_windows():
-    """The 30 rem x k cases: (rem, k, prefix, mid, tmpl, i0, n, lo_i,
-    hi_i), valid edges off the thread and block edges."""
+    """The 30 rem x k cases, (rem, k, prefix, mid, tmpl, i0, n, lo_i,
+    hi_i), valid edges off the thread, block and run edges; then the
+    :data:`CUT_RUN_WINDOWS`."""
     for rem in (0, 1, 3, 4, 31, 32, 55, 56, 62, 63):
         for k in (1, 5, 9):
             prefix, mid, tmpl = tail_case(rem, k)
@@ -411,6 +448,8 @@ def kernel_windows():
                 i0, n = 0, 10 ** k
                 lo_i, hi_i = i0 + min(3, n - 1), i0 + n - 1 - min(5, n - 1)
             yield rem, k, prefix, mid, tmpl, i0, n, lo_i, hi_i
+    for rem, k, i0, n, lo_i, hi_i in CUT_RUN_WINDOWS:
+        yield (rem, k, *tail_case(rem, k), i0, n, lo_i, hi_i)
 
 
 def body_kw(body, mid, tmpl, rem: int, k: int, deep: bool = False) -> dict:
@@ -469,7 +508,8 @@ def window_targets(rem, k, mid, tmpl, i0, n, lo_i, hi_i, dev) -> dict:
     """The window's three targets and the first qualifying lane of each
     (None: none), from its lanes' hashes on the card (computed once)."""
     import numpy as np
-    if (rem, k) not in _TARGETS:
+    key = (rem, k, i0, n, lo_i, hi_i)
+    if key not in _TARGETS:
         valid = lane_hashes(mid, tmpl, i0, n, rem, k, dev)[
             lo_i - i0:hi_i - i0 + 1]
         targets = {"mid_window": int(valid.min()) + 1,
@@ -479,8 +519,8 @@ def window_targets(rem, k, mid, tmpl, i0, n, lo_i, hi_i, dev) -> dict:
         for name, t in targets.items():
             q = np.nonzero(valid < np.uint64(t))[0]
             firsts[name] = lo_i + int(q[0]) if len(q) else None
-        _TARGETS[rem, k] = (targets, firsts)
-    return _TARGETS[rem, k]
+        _TARGETS[key] = (targets, firsts)
+    return _TARGETS[key]
 
 
 def check_k2(dev, body=None) -> dict:
@@ -584,9 +624,10 @@ def check_k6(dev, body=None) -> dict:
 def segmin_batch():
     """K5's mixed batch: rows of four messages (1-block and 2-block
     tails, the 60-character one among them) over digit classes 1-9,
-    ragged (10 to 2^18 + 5 lanes), valid edges off the block edges, one
-    segment of three rows (a block cut in three), an empty-window row in
-    a segment of its own and one in a segment with a valid row. Returns
+    ragged (3 to 2^18 + 5 lanes), valid edges off the block and run
+    edges, one segment of three rows (a block cut in three), a segment of
+    two rows shorter than a run of lanes, an empty-window row in a
+    segment of its own and one in a segment with a valid row. Returns
     (rows, seg)."""
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     msgs = ("cmu440", R2_DATA, DIGIT_FREE_DATA, "x" * 33)
@@ -611,6 +652,12 @@ def segmin_batch():
     for a, b in zip(cuts, cuts[1:]):
         rows.append(row(p, a, p.lo_i, p.hi_i, b - a))
         seg.append(seg[-1] + 1 if a == cuts[0] else seg[-1])
+    # Rows shorter than one run of lanes: inside one run, and across a
+    # run boundary, in one segment.
+    rows.append(row(p, p.lo_i + 4, p.lo_i + 4, p.lo_i + 6, 3))
+    seg.append(seg[-1] + 1)
+    rows.append(row(p, p.lo_i + 17, p.lo_i + 17, p.lo_i + 22, 6))
+    seg.append(seg[-1])
     # Empty windows (lo_i > hi_i): alone, then beside a valid row.
     rows.append(row(p, p.lo_i, p.lo_i + 1, p.lo_i, 4_096))
     seg.append(seg[-1] + 1)
@@ -1563,42 +1610,74 @@ ROUND_OPS = 14
 TARGET_OPS = 3
 
 
-def needed_int_ops(rem: int, k: int, nblocks: int) -> int:
-    """INT32-pipe instructions that one nonce's hash needs, for k digits
-    at tail byte ``rem`` of an ``nblocks``-block tail, in Hopper's fused
-    forms (IADD3, LOP3, SHF, ISETP, SEL).
+def needed_int_ops(rem: int, k: int, nblocks: int) -> float:
+    """Integer instructions that one nonce's hash needs, for k digits at
+    tail byte ``rem`` of an ``nblocks``-block tail, in Hopper's fused forms
+    (IADD3, LOP3, SHF, ISETP, SEL): the work of a run of ``RUN_LANES``
+    aligned lanes, which share every digit but the last, over its lanes.
 
     Work that is the same for every lane is left out: the rounds before
     the first digit word, and the schedule words and terms that no digit
-    reaches. Counted: the digits (per digit the SHF of the /10 quotient
+    reaches. Once a run: the digits (per digit the SHF of the /10 quotient
     and one byte placement; the divides' IMADs issue on the FMA pipe; one
-    OR into each digit word), the schedule words that depend on the
-    digits (s0 and s1 only where their input does, the other terms folded
-    into one constant), the rounds from the first digit word on (the
-    first of them adds W to a constant for e and a, 2), the feed-forward
-    (8 words between blocks, digest words 0 and 1 at the end, where
-    round 63's e update is dead) and the key compare (2 ISETP, 3 SEL).
+    OR into each digit word), the schedule words and terms that the other
+    digits reach and the last digit does not, the rounds from the first
+    digit word up to the last digit's word (the first of them adds W to a
+    constant for e and a, 2), and a block's feed-forward (8) when its
+    state differs per run but not per lane. Once a lane: the last digit's
+    byte (one add; it goes from '0' to '9' with no carry), the schedule
+    words that the last digit's word reaches (s0 and s1 only where their
+    input does, the other terms folded into one constant a run), the
+    rounds from the last digit's word on (the first of them, on a state
+    the run shares, adds W for e and a, 2), the feed-forward (8 words
+    between blocks, digest words 0 and 1 at the end, where round 63's e
+    update is dead) and the key compare (2 ISETP, 3 SEL). A run cut by
+    the window's ends does its run work for fewer lanes; that is not
+    counted, so the figure errs low.
     """
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_cuda import RUN_LANES
     digit_words = {b // 4 for b in range(rem, rem + k)}
-    ops = 2 * k + len(digit_words) + 5
-    state_varies = False
+    last_word = (rem + k - 1) // 4
+    per_run = 2 * k + len(digit_words)
+    per_lane = 1 + 5
+    run_state = lane_state = False
     for b in range(nblocks):
-        varies = [16 * b + m in digit_words for m in range(16)]
+        run_var = [16 * b + m in digit_words for m in range(16)]
+        lane_var = [16 * b + m == last_word for m in range(16)]
         for t in range(16, 64):
-            terms = (varies[t - 16], varies[t - 15], varies[t - 7],
-                     varies[t - 2])
-            varies.append(any(terms))
-            if varies[t]:
-                inputs = sum(terms) + (not all(terms))
-                ops += 4 * terms[1] + 4 * terms[3] + inputs // 2
+            rterms = (run_var[t - 16], run_var[t - 15], run_var[t - 7],
+                      run_var[t - 2])
+            lterms = (lane_var[t - 16], lane_var[t - 15], lane_var[t - 7],
+                      lane_var[t - 2])
+            run_var.append(any(rterms))
+            lane_var.append(any(lterms))
+            # The taps that vary per run and not per lane, and the sum of
+            # them with the constant ones (per lane: one constant left).
+            ronly = [r and not ln for r, ln in zip(rterms, lterms)]
+            inputs = sum(ronly) + (not all(rterms))
+            per_run += 4 * ronly[1] + 4 * ronly[3] + inputs // 2
+            if lane_var[t]:
+                inputs = sum(lterms) + (not all(lterms))
+                per_lane += 4 * lterms[1] + 4 * lterms[3] + inputs // 2
         for t in range(64):
-            if state_varies:
-                ops += ROUND_OPS
-            elif varies[t]:
-                ops += 2
-                state_varies = True
-        ops += 2 - 1 if b == nblocks - 1 else 8
-    return ops
+            if lane_state:
+                per_lane += ROUND_OPS
+            elif lane_var[t]:
+                per_lane += 2
+                per_run += ROUND_OPS if run_state else 0
+                lane_state = True
+            elif run_state:
+                per_run += ROUND_OPS
+            elif run_var[t]:
+                per_run += 2
+                run_state = True
+        if b == nblocks - 1:
+            per_lane += 2 - 1
+        elif lane_state:
+            per_lane += 8
+        elif run_state:
+            per_run += 8
+    return per_lane + per_run / RUN_LANES
 
 
 def bound_ms(lanes: int, int_per_lane: int, dev_info: dict,
@@ -1627,9 +1706,14 @@ DIGIT_FREE_DATA = "a fifty-character message; its digits stay in one."
 #: 50-character one at 10^9.
 RATE_SHAPES = {"one_block": (8, 9), "two_block": (61, 9),
                "two_block_digit_free": (52, 9)}
+#: The rates blocks: (name, message, lower, upper).
+RATE_BLOCKS = (("one_block", "cmu440", 10 ** 9, 2 * 10 ** 9 - 1),
+               ("two_block", R2_DATA, 10 ** 8, 10 ** 9 - 1),
+               ("two_block_digit_free", DIGIT_FREE_DATA, 10 ** 9,
+                2 * 10 ** 9 - 1))
 
 
-def sass_alu_count(ops: dict) -> int:
+def sass_alu_count(ops: dict) -> float:
     from distributed_bitcoinminer_tpu_torch.tools.tune import int32_count
     return int32_count(ops)
 
@@ -1646,12 +1730,9 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
     from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
     from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
         build_hoist
+    from distributed_bitcoinminer_tpu_torch.tools.tune import pipe_counts
     cases = {}
-    for name, data, lower, upper in (
-            ("one_block", "cmu440", 10 ** 9, 2 * 10 ** 9 - 1),
-            ("two_block", R2_DATA, 10 ** 8, 10 ** 9 - 1),
-            ("two_block_digit_free", DIGIT_FREE_DATA, 10 ** 9,
-             2 * 10 ** 9 - 1)):
+    for name, data, lower, upper in RATE_BLOCKS:
         (p,) = list(NonceSearcher(data, device=dev).plan(lower, upper))
         if (p.rem, p.k) != RATE_SHAPES[name]:
             fail(f"rates block {name} has rem {p.rem}, k {p.k}")
@@ -1660,8 +1741,12 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
         with ClockSampler() as clocks:
             ms = cuda_ms(lambda: sha256_cuda.sha256_argmin(*args, **kw), 3)
         nb = int(p.template.shape[0])
-        per_lane, total, ops = sass_loop_instructions(sha256_cuda.LIBRARY,
-                                                      nb - 1, outdir)
+        per_lane, total, ops, loops = sass_loop_instructions(
+            os.path.join(sha256_cuda.BUILD_DIR,
+                         f"sass_probe_rolled_{name}.so"), nb - 1, outdir,
+            tag=f"_rolled_{name}")
+        whole, _, _, _ = sass_loop_instructions(sha256_cuda.LIBRARY, nb - 1,
+                                                outdir)
         sass_alu = sass_alu_count(ops)
         needed = needed_int_ops(p.rem, p.k, nb)
         b_ms, b_by = bound_ms(p.lanes, needed, dev_info)
@@ -1677,9 +1762,12 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
                            p.lanes, needed, dev_info,
                            RATE_INT32_PER_CLK_PER_SM)[0],
                        "sass_loop_insns_per_lane": per_lane,
+                       "sass_loops": loops,
                        "sass_alu_insns_per_lane": sass_alu,
+                       "sass_pipes_per_lane": pipe_counts(ops),
                        "sass_issue_bound_ms": sass_ms,
                        "sass_kernel_insns": total, "sass_loop_ops": ops,
+                       "sass_loop_insns_all_shapes": whole,
                        "clocks_sm_power_during": clocks.samples}
         hoist = build_hoist(p.midstate, p.template, p.rem, p.k).ops
         for kern, body, hoisted in PEELED:
@@ -1688,11 +1776,11 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
                 pms = cuda_ms(lambda: sha256_cuda.sha256_argmin(
                     *args, **kw, **pkw), 3)
             variant = sha256_cuda.variant_of(body, p.rem, p.k, nb)
-            lane, _, lane_ops = sass_loop_instructions(
+            lane, _, lane_ops, loops = sass_loop_instructions(
                 os.path.join(sha256_cuda.BUILD_DIR,
                              f"sass_probe_{body}_{name}.so"), variant,
                 outdir, tag=f"_{body}_{name}")
-            whole, _, _ = sass_loop_instructions(
+            whole, _, _, _ = sass_loop_instructions(
                 sha256_cuda.LIBRARIES[body], variant, outdir,
                 tag=f"_{body}")
             cases[name][kern] = {
@@ -1700,8 +1788,9 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
                 "bound_ms": b_ms, "share_of_bound": b_ms / pms,
                 "int32_pipe_ms": cases[name]["int32_pipe_ms"],
                 "variant": variant,
-                "sass_loop_insns_per_lane": lane,
+                "sass_loop_insns_per_lane": lane, "sass_loops": loops,
                 "sass_alu_insns_per_lane": sass_alu_count(lane_ops),
+                "sass_pipes_per_lane": pipe_counts(lane_ops),
                 "sass_loop_ops": lane_ops,
                 "sass_loop_insns_all_shapes": whole,
                 "clocks_sm_power_during": clocks.samples}
@@ -2005,13 +2094,28 @@ def launch_delta(fn) -> tuple:
                  if n != before[k]}
 
 
-def even_blocks(lanes: list, grid: int, threads: int) -> list:
-    """The even grid share K5's lane-proportional one is timed against:
-    every row with a valid lane gets ``grid / rows`` blocks, at least one
-    and never more than its lanes fill."""
+def even_blocks(work: list, grid: int, threads: int) -> list:
+    """The even grid share K5's proportional one is timed against: every
+    row with a valid lane gets ``grid / rows`` blocks, at least one and
+    never more than its runs of lanes fill."""
     return [0 if v <= 0 else max(1, min(-(-v // threads),
-                                        round(grid / len(lanes))))
-            for v in lanes]
+                                        round(grid / len(work))))
+            for v in work]
+
+
+def segmin_split(rows, seg, dev, **kw) -> tuple:
+    """K5's call on ``rows`` cut in two: (the mean CUDA-event ms of its
+    launches alone, the plan table prepared once; the mean host ms of
+    preparing the table and copying it to the card)."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        batch = sha256_cuda.prepare_segmin(rows, seg, device=dev, **kw)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    return cuda_ms(batch.launch, 20), host_ms
 
 
 def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
@@ -2040,6 +2144,7 @@ def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
     rows, seg = batch_rows(jobs)
     kernel_ms = cuda_ms(lambda: sha256_cuda.sha256_segmin(
         rows, seg, device=dev), 20)
+    launch_only_ms, host_prep_ms = segmin_split(rows, seg, dev)
     lane_share = sha256_cuda._segmin_blocks
     sha256_cuda._segmin_blocks = even_blocks
     try:
@@ -2077,13 +2182,19 @@ def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
     one_rows, one_seg = batch_rows([(jobs[0][0], 0, 10 ** 6)] * len(jobs))
     in_turns = {"mixed_messages": bodies_in_turns(rows, seg),
                 "one_message": bodies_in_turns(one_rows, one_seg)}
+    with_hoist = [r + (build_hoist(r[0], r[1], r[6], r[7]).ops,)
+                  for r in rows]
     peeled = {kern: {"kernel_ms": in_turns["mixed_messages"][kern],
                      "bound_ms": segmin_bound(
                          rows, dev_info, 185 if kern == "K4" else 49)[0]}
               for kern in ("K3", "K4")}
+    for kern, rr in (("K3", rows), ("K4", with_hoist)):
+        peeled[kern]["launch_only_ms"], peeled[kern]["host_prep_ms"] = \
+            segmin_split(rr, seg, dev, peel=True)
     mice = {"jobs": len(jobs), "rows": len(rows),
             "lanes": sum(r[5] for r in rows),
-            "kernel_ms": kernel_ms,
+            "kernel_ms": kernel_ms, "launch_only_ms": launch_only_ms,
+            "host_prep_ms": host_prep_ms,
             "batch_ms": sum(times["k5"]) / 2,
             "chains_ms": sum(times["chains"]) / 2, "times": times,
             "launches": launches, "fetches": {"k5": 1, "chains": len(jobs)},
@@ -2283,12 +2394,40 @@ def phase_rates(dev_info: dict, outdir: str) -> dict:
     info["K6mesh"] = rates_mesh(dev_info, dev, hit)
     one = info["K1"]["one_block"]
     info["tune"] = run_tune(outdir, k7_int32_per_lane(one))
+    info["pipes"] = pipe_shares(info, dev_info)
     info.update({"sms": dev_info["sms"],
                  "clocks_max_sm_mhz": dev_info["clocks_max_sm_mhz"],
                  "clocks_sm_after": nvidia_smi("clocks.sm"),
                  "nvidia_smi": dev_info["nvidia_smi"]})
     emit("rates", **info)
     return info
+
+
+def pipe_shares(rates: dict, dev_info: dict) -> dict:
+    """K1's and K4's SASS instructions a nonce by pipe on each rates block
+    (INT32, FMA: IMAD and VIADD, other), and where each measured rate
+    sits: its share of the nonce rate that K7's measured INT32
+    instructions a second allow at the kernel's INT32 count, of the issue
+    bound (128 instructions a clock per SM) and of each pipe's 64 lanes a
+    clock, at the card's maximum SM clock."""
+    k7 = rates["tune"]["K7"]
+    clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
+    sm_clocks = dev_info["sms"] * clk_hz
+    out = {}
+    for case, c in rates["K1"].items():
+        for kern, r in (("K1", c), ("K4", c["K4"])):
+            pipes, rate = r["sass_pipes_per_lane"], r["nonces_per_s"]
+            out.setdefault(kern, {})[case] = {
+                **pipes, "nonces_per_s": rate,
+                "int32_ceiling_share":
+                    rate * pipes["int32"] / k7["int32_insns_per_s"],
+                "issue_share": rate * pipes["all"]
+                / (sm_clocks * RATE_ISSUE_PER_CLK_PER_SM),
+                "int32_pipe_share": rate * pipes["int32"]
+                / (sm_clocks * RATE_INT32_PER_CLK_PER_SM),
+                "fma_pipe_share": rate * pipes["fma"]
+                / (sm_clocks * RATE_FMA_PER_CLK_PER_SM)}
+    return out
 
 
 def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
@@ -2312,6 +2451,7 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
          "int32_pipe_ms": one["int32_pipe_ms"],
          "sass_issue_bound_ms": one["sass_issue_bound_ms"],
+         "sass_pipes_per_lane": one["sass_pipes_per_lane"],
          "library_ms": None},
         {"name": "sha256_until", "route": "cuda", "source": src,
          "replaces": "ops/sha256_pallas.py:680 (pallas_search_span_until, "
@@ -2330,7 +2470,9 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
                      "via pallas_segmin :162, in the JAX package)",
          "launches": launches["K5"], "checked": True,
          "max_abs_err": kernel["K5"]["max_abs_err"],
-         "ms": k5["mice"]["kernel_ms"], "rows": k5["mice"]["rows"],
+         "ms": k5["mice"]["kernel_ms"],
+         "launch_only_ms": k5["mice"]["launch_only_ms"],
+         "rows": k5["mice"]["rows"],
          "lanes": k5["mice"]["lanes"],
          "batch_dispatch_fetch_ms": k5["mice"]["batch_ms"],
          "per_job_chains_ms": k5["mice"]["chains_ms"],
@@ -2481,7 +2623,261 @@ def peeled_entry(kern: str, src: str, launches: int, check: dict,
         "r3_chain_ms": rates["K6"]["bodies_ms"][kern],
         "until_ms_to_first_hit": rates["K2"]["first_hit"][kern]["ms_to_hit"],
         "mice_rows_ms": rates["K5"]["mice"]["peeled"][kern]["kernel_ms"],
+        "mice_rows_launch_only_ms":
+            rates["K5"]["mice"]["peeled"][kern]["launch_only_ms"],
+        "sass_pipes_per_lane": mine["sass_pipes_per_lane"],
         "library_ms": None}
+
+
+# ------------------------------------------------------------- --against
+
+def build_against(source: str) -> dict:
+    """Start the builds of another copy of ``csrc/sha256_argmin.cu`` at
+    ``source`` (the parent commit's): its rolled and hoist libraries and
+    its hoist body's fixed-shape SASS-reading builds, one nvcc each, into
+    ``build/against_*.so``. Returns ``{key: (library, process)}``."""
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    os.makedirs(sha256_cuda.BUILD_DIR, exist_ok=True)
+    cmds = {}
+    for body in ("rolled", "hoist"):
+        lib = os.path.join(sha256_cuda.BUILD_DIR, f"against_{body}.so")
+        cmds[body] = (lib, sha256_cuda._nvcc_command(body, lib)[:-1]
+                      + [source])
+    cmds.update(sass_probe_commands(source, (("K4", "hoist"),),
+                                    "_against"))
+    return {key: (lib, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                        stderr=subprocess.PIPE, text=True))
+            for key, (lib, cmd) in cmds.items()}
+
+
+def against_library(path: str, body: str):
+    """A library of the other source for ``body``, loaded with the entries
+    it has and held to ``load()``'s check of its body and plan size."""
+    import ctypes
+
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    lib = ctypes.CDLL(path)
+    for name, argtypes in sha256_cuda._ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    words = (sha256_cuda.HOIST_PLAN_WORDS if body == "hoist"
+             else sha256_cuda.PLAN_WORDS)
+    if lib.dbmt_sha256_body() != sha256_cuda.BODIES[body] \
+            or lib.dbmt_sha256_plan_words() != words:
+        fail(f"the other source's {body} library holds another body")
+    return lib
+
+
+def run_lanes_of(lib) -> int:
+    """The lanes a library's kernels take as one unit of work: its
+    ``dbmt_sha256_run_lanes()``, or 1 for a source without runs (one
+    lane a thread)."""
+    return (lib.dbmt_sha256_run_lanes()
+            if hasattr(lib, "dbmt_sha256_run_lanes") else 1)
+
+
+class Using:
+    """``with Using(libs, who):`` the wrappers launch the other source's
+    libraries, sized by their run length (``who`` "old"), or the
+    package's own ("new")."""
+
+    def __init__(self, libs: dict, who: str):
+        self.libs, self.who = libs, who
+        lanes = {run_lanes_of(lib) for lib in libs.values()}
+        if len(lanes) != 1:
+            fail(f"the other source's libraries disagree on their run "
+                 f"length: {sorted(lanes)}")
+        (self.run_lanes,) = lanes
+
+    def __enter__(self):
+        from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+        self.saved = (dict(sha256_cuda._libs), sha256_cuda.RUN_LANES)
+        if self.who == "old":
+            sha256_cuda._libs.update(self.libs)
+            sha256_cuda.RUN_LANES = self.run_lanes
+        return self
+
+    def __exit__(self, *exc):
+        from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+        sha256_cuda._libs.clear()
+        sha256_cuda._libs.update(self.saved[0])
+        sha256_cuda.RUN_LANES = self.saved[1]
+        return False
+
+
+def old_new_turns(libs: dict, launch, reps: int, answer=words,
+                  make=None) -> dict:
+    """``launch()`` timed in turns old, new, new, old (each turn the mean
+    milliseconds of ``reps`` launches after one untimed one, between
+    CUDA events); ``answer(launch())`` must be the same under both. With
+    ``make``, each turn times the callable ``make()`` returns instead
+    (made under that turn's libraries)."""
+    times, answers = {"old": [], "new": []}, {}
+    for who in ("old", "new", "new", "old"):
+        with Using(libs, who):
+            fn = make() if make else launch
+            answers[who] = answer(fn())
+            times[who].append(cuda_ms(fn, reps))
+    if answers["old"] != answers["new"]:
+        fail(f"old and new kernels disagree: {answers}")
+    old, new = (sum(v) / len(v) for v in (times["old"], times["new"]))
+    return {"old_ms": times["old"], "new_ms": times["new"], "old_mean_ms": old,
+            "new_mean_ms": new, "old_over_new": old / new}
+
+
+def ptxas_kernels(text: str) -> dict:
+    """Registers and spill stores of each kernel in nvcc's ptxas report."""
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:   # the kernel and its template arguments, demangled
+            m = re.search(r"\d+((?:sha256|segmin|reduce|mesh|alu)"
+                          r"\w*?_kernel)"
+                          r"(I(?:L[^E]*E)+E)?", m.group(1))
+            name = m.group(1) + (m.group(2) or "")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels.setdefault(name, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            kernels.setdefault(name, {})["spill_stores"] = int(m.group(1))
+    return kernels
+
+
+def segmin_loads(lib: str) -> dict:
+    """Shared-memory loads (LDS) in K5's 2-block search kernel: in the
+    whole kernel and in each loop (``tools.tune.sass_loops``)."""
+    from distributed_bitcoinminer_tpu_torch.tools.tune import (opcode_counts,
+                                                               sass_loops)
+    body, loops, total = sass_loops(lib, "sha256_segmin_kernelILi2EE")
+    lds = sum(1 for ln in body.splitlines() if re.search(r"\bLDS\b", ln))
+    return {"kernel_insns": total, "kernel_lds": lds,
+            "loops": [{"insns": len(lp[2]),
+                       "lds": opcode_counts(lp[2]).get("LDS", 0)}
+                      for lp in loops]}
+
+
+def against(dev_info: dict, outdir: str, procs: dict) -> dict:
+    """The package's kernels against the other source's, in turns on this
+    card (old, new, new, old): K1 and K4 over the three rates blocks, R3's
+    K6 chain under both bodies, K2 to its first hit, K5 on the eight
+    mice's 56 rows (rolled and K4); the per-pipe SASS instructions a
+    nonce of K1 and K4 on the three rates shapes, both sources, beside
+    K7's INT32 ceiling and the issue bound; and K5's registers, spills
+    and shared-memory loads, both sources."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
+        build_hoist
+    from distributed_bitcoinminer_tpu_torch.tools import tune
+    errs = {}
+    for key, (lib, proc) in procs.items():
+        _, errs[key] = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"the build of the other source ({key}) failed: "
+                 f"{errs[key][-3000:]}")
+    libs = {body: against_library(procs[body][0], body)
+            for body in ("rolled", "hoist")}
+    dev = torch.device("cuda", 0)
+    info = {"blocks": {}, "sass": {}}
+    for name, data, lower, upper in RATE_BLOCKS:
+        (p,) = list(NonceSearcher(data, device=dev).plan(lower, upper))
+        args = (p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes)
+        kw = dict(rem=p.rem, k=p.k, device=dev)
+        hoist = build_hoist(p.midstate, p.template, p.rem, p.k).ops
+        nb = int(p.template.shape[0])
+        block = {"lanes": p.lanes, "rem": p.rem, "k": p.k, "nblocks": nb}
+        block["K1"] = old_new_turns(
+            libs, lambda: sha256_cuda.sha256_argmin(*args, **kw), 3)
+        block["K4"] = old_new_turns(
+            libs, lambda: sha256_cuda.sha256_argmin(
+                *args, **kw, peel=True, hoist=hoist), 3)
+        info["blocks"][name] = block
+        emit("against_block", name=name, **block)
+        v4 = sha256_cuda.variant_of("hoist", p.rem, p.k, nb)
+        sass = {}
+        for kern, old_lib, new_lib, variant in (
+                ("K1", procs["rolled"][0],
+                 os.path.join(sha256_cuda.BUILD_DIR,
+                              f"sass_probe_rolled_{name}.so"), nb - 1),
+                ("K4", procs["hoist", name][0],
+                 os.path.join(sha256_cuda.BUILD_DIR,
+                              f"sass_probe_hoist_{name}.so"), v4)):
+            sass[kern] = {}
+            for who, lib in (("old", old_lib), ("new", new_lib)):
+                _, _, ops, loops = sass_loop_instructions(
+                    lib, variant, outdir, tag=f"_against_{who}_{kern}_{name}")
+                sass[kern][who] = {**tune.pipe_counts(ops), "loops": loops,
+                                   "ops": ops}
+        info["sass"][name] = sass
+    r3 = {"K1": NonceSearcher("cmu440", device=dev),
+          "K4": NonceSearcher("cmu440", device=dev, peel=True)}
+    info["r3_chain"] = {
+        kern: old_new_turns(libs, lambda s=s: s.search(0, 1 << 32), 1,
+                            answer=lambda a: a)
+        for kern, s in r3.items()}
+    hp, t, f_idx = hit_block(dev)
+    hargs = (hp.midstate, hp.template, hp.lo_i, hp.lo_i, hp.hi_i, hp.lanes,
+             t >> 32, t & M32)
+    # found and f_idx: after a hit the arg-min words depend on timing.
+    info["k2_to_hit"] = {"hit_lane": f_idx, **old_new_turns(
+        libs, lambda: sha256_cuda.sha256_until(*hargs, rem=hp.rem, k=hp.k,
+                                               device=dev), 5,
+        answer=lambda t: words(t)[:2])}
+    rows, seg = batch_rows(mice_jobs(dev))
+    hoisted = [r + (build_hoist(r[0], r[1], r[6], r[7]).ops,) for r in rows]
+
+    def flat(t):
+        return words(t.reshape(-1))
+    info["k5_mice_rows"] = {"rows": len(rows)}
+    for kern, rr, kw in (("K5", rows, {}), ("K4", hoisted, {"peel": True})):
+        info["k5_mice_rows"][kern] = old_new_turns(
+            libs, lambda: sha256_cuda.sha256_segmin(rr, seg, device=dev,
+                                                    **kw), 20, answer=flat)
+        # The launches alone, the plan table prepared once per turn.
+        info["k5_mice_rows"][kern + "_launch_only"] = old_new_turns(
+            libs, None, 20, answer=flat,
+            make=lambda: sha256_cuda.prepare_segmin(rr, seg, device=dev,
+                                                    **kw).launch)
+    new_ptxas = {b: ptxas_kernels(sha256_cuda.build_info[b].get("ptxas", ""))
+                 for b in ("rolled", "hoist")}
+    info["segmin"] = {
+        who: {b: {"ptxas": {k: v for k, v in (
+            ptxas_kernels(errs[b]) if who == "old" else new_ptxas[b]).items()
+            if k.startswith("sha256_segmin")},
+                  "sass": segmin_loads(procs[b][0] if who == "old"
+                                       else sha256_cuda.LIBRARIES[b])}
+              for b in ("rolled", "hoist")}
+        for who in ("old", "new")}
+    counts = {f"{kern}_{who}": info["sass"]["one_block"][kern][who]["int32"]
+              for kern in ("K1", "K4") for who in ("old", "new")}
+    k7 = tune.probe_k7(dev, counts)
+    clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
+    sm_clocks = dev_info["sms"] * clk_hz
+    for name, block in info["blocks"].items():
+        for kern in ("K1", "K4"):
+            for who in ("old", "new"):
+                sass = info["sass"][name][kern][who]
+                rate = block["lanes"] / (block[kern][f"{who}_mean_ms"] / 1e3)
+                sass.update({
+                    "nonces_per_s": rate,
+                    "int32_ceiling_share":
+                        rate * sass["int32"] / k7["int32_insns_per_s"],
+                    "issue_share": rate * sass["all"]
+                    / (sm_clocks * RATE_ISSUE_PER_CLK_PER_SM),
+                    "int32_pipe_share": rate * sass["int32"]
+                    / (sm_clocks * RATE_INT32_PER_CLK_PER_SM),
+                    "fma_pipe_share": rate * sass["fma"]
+                    / (sm_clocks * RATE_FMA_PER_CLK_PER_SM)})
+    info["K7"] = {k: k7[k] for k in ("int32_insns_per_s",
+                                     "int32_per_clk_per_sm",
+                                     "issued_per_clk_per_sm", "sm_clock_mhz")}
+    info["nvidia_smi"] = dev_info["nvidia_smi"]
+    emit("against", **info)
+    return info
 
 
 def cross_card(outdir: str) -> dict:
@@ -2523,11 +2919,18 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     cross = sys.argv[1:] == ["--cross-card"]
-    if sys.argv[1:] and not cross:
-        print("usage: chip_smoke.py [--cross-card]", file=sys.stderr)
+    other = sys.argv[2] if len(sys.argv) == 3 \
+        and sys.argv[1] == "--against" else None
+    if sys.argv[1:] and not cross and other is None:
+        print("usage: chip_smoke.py [--cross-card | --against SOURCE.cu]",
+              file=sys.stderr)
+        return 2
+    if other is not None and not os.path.isfile(other):
+        print(f"chip_smoke: {other} not found", file=sys.stderr)
         return 2
     outdir = os.path.join(ROOT, "chiprun_out",
-                          "chip_smoke_cross_card" if cross else "chip_smoke")
+                          "chip_smoke_cross_card" if cross else
+                          "chip_smoke_against" if other else "chip_smoke")
     os.makedirs(outdir, exist_ok=True)
     PHASES_LOG.append(os.path.join(outdir, "phases.jsonl"))
     open(PHASES_LOG[0], "w").close()
@@ -2539,6 +2942,16 @@ def main() -> int:
     if cross:
         phase_device()
         cross_card(outdir)
+        emit("done", seconds=time.monotonic() - t0)
+        print(ok, flush=True)
+        return 0
+
+    if other:
+        dev_info = phase_device()
+        procs = build_against(os.path.abspath(other))
+        phase_build(outdir)
+        phase_kernel()
+        against(dev_info, outdir, procs)
         emit("done", seconds=time.monotonic() - t0)
         print(ok, flush=True)
         return 0

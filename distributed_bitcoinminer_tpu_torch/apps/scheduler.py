@@ -233,8 +233,9 @@ class Scheduler:
         inclusive), the hash equals the host recompute, and a difficulty
         claim entering the qualifying set satisfies the target bound on
         the RECOMPUTED hash (never the claimed one). A failed claim leaves
-        ``answered[idx]`` False and sends the range to another eligible
-        miner, or parks it."""
+        ``answered[idx]`` False, sends the range to another eligible
+        miner, or parks it, and pumps the queue: the liar's popped chunk
+        freed a slot."""
         self.stats["claims_checked"] += 1
         actual = hash_op(curr.data, msg.nonce)
         if chunk.lower <= msg.nonce <= chunk.upper \
@@ -254,6 +255,7 @@ class Scheduler:
             self.miner_plane.assign_chunk(takeover, copy)
         else:
             self.miner_plane.parked.append(copy)
+        self._maybe_dispatch()
         return False
 
     def _on_drop(self, conn_id: int) -> None:

@@ -31,8 +31,8 @@
 // template parameter, so a batch is at most two search launches) plus one
 // segment-reduce launch. Rows differ in rem, k and lane count, which are
 // run-time fields of the plan. Ragged rows: each row gets a share of the
-// launch's blocks (the host's block table, proportional to its valid
-// lanes), and its blocks grid-stride over the row's valid lanes only. The
+// launch's blocks (the host's block table, proportional to its runs of
+// valid lanes), and its blocks stride over those runs. The
 // R-row plan table (49 words a row, 185 under K4) lies in device memory
 // (one copy per batch); a block copies its row's plan into shared memory
 // once. A block writes one partial key; the reduce gives each segment one
@@ -68,36 +68,48 @@
 //
 // What bounds them: integer instruction issue. A lane reads no memory (the
 // plan travels by value as a kernel parameter, the round constants sit in
-// the constant bank) and a block writes 12 bytes, so the work is the ~1,300
-// to ~3,000 integer instructions of one or two compressions per lane: the
-// rotates and logic on the INT32 pipe (64 lanes a clock per SM), adds and
-// moves also on the FMA pipe (IMAD, VIADD), at most 128 lanes issued a
-// clock per SM. K2 adds a compare and one volatile load per lane. K5 reads
-// its row's plan (under K4, the hoist too) from shared memory instead of
-// the parameter bank.
+// the constant bank) and a block writes 12 bytes, so the work is the
+// ~1,400 to ~3,000 integer instructions of one or two compressions per
+// lane: the rotates and logic on the INT32 pipe (64 lanes a clock per SM),
+// the adds and shifts that the pipe helpers below move on the FMA pipe
+// (IMAD, 64 more), at most 128 lanes issued a clock per SM. With the pipes
+// split so (see "the two integer pipes"), K1 and K4 issue about 75 of the
+// 128 a clock and the INT32 pipe runs at about 86% of its 64 (NVIDIA H100
+// 80GB HBM3 at 700 W, chip_smoke.py): a round's serial dependences, not
+// one pipe, now set the pace. K2 adds a compare a lane and an atomic and a
+// volatile load a run. K5 reads its row's plan (under K4, the hoist too)
+// from shared memory instead of the parameter bank.
 //
 // Design. The TPU grid runs its steps in order and carries accumulators from
 // step to step; GPU blocks run in parallel in no order. So each thread walks
 // its lanes i0 + tid, i0 + tid + stride, ... in ascending order with a
-// running strict-less minimum, a warp-shuffle and then a shared-memory min
-// reduce each block to one partial on the full (hi, lo, idx) key, and a
-// second one-block kernel reduces the partials on the device. The answer
-// cannot depend on the order in which blocks run, nor on the grid size.
+// running strict-less minimum (in runs of lanes, see walk_runs), a
+// warp-shuffle and then a shared-memory min reduce each block to one
+// partial on the full (hi, lo, idx) key, and a second one-block kernel
+// reduces the partials on the device. The answer cannot depend on the
+// order in which blocks run, nor on the grid size.
 //
 // K2's early exit. The TPU kernel skips its later grid steps on a bare
 // found flag, which is sound only because its grid runs in order. Here a
 // later block may hit first, so a flag would let it hide an earlier hit.
 // Instead a qualifying lane does atomicMin on one device word f_min (reset
 // to all-ones before every launch), and a thread stops as soon as its next
-// lane lies above f_min. Only lanes above the lowest hit found so far are
-// skipped, and that never passes over the true first qualifier.
+// run starts above f_min. Only lanes above the lowest hit found so far are
+// skipped, and that never passes over the true first qualifier. K2's runs
+// are handed out in ascending order from a device counter (take_run), not
+// by thread index: an SM does not run its resident blocks at one pace, and
+// a hit whose lanes a slow block owns would otherwise be found late.
 //
 // The lane body. Every search entry above runs one of three bodies,
 // chosen when the library is built (DBMT_BODY; the wrapper builds one
 // library per body from this file, in parallel):
 //
 // 0, rolled (K1's): the tail's blocks compressed whole from the midstate,
-//    the digits placed into the template's words by their run-time word.
+//    the run's digits placed into the template's words by their run-time
+//    word once per run, and each lane's last digit added to every word
+//    with its weight there (zero but in the last digit's word), one IMAD
+//    a word; when the last digit lies in the second block, the first
+//    block is compressed once per run.
 // 1, peel (K3): replaces the peel branch of _kernel_body in
 //    ops/sha256_pallas.py (DBM_PEEL=1 DBM_HOIST=0). The same function:
 //    the rounds of block 0 before its first digit word t* = rem >> 2 read
@@ -126,8 +138,9 @@
 // Only digest words 0 and 1 leave a body, so the compiler drops round
 // 63's e update and the other six feed-forward adds in every body.
 //
-// This first design is simple and right; speed comes later (per-thread lane
-// unrolling, hoisting the high digits).
+// The digits are built once per run of 10 lanes (walk_runs) and, when the
+// last digit lies in a second tail block, every body compresses the first
+// block once per run.
 
 #include <cstdint>
 #include <cstring>
@@ -201,58 +214,164 @@ __host__ __device__ __forceinline__ bool key_less(const Key& a,
   return a.idx < b.idx;
 }
 
-__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
+__host__ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
+#ifdef __CUDA_ARCH__
   return __funnelshift_r(x, x, n);
+#else
+  return (x >> n) | (x << ((32 - n) & 31));
+#endif
+}
+
+// ------------------------------------------------------ the two integer pipes
+//
+// The helpers, the round and schedule code, digit_field and the run walk
+// are host and device code; the lane bodies (which read the round
+// constants in the constant bank) are device code. The CPU tests compile
+// all of it with a host C++ compiler, through a shim for the CUDA names.
+//
+// An H100 SM issues 128 lanes' instructions a clock (four schedulers, one
+// warp instruction each), but its INT32 pipe takes 64: SHF, LOP3, IADD3,
+// ISETP, SEL. IMAD runs beside it on the FMA pipe, 64 more a clock. Left to
+// ptxas, a SHA-256 lane puts nearly all its work on the INT32 pipe (the
+// parent design's K1: 1,498 of 1,686 instructions a nonce, NVIDIA H100
+// 80GB HBM3 at 700 W), so that pipe alone set the pace. These helpers put
+// chosen adds and shifts on the FMA pipe: an add as IMAD a * kOne + b, a
+// right shift as the high word of a product (IMAD.HI). kOne is 1 in the
+// constant bank, where the host could change it, so ptxas cannot fold the
+// multiplier back into an IADD3 or a shift. On the host they are plain C++.
+//
+// The split moves only what costs no extra instruction or sits off a
+// round's critical path: the schedule's shifts (1 IMAD.HI for 1 SHF), the
+// 2-input adds (1 IMAD for 1 IADD3: e = d + t1, K + W, the schedule's
+// plain taps) and h + K + W, which is known a round early. The rotates,
+// the logic and the 3-input adds on the critical path stay on the INT32
+// pipe: a round is 10 INT32 instructions and 2 IADD3 against 3 IMAD. The
+// INT32 pipe then carries about three quarters of a lane's instructions,
+// neither pipe is full, and a round's chain of dependences sets the pace
+// (see "What bounds them" above). Moving more (all the
+// adds, as 2-input IMADs, or a rotate as IMAD.SHL and IMAD.HI) balanced
+// the pipes exactly but added instructions and latency to the critical
+// path, and ran slower on the card (chip_smoke.py --against reports the
+// split it measures).
+__constant__ uint32_t kOne = 1u;
+
+// a + b on the FMA pipe.
+__host__ __device__ __forceinline__ uint32_t fadd(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(kOne), "r"(b));
+  return d;
+#else
+  return a + b;
+#endif
+}
+
+// a * b + c on the FMA pipe (ptxas may not turn it into a select and an
+// add when b is 0 or a power of two).
+__host__ __device__ __forceinline__ uint32_t fmad(uint32_t a, uint32_t b,
+                                                  uint32_t c) {
+#ifdef __CUDA_ARCH__
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+#else
+  return a * b + c;
+#endif
+}
+
+// x >> N (0 < N < 32) on the FMA pipe: the high word of x * 2^(32 - N).
+template <int N>
+__host__ __device__ __forceinline__ uint32_t fshr(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  uint32_t d;
+  asm("mul.hi.u32 %0, %1, %2;" : "=r"(d) : "r"(x), "r"(kOne << (32 - N)));
+  return d;
+#else
+  return x >> N;
+#endif
+}
+
+struct State {
+  uint32_t a, b, c, d, e, f, g, h;
+};
+
+// One round, given its first add A = h + K[t] + W[t]. The rotates and the
+// logic stay on the INT32 pipe, and so do the two 3-input adds on the
+// round's critical path (t1 = A + ch + S1, a = t1 + S0 + maj); e = d + t1
+// goes to the FMA pipe.
+__host__ __device__ __forceinline__ void round_from(State& s, uint32_t A) {
+  const uint32_t S1 = rotr(s.e, 6) ^ rotr(s.e, 11) ^ rotr(s.e, 25);
+  const uint32_t ch = s.g ^ (s.e & (s.f ^ s.g));
+  const uint32_t t1 = A + ch + S1;
+  const uint32_t S0 = rotr(s.a, 2) ^ rotr(s.a, 13) ^ rotr(s.a, 22);
+  const uint32_t maj = (s.a & (s.b ^ s.c)) ^ (s.b & s.c);
+  s.h = s.g;
+  s.g = s.f;
+  s.f = s.e;
+  s.e = fadd(s.d, t1);
+  s.d = s.c;
+  s.c = s.b;
+  s.b = s.a;
+  s.a = t1 + S0 + maj;
+}
+
+// One round; kw is K[t] + W[t]. h + kw is off the critical path (h is the
+// state's g of the round before) and goes to the FMA pipe.
+__host__ __device__ __forceinline__ void sha_round(State& s, uint32_t kw) {
+  round_from(s, fadd(s.h, kw));
+}
+
+// One round whose K[t] + W[t] is w + k, w varying per lane: the add goes
+// to the FMA pipe.
+__host__ __device__ __forceinline__ void sha_round(State& s, uint32_t w,
+                                                   uint32_t k) {
+  sha_round(s, fadd(w, k));
+}
+
+__host__ __device__ __forceinline__ uint32_t ssig0(uint32_t x) {
+  return rotr(x, 7) ^ rotr(x, 18) ^ fshr<3>(x);
+}
+
+__host__ __device__ __forceinline__ uint32_t ssig1(uint32_t x) {
+  return rotr(x, 17) ^ rotr(x, 19) ^ fshr<10>(x);
+}
+
+// Schedule word t from w[t-16], w[t-15], w[t-7], w[t-2]: the shifts of
+// s0 and s1 and the add of the two plain taps (known a round or more
+// early) on the FMA pipe, the rest one 3-input add.
+__host__ __device__ __forceinline__ uint32_t sched(uint32_t w16, uint32_t w15,
+                                                   uint32_t w7, uint32_t w2) {
+  return fadd(w16, w7) + ssig0(w15) + ssig1(w2);
 }
 
 // One compression of the 16 words w into the state st (feed-forward added).
-__device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
-  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+__device__ __forceinline__ void compress(uint32_t st[8],
+                                                  uint32_t w[16]) {
+  State s{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7]};
 #pragma unroll
   for (int t = 0; t < 64; ++t) {
-    uint32_t wt;
-    if (t < 16) {
-      wt = w[t];
-    } else {
-      // In-place mod-16 schedule window:
-      // w[t] = w[t-16] + s0(w[t-15]) + w[t-7] + s1(w[t-2]).
-      const uint32_t x = w[(t + 1) & 15];
-      const uint32_t y = w[(t + 14) & 15];
-      const uint32_t s0 = rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3);
-      const uint32_t s1 = rotr(y, 17) ^ rotr(y, 19) ^ (y >> 10);
-      wt = w[t & 15] + s0 + w[(t + 9) & 15] + s1;
-      w[t & 15] = wt;
+    if (t >= 16) {  // the in-place mod-16 schedule window
+      w[t & 15] = sched(w[t & 15], w[(t + 1) & 15], w[(t + 9) & 15],
+                        w[(t + 14) & 15]);
     }
-    const uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
-    const uint32_t ch = g ^ (e & (f ^ g));
-    const uint32_t t1 = h + S1 + ch + kK[t] + wt;
-    const uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
-    const uint32_t maj = (a & (b ^ c)) ^ (b & c);
-    h = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = b;
-    b = a;
-    a = t1 + S0 + maj;
+    sha_round(s, w[t & 15], kK[t]);
   }
-  st[0] += a;
-  st[1] += b;
-  st[2] += c;
-  st[3] += d;
-  st[4] += e;
-  st[5] += f;
-  st[6] += g;
-  st[7] += h;
+  st[0] += s.a;
+  st[1] += s.b;
+  st[2] += s.c;
+  st[3] += s.d;
+  st[4] += s.e;
+  st[5] += s.f;
+  st[6] += s.g;
+  st[7] += s.h;
 }
 
 // The k ASCII digits of lane i in bytes s .. s+k-1 of a 12-byte field
 // whose three big-endian words are q0, q1, q2 (the rest zero).
-__device__ __forceinline__ void digit_field(uint32_t i, uint32_t k,
-                                            uint32_t s, uint32_t& q0,
-                                            uint32_t& q1, uint32_t& q2) {
+__host__ __device__ __forceinline__ void digit_field(uint32_t i, uint32_t k,
+                                                     uint32_t s, uint32_t& q0,
+                                                     uint32_t& q1,
+                                                     uint32_t& q2) {
   q0 = 0u;
   q1 = 0u;
   q2 = 0u;
@@ -272,65 +391,59 @@ __device__ __forceinline__ void digit_field(uint32_t i, uint32_t k,
   }
 }
 
-// The key of lane i: its k digits written into the tail template, the
-// tail's NB blocks compressed from the host midstate, digest words 0 and 1.
-// The k digits fill bytes s .. s+k-1 of a 12-byte field that starts at
-// tail word a = rem / 4; the field's three words are q0, q1, q2.
-template <int NB>
-__device__ __forceinline__ Key lane_key(const Plan& p, uint32_t i,
-                                        uint32_t s, int a) {
-  uint32_t q0, q1, q2;
-  digit_field(i, p.k, s, q0, q1, q2);
-  uint32_t st[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) st[r] = p.mid[r];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    uint32_t w[16];
-#pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      const int off = 16 * b + m - a;
-      w[m] = p.tmpl[16 * b + m] |
-             (off == 0 ? q0 : off == 1 ? q1 : off == 2 ? q2 : 0u);
-    }
-    compress(st, w);
+// ------------------------------------------------------------ runs of lanes
+//
+// A thread takes whole runs of kRun lanes, kRun m .. kRun m + kRun - 1,
+// which share every digit but the last: the lane body builds the digits
+// once per run (digit_field on the run's base, whose last digit is '0'),
+// and lane base + d enters with one multiply-add of d times the last
+// digit's byte weight into its word (the byte goes from '0' to '9' with no
+// carry). Runs are cut to the valid window [first, last] once, so no lane
+// tests lo_i or hi_i. A thread's runs ascend and so do the lanes of a run,
+// so a strict-less running minimum keeps the earliest nonce of a tie. 10
+// rather than 100: in K1's 1-block SASS the run loop outside the lane loop
+// is about 380 instructions, 38 a nonce at 10 lanes against a lane loop of
+// about 1,500 (NVIDIA H100 80GB HBM3 build, chip_smoke.py). A run of 100
+// would save at most 34 of them, 2%, for a second varying digit and one
+// more loop level.
+constexpr uint32_t kRun = 10u;
+
+// Calls visit(base, dlo, dhi) for the runs of [first, last] that thread t of
+// `stride` threads takes (runs t, t + stride, ... counted from the run of
+// first), in ascending order, each cut to lanes base + [dlo, dhi]; stops
+// when visit returns false. Nothing when first > last.
+template <class Visit>
+__host__ __device__ __forceinline__ void walk_runs(uint32_t first,
+                                                   uint32_t last, uint32_t t,
+                                                   uint32_t stride,
+                                                   Visit&& visit) {
+  if (first > last) return;
+  const uint32_t r_last = last / kRun;
+  for (uint32_t r = first / kRun + t; r <= r_last; r += stride) {
+    const uint32_t base = r * kRun;
+    const uint32_t dlo = base < first ? first - base : 0u;
+    const uint32_t dhi = last - base < kRun - 1u ? last - base : kRun - 1u;
+    if (!visit(base, dlo, dhi)) return;
   }
-  return Key{st[0], st[1], i};
+}
+
+// The plan's valid lanes [first, last] (first > last: none). The launcher
+// keeps i0 + n - 1 within 32 bits.
+__host__ __device__ __forceinline__ void valid_lanes(const Plan& p,
+                                                     uint32_t& first,
+                                                     uint32_t& last) {
+  first = p.lo_i > p.i0 ? p.lo_i : p.i0;
+  last = p.n == 0u ? 0u : p.i0 + p.n - 1u;
+  if (p.hi_i < last) last = p.hi_i;
+  if (p.n == 0u) first = 1u;
 }
 
 // ------------------------------------------------------- the peeled bodies
 
-struct State {
-  uint32_t a, b, c, d, e, f, g, h;
-};
-
-__device__ __forceinline__ void sha_round(State& s, uint32_t kw) {
-  const uint32_t S1 = rotr(s.e, 6) ^ rotr(s.e, 11) ^ rotr(s.e, 25);
-  const uint32_t ch = s.g ^ (s.e & (s.f ^ s.g));
-  const uint32_t t1 = s.h + S1 + ch + kw;
-  const uint32_t S0 = rotr(s.a, 2) ^ rotr(s.a, 13) ^ rotr(s.a, 22);
-  const uint32_t maj = (s.a & (s.b ^ s.c)) ^ (s.b & s.c);
-  s.h = s.g;
-  s.g = s.f;
-  s.f = s.e;
-  s.e = s.d + t1;
-  s.d = s.c;
-  s.c = s.b;
-  s.b = s.a;
-  s.a = t1 + S0 + maj;
-}
-
-__device__ __forceinline__ uint32_t ssig0(uint32_t x) {
-  return rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3);
-}
-
-__device__ __forceinline__ uint32_t ssig1(uint32_t x) {
-  return rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10);
-}
-
 // The shape of a tail, from rem and k (ops/sha256_torch.py::
 // hoist_structure): variant 0 is a 1-block tail, 1 a 2-block tail with
 // digits in both blocks, 2 a 2-block tail whose second block holds none.
+// In variant 1, and only there, the last digit lies in block 1.
 __host__ __device__ constexpr int tail_variant(int rem, int k) {
   return rem + k + 9 <= 64 ? 0 : ((rem + k - 1) >> 2) <= 15 ? 2 : 1;
 }
@@ -378,20 +491,20 @@ __host__ __device__ constexpr uint32_t varying_words(int first, int width) {
 // words are the plan's); K4 starts from the host's constant part cw and
 // adds only the taps whose source word varies (mask: varying_words).
 template <int BODY, uint32_t MASK>
-__device__ __forceinline__ void expand_16_31(uint32_t (&x)[32],
-                                             const uint32_t* cw,
-                                             uint32_t (&W)[16]) {
+__host__ __device__ __forceinline__ void expand_16_31(uint32_t (&x)[32],
+                                                      const uint32_t* cw,
+                                                      uint32_t (&W)[16]) {
 #pragma unroll
   for (int t = 16; t < 32; ++t) {
     if constexpr (BODY == 2) {
       uint32_t acc = cw[t - 16];
-      if ((MASK >> (t - 16)) & 1u) acc += x[t - 16];
-      if ((MASK >> (t - 15)) & 1u) acc += ssig0(x[t - 15]);
-      if ((MASK >> (t - 7)) & 1u) acc += x[t - 7];
-      if ((MASK >> (t - 2)) & 1u) acc += ssig1(x[t - 2]);
+      if ((MASK >> (t - 16)) & 1u) acc = fadd(acc, x[t - 16]);
+      if ((MASK >> (t - 15)) & 1u) acc = fadd(acc, ssig0(x[t - 15]));
+      if ((MASK >> (t - 7)) & 1u) acc = fadd(acc, x[t - 7]);
+      if ((MASK >> (t - 2)) & 1u) acc = fadd(acc, ssig1(x[t - 2]));
       x[t] = acc;
     } else {
-      x[t] = x[t - 16] + ssig0(x[t - 15]) + x[t - 7] + ssig1(x[t - 2]);
+      x[t] = sched(x[t - 16], x[t - 15], x[t - 7], x[t - 2]);
     }
     W[t - 16] = x[t];
   }
@@ -399,26 +512,32 @@ __device__ __forceinline__ void expand_16_31(uint32_t (&x)[32],
 
 // Block 0 of lane i for t* = A (and, for K4, W0 digit words in block 0):
 // from the entry state (the round state after rounds 0..A-1), rounds
-// A..15 with the digit words q0..q2 at A..A+2 and no schedule math, then
-// words 16..31 of the schedule into W.
+// A..15 with the digit words q0..q2 at A..A+2 (K4: only the W0 that lie in
+// block 0) and no schedule math, then words 16..31 of the schedule into W.
 template <int BODY, int A, int W0>
 __device__ __forceinline__ void block0_head(const Plan& p,
-                                            const uint32_t* entry,
-                                            uint32_t q0, uint32_t q1,
-                                            uint32_t q2, State& st,
-                                            uint32_t (&W)[16]) {
+                                                     const uint32_t* entry,
+                                                     uint32_t q0, uint32_t q1,
+                                                     uint32_t q2, State& st,
+                                                     uint32_t (&W)[16]) {
   st = State{entry[0], entry[1], entry[2], entry[3],
              entry[4], entry[5], entry[6], entry[7]};
+  constexpr int kLast = W0 > 0 ? A + W0 - 1 : A + 2;  // last digit word
   uint32_t x[32];
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const uint32_t qj = j == A ? q0 : j == A + 1 ? q1 : j == A + 2 ? q2 : 0u;
-    x[j] = p.tmpl[j] | qj;
+    const bool digits = j >= A && j <= kLast;
+    const uint32_t qj = j == A ? q0 : j == A + 1 ? q1 : q2;
+    x[j] = digits ? (p.tmpl[j] | qj) : p.tmpl[j];
     if (j >= A) {
 #if DBMT_BODY == 2
-      sha_round(st, p.kw[j] + qj);
+      if (digits) {
+        sha_round(st, qj, p.kw[j]);
+      } else {
+        sha_round(st, p.kw[j]);
+      }
 #else
-      sha_round(st, kK[j] + x[j]);
+      sha_round(st, x[j], kK[j]);
 #endif
     }
   }
@@ -431,15 +550,15 @@ __device__ __forceinline__ void block0_head(const Plan& p,
 
 // Rounds 16..63 of a block whose schedule words 16..31 are W (the window
 // then rolls in place, mod 16).
-__device__ __forceinline__ void rounds_16_63(State& st, uint32_t (&W)[16]) {
+__device__ __forceinline__ void rounds_16_63(State& st,
+                                                      uint32_t (&W)[16]) {
 #pragma unroll
-  for (int t = 16; t < 32; ++t) sha_round(st, W[t - 16] + kK[t]);
+  for (int t = 16; t < 32; ++t) sha_round(st, W[t - 16], kK[t]);
 #pragma unroll
   for (int t = 32; t < 64; ++t) {
-    const uint32_t wt = W[t & 15] + ssig0(W[(t + 1) & 15]) +
-                        W[(t + 9) & 15] + ssig1(W[(t + 14) & 15]);
-    W[t & 15] = wt;
-    sha_round(st, wt + kK[t]);
+    W[t & 15] = sched(W[t & 15], W[(t + 1) & 15], W[(t + 9) & 15],
+                      W[(t + 14) & 15]);
+    sha_round(st, W[t & 15], kK[t]);
   }
 }
 
@@ -452,10 +571,12 @@ __device__ __forceinline__ void rounds_16_63(State& st, uint32_t (&W)[16]) {
 // for K4, 4 t* for K3 (a warp-uniform value), one copy per shape of the
 // variant.
 template <int VARIANT>
-__device__ __forceinline__ void block0(const Plan& p, const uint32_t* entry,
-                                       int shape, uint32_t q0, uint32_t q1,
-                                       uint32_t q2, State& st,
-                                       uint32_t (&W)[16]) {
+__device__ __forceinline__ void block0(const Plan& p,
+                                                const uint32_t* entry,
+                                                int shape, uint32_t q0,
+                                                uint32_t q1, uint32_t q2,
+                                                State& st,
+                                                uint32_t (&W)[16]) {
   switch (shape) {
 #define DBMT_SHAPE(A, W0)                                             \
   case 4 * A + W0:                                                    \
@@ -483,44 +604,61 @@ __device__ __forceinline__ void block0(const Plan& p, const uint32_t* entry,
 // field word 16 + m - A; its W1 digit words are 0 .. W1-1. Rounds 0..15
 // off the host's K + W, words 16..31 off the host's cw.
 template <int A, int W1>
-__device__ __forceinline__ void block1_head(const Plan& p, uint32_t q1,
-                                            uint32_t q2, State& st,
-                                            uint32_t (&W)[16]) {
+__device__ __forceinline__ void block1_head(const Plan& p,
+                                                     uint32_t q1, uint32_t q2,
+                                                     State& st,
+                                                     uint32_t (&W)[16]) {
   uint32_t x[32];
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const int r = 16 + j - A;
-    const uint32_t qj = r == 1 ? q1 : r == 2 ? q2 : 0u;
-    x[j] = p.tmpl[16 + j] | qj;
-    sha_round(st, p.kw[16 + j] + qj);
+    const bool digits = j < W1;   // field word 16 + j - A: 1 or 2
+    const uint32_t qj = 16 + j - A == 1 ? q1 : q2;
+    x[j] = digits ? (p.tmpl[16 + j] | qj) : p.tmpl[16 + j];
+    if (digits) {
+      sha_round(st, qj, p.kw[16 + j]);
+    } else {
+      sha_round(st, p.kw[16 + j]);
+    }
   }
   expand_16_31<2, varying_words(0, W1)>(x, p.cw + 16, W);
 }
 #endif
 
-// A lane's key under the library's body, for the variant's tail shape.
-// The per-thread part (the shape, and K3's head rounds) is computed once,
-// before the lane loop, by the constructor.
+// A lane body under the library's body for the variant's tail shape. The
+// per-thread part (the shape, the last digit's word and weight, and K3's
+// head rounds) is computed once, before the walk, by the constructor; the
+// digits once per run (run); the rest per lane. In variant 1 the last
+// digit lies in block 1, so the whole of block 0 is the same for every
+// lane of a run, and run computes it once (in K3's and the rolled body's
+// variant 1, which also serves tails whose second block holds no digit,
+// when lw says so).
 template <int VARIANT>
 struct LaneBody {
-  uint32_t s;   // rem & 3: the first digit's byte in its word
-  int a;        // t* = rem >> 2
-  int shape;    // block 0's shape (see block0)
-  int shape1;   // K4, variant 1: block 1's spill shape
+  uint32_t s;    // rem & 3: the first digit's byte in its word
+  int a;         // t* = rem >> 2
+  int shape;     // block 0's shape (see block0)
+  int shape1;    // K4, variant 1: block 1's spill shape
+  uint32_t lw;   // the tail word of the last digit
+  uint32_t inc;  // the last digit's byte weight in that word
 #if DBMT_BODY == 1
   uint32_t entry[8];   // the state after block 0's rounds 0..t*-1
 #endif
 
   __device__ __forceinline__ explicit LaneBody(const Plan& p)
-      : s(p.rem & 3u), a(static_cast<int>(p.rem >> 2)) {
+      : s(p.rem & 3u),
+        a(static_cast<int>((p.rem >> 2) & 15u)),
+        lw((p.rem + p.k - 1u) >> 2),
+        inc(1u << ((3u - ((p.rem + p.k - 1u) & 3u)) * 8u)) {
     const int rem = static_cast<int>(p.rem), k = static_cast<int>(p.k);
     shape = 4 * a + (DBMT_BODY == 2 ? block0_width(rem, k) : 0);
     shape1 = 2 * (a - 14) + ((rem + k - 1) >> 2) - 16;
 #ifdef DBMT_FIXED_SHAPE
-    // For reading the SASS only: with the shapes fixed at compile time a
-    // kernel's lane loop is the one path that those shapes run.
+    // For reading the SASS only: with the shapes (and the last digit's
+    // word) fixed at compile time a kernel's run and lane loops are the one
+    // path that those shapes run.
     shape = DBMT_FIXED_SHAPE;
     shape1 = DBMT_FIXED_SHAPE1;
+    lw = DBMT_FIXED_LW;
 #endif
 #if DBMT_BODY == 1
     State st{p.mid[0], p.mid[1], p.mid[2], p.mid[3],
@@ -538,67 +676,207 @@ struct LaneBody {
 #endif
   }
 
-  __device__ __forceinline__ Key operator()(const Plan& p, uint32_t i) const {
+  // Whether the last digit lies in block 1 (variant 1 always; the rolled
+  // body's and K3's variant 1 also serve digit-free second blocks).
+  __device__ __forceinline__ bool last_in_block1() const {
+    return VARIANT == 1 && (DBMT_BODY == 2 || lw >= 16u);
+  }
+
+  // The lanes base + dlo .. base + dhi (dhi < kRun, in ascending order):
+  // visit(key) for each, stopping after the first for which it returns
+  // true.
+  template <class Visit>
+  __device__ __forceinline__ void run(const Plan& p, uint32_t base,
+                                               uint32_t dlo, uint32_t dhi,
+                                               Visit&& visit) const {
+    uint32_t q[3];
+    digit_field(base, p.k, s, q[0], q[1], q[2]);
 #if DBMT_BODY == 0
-    return lane_key<VARIANT == 0 ? 1 : 2>(p, i, s, a);
+    // The tail words that can hold a digit (t* <= 15), with the run's
+    // digits, and the weight of lane d's last digit in each.
+    constexpr int kWords = VARIANT == 0 ? 16 : 18;
+    uint32_t wb[kWords], e[kWords];
+#pragma unroll
+    for (int m = 0; m < kWords; ++m) {
+      const int off = m - a;
+      wb[m] = p.tmpl[m] | (off == 0 ? q[0] : off == 1 ? q[1]
+                                           : off == 2 ? q[2] : 0u);
+      e[m] = static_cast<uint32_t>(m) == lw ? inc : 0u;
+    }
+    if (last_in_block1()) {
+      uint32_t st0[8], w0[16];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) st0[r] = p.mid[r];
+#pragma unroll
+      for (int m = 0; m < 16; ++m) w0[m] = wb[m];
+      compress(st0, w0);
+#pragma unroll 1
+      for (uint32_t d = dlo; d <= dhi; ++d) {
+        uint32_t st[8], w[16];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) st[r] = st0[r];
+        w[0] = fmad(d, e[16], wb[16]);
+        w[1] = fmad(d, e[17], wb[17]);
+#pragma unroll
+        for (int m = 2; m < 16; ++m) w[m] = p.tmpl[16 + m];
+        compress(st, w);
+        if (visit(Key{st[0], st[1], base + d})) return;
+      }
+      return;
+    }
+#pragma unroll 1
+    for (uint32_t d = dlo; d <= dhi; ++d) {
+      uint32_t st[8], w[16];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) st[r] = p.mid[r];
+#pragma unroll
+      for (int m = 0; m < 16; ++m) w[m] = fmad(d, e[m], wb[m]);
+      compress(st, w);
+      if constexpr (VARIANT != 0) {  // a second block without digits
+#pragma unroll
+        for (int m = 0; m < 16; ++m) w[m] = p.tmpl[16 + m];
+        compress(st, w);
+      }
+      if (visit(Key{st[0], st[1], base + d})) return;
+    }
 #else
-    uint32_t q0, q1, q2;
-    digit_field(i, p.k, s, q0, q1, q2);
-    State st;
-    uint32_t W[16];
+    // The field word that holds the last digit gets d times its weight.
+    uint32_t e[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      e[r] = static_cast<uint32_t>(a + r) == lw ? inc : 0u;
+    }
 #if DBMT_BODY == 1
-    block0<VARIANT>(p, entry, shape, q0, q1, q2, st, W);
+    const uint32_t* entry0 = entry;
 #else
-    block0<VARIANT>(p, p.deep, shape, q0, q1, q2, st, W);
+    const uint32_t* entry0 = p.deep;
 #endif
-    rounds_16_63(st, W);
-    if constexpr (VARIANT == 0) {
-      return Key{p.mid[0] + st.a, p.mid[1] + st.b, i};
-    } else {
+    if (last_in_block1()) {
+      // Block 0 holds field words 0 and, at t* = 14, 1: none varies.
+      State st;
+      uint32_t W[16];
+      block0<VARIANT>(p, entry0, shape, q[0], q[1], q[2], st, W);
+      rounds_16_63(st, W);
       const uint32_t out0[8] = {p.mid[0] + st.a, p.mid[1] + st.b,
                                 p.mid[2] + st.c, p.mid[3] + st.d,
                                 p.mid[4] + st.e, p.mid[5] + st.f,
                                 p.mid[6] + st.g, p.mid[7] + st.h};
+#pragma unroll 1
+      for (uint32_t d = dlo; d <= dhi; ++d) {
+        const uint32_t q1 = fmad(d, e[1], q[1]), q2 = fmad(d, e[2], q[2]);
 #if DBMT_BODY == 1
-      // Block 1 in full; the digit field spills into its words 0 and 1
-      // when t* is 15 (q1, q2) or 14 (q2).
-      uint32_t w[16];
+        // Block 1 in full; the digit field spills into its words 0 and 1
+        // when t* is 15 (q1, q2) or 14 (q2).
+        uint32_t w[16];
 #pragma unroll
-      for (int m = 0; m < 16; ++m) w[m] = p.tmpl[16 + m];
-      w[0] |= a == 15 ? q1 : a == 14 ? q2 : 0u;
-      w[1] |= a == 15 ? q2 : 0u;
-      uint32_t s8[8] = {out0[0], out0[1], out0[2], out0[3],
-                        out0[4], out0[5], out0[6], out0[7]};
-      compress(s8, w);
-      return Key{s8[0], s8[1], i};
+        for (int m = 0; m < 16; ++m) w[m] = p.tmpl[16 + m];
+        w[0] |= a == 15 ? q1 : q2;
+        w[1] |= a == 15 ? q2 : 0u;
+        uint32_t s8[8] = {out0[0], out0[1], out0[2], out0[3],
+                          out0[4], out0[5], out0[6], out0[7]};
+        compress(s8, w);
+        if (visit(Key{s8[0], s8[1], base + d})) return;
 #else
-      st = State{out0[0], out0[1], out0[2], out0[3],
+        State s1{out0[0], out0[1], out0[2], out0[3],
                  out0[4], out0[5], out0[6], out0[7]};
-      if constexpr (VARIANT == 2) {
-#pragma unroll
-        for (int t = 0; t < 64; ++t) sha_round(st, p.ckw[t]);
-      } else {
         switch (shape1) {
           case 0:
-            block1_head<14, 1>(p, q1, q2, st, W);
+            block1_head<14, 1>(p, q1, q2, s1, W);
             break;
           case 2:
-            block1_head<15, 1>(p, q1, q2, st, W);
+            block1_head<15, 1>(p, q1, q2, s1, W);
             break;
           case 3:
-            block1_head<15, 2>(p, q1, q2, st, W);
+            block1_head<15, 2>(p, q1, q2, s1, W);
             break;
           default:
             break;
         }
-        rounds_16_63(st, W);
-      }
-      return Key{out0[0] + st.a, out0[1] + st.b, i};
+        rounds_16_63(s1, W);
+        if (visit(Key{out0[0] + s1.a, out0[1] + s1.b, base + d})) return;
 #endif
+      }
+      return;
+    }
+#pragma unroll 1
+    for (uint32_t d = dlo; d <= dhi; ++d) {
+      const uint32_t q0 = fmad(d, e[0], q[0]), q1 = fmad(d, e[1], q[1]),
+                     q2 = fmad(d, e[2], q[2]);
+      State st;
+      uint32_t W[16];
+      block0<VARIANT>(p, entry0, shape, q0, q1, q2, st, W);
+      rounds_16_63(st, W);
+      if constexpr (VARIANT == 0) {
+        if (visit(Key{p.mid[0] + st.a, p.mid[1] + st.b, base + d})) return;
+      } else {  // a second block without digits
+        const uint32_t out0[8] = {p.mid[0] + st.a, p.mid[1] + st.b,
+                                  p.mid[2] + st.c, p.mid[3] + st.d,
+                                  p.mid[4] + st.e, p.mid[5] + st.f,
+                                  p.mid[6] + st.g, p.mid[7] + st.h};
+#if DBMT_BODY == 1
+        uint32_t w[16];
+#pragma unroll
+        for (int m = 0; m < 16; ++m) w[m] = p.tmpl[16 + m];
+        uint32_t s8[8] = {out0[0], out0[1], out0[2], out0[3],
+                          out0[4], out0[5], out0[6], out0[7]};
+        compress(s8, w);
+        if (visit(Key{s8[0], s8[1], base + d})) return;
+#else
+        st = State{out0[0], out0[1], out0[2], out0[3],
+                   out0[4], out0[5], out0[6], out0[7]};
+#pragma unroll
+        for (int t = 0; t < 64; ++t) sha_round(st, p.ckw[t]);
+        if (visit(Key{out0[0] + st.a, out0[1] + st.b, base + d})) return;
+#endif
+      }
     }
 #endif
   }
 };
+
+// K2's work on one run of a thread's walk, given the lowest hit found so
+// far (all-ones: none): none when the run starts above it (so do all the
+// thread's later runs: returns false, the walk stops); else the run, cut
+// at that hit, each lane's key into best and, at the run's first lane
+// below the target, hit(lane), and the run and the walk stop there. Only
+// lanes above a found hit are skipped, so the lowest qualifying lane is
+// never passed over.
+template <class Body, class Hit>
+__device__ __forceinline__ bool until_run(const Body& body, const Plan& p,
+                                          uint32_t base, uint32_t dlo,
+                                          uint32_t dhi, uint32_t lowest,
+                                          Key& best, Hit&& hit) {
+  if (base + dlo > lowest) return false;
+  if (lowest - base < dhi) dhi = lowest - base;
+  bool found = false;
+  body.run(p, base, dlo, dhi, [&](const Key& cand) {
+    if (key_less(cand, best)) best = cand;
+    found = cand.hi < p.t_hi || (cand.hi == p.t_hi && cand.lo < p.t_lo);
+    if (found) hit(cand.idx);
+    return found;
+  });
+  return !found;
+}
+
+// The next run of [first, last] that a thread of K2 takes: the device
+// counter *next hands out the runs in ascending order, one to each active
+// thread of the warp (one atomic a warp); false when none is left.
+__device__ __forceinline__ bool take_run(uint32_t first, uint32_t last,
+                                         uint32_t* next, uint32_t& base,
+                                         uint32_t& dlo, uint32_t& dhi) {
+  const unsigned mask = __activemask();
+  const unsigned lane = threadIdx.x & 31u;
+  const int leader = __ffs(mask) - 1;
+  uint32_t step = 0u;
+  if (static_cast<int>(lane) == leader) step = atomicAdd(next, __popc(mask));
+  step = __shfl_sync(mask, step, leader) +
+         static_cast<uint32_t>(__popc(mask & ((1u << lane) - 1u)));
+  if (step > last / kRun - first / kRun) return false;
+  base = (first / kRun + step) * kRun;
+  dlo = base < first ? first - base : 0u;
+  dhi = last - base < kRun - 1u ? last - base : kRun - 1u;
+  return true;
+}
 
 __device__ __forceinline__ Key warp_min(Key v) {
 #pragma unroll
@@ -737,47 +1015,43 @@ template <int VARIANT>
 __global__ void __launch_bounds__(kThreads)
     sha256_argmin_kernel(const Plan p, uint32_t* __restrict__ partials) {
   const LaneBody<VARIANT> body(p);
-  const uint32_t stride = gridDim.x * blockDim.x;
+  uint32_t first, last;
+  valid_lanes(p, first, last);
   Key best = sentinel();
-  // The launcher keeps n <= 2^31 and the grid far below 2^31 threads, so
-  // j + stride cannot wrap (a 64-bit counter costs the 2-block variant
-  // registers and a resident block per SM).
-  for (uint32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < p.n;
-       j += stride) {
-    const uint32_t i = p.i0 + j;
-    if (i < p.lo_i || i > p.hi_i) continue;
-    const Key cand = body(p, i);
-    if (key_less(cand, best)) best = cand;
-  }
+  walk_runs(first, last, blockIdx.x * blockDim.x + threadIdx.x,
+            gridDim.x * blockDim.x,
+            [&](uint32_t base, uint32_t dlo, uint32_t dhi) {
+              body.run(p, base, dlo, dhi, [&](const Key& cand) {
+                if (key_less(cand, best)) best = cand;
+                return false;
+              });
+              return true;
+            });
   write_partial(best, partials);
 }
 
 // K2's search; with CHAINED, one launch of K6's until chain, which does
 // nothing once an earlier launch of the chain has hit (carry[0] != 0; no
 // thread of this launch writes the carry, so every thread sees one value).
-// f_min holds the lowest qualifying lane found so far (all-ones: none).
+// f_min[0] holds the lowest qualifying lane found so far (all-ones: none),
+// f_min[1] the count of runs handed out (take_run).
 template <int VARIANT, bool CHAINED>
 __global__ void __launch_bounds__(kThreads)
     sha256_until_kernel(const Plan p, const uint32_t* __restrict__ carry,
                         uint32_t* f_min, uint32_t* __restrict__ partials) {
   if (CHAINED && carry[0] != 0u) return;
   const LaneBody<VARIANT> body(p);
-  const uint32_t stride = gridDim.x * blockDim.x;
+  uint32_t first, last, base, dlo, dhi;
+  valid_lanes(p, first, last);
   const volatile uint32_t* lowest_hit = f_min;
   Key best = sentinel();
-  for (uint32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < p.n;
-       j += stride) {
-    const uint32_t i = p.i0 + j;
-    // A thread's lanes ascend: once this one lies above the lowest hit,
-    // so do all the rest. The load is volatile, so a hit by any block is
-    // seen at the next lane. Breaking still reaches write_partial's
-    // barrier with every other thread of the block.
-    if (i > *lowest_hit) break;
-    if (i < p.lo_i || i > p.hi_i) continue;
-    const Key cand = body(p, i);
-    if (key_less(cand, best)) best = cand;
-    if (cand.hi < p.t_hi || (cand.hi == p.t_hi && cand.lo < p.t_lo)) {
-      atomicMin(f_min, i);
+  // One volatile load of the lowest hit a run, so a hit by any block is
+  // seen at the thread's next run. Stopping still reaches write_partial's
+  // barrier with every other thread of the block.
+  if (first <= last) {
+    while (take_run(first, last, f_min + 1, base, dlo, dhi) &&
+           until_run(body, p, base, dlo, dhi, *lowest_hit, best,
+                     [&](uint32_t i) { atomicMin(f_min, i); })) {
     }
   }
   write_partial(best, partials);
@@ -878,13 +1152,17 @@ __device__ __forceinline__ Key segmin_lanes(const Plan& sp, uint32_t first,
                                             uint32_t last, int local,
                                             int nblk) {
   const LaneBody<VARIANT> body(sp);
-  const uint32_t stride = static_cast<uint32_t>(nblk) * blockDim.x;
   Key best = sentinel();
-  for (uint32_t j = static_cast<uint32_t>(local) * blockDim.x + threadIdx.x;
-       j <= last - first; j += stride) {
-    const Key cand = body(sp, first + j);
-    if (key_less(cand, best)) best = cand;
-  }
+  walk_runs(first, last, static_cast<uint32_t>(local) * blockDim.x +
+                             threadIdx.x,
+            static_cast<uint32_t>(nblk) * blockDim.x,
+            [&](uint32_t base, uint32_t dlo, uint32_t dhi) {
+              body.run(sp, base, dlo, dhi, [&](const Key& cand) {
+                if (key_less(cand, best)) best = cand;
+                return false;
+              });
+              return true;
+            });
   return best;
 }
 
@@ -921,10 +1199,8 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t* dst = reinterpret_cast<uint32_t*>(&sp);
   for (int w = threadIdx.x; w < kPlanWords; w += blockDim.x) dst[w] = src[w];
   __syncthreads();
-  // The row's valid lanes [first, last]; the launcher keeps i0 + n - 1
-  // within 32 bits and n <= 2^31, so the offset j never wraps.
-  const uint32_t first = max(sp.lo_i, sp.i0);
-  const uint32_t last = min(sp.hi_i, sp.i0 + sp.n - 1u);
+  uint32_t first, last;
+  valid_lanes(sp, first, last);
   Key best = sentinel();
   if (first <= last) {
 #if DBMT_BODY == 2
@@ -1029,12 +1305,16 @@ int launch_argmin_search(const Plan& p, uint32_t* partials, int grid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Reset f_min to all-ones on the stream, then launch K2's search kernel
-// (CHAINED: the until chain's); returns the first error seen.
+// Reset f_min[0] to all-ones and the run counter f_min[1] to 0 on the
+// stream, then launch K2's search kernel (CHAINED: the until chain's);
+// returns the first error seen.
 template <bool CHAINED>
 int launch_until_search(const Plan& p, const uint32_t* carry, uint32_t* f_min,
                         uint32_t* partials, int grid, cudaStream_t s) {
   cudaError_t err = cudaMemsetAsync(f_min, 0xFF, sizeof(uint32_t), s);
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(f_min + 1, 0, sizeof(uint32_t), s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (plan_variant(p)) {
     case 0:
@@ -1077,6 +1357,9 @@ int dbmt_sha256_plan_words() { return kPlanWords; }
 
 // Threads per block of the search kernels.
 int dbmt_sha256_argmin_threads() { return kThreads; }
+
+// Lanes per run: a search thread's unit of work (kRun).
+int dbmt_sha256_run_lanes() { return static_cast<int>(kRun); }
 
 // Resident search blocks per SM (0 on error) of the entry's kernel
 // (0: arg-min, 1: until, 2: K5's segment-min) for the variant (0: 1-block
@@ -1169,7 +1452,8 @@ int dbmt_sha256_argmin(const uint32_t* plan_words, uint32_t* partials,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2: f_min is one device word of scratch; out: 5 device words (found,
+// K2: f_min is two device words of scratch (the lowest hit and the run
+// counter); out: 5 device words (found,
 // f_idx, best_hi, best_lo, best_idx).
 int dbmt_sha256_until(const uint32_t* plan_words, uint32_t* partials,
                       uint32_t* f_min, uint32_t* out, int grid, void* stream) {

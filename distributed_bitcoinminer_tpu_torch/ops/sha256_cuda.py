@@ -67,6 +67,9 @@ PLAN_WORDS = 49
 #: order, deep (8), kw (2 x 16), cw (2 x 16), ckw (64), a 1-block tail's
 #: second rows and an absent ckw zero.
 HOIST_PLAN_WORDS = PLAN_WORDS + 8 + 32 + 32 + 64
+#: Lanes per run (``kRun``): a search thread takes whole runs of this many
+#: consecutive lanes, which share every digit but the last.
+RUN_LANES = 10
 M32 = 0xFFFFFFFF
 
 #: Kernel launches by the TPU kernel each replaces, counted where a wrapper
@@ -95,6 +98,7 @@ _ENTRIES = {
     "dbmt_sha256_until_fold": [_P, _P, _P, _P, _U, _U, _I, _P],
     "dbmt_sha256_blocks_per_sm": [_I, _I],
     "dbmt_sha256_argmin_threads": [],
+    "dbmt_sha256_run_lanes": [],
     "dbmt_sha256_body": [],
     "dbmt_sha256_plan_words": [],
     "dbmt_sha256_segmin": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -126,6 +130,15 @@ def variant_of(body: str, rem: int, k: int, nblocks: int) -> int:
     if nblocks == 1:
         return 0
     return 2 if body == "hoist" and (rem + k - 1) >> 2 <= 15 else 1
+
+
+def runs(i0: int, lo_i: int, hi_i: int, n: int) -> int:
+    """The runs of :data:`RUN_LANES` lanes (``walk_runs`` in the source)
+    that cover the valid lanes of ``i0 + [0, n)`` masked to ``[lo_i,
+    hi_i]``: a search launch's units of work (0 when no lane is valid)."""
+    first, last = max(lo_i, i0), min(hi_i, i0 + n - 1)
+    return 0 if n <= 0 or first > last else \
+        last // RUN_LANES - first // RUN_LANES + 1
 
 
 def reset_launches() -> None:
@@ -221,7 +234,8 @@ def load(body: str = "rolled"):
                 fn.restype = ctypes.c_int
             words = HOIST_PLAN_WORDS if body == "hoist" else PLAN_WORDS
             if lib.dbmt_sha256_body() != BODIES[body] \
-                    or lib.dbmt_sha256_plan_words() != words:
+                    or lib.dbmt_sha256_plan_words() != words \
+                    or lib.dbmt_sha256_run_lanes() != RUN_LANES:
                 raise RuntimeError(f"{LIBRARIES[body]} holds another body")
             _libs[body] = lib
         return lib
@@ -239,32 +253,35 @@ def default_grid(device: torch.device, body: str, entry: int,
     return sms * per_sm
 
 
-def plan_words(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
+def plan_array(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
                rem: int, k: int, t_hi: int = 0, t_lo: int = 0,
-               hoist=None) -> list[int]:
-    """The kernels' parameter block (see ``struct Plan``): 49 words, the
-    target's read by K2 and the until chain only; with ``hoist`` (the
-    operand dict of ``ops.sha256_torch.build_hoist``) K4's 185, the hoist
-    section in the TPU kernel's order. Only the 16 ``cw`` words per block
-    travel: a deep window's ``cw2`` is not read, as on the TPU."""
+               hoist=None):
+    """The kernels' parameter block (see ``struct Plan``) as a numpy
+    uint32 vector: 49 words, the target's read by K2 and the until chain
+    only; with ``hoist`` (the operand dict of
+    ``ops.sha256_torch.build_hoist``) K4's 185, the hoist section in the
+    TPU kernel's order. Only the 16 ``cw`` words per block travel: a deep
+    window's ``cw2`` is not read, as on the TPU."""
+    import numpy as np
     nblocks = int(template.shape[0])
-    tmpl = [int(x) for x in template.reshape(-1)] + [0] * (16 * (2 - nblocks))
-    words = ([int(m) for m in midstate] + tmpl
-             + [rem, k, nblocks, i0, lo_i, hi_i, n, t_hi, t_lo])
-    assert len(words) == PLAN_WORDS
-    if hoist is None:
-        return words
-    kw, cw = hoist["kw"], hoist["cw"]
-    if kw.shape != (nblocks, 16) or cw.shape != (nblocks, 16) \
-            or ("ckw" in hoist) != (nblocks == 2 and (rem + k - 1) >> 2 < 16):
-        raise ValueError("the hoist does not match the tail's shape")
-    pad = [0] * (16 * (2 - nblocks))
-    words += ([int(x) for x in hoist["deep"]]
-              + [int(x) for x in kw.reshape(-1)] + pad
-              + [int(x) for x in cw.reshape(-1)] + pad
-              + ([int(x) for x in hoist["ckw"]] if "ckw" in hoist
-                 else [0] * 64))
-    assert len(words) == HOIST_PLAN_WORDS
+    pad = np.zeros(16 * (2 - nblocks), dtype=np.uint32)
+    parts = [np.asarray(midstate, dtype=np.uint32),
+             np.asarray(template, dtype=np.uint32).reshape(-1), pad,
+             np.asarray([rem, k, nblocks, i0, lo_i, hi_i, n, t_hi, t_lo],
+                        dtype=np.uint32)]
+    if hoist is not None:
+        kw, cw = hoist["kw"], hoist["cw"]
+        if kw.shape != (nblocks, 16) or cw.shape != (nblocks, 16) \
+                or ("ckw" in hoist) != (nblocks == 2
+                                        and (rem + k - 1) >> 2 < 16):
+            raise ValueError("the hoist does not match the tail's shape")
+        parts += [np.asarray(hoist["deep"], dtype=np.uint32),
+                  np.asarray(kw, dtype=np.uint32).reshape(-1), pad,
+                  np.asarray(cw, dtype=np.uint32).reshape(-1), pad,
+                  (np.asarray(hoist["ckw"], dtype=np.uint32)
+                   if "ckw" in hoist else np.zeros(64, dtype=np.uint32))]
+    words = np.concatenate(parts)
+    assert len(words) == (PLAN_WORDS if hoist is None else HOIST_PLAN_WORDS)
     return words
 
 
@@ -295,20 +312,20 @@ def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
                             ENTRY_UNTIL if until else ENTRY_ARGMIN,
                             variant_of(body, rem, k, nblocks))
     threads = lib.dbmt_sha256_argmin_threads()
-    grid = max(1, min(int(grid), -(-n // threads)))
-    # partials (3 words a block), then f_min for the until kernels.
-    scratch = torch.empty(3 * grid + until, dtype=torch.int32, device=device)
+    grid = max(1, min(int(grid), -(-runs(i0, lo_i, hi_i, n) // threads)))
+    # partials (3 words a block), then for the until kernels the lowest
+    # hit and the run counter.
+    scratch = torch.empty(3 * grid + 2 * until, dtype=torch.int32,
+                          device=device)
     args = [scratch.data_ptr()]
     if until:
         args.append(scratch[3 * grid:].data_ptr())
     args += tail
-    plan = plan_words(midstate, template, i0, lo_i, hi_i, n, rem, k,
+    plan = plan_array(midstate, template, i0, lo_i, hi_i, n, rem, k,
                       *target, hoist=hoist)
-    words = (ctypes.c_uint32 * len(plan))(*plan)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(ctypes.addressof(words), *args, grid,
-                                  stream)
+        err = getattr(lib, entry)(plan.ctypes.data, *args, grid, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     launches[SEARCH_KERNEL[body] or ("K2" if until else "K1")] += 1
@@ -490,19 +507,113 @@ def mesh_fold_until(rows: torch.Tensor, carry: torch.Tensor, base: int, *,
                       device, body)
 
 
-def _segmin_blocks(lanes: list[int], grid: int, threads: int) -> list[int]:
+def _segmin_blocks(work: list[int], grid: int, threads: int) -> list[int]:
     """Blocks of each row of one tail-block-count group: a share of the
-    ``grid`` blocks proportional to the row's valid lanes, at least one
-    for a row with a valid lane, never more than its lanes fill, none for
-    a row without one."""
-    total = sum(lanes)
+    ``grid`` blocks proportional to the row's runs of valid lanes
+    (:func:`runs`), at least one for a row with a valid lane, never more
+    than its runs fill, none for a row without one."""
+    total = sum(work)
     out = []
-    for v in lanes:
+    for v in work:
         if v <= 0:
             out.append(0)
             continue
         out.append(max(1, min(-(-v // threads), round(grid * v / total))))
     return out
+
+
+class SegminBatch:
+    """One K5 batch with its host work done (:func:`prepare_segmin`): the
+    plan and block tables on the device, the scratch and the output.
+    :meth:`launch` enqueues the search launches and the segment reduce."""
+
+    def __init__(self, lib, body: str, device, args: tuple, grids: list,
+                 out: torch.Tensor, keep: tuple):
+        self.lib, self.body, self.device = lib, body, device
+        self.args, self.grids, self.out = args, grids, out
+        self._keep = keep   # the tables the pointers in args address
+
+    def launch(self) -> torch.Tensor:
+        """Enqueue the batch on the device's current stream; returns the
+        (3, S) output (see :func:`sha256_segmin`). Raises on a nonzero
+        cudaError."""
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = self.lib.dbmt_sha256_segmin(*self.args, stream)
+        if err != 0:
+            raise RuntimeError(f"dbmt_sha256_segmin launch failed: "
+                               f"cudaError {err}")
+        launches[SEARCH_KERNEL[self.body] or "K5"] += sum(
+            1 for g in self.grids if g)
+        launches["K5"] += 1
+        return self.out
+
+
+def prepare_segmin(rows, seg, *, device, grid: int | None = None,
+                   peel: bool = False) -> SegminBatch:
+    """The host work of :func:`sha256_segmin` (the same arguments): the
+    rows' plans and block shares as one table copied to the CUDA
+    ``device``, the scratch and the output; nothing is launched."""
+    import numpy as np
+    device = _cuda_device(device, "sha256_segmin")
+    rows, seg = list(rows), [int(x) for x in seg]
+    if not rows or len(seg) != len(rows) or seg[0] < 0 \
+            or any(b < a for a, b in zip(seg, seg[1:])):
+        raise ValueError("sha256_segmin needs rows with ascending segment "
+                         "ids from 0, one per row")
+    hoists = [r[8] if len(r) > 8 else None for r in rows]
+    if len({h is None for h in hoists}) > 1:
+        raise ValueError("sha256_segmin rows must all carry a hoist, or "
+                         "none")
+    body = body_of(peel, hoists[0])
+    lib = load(body)
+    threads = lib.dbmt_sha256_argmin_threads()
+    nrows, nsegs = len(rows), seg[-1] + 1
+    plans, work, groups = [], [], {1: [], 2: []}
+    for r, (row, hoist) in enumerate(zip(rows, hoists)):
+        mid, tmpl, i0, lo_i, hi_i, n, rem, k = row[:8]
+        nb = int(tmpl.shape[0])
+        if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32 and nb in (1, 2)
+                and 1 <= k <= 9 and 0 <= rem <= 63):
+            raise ValueError(f"row {r} out of range: i0={i0} n={n} "
+                             f"nblocks={nb} rem={rem} k={k}")
+        plans.append(plan_array(mid, tmpl, i0, lo_i, hi_i, n, rem, k,
+                                hoist=hoist))
+        work.append(runs(i0, lo_i, hi_i, n))
+        groups[nb].append(r)
+    pstart, pcount = [0] * nrows, [0] * nrows
+    group_words, grids, base = [], [], 0
+    for nb in (1, 2):
+        members, blocks = groups[nb], []
+        if members:
+            g = grid if grid is not None else default_grid(
+                device, body, ENTRY_SEGMIN, nb - 1)
+            blocks = _segmin_blocks([work[r] for r in members],
+                                    max(1, int(g)), threads)
+        g_rows, g_blk = [], [0]
+        for r, b in zip(members, blocks):
+            if b:
+                pstart[r], pcount[r] = base + g_blk[-1], b
+                g_rows.append(r)
+                g_blk.append(g_blk[-1] + b)
+        group_words.append((g_rows, g_blk))
+        grids.append(g_blk[-1])
+        base += g_blk[-1]
+    seg_rows = [0] * (nsegs + 1)
+    for s in seg:
+        seg_rows[s + 1] += 1
+    for s in range(nsegs):
+        seg_rows[s + 1] += seg_rows[s]
+    (g1_rows, g1_blk), (g2_rows, g2_blk) = group_words
+    table = np.concatenate(plans + [np.asarray(
+        pstart + pcount + seg_rows + g1_rows + g1_blk + g2_rows + g2_blk,
+        dtype=np.uint32)])
+    table = torch.from_numpy(table.view(np.int32)).to(device)
+    scratch = torch.empty(max(3, 3 * base), dtype=torch.int32, device=device)
+    out = torch.empty((3, nsegs), dtype=torch.int32, device=device)
+    args = (table.data_ptr(), nrows, nsegs, len(g1_rows), grids[0],
+            len(g2_rows), grids[1], scratch.data_ptr(), out.data_ptr())
+    return SegminBatch(lib, body, device, args, grids, out, (table, scratch))
 
 
 def sha256_segmin(rows, seg, *, device, grid: int | None = None,
@@ -523,72 +634,5 @@ def sha256_segmin(rows, seg, *, device, grid: int | None = None,
     among its rows by :func:`_segmin_blocks`. Any device but a CUDA one
     raises.
     """
-    import numpy as np
-    device = _cuda_device(device, "sha256_segmin")
-    rows, seg = list(rows), [int(x) for x in seg]
-    if not rows or len(seg) != len(rows) or seg[0] < 0 \
-            or any(b < a for a, b in zip(seg, seg[1:])):
-        raise ValueError("sha256_segmin needs rows with ascending segment "
-                         "ids from 0, one per row")
-    hoists = [r[8] if len(r) > 8 else None for r in rows]
-    if len({h is None for h in hoists}) > 1:
-        raise ValueError("sha256_segmin rows must all carry a hoist, or "
-                         "none")
-    body = body_of(peel, hoists[0])
-    lib = load(body)
-    threads = lib.dbmt_sha256_argmin_threads()
-    nrows, nsegs = len(rows), seg[-1] + 1
-    words, lanes, groups = [], [], {1: [], 2: []}
-    for r, (row, hoist) in enumerate(zip(rows, hoists)):
-        mid, tmpl, i0, lo_i, hi_i, n, rem, k = row[:8]
-        nb = int(tmpl.shape[0])
-        if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32 and nb in (1, 2)
-                and 1 <= k <= 9 and 0 <= rem <= 63):
-            raise ValueError(f"row {r} out of range: i0={i0} n={n} "
-                             f"nblocks={nb} rem={rem} k={k}")
-        words += plan_words(mid, tmpl, i0, lo_i, hi_i, n, rem, k,
-                            hoist=hoist)
-        lanes.append(max(0, min(hi_i, i0 + n - 1) - max(lo_i, i0) + 1))
-        groups[nb].append(r)
-    pstart, pcount = [0] * nrows, [0] * nrows
-    group_words, grids, base = [], [], 0
-    for nb in (1, 2):
-        members, blocks = groups[nb], []
-        if members:
-            g = grid if grid is not None else default_grid(
-                device, body, ENTRY_SEGMIN, nb - 1)
-            blocks = _segmin_blocks([lanes[r] for r in members],
-                                    max(1, int(g)), threads)
-        g_rows, g_blk = [], [0]
-        for r, b in zip(members, blocks):
-            if b:
-                pstart[r], pcount[r] = base + g_blk[-1], b
-                g_rows.append(r)
-                g_blk.append(g_blk[-1] + b)
-        group_words.append((g_rows, g_blk))
-        grids.append(g_blk[-1])
-        base += g_blk[-1]
-    seg_rows = [0] * (nsegs + 1)
-    for s in seg:
-        seg_rows[s + 1] += 1
-    for s in range(nsegs):
-        seg_rows[s + 1] += seg_rows[s]
-    (g1_rows, g1_blk), (g2_rows, g2_blk) = group_words
-    table = np.asarray(words + pstart + pcount + seg_rows + g1_rows + g1_blk
-                       + g2_rows + g2_blk, dtype=np.int64)
-    table = torch.from_numpy(table.astype(np.uint32).view(np.int32)).to(
-        device)
-    scratch = torch.empty(max(3, 3 * base), dtype=torch.int32, device=device)
-    out = torch.empty((3, nsegs), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dbmt_sha256_segmin(
-            table.data_ptr(), nrows, nsegs, len(g1_rows), grids[0],
-            len(g2_rows), grids[1], scratch.data_ptr(), out.data_ptr(),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"dbmt_sha256_segmin launch failed: cudaError "
-                           f"{err}")
-    launches[SEARCH_KERNEL[body] or "K5"] += sum(1 for g in grids if g)
-    launches["K5"] += 1
-    return out
+    return prepare_segmin(rows, seg, device=device, grid=grid,
+                          peel=peel).launch()

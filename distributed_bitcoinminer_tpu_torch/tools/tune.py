@@ -69,11 +69,12 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found")
 
 
-def sass_loop(lib: str, kernel: str) -> tuple:
+def sass_loops(lib: str, kernel: str) -> tuple:
     """The SASS of the first function of ``lib`` whose mangled name holds
-    ``kernel`` (``cuobjdump -sass``): ``(its text, the instructions of its
-    widest backward branch's loop, the function's instruction count)``;
-    NOPs are left out of the loop."""
+    ``kernel`` (``cuobjdump -sass``): ``(its text, its loops, the
+    function's instruction count)``; a loop is ``(first address, last
+    address, its instructions)`` for each backward branch, NOPs left
+    out."""
     out = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                          text=True, timeout=120)
     if out.returncode != 0:
@@ -103,13 +104,18 @@ def sass_loop(lib: str, kernel: str) -> tuple:
         tgt = m.group(1)
         tgt = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
         if tgt is not None and tgt < addr:
-            loops.append((tgt, addr))
+            loops.append((tgt, addr, [t for a, t in insns if tgt <= a <= addr
+                                      and not t.split()[0].endswith("NOP")]))
     if not loops:
         raise RuntimeError(f"no backward branch in {kernel}'s SASS")
-    lo, hi = max(loops, key=lambda ab: ab[1] - ab[0])
-    loop = [t for a, t in insns if lo <= a <= hi
-            and not t.split()[0].endswith("NOP")]
-    return body, loop, len(insns)
+    return body, loops, len(insns)
+
+
+def sass_loop(lib: str, kernel: str) -> tuple:
+    """``(SASS text, the instructions of the widest backward branch's loop,
+    the function's instruction count)`` (see :func:`sass_loops`)."""
+    body, loops, total = sass_loops(lib, kernel)
+    return body, max(loops, key=lambda lp: lp[1] - lp[0])[2], total
 
 
 def opcode_counts(insns: list) -> dict:
@@ -125,6 +131,20 @@ def int32_count(ops: dict) -> int:
     """The instructions of ``ops`` that issue to the INT32 pipe."""
     return sum(n for op, n in ops.items()
                if not op.startswith(NON_INT32_PREFIXES))
+
+
+#: SASS opcodes of the FMA pipe's integer work.
+FMA_PREFIXES = ("IMAD", "VIADD")
+
+
+def pipe_counts(ops: dict) -> dict:
+    """``ops`` by pipe: ``int32`` (:func:`int32_count`), ``fma`` (IMAD,
+    VIADD), ``other`` (memory, control, uniform) and ``all``."""
+    int32 = int32_count(ops)
+    fma = sum(n for op, n in ops.items() if op.startswith(FMA_PREFIXES))
+    total = sum(ops.values())
+    return {"int32": int32, "fma": fma, "other": total - int32 - fma,
+            "all": total}
 
 
 def events_ms(fn, reps: int) -> float:
@@ -279,7 +299,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    for line in (probe_k7(dev, {k: int(n) for k, n in counts.items()}),
+    for line in (probe_k7(dev, {k: float(n) for k, n in counts.items()}),
                  grid_sweep(dev, span),
                  kernel_vs_plain(dev, span), until(dev, span)):
         print(json.dumps(line), flush=True)

@@ -199,11 +199,12 @@ def test_kernel_plan_words_carry_the_hoist_in_tpu_order():
     for rem, k in ((8, 9), (52, 9), (61, 9)):
         _, mid, tmpl = _tail(rem, k)
         nb = tmpl.shape[0]
-        base = sha256_cuda.plan_words(mid, tmpl, 5, 6, 7, 8, rem, k)
+        base = sha256_cuda.plan_array(mid, tmpl, 5, 6, 7, 8, rem,
+                                      k).tolist()
         for deep in (False, True):
             ops = sha256_torch.build_hoist(mid, tmpl, rem, k, deep).ops
-            words = sha256_cuda.plan_words(mid, tmpl, 5, 6, 7, 8, rem, k,
-                                           hoist=ops)
+            words = sha256_cuda.plan_array(mid, tmpl, 5, 6, 7, 8, rem, k,
+                                           hoist=ops).tolist()
             assert len(words) == sha256_cuda.HOIST_PLAN_WORDS == 185
             assert words[:49] == base
             pad = [0] * (16 * (2 - nb))
@@ -217,7 +218,7 @@ def test_kernel_plan_words_carry_the_hoist_in_tpu_order():
         _, o_mid, o_tmpl = _tail(o_rem, 9)
         other = sha256_torch.build_hoist(o_mid, o_tmpl, o_rem, 9).ops
         with pytest.raises(ValueError):
-            sha256_cuda.plan_words(mid, tmpl, 5, 6, 7, 8, rem, k,
+            sha256_cuda.plan_array(mid, tmpl, 5, 6, 7, 8, rem, k,
                                    hoist=other)
 
 
@@ -395,6 +396,15 @@ inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned n) {
   return n ? (lo >> n) | (hi << (32u - n)) : lo;
 }
 inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int) { return v; }
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int) { return v; }
+inline unsigned __activemask() { return 1u; }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline uint32_t atomicAdd(uint32_t* a, uint32_t v) {
+  const uint32_t old = *a;
+  *a += v;
+  return old;
+}
 inline void __syncthreads() {}
 """
 
@@ -413,11 +423,17 @@ int main() {
     Plan p;
     memcpy(&p, w, sizeof(Plan));
     Key key{0u, 0u, 0u};
+    // Lane i as a run of one lane.
+    const uint32_t d = i % kRun;
+    auto one = [&](const Key& k) {
+      key = k;
+      return true;
+    };
     switch (plan_variant(p)) {
-      case 0: key = LaneBody<0>(p)(p, i); break;
-      case 1: key = LaneBody<1>(p)(p, i); break;
+      case 0: LaneBody<0>(p).run(p, i - d, d, d, one); break;
+      case 1: LaneBody<1>(p).run(p, i - d, d, d, one); break;
 #if DBMT_BODY == 2
-      case 2: key = LaneBody<2>(p)(p, i); break;
+      case 2: LaneBody<2>(p).run(p, i - d, d, d, one); break;
 #endif
     }
     printf("%u %u\n", key.hi, key.lo);
@@ -459,8 +475,8 @@ def test_cuda_lane_bodies_as_host_cpp_equal_hash_op(body, tmp_path):
                                                     len(prefix) + k)
             hoist = (sha256_torch.build_hoist(mid, tmpl, rem, k).ops
                      if body == "hoist" else None)
-            words = sha256_cuda.plan_words(mid, tmpl, 0, 0, 0, 0, rem, k,
-                                           hoist=hoist)
+            words = sha256_cuda.plan_array(mid, tmpl, 0, 0, 0, 0, rem, k,
+                                           hoist=hoist).tolist()
             for i in {0, 10 ** k - 1, int(rng.integers(0, 10 ** k))}:
                 lines.append(" ".join(map(str, words + [i])))
                 d = hashlib.sha256(prefix + f"{i:0{k}d}".encode()).digest()

@@ -1,0 +1,401 @@
+"""The search kernels' lane code, compiled as host C++, bit for bit.
+
+``csrc/sha256_argmin.cu`` before its kernels (the pipe helpers, the round
+code, the lane bodies, the walk over runs of lanes and K2's per-run step)
+is compiled with ``g++`` through the CUDA shim of
+``tests/test_torch_hoist.py``, once for the rolled body (K1) and once for
+the hoist-fed peeled body (K4), and driven by a small harness:
+
+- the pipe helpers (``fadd``, ``fmad``, ``fshr``) and ``rotr`` against
+  Python's integer arithmetic on seeded words at every shift amount;
+- both bodies, a run of lanes at a time, against the hashlib oracle at
+  every ``rem`` 0-63 and ``k`` 1-9, on the runs at both ends of the digit
+  class and a seeded one;
+- the walk over runs with a simulated ``gridDim x blockDim`` against the
+  port's plain ``span_scan`` and the JAX package's ``search_span`` (jnp,
+  on the CPU), on seeded windows with unaligned edges, runs cut at both
+  ends and windows shorter than a run, at two grid sizes;
+- the walk with a stub body whose hashes collide on purpose, so that the
+  earliest nonce must win every tie;
+- K2's walk, its threads taking runs from one shared counter in turn, in
+  several orders, against one shared lowest hit, against the plain until
+  scan.
+
+Every check is exact. The kernels themselves run only on a card
+(``chip_smoke.py``).
+"""
+
+import hashlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+from distributed_bitcoinminer_tpu.ops.search import search_span
+from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+from distributed_bitcoinminer_tpu_torch.ops import sha256_torch
+from distributed_bitcoinminer_tpu_torch.ops.sha256_host import \
+    sha256_midstate
+from tests.test_torch_hoist import _SHIM
+
+M32 = 0xFFFFFFFF
+#: The shift amounts the pipe helpers are held at: every one.
+SHIFTS = range(1, 32)
+
+_MAIN = r"""
+#include <cstdio>
+#include <vector>
+#include "lanes.inc"
+}  // namespace
+
+template <int N>
+static void shifts(uint32_t x) {
+  if constexpr (N < 32) {
+    printf(" %u", fshr<N>(x));
+    shifts<N + 1>(x);
+  }
+}
+
+static Plan read_plan() {
+  uint32_t w[kPlanWords];
+  for (int j = 0; j < kPlanWords; ++j) scanf("%u", &w[j]);
+  Plan p;
+  memcpy(&p, w, sizeof(Plan));
+  return p;
+}
+
+// Every lane key of the runs base + [dlo, dhi] under the plan's variant.
+template <int V>
+static void print_run(const Plan& p, uint32_t base, uint32_t dlo,
+                      uint32_t dhi) {
+  LaneBody<V>(p).run(p, base, dlo, dhi, [&](const Key& k) {
+    printf("%u %u %u\n", k.hi, k.lo, k.idx);
+    return false;
+  });
+}
+
+// K1's search over the plan's valid lanes with `threads` simulated
+// threads: each walks its runs, then the minimum over the threads.
+template <int V>
+static Key walk(const Plan& p, uint32_t threads) {
+  const LaneBody<V> body(p);
+  uint32_t first, last;
+  valid_lanes(p, first, last);
+  Key best = sentinel();
+  for (uint32_t t = 0; t < threads; ++t) {
+    Key mine = sentinel();
+    walk_runs(first, last, t, threads,
+              [&](uint32_t base, uint32_t dlo, uint32_t dhi) {
+                body.run(p, base, dlo, dhi, [&](const Key& c) {
+                  if (key_less(c, mine)) mine = c;
+                  return false;
+                });
+                return true;
+              });
+    if (key_less(mine, best)) best = mine;
+  }
+  return best;
+}
+
+// K2's search: the simulated threads take runs from one shared counter
+// (take_run; each thread is a warp of one here), one run each in turn in
+// the order given, against one shared lowest hit; a thread stops when
+// take_run or until_run says so.
+template <int V>
+static void until(const Plan& p, const std::vector<uint32_t>& order) {
+  const LaneBody<V> body(p);
+  uint32_t first, last, next = 0u;
+  valid_lanes(p, first, last);
+  uint32_t f_min = ~0u;
+  std::vector<bool> done(order.size(), first > last);
+  Key best = sentinel();
+  for (bool any = true; any;) {
+    any = false;
+    for (uint32_t t : order) {
+      uint32_t base, dlo, dhi;
+      if (done[t]) continue;
+      done[t] = !take_run(first, last, &next, base, dlo, dhi) ||
+                !until_run(body, p, base, dlo, dhi, f_min, best,
+                           [&](uint32_t i) { f_min = i < f_min ? i : f_min; });
+      any = true;
+    }
+  }
+  if (f_min != ~0u) {
+    printf("1 %u\n", f_min);
+  } else {  // no hit: every lane was visited, and best is the arg-min
+    printf("0 %u %u %u %u\n", f_min, best.hi, best.lo, best.idx);
+  }
+}
+
+template <template <int> class F, class... A>
+static void by_variant(const Plan& p, A&&... a) {
+  switch (plan_variant(p)) {
+    case 0: F<0>::go(p, a...); break;
+    case 1: F<1>::go(p, a...); break;
+#if DBMT_BODY == 2
+    case 2: F<2>::go(p, a...); break;
+#endif
+  }
+}
+template <int V> struct Run {
+  static void go(const Plan& p, uint32_t b, uint32_t lo, uint32_t hi) {
+    print_run<V>(p, b, lo, hi);
+  }
+};
+template <int V> struct Walk {
+  static void go(const Plan& p, uint32_t threads) {
+    const Key k = walk<V>(p, threads);
+    printf("%u %u %u\n", k.hi, k.lo, k.idx);
+  }
+};
+template <int V> struct Until {
+  static void go(const Plan& p, const std::vector<uint32_t>& order) {
+    until<V>(p, order);
+  }
+};
+
+int main() {
+  char mode[16];
+  int n;
+  while (scanf("%15s %d", mode, &n) == 2) {
+    for (int c = 0; c < n; ++c) {
+      if (mode[0] == 'h') {          // helpers: x y z
+        uint32_t x, y, z;
+        scanf("%u %u %u", &x, &y, &z);
+        printf("%u %u", fadd(x, y), fmad(x, y, z));
+        for (int s = 1; s < 32; ++s) printf(" %u", rotr(x, s));
+        shifts<1>(x);
+        printf("\n");
+      } else if (mode[0] == 'r') {   // run: plan base dlo dhi
+        const Plan p = read_plan();
+        uint32_t b, lo, hi;
+        scanf("%u %u %u", &b, &lo, &hi);
+        by_variant<Run>(p, b, lo, hi);
+      } else if (mode[0] == 'w') {   // walk: plan threads
+        const Plan p = read_plan();
+        uint32_t threads;
+        scanf("%u", &threads);
+        by_variant<Walk>(p, threads);
+      } else if (mode[0] == 't') {   // ties: first last threads
+        uint32_t first, last, threads;
+        scanf("%u %u %u", &first, &last, &threads);
+        Key best = sentinel();
+        for (uint32_t t = 0; t < threads; ++t) {
+          Key mine = sentinel();
+          walk_runs(first, last, t, threads,
+                    [&](uint32_t base, uint32_t dlo, uint32_t dhi) {
+                      for (uint32_t d = dlo; d <= dhi; ++d) {
+                        const uint32_t i = base + d;  // the stub's hash
+                        const Key c{(i / 7u) * 2654435761u % 97u, 0u, i};
+                        if (key_less(c, mine)) mine = c;
+                      }
+                      return true;
+                    });
+          if (key_less(mine, best)) best = mine;
+        }
+        printf("%u %u %u\n", best.hi, best.lo, best.idx);
+      } else {                       // until: plan threads order...
+        const Plan p = read_plan();
+        uint32_t threads;
+        scanf("%u", &threads);
+        std::vector<uint32_t> order(threads);
+        for (auto& t : order) scanf("%u", &t);
+        by_variant<Until>(p, order);
+      }
+    }
+  }
+  return 0;
+}
+"""
+
+#: The bodies held here: K1's rolled body and K4's.
+BODIES = ("rolled", "hoist")
+
+
+@pytest.fixture(scope="module", params=BODIES)
+def lanes_exe(request, tmp_path_factory):
+    """The harness compiled with one body: (body, executable)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    body = request.param
+    d = tmp_path_factory.mktemp(f"lanes_{body}")
+    src = open(sha256_cuda.SOURCE).read()
+    head = src[:src.index("// " + "-" * 60 + " kernels\n")]
+    start = src.index("int plan_variant(const Plan& p) {")
+    variant = src[start:src.index("\n}\n", start) + 3]
+    (d / "cuda_runtime.h").write_text(_SHIM)
+    (d / "lanes.inc").write_text(head + "static " + variant)
+    (d / "lanes.cpp").write_text(_MAIN)
+    exe = d / "lanes"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-w", f"-I{d}",
+                    f"-DDBMT_BODY={sha256_cuda.BODIES[body]}", "-o",
+                    str(exe), str(d / "lanes.cpp")], check=True,
+                   timeout=300)
+    return body, exe
+
+
+def _run(exe, blocks) -> list:
+    """Feed the harness ``[(mode, [line, ...]), ...]``; its output lines."""
+    stdin = "".join(f"{mode} {len(lines)}\n" + "".join(
+        ln + "\n" for ln in lines) for mode, lines in blocks)
+    out = subprocess.run([str(exe)], input=stdin, capture_output=True,
+                         text=True, check=True, timeout=120)
+    return out.stdout.split("\n")[:-1]
+
+
+def _tail(prefix: bytes, k: int):
+    mid, tail = sha256_midstate(prefix)
+    return mid, sha256_torch.build_tail_template(tail, k, len(prefix) + k)
+
+
+def _plan(body, mid, tmpl, rem, k, i0=0, lo_i=0, hi_i=0, n=0, t=0):
+    hoist = (sha256_torch.build_hoist(mid, tmpl, rem, k).ops
+             if body == "hoist" else None)
+    words = sha256_cuda.plan_array(mid, tmpl, i0, lo_i, hi_i, n, rem, k,
+                                   t >> 32, t & M32, hoist=hoist).tolist()
+    return " ".join(map(str, words))
+
+
+def _oracle(prefix: bytes, k: int, i: int) -> tuple:
+    d = hashlib.sha256(prefix + f"{i:0{k}d}".encode()).digest()
+    return int.from_bytes(d[:4], "big"), int.from_bytes(d[4:8], "big")
+
+
+def _rotr(x: int, s: int) -> int:
+    return ((x >> s) | (x << (32 - s))) & M32
+
+
+def test_pipe_helpers_equal_plain_arithmetic(lanes_exe):
+    """fadd, fmad, and rotr and fshr at every shift amount, on seeded words
+    (and the edges 0, 1, 2^31, 2^32 - 1), equal plain arithmetic."""
+    _, exe = lanes_exe
+    rng = np.random.default_rng(61)
+    words = [int(x) for x in rng.integers(0, 1 << 32, size=(200, 3))
+             .reshape(-1)] + [0, 1, 1 << 31, M32] * 3
+    triples = [words[j:j + 3] for j in range(0, len(words) - 2, 3)]
+    got = _run(exe, [("h", [" ".join(map(str, t)) for t in triples])])
+    for (x, y, z), line in zip(triples, got):
+        want = [(x + y) & M32, (x * y + z) & M32]
+        want += [_rotr(x, s) for s in SHIFTS]
+        want += [x >> s for s in SHIFTS]
+        assert list(map(int, line.split())) == want
+
+
+def test_lane_bodies_equal_hashlib_every_shape(lanes_exe):
+    """Each body, a whole run at a time, at every rem 0-63 and k 1-9: the
+    first and last runs of the digit class (cut to it) and a seeded run
+    cut at both ends, every lane's key against hashlib."""
+    body, exe = lanes_exe
+    rng = np.random.default_rng(62)
+    lines, want = [], []
+    for rem in range(64):
+        for k in range(1, 10):
+            prefix = bytes(rng.integers(32, 127, size=64 + rem,
+                                        dtype=np.uint8))
+            mid, tmpl = _tail(prefix, k)
+            words = _plan(body, mid, tmpl, rem, k)
+            top = 10 ** k - 1
+            mid_run = int(rng.integers(0, 10 ** k)) // 10 * 10
+            runs = {(0, 0, min(9, top)), (top // 10 * 10, 0, top % 10),
+                    (mid_run, 2, min(7, top - mid_run))}
+            for base, dlo, dhi in sorted(runs):
+                lines.append(f"{words} {base} {dlo} {dhi}")
+                want += [f"{h} {lo} {base + d}" for d in range(dlo, dhi + 1)
+                         for h, lo in [_oracle(prefix, k, base + d)]]
+    assert _run(exe, [("r", lines)]) == want
+
+
+#: Seeded windows: (message, k, i0, lo_i, hi_i, n); edges off the run and
+#: thread edges, a window inside one run, one across a run edge, one lane,
+#: and a 2-block tail whose digits spill into the second block.
+WINDOWS = [("cmu440", 6, 123_451, 123_457, 124_660, 1_400),
+           ("x" * 60, 9, 100_000_003, 100_000_004, 100_000_008, 7),
+           ("x" * 60, 9, 123_000_001, 123_000_005, 123_001_203, 1_300),
+           ("a fifty-character message; its digits stay in one.", 9,
+            999_998_999, 999_999_001, 999_999_999, 1_001),
+           ("cmu440", 3, 17, 17, 23, 7),
+           ("mouse", 2, 45, 45, 45, 1)]
+
+
+@pytest.mark.parametrize("threads", [256, 3 * 256])
+def test_run_walk_equals_plain_scan_and_jax(lanes_exe, threads):
+    """K1's walk over runs with a simulated grid of ``threads`` threads
+    against the port's plain ``span_scan`` and the JAX package's
+    ``search_span`` on the same windows."""
+    body, exe = lanes_exe
+    lines, want = [], []
+    for data, k, i0, lo_i, hi_i, n in WINDOWS:
+        prefix = data.encode() + b" "
+        mid, tmpl = _tail(prefix, k)
+        rem = len(prefix) % 64
+        lines.append(f"{_plan(body, mid, tmpl, rem, k, i0, lo_i, hi_i, n)}"
+                     f" {threads}")
+        plain = tuple(int(x) & M32 for x in search.span_scan(
+            mid, tmpl, i0, lo_i, hi_i, n, rem=rem, k=k,
+            device="cpu").tolist())
+        if threads == 256:
+            ref = tuple(int(x) for x in search_span(
+                np.asarray(mid, np.uint32), tmpl, np.uint32(i0),
+                np.uint32(lo_i), np.uint32(hi_i), None, rem=rem, k=k,
+                batch=2048, nbatches=1))
+            assert ref == plain
+        want.append("%d %d %d" % plain)
+    assert _run(exe, [("w", lines)]) == want
+
+
+def test_run_walk_earliest_nonce_wins_ties(lanes_exe):
+    """A stub body whose hash is (i // 7) * 2654435761 mod 97: seven
+    neighbours tie and the values repeat. Over seeded windows and three
+    grid sizes the walk's minimum is the earliest lane of the lowest
+    hash."""
+    _, exe = lanes_exe
+    rng = np.random.default_rng(63)
+    lines, want = [], []
+    for _ in range(40):
+        first = int(rng.integers(0, 10 ** 6))
+        last = first + int(rng.integers(0, 3_000))
+        for threads in (1, 32, 256):
+            lines.append(f"{first} {last} {threads}")
+            i = np.arange(first, last + 1, dtype=np.uint64)
+            h = ((i // np.uint64(7)) * np.uint64(2654435761)
+                 & np.uint64(M32)) % np.uint64(97)
+            j = int(np.argmin(h))
+            want.append(f"{int(h[j])} 0 {first + j}")
+    assert _run(exe, [("t", lines)]) == want
+
+
+def test_until_walk_never_skips_the_lowest_hit(lanes_exe):
+    """K2's walk with its threads taking runs from the shared counter in
+    turn (ascending, descending and seeded orders) against one shared
+    lowest hit: found and f_idx equal the plain until scan's (and, when
+    nothing is found, the arg-min words), for a dense target, one only the
+    window's arg-min meets, and one nothing meets."""
+    body, exe = lanes_exe
+    rng = np.random.default_rng(64)
+    lines, want = [], []
+    for data, k, i0, lo_i, hi_i, n in WINDOWS:
+        prefix = data.encode() + b" "
+        mid, tmpl = _tail(prefix, k)
+        rem = len(prefix) % 64
+        hashes = sorted(_oracle(prefix, k, i)
+                        for i in range(max(lo_i, i0), min(hi_i, i0 + n - 1)
+                                       + 1))
+        best = hashes[0][0] << 32 | hashes[0][1]
+        h_mid, l_mid = hashes[len(hashes) // 2]
+        dense = h_mid << 32 | l_mid
+        for t in (dense, best + 1, 0):
+            plain = [int(x) & M32 for x in search.span_until_scan(
+                mid, tmpl, i0, lo_i, hi_i, n, t >> 32, t & M32, rem=rem,
+                k=k, device="cpu").tolist()]
+            plain = plain[:2] if plain[0] else plain
+            for threads in (4, 37):
+                orders = (list(range(threads)), list(range(threads))[::-1],
+                          [int(x) for x in rng.permutation(threads)])
+                plan = _plan(body, mid, tmpl, rem, k, i0, lo_i, hi_i, n, t)
+                for order in orders:
+                    lines.append(f"{plan} {threads} "
+                                 + " ".join(map(str, order)))
+                    want.append(" ".join(map(str, plain)))
+    assert _run(exe, [("u", lines)]) == want

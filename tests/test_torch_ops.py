@@ -175,15 +175,16 @@ def test_plan_words_layout():
     and the target's two words (0 unless given)."""
     for data, k in (("cmu440", 9), ("y" * 60, 9)):
         _, mid, tmpl, rem = plan(data, k)
-        words = sha256_cuda.plan_words(mid, tmpl, 5, 6, 7, 8, rem, k)
+        words = sha256_cuda.plan_array(mid, tmpl, 5, 6, 7, 8, rem,
+                                       k).tolist()
         nb = tmpl.shape[0]
         assert len(words) == sha256_cuda.PLAN_WORDS == 49
         assert words[:8] == list(mid)
         assert words[8:8 + 16 * nb] == [int(x) for x in tmpl.reshape(-1)]
         assert words[8 + 16 * nb:40] == [0] * (16 * (2 - nb))
         assert words[40:] == [rem, k, nb, 5, 6, 7, 8, 0, 0]
-        assert sha256_cuda.plan_words(mid, tmpl, 5, 6, 7, 8, rem, k, 9,
-                                      10)[47:] == [9, 10]
+        assert sha256_cuda.plan_array(mid, tmpl, 5, 6, 7, 8, rem, k, 9,
+                                      10)[47:].tolist() == [9, 10]
 
 
 @pytest.mark.gpu

@@ -30,7 +30,8 @@ from distributed_bitcoinminer_tpu_torch.apps.qos import QosPlane
 from distributed_bitcoinminer_tpu_torch.apps.scheduler import Request, \
     Scheduler
 from distributed_bitcoinminer_tpu_torch.apps.tenant_plane import TenantQueue
-from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+from distributed_bitcoinminer_tpu_torch.bitcoin.hash import (hash_op,
+                                                             scan_until)
 from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
     Message, new_request, new_result)
 from distributed_bitcoinminer_tpu_torch.utils.config import (CoalesceParams,
@@ -96,11 +97,15 @@ class Pair:
     def drop(self, conn):
         self.both(lambda s: s._on_drop(conn))
 
-    def answer(self, miner):
+    def answer(self, miner, lie=False, scan=False):
         """Answer the miner's oldest pending chunk with a true claim: the
-        hash of its lower bound (the target echoed)."""
+        hash of its lower bound (the target echoed), or with ``scan`` the
+        chunk's own answer (``scan_until`` over it); with ``lie``, that
+        claim's hash with its low bit flipped."""
         c = self.port.miner_plane.find_miner(miner).pending[0]
-        msg = new_result(hash_op(c.data, c.lower), c.lower, c.target)
+        h, nonce = (scan_until(c.data, c.lower, c.upper, c.target)[:2]
+                    if scan else (hash_op(c.data, c.lower), c.lower))
+        msg = new_result(h ^ int(lie), nonce, c.target)
         self.both(lambda s: s._on_result(miner, msg))
 
     def busy(self):
@@ -243,6 +248,34 @@ def test_random_drive_equals_jax(seed):
         p.answer(p.busy()[0])
         p.check()
     assert p.port.stats["qos_window_grants"] > 0
+
+
+@pytest.mark.parametrize("case", ["takeover", "parked", "target"])
+def test_false_claim_pumps_like_jax(case):
+    """A miner's false claim while ungranted chunks are still queued: the
+    range goes to another miner (or is parked when there is none), and
+    the freed slot is granted at once, as the JAX ``Scheduler._claim_ok``
+    does with its closing pump. Every write equals the reference's after
+    every event, and the client's Result is the ``bitcoin.hash``
+    oracle's."""
+    p = Pair(chunk_s=0.1)
+    miners = (MINER_A,) if case == "parked" else (MINER_A, MINER_B)
+    for m in miners:
+        p.join(m)
+    target = 1 << 60 if case == "target" else 0
+    p.request(TEN_X, "elephant", 9_999, target)
+    assert p.port.current.qos_mode == "chunked"
+    p.check()
+    p.answer(MINER_A, lie=True, scan=True)
+    assert p.port.stats["claims_failed"] == 1
+    p.check()
+    while p.busy():
+        p.answer(p.busy()[0], scan=True)
+        p.check()
+    (result,) = [w for w in p.port_server.writes if w[0] == TEN_X]
+    h, nonce, found = scan_until("elephant", 0, 9_999, target)
+    assert result[5:7] == (h, nonce)
+    assert found == (target != 0 and h < target)
 
 
 # -------------------------------------------------------- the DRR plane
