@@ -4,10 +4,11 @@
     python3 chip_smoke.py                # every phase, on one CUDA card
     python3 chip_smoke.py --cross-card   # the mesh over every card of a
                                          # box with several, and no more
-    python3 chip_smoke.py --against OTHER.cu
-        # another copy of csrc/sha256_argmin.cu (the parent commit's)
-        # built beside the package's: the kernel checks, then old against
-        # new in turns (against())
+    python3 chip_smoke.py --against CHECKOUT
+        # the build and kernel checks, then this package against the one
+        # in CHECKOUT (another commit's tree, e.g. the parent's from
+        # `git archive`), each through its own wrappers in a process of
+        # its own, in turns (against())
 
 Drives ``distributed_bitcoinminer_tpu_torch`` on the card and prints one
 JSON line per phase:
@@ -35,7 +36,9 @@ JSON line per phase:
    arg-min words until the hit), and the launch after the hit leaving the
    carry untouched. K5 (batched segment-min): one batch of rows over four
    messages (1- and 2-block tails), digit classes 1-9, ragged windows, a
-   three-row segment and empty-window rows, word for word against
+   three-row segment, a row of each 2-block tail shape and empty-window
+   rows (every tail shape among them, and among K2's windows, which hold
+   a 2^18-lane window of each 2-block shape), word for word against
    ``span_segmin_scan`` at the default grid and at 37 blocks; and the
    searcher's batched dispatch of eight mice and of nine jobs over the
    digit classes against each job's own ``search`` (K1/K6). Then K3 and
@@ -127,11 +130,15 @@ JSON line per phase:
    allows them, K1's grid sweep, K1 beside its plain scan, K2's miss and
    first-lane hit); K7's bound is the work its function needs
    (``K7_CLOCKS_PER_LANE_ITER``), not its emitted SASS. Timed with
-   CUDA events, beside the bound from the integer work
-   each nonce needs (``needed_int_ops``: a run of lanes' shared work over
-   its lanes, and each lane's own; plus the target compare for K2)
-   at the SM's issue rate and, under other names, the same work on the
-   INT32 pipe alone and the INT32 instructions of K1's own SASS loop.
+   CUDA events, beside the bound from the integer work each nonce needs
+   (``needed_int_ops``: a run of lanes' shared work over its lanes, and
+   each lane's own; plus the target compare for K2), the larger of two
+   floors (``bound_floors``): every instruction at the SM's issue rate,
+   and the busier of the INT32 and FMA pipes with the rotates placed on
+   them at best (a rotate is one SHF on the INT32 pipe or two IMADs on
+   the FMA pipe); beside it, not as a floor, every rotate and logic
+   instruction on the INT32 pipe (``int32_only_ms``) and the INT32
+   instructions of K1's own SASS loop on that pipe.
 
 Then the ``kernels`` line and, last, the ``ok`` line. Any failure exits
 non-zero without the ``ok`` line. It imports nothing of JAX.
@@ -155,9 +162,9 @@ PKG = "distributed_bitcoinminer_tpu_torch"
 #: Instructions one Hopper SM issues a clock: four schedulers, one warp
 #: instruction (32 lanes) each. No integer work issues faster. The INT32
 #: pipe takes 64 lanes a clock, but the compiler also puts integer adds,
-#: shifts and moves on the FMA pipe (IMAD, VIADD), so the INT32 pipe alone
-#: does not bound the work: K4 runs its 2-block tails at about 100% of a
-#: bound taken at 64 lanes a clock.
+#: shifts and moves on the FMA pipe (IMAD, VIADD), and a rotate can go
+#: there as two IMADs, so the INT32 pipe bounds a lane only through the
+#: logic and what rotates it keeps (``bound_floors``).
 RATE_ISSUE_PER_CLK_PER_SM = 128
 RATE_INT32_PER_CLK_PER_SM = 64     # INT32 lanes of one Hopper SM per clock
 RATE_FMA_PER_CLK_PER_SM = 64       # IMAD lanes of its FMA pipe per clock
@@ -259,25 +266,31 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def sass_loop_instructions(lib: str, variant: int, outdir: str,
-                           tag: str = ""):
-    """Instructions a nonce of the arg-min search kernel's lane work for
-    the variant's instantiation (0: 1-block tail, 1: 2-block, 2: K4's
-    digit-free second block), from ``cuobjdump -sass``
-    (``tools.tune.sass_loops``). The widest loop walks the runs and the
-    widest loop inside it is the lane loop, so a nonce costs the lane
-    loop and a ``RUN_LANES``-th of the rest of the run loop (a kernel
-    with one loop, the parent design's, costs that loop). Returns
-    (instructions a nonce, the kernel's instructions, opcode counts a
-    nonce, the loops' instructions ``{"run_loop": .., "lane_loop": ..}``)."""
+                           tag: str = "",
+                           kernel: str = "sha256_argmin_kernelILi{v}E"):
+    """Instructions a nonce of a search kernel's lane work (the arg-min
+    kernel's, or ``kernel``'s, its mangled name's start with the variant
+    as ``{v}``) for the variant's instantiation (0: 1-block
+    tail, 1: the last digit in block 1, 2: a digit-free second block), from
+    ``cuobjdump -sass`` (``tools.tune.sass_loops``). The widest loop walks
+    the runs (K2: its grabs) and the widest loop inside it with no loop
+    inside it is the lane loop, so a nonce costs the lane loop and a
+    ``RUN_LANES``-th of the rest of the run loop (a kernel with one loop,
+    the parent design's, costs that loop). Returns (instructions a nonce,
+    the kernel's instructions, opcode counts a nonce, the loops'
+    instructions ``{"run_loop": .., "lane_loop": ..}``)."""
     from distributed_bitcoinminer_tpu_torch.ops.sha256_cuda import RUN_LANES
     from distributed_bitcoinminer_tpu_torch.tools.tune import (opcode_counts,
                                                                sass_loops)
-    body, loops, total = sass_loops(lib, f"sha256_argmin_kernelILi{variant}E")
+    body, loops, total = sass_loops(lib, kernel.format(v=variant))
     with open(os.path.join(outdir, f"sass{tag}_v{variant}.txt"), "w") as f:
         f.write(body)
+
+    def inside(a, b):   # loop a strictly inside loop b
+        return b[0] <= a[0] and a[1] <= b[1] and (a[0], a[1]) != (b[0], b[1])
     lo, hi, outer = max(loops, key=lambda lp: lp[1] - lp[0])
-    inner = [lp for lp in loops
-             if lo <= lp[0] and lp[1] <= hi and (lp[0], lp[1]) != (lo, hi)]
+    inner = [lp for lp in loops if inside(lp, (lo, hi))]
+    inner = [lp for lp in inner if not any(inside(o, lp) for o in inner)]
     ops = opcode_counts(outer)
     sizes = {"run_loop": len(outer)}
     if inner:
@@ -344,28 +357,44 @@ def fixed_shape(body: str, rem: int, k: int) -> tuple:
     return shape, 2 * (a - 14) + last - 16, last
 
 
-def sass_probe_commands(source: str | None = None, bodies=SASS_BODIES,
-                        tag: str = "") -> dict:
+def sass_probe_commands() -> dict:
     """nvcc commands of the SASS-reading builds: each body with the shapes
     of the three rates blocks fixed at compile time
     (``DBMT_FIXED_SHAPE``, ``DBMT_FIXED_SHAPE1``, ``DBMT_FIXED_LW``), so
-    that the arg-min kernel's loops are the path those lanes run; from
-    ``source`` instead of the package's when given.
+    that the arg-min kernel's loops are the path those lanes run.
     ``{(body, case): (library, command)}``."""
     from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
     cmds = {}
-    for _, body in bodies:
+    for _, body in SASS_BODIES:
         for case, (rem, k) in RATE_SHAPES.items():
             shape, shape1, lw = fixed_shape(body, rem, k)
             lib = os.path.join(sha256_cuda.BUILD_DIR,
-                               f"sass_probe{tag}_{body}_{case}.so")
+                               f"sass_probe_{body}_{case}.so")
             cmd = sha256_cuda._nvcc_command(body, lib)
             cmds[body, case] = (lib, cmd[:-3] + [
                 f"-DDBMT_FIXED_SHAPE={shape}",
                 f"-DDBMT_FIXED_SHAPE1={shape1}",
-                f"-DDBMT_FIXED_LW={lw}"] + cmd[-3:-1] + [
-                    source or cmd[-1]])
+                f"-DDBMT_FIXED_LW={lw}"] + cmd[-3:])
     return cmds
+
+
+def ptxas_kernels(text: str) -> dict:
+    """Registers and spill stores of each kernel in nvcc's ptxas report."""
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:   # the kernel and its template arguments, demangled
+            m = re.search(r"\d+((?:sha256|segmin|reduce|mesh|alu)"
+                          r"\w*?_kernel)"
+                          r"(I(?:L[^E]*E)+E)?", m.group(1))
+            name = m.group(1) + (m.group(2) or "")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels.setdefault(name, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            kernels.setdefault(name, {})["spill_stores"] = int(m.group(1))
+    return kernels
 
 
 def phase_build(outdir: str) -> dict:
@@ -394,16 +423,16 @@ def phase_build(outdir: str) -> dict:
         with open(os.path.join(outdir, f"ptxas_{body}.txt"), "w") as f:
             f.write(ptxas)
         kernels = ptxas_kernels(ptxas)
-        variants = range(3 if body == "hoist" else 2)
+        blocks = {entry: [lib.dbmt_sha256_blocks_per_sm(e, v)
+                          for v in range(3)]
+                  for e, entry in enumerate(("argmin", "until", "segmin"))}
         info["bodies"][body] = {
             "nvcc_seconds": round(b_info.get("seconds", 0), 3),
             "built": b_info.get("built"),
             "threads": lib.dbmt_sha256_argmin_threads(),
             "plan_words": lib.dbmt_sha256_plan_words(),
-            "blocks_per_sm": {
-                entry: [lib.dbmt_sha256_blocks_per_sm(e, v) for v in variants]
-                for e, entry in enumerate(("argmin", "until", "segmin"))},
-            "kernels": kernels}
+            "blocks_per_sm": blocks, "kernels": kernels,
+            "instantiations": instantiations(kernels, blocks)}
     for (body, case), (lib, proc) in probes.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
@@ -421,6 +450,27 @@ def phase_build(outdir: str) -> dict:
     return info
 
 
+#: The search kernels by entry: (kernel, the mangled template arguments of
+#: variant v, the entry's name in dbmt_sha256_blocks_per_sm's order).
+SEARCH_KERNELS = {"K1": ("sha256_argmin_kernel", "ILi{v}EE", "argmin"),
+                  "K2": ("sha256_until_kernel", "ILi{v}ELb0EE", "until"),
+                  "K5": ("sha256_segmin_kernel", "ILi{v}EE", "segmin")}
+
+
+def instantiations(kernels: dict, blocks: dict) -> dict:
+    """Each search kernel's instantiation by variant (0: 1-block tail, 1:
+    the last digit in block 1, 2: a digit-free second block): its
+    registers and spill stores (:func:`ptxas_kernels`) and its resident
+    blocks per SM."""
+    out = {}
+    for kern, (name, args, entry) in SEARCH_KERNELS.items():
+        for v in range(3):
+            k = kernels.get(name + args.format(v=v), {})
+            out[f"{kern}<{v}>"] = [k.get("registers"), k.get("spill_stores"),
+                                   blocks[entry][v]]
+    return out
+
+
 #: Windows that cut runs of lanes (``RUN_LANES``) or lie inside one, as
 #: (rem, k, i0, n, lo_i, hi_i): three runs cut at both ends; shorter than
 #: a run, inside one (a spilling 2-block tail); the top five lanes of a
@@ -434,10 +484,19 @@ CUT_RUN_WINDOWS = ((8, 9, 123_456_781, 40, 123_456_783, 123_456_806),
                    (0, 1, 0, 10, 9, 9))
 
 
+#: One window of each 2-block tail shape at 2^18 lanes, as (rem, k, i0, n,
+#: lo_i, hi_i), valid edges off the run edges: the last digit in the
+#: second block (rem 61, R2's shape), and a digit-free second block (rem
+#: 52, the 50-character message's).
+SHAPE_WINDOWS = ((61, 9, 100_000_007, (1 << 18) + 9, 100_000_011,
+                  100_262_150),
+                 (52, 9, 999_700_003, 1 << 18, 999_700_005, 999_962_140))
+
+
 def kernel_windows():
     """The 30 rem x k cases, (rem, k, prefix, mid, tmpl, i0, n, lo_i,
     hi_i), valid edges off the thread, block and run edges; then the
-    :data:`CUT_RUN_WINDOWS`."""
+    :data:`CUT_RUN_WINDOWS` and the :data:`SHAPE_WINDOWS`."""
     for rem in (0, 1, 3, 4, 31, 32, 55, 56, 62, 63):
         for k in (1, 5, 9):
             prefix, mid, tmpl = tail_case(rem, k)
@@ -448,8 +507,22 @@ def kernel_windows():
                 i0, n = 0, 10 ** k
                 lo_i, hi_i = i0 + min(3, n - 1), i0 + n - 1 - min(5, n - 1)
             yield rem, k, prefix, mid, tmpl, i0, n, lo_i, hi_i
-    for rem, k, i0, n, lo_i, hi_i in CUT_RUN_WINDOWS:
+    for rem, k, i0, n, lo_i, hi_i in CUT_RUN_WINDOWS + SHAPE_WINDOWS:
         yield (rem, k, *tail_case(rem, k), i0, n, lo_i, hi_i)
+
+
+def variants_of(cases) -> dict:
+    """How many of ``cases`` (each led by rem, k and a template) fall in
+    each variant (0: 1-block tail, 1: the last digit in block 1, 2: a
+    digit-free second block); fails unless every variant has one."""
+    from distributed_bitcoinminer_tpu_torch.ops.sha256_cuda import \
+        variant_of
+    counts = {0: 0, 1: 0, 2: 0}
+    for rem, k, tmpl in cases:
+        counts[variant_of(rem, k, int(tmpl.shape[0]))] += 1
+    if not all(counts.values()):
+        fail(f"the checked windows miss a tail shape: {counts}")
+    return counts
 
 
 def body_kw(body, mid, tmpl, rem: int, k: int, deep: bool = False) -> dict:
@@ -530,8 +603,9 @@ def check_k2(dev, body=None) -> dict:
     scan's and the first qualifying lane of the window's hashes; the
     arg-min words must equal when found is 0."""
     from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
-    runs, max_err = 0, 0
+    runs, max_err, shapes = 0, 0, []
     for rem, k, _, mid, tmpl, i0, n, lo_i, hi_i in kernel_windows():
+        shapes.append((rem, k, tmpl))
         targets, firsts = window_targets(rem, k, mid, tmpl, i0, n, lo_i,
                                          hi_i, dev)
         kw = body_kw(body, mid, tmpl, rem, k)
@@ -557,7 +631,8 @@ def check_k2(dev, body=None) -> dict:
                          got=got, want=want, first=first)
                     fail(f"{body or 'K2'} until disagrees at rem={rem} "
                          f"k={k} target={name} grid={grid}")
-    return {"runs": runs, "max_abs_err": max_err}
+    return {"runs": runs, "max_abs_err": max_err,
+            "windows_by_variant": variants_of(shapes)}
 
 
 def chain_windows(dev):
@@ -658,6 +733,15 @@ def segmin_batch():
     seg.append(seg[-1] + 1)
     rows.append(row(p, p.lo_i + 17, p.lo_i + 17, p.lo_i + 22, 6))
     seg.append(seg[-1])
+    # One row of each 2-block tail shape, each a segment of its own: the
+    # last digit in block 1 (R2's message at 10^8) and a digit-free second
+    # block (the 50-character message at 10^9).
+    for data, lower in ((R2_DATA, 10 ** 8 + 7), (DIGIT_FREE_DATA,
+                                                 10 ** 9 + 3)):
+        (q,) = list(NonceSearcher(data, device="cpu").plan(lower,
+                                                           lower + 70_000))
+        rows.append(row(q, q.lo_i, q.lo_i, q.hi_i, q.lanes))
+        seg.append(seg[-1] + 1)
     # Empty windows (lo_i > hi_i): alone, then beside a valid row.
     rows.append(row(p, p.lo_i, p.lo_i + 1, p.lo_i, 4_096))
     seg.append(seg[-1] + 1)
@@ -727,7 +811,7 @@ def check_k5(dev, body=None) -> dict:
                 fail(f"{body or 'K5'} {name} batch at grid {grid}: {got} != "
                      f"per-job search {per_job}")
     return {"rows": len(rows), "segments": seg[-1] + 1,
-            "nblocks": sorted({int(r[1].shape[0]) for r in rows}),
+            "rows_by_variant": variants_of((r[6], r[7], r[1]) for r in rows),
             "lanes": sum(r[5] for r in rows), "max_abs_err": max_err,
             "searcher_batches": {k: len(v) for k, v in jobs.items()}}
 
@@ -1601,45 +1685,77 @@ def plain_search_until(searcher, lower: int, upper: int, target: int):
             t_lo, rem=p.rem, k=p.k, device=searcher.device))
 
 
-#: INT32 instructions of one SHA-256 round whose state differs per lane,
-#: in Hopper's fused forms: S0 and S1 (3 SHF rotates and 1 LOP3 each), ch
-#: and maj (1 LOP3 each), and t1, e and a (4 IADD3).
-ROUND_OPS = 14
+#: Instructions of one SHA-256 round whose state differs per lane, in
+#: Hopper's fused forms: S0 and S1 (3 SHF rotates and 1 LOP3 each), ch and
+#: maj (1 LOP3 each), and t1, e and a (4 IADD3); the rotates and the logic,
+#: 10 of them, run as SHF and LOP3 only on the INT32 pipe, and 6 of those
+#: are rotates.
+ROUND_OPS, ROUND_INT32_OPS, ROUND_ROTATES = 14, 10, 6
+#: s0 or s1 of a schedule word: 2 SHF rotates and a LOP3 on the INT32 pipe,
+#: and the shift, which either pipe takes (IMAD.HI on the FMA pipe).
+SIG_OPS, SIG_INT32_OPS, SIG_ROTATES = 4, 3, 2
 #: K2's per-lane target compare: hi below, hi equal and lo below, fused
 #: into ISETP chains and one predicate combine.
 TARGET_OPS = 3
 
 
-def needed_int_ops(rem: int, k: int, nblocks: int) -> float:
+def needed_int_ops(rem: int, k: int, nblocks: int,
+                   target: bool = False) -> tuple:
     """Integer instructions that one nonce's hash needs, for k digits at
     tail byte ``rem`` of an ``nblocks``-block tail, in Hopper's fused forms
     (IADD3, LOP3, SHF, ISETP, SEL): the work of a run of ``RUN_LANES``
-    aligned lanes, which share every digit but the last, over its lanes.
+    aligned lanes, which share every digit but the last, over its lanes;
+    with ``target``, K2's compare too. Returns ``(all, int32, rotates)``:
+    every instruction; those that run as SHF or LOP3, on the INT32 pipe
+    alone, the rotates and the logic of each round and of s0 and s1; and
+    the rotates among them.
 
     Work that is the same for every lane is left out: the rounds before
     the first digit word, and the schedule words and terms that no digit
-    reaches. Once a run: the digits (per digit the SHF of the /10 quotient
-    and one byte placement; the divides' IMADs issue on the FMA pipe; one
-    OR into each digit word), the schedule words and terms that the other
-    digits reach and the last digit does not, the rounds from the first
-    digit word up to the last digit's word (the first of them adds W to a
-    constant for e and a, 2), and a block's feed-forward (8) when its
-    state differs per run but not per lane. Once a lane: the last digit's
-    byte (one add; it goes from '0' to '9' with no carry), the schedule
-    words that the last digit's word reaches (s0 and s1 only where their
-    input does, the other terms folded into one constant a run), the
-    rounds from the last digit's word on (the first of them, on a state
-    the run shares, adds W for e and a, 2), the feed-forward (8 words
-    between blocks, digest words 0 and 1 at the end, where round 63's e
-    update is dead) and the key compare (2 ISETP, 3 SEL). A run cut by
-    the window's ends does its run work for fewer lanes; that is not
-    counted, so the figure errs low.
+    reaches. Once a run: the digits (per digit the shift of the /10
+    quotient and one byte placement; the divides' IMADs issue on the FMA
+    pipe; one OR, an add of disjoint bytes, into each digit word), the
+    schedule words and terms that the other digits reach and the last
+    digit does not, the rounds from the first digit word up to the last
+    digit's word (the first of them adds W to a constant for e and a, 2),
+    and a block's feed-forward (8) when its state differs per run but not
+    per lane. Once a lane: the last digit's byte (one add; it goes from
+    '0' to '9' with no carry), the schedule words that the last digit's
+    word reaches (s0 and s1 only where their input does, the other terms
+    folded into one constant a run), the rounds from the last digit's word
+    on (the first of them, on a state the run shares, adds W for e and a,
+    2), the feed-forward (8 words between blocks, digest words 0 and 1 at
+    the end, where round 63's e update is dead) and the key compare (2
+    ISETP, 3 SEL). A run cut by the window's ends does its run work for
+    fewer lanes; that is not counted, so the figure errs low.
+
+    The counts err low. The adds, the shifts, the digits' placement, the
+    compares and the selects count as work either pipe could take, though
+    ISETP and SEL run on the INT32 pipe. A rotate counts as one SHF, but
+    :func:`bound_floors` lets it move to the FMA pipe as the two IMADs
+    (IMAD.SHL, IMAD.HI) it costs there, so the pipes' floor holds for any
+    placement of the rotates, not only this source's.
     """
     from distributed_bitcoinminer_tpu_torch.ops.sha256_cuda import RUN_LANES
     digit_words = {b // 4 for b in range(rem, rem + k)}
     last_word = (rem + k - 1) // 4
-    per_run = 2 * k + len(digit_words)
-    per_lane = 1 + 5
+    # [all, int32, rotates] once a run and once a lane
+    run = [2 * k + len(digit_words), 0, 0]
+    lane = [1 + 5 + TARGET_OPS * target, 0, 0]
+
+    def add(acc, ops, int32=0, rotates=0):
+        acc[0] += ops
+        acc[1] += int32
+        acc[2] += rotates
+
+    def sched(acc, terms, taps):
+        """A schedule word's work on the ``terms`` (w16, s0's input, w7,
+        s1's input) that vary, and one constant unless every one of its
+        ``taps`` varies."""
+        adds = (sum(terms) + (not all(taps))) // 2
+        sigmas = terms[1] + terms[3]
+        add(acc, SIG_OPS * sigmas + adds, SIG_INT32_OPS * sigmas,
+            SIG_ROTATES * sigmas)
     run_state = lane_state = False
     for b in range(nblocks):
         run_var = [16 * b + m in digit_words for m in range(16)]
@@ -1653,46 +1769,83 @@ def needed_int_ops(rem: int, k: int, nblocks: int) -> float:
             lane_var.append(any(lterms))
             # The taps that vary per run and not per lane, and the sum of
             # them with the constant ones (per lane: one constant left).
-            ronly = [r and not ln for r, ln in zip(rterms, lterms)]
-            inputs = sum(ronly) + (not all(rterms))
-            per_run += 4 * ronly[1] + 4 * ronly[3] + inputs // 2
+            sched(run, [r and not ln for r, ln in zip(rterms, lterms)],
+                  rterms)
             if lane_var[t]:
-                inputs = sum(lterms) + (not all(lterms))
-                per_lane += 4 * lterms[1] + 4 * lterms[3] + inputs // 2
+                sched(lane, lterms, lterms)
         for t in range(64):
             if lane_state:
-                per_lane += ROUND_OPS
+                add(lane, ROUND_OPS, ROUND_INT32_OPS, ROUND_ROTATES)
             elif lane_var[t]:
-                per_lane += 2
-                per_run += ROUND_OPS if run_state else 0
+                add(lane, 2)
+                if run_state:
+                    add(run, ROUND_OPS, ROUND_INT32_OPS, ROUND_ROTATES)
                 lane_state = True
             elif run_state:
-                per_run += ROUND_OPS
+                add(run, ROUND_OPS, ROUND_INT32_OPS, ROUND_ROTATES)
             elif run_var[t]:
-                per_run += 2
+                add(run, 2)
                 run_state = True
         if b == nblocks - 1:
-            per_lane += 2 - 1
+            add(lane, 2 - 1)
         elif lane_state:
-            per_lane += 8
+            add(lane, 8)
         elif run_state:
-            per_run += 8
-    return per_lane + per_run / RUN_LANES
+            add(run, 8)
+    return tuple(ln + r / RUN_LANES for ln, r in zip(lane, run))
 
 
-def bound_ms(lanes: int, int_per_lane: int, dev_info: dict,
-             per_clk: int = RATE_ISSUE_PER_CLK_PER_SM) -> tuple:
-    """(least milliseconds, what bounds it) for ``lanes`` lanes of
-    ``int_per_lane`` integer instructions, issued at ``per_clk`` lanes a
-    clock on each SM (default: the issue rate; the INT32 pipe's 64 gives
-    the time if every instruction went through that pipe) at the card's
-    maximum SM clock, against the bytes the call must move (the 196-byte
-    plan in, at most 32 bytes out) at 3.35 TB/s."""
+def clock_ms(lanes: int, per_lane: float, dev_info: dict,
+             per_clk: int) -> float:
+    """Milliseconds of ``lanes`` lanes of ``per_lane`` instructions at
+    ``per_clk`` lanes a clock on every SM at the card's maximum SM
+    clock."""
     clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
-    ops_s = lanes * int_per_lane / (dev_info["sms"] * per_clk * clk_hz)
-    bytes_s = (4 * 49 + 32) / 3.35e12
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
-                                       else "bytes")
+    return lanes * per_lane / (dev_info["sms"] * per_clk * clk_hz) * 1e3
+
+
+def pipes_per_lane(ops: tuple) -> float:
+    """The least instructions a lane puts on the busier of the SM's two
+    integer pipes (INT32 and FMA, 64 lanes a clock each), for ``ops`` =
+    ``(all, int32, rotates)`` of :func:`needed_int_ops`: the SHF and LOP3
+    work runs on the INT32 pipe, every other instruction on either pipe,
+    and any x of the rotates on the FMA pipe instead, as two IMADs each.
+    With the work balanced, both pipes carry ``(all + x) / 2``, the issue
+    rate's share too; that takes x = (int32 - other) / 3 rotates, fewer
+    when the INT32 work is no more than the rest, and all of them at
+    most."""
+    total, int32, rotates = ops
+    moved = min(rotates, max(0.0, (2 * int32 - total) / 3))
+    return max(int32 - moved, (total + moved) / 2)
+
+
+def bound_floors(lanes: int, ops: tuple, dev_info: dict,
+                 nbytes: int = 4 * 49 + 32) -> dict:
+    """The least milliseconds of ``lanes`` lanes that each need ``ops`` =
+    ``(all, int32, rotates)`` instructions (:func:`needed_int_ops`), three
+    floors: every instruction at the SM's issue rate (128 lanes a clock,
+    ``issue_ms``), the busier integer pipe at 64 with the rotates placed
+    at best (:func:`pipes_per_lane`, ``pipes_ms``), and ``nbytes`` (by
+    default the 196-byte plan in, at most 32 bytes out) at 3.35 TB/s.
+    ``ms`` is the largest, ``by`` what sets it ("operations" or "bytes").
+    ``int32_only_ms``, every SHF and LOP3 on the INT32 pipe, is not a
+    floor (a rotate can leave that pipe), only this source's placement's
+    cost: it is reported beside the bound."""
+    issue = clock_ms(lanes, ops[0], dev_info, RATE_ISSUE_PER_CLK_PER_SM)
+    pipes = clock_ms(lanes, pipes_per_lane(ops), dev_info,
+                     RATE_INT32_PER_CLK_PER_SM)
+    int32_only = clock_ms(lanes, ops[1], dev_info, RATE_INT32_PER_CLK_PER_SM)
+    nbytes_ms = nbytes / 3.35e12 * 1e3
+    ms = max(issue, pipes, nbytes_ms)
+    return {"ms": ms, "by": "bytes" if ms == nbytes_ms else "operations",
+            "issue_ms": issue, "pipes_ms": pipes,
+            "int32_only_ms": int32_only, "bytes_ms": nbytes_ms}
+
+
+def bound_ms(lanes: int, ops: tuple, dev_info: dict) -> tuple:
+    """(least milliseconds, what bounds it) of :func:`bound_floors`."""
+    f = bound_floors(lanes, ops, dev_info)
+    return f["ms"], f["by"]
 
 
 #: A 50-character message: in the 10^9 block the tail holds 52 bytes before
@@ -1741,31 +1894,34 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
         with ClockSampler() as clocks:
             ms = cuda_ms(lambda: sha256_cuda.sha256_argmin(*args, **kw), 3)
         nb = int(p.template.shape[0])
+        variant = sha256_cuda.variant_of(p.rem, p.k, nb)
         per_lane, total, ops, loops = sass_loop_instructions(
             os.path.join(sha256_cuda.BUILD_DIR,
-                         f"sass_probe_rolled_{name}.so"), nb - 1, outdir,
+                         f"sass_probe_rolled_{name}.so"), variant, outdir,
             tag=f"_rolled_{name}")
-        whole, _, _, _ = sass_loop_instructions(sha256_cuda.LIBRARY, nb - 1,
+        whole, _, _, _ = sass_loop_instructions(sha256_cuda.LIBRARY, variant,
                                                 outdir)
         sass_alu = sass_alu_count(ops)
         needed = needed_int_ops(p.rem, p.k, nb)
-        b_ms, b_by = bound_ms(p.lanes, needed, dev_info)
-        sass_ms, _ = bound_ms(p.lanes, sass_alu, dev_info,
-                              RATE_INT32_PER_CLK_PER_SM)
+        floors = bound_floors(p.lanes, needed, dev_info)
         cases[name] = {"data": data, "lanes": p.lanes, "rem": p.rem,
-                       "k": p.k, "nblocks": nb, "ms": ms,
+                       "k": p.k, "nblocks": nb, "variant": variant, "ms": ms,
                        "nonces_per_s": p.lanes / (ms / 1e3),
-                       "needed_int_ops_per_lane": needed,
-                       "bound_ms": b_ms, "bound_by": b_by,
-                       "share_of_bound": b_ms / ms,
-                       "int32_pipe_ms": bound_ms(
-                           p.lanes, needed, dev_info,
-                           RATE_INT32_PER_CLK_PER_SM)[0],
+                       "needed_int_ops_per_lane": needed[0],
+                       "needed_int32_ops_per_lane": needed[1],
+                       "needed_rotates_per_lane": needed[2],
+                       "bound_ms": floors["ms"], "bound_by": floors["by"],
+                       "share_of_bound": floors["ms"] / ms,
+                       "issue_floor_ms": floors["issue_ms"],
+                       "pipes_floor_ms": floors["pipes_ms"],
+                       "int32_only_ms": floors["int32_only_ms"],
                        "sass_loop_insns_per_lane": per_lane,
                        "sass_loops": loops,
                        "sass_alu_insns_per_lane": sass_alu,
                        "sass_pipes_per_lane": pipe_counts(ops),
-                       "sass_issue_bound_ms": sass_ms,
+                       "sass_int32_pipe_ms": clock_ms(
+                           p.lanes, sass_alu, dev_info,
+                           RATE_INT32_PER_CLK_PER_SM),
                        "sass_kernel_insns": total, "sass_loop_ops": ops,
                        "sass_loop_insns_all_shapes": whole,
                        "clocks_sm_power_during": clocks.samples}
@@ -1775,7 +1931,6 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
             with ClockSampler() as clocks:
                 pms = cuda_ms(lambda: sha256_cuda.sha256_argmin(
                     *args, **kw, **pkw), 3)
-            variant = sha256_cuda.variant_of(body, p.rem, p.k, nb)
             lane, _, lane_ops, loops = sass_loop_instructions(
                 os.path.join(sha256_cuda.BUILD_DIR,
                              f"sass_probe_{body}_{name}.so"), variant,
@@ -1785,8 +1940,8 @@ def rates_k1(dev_info: dict, outdir: str, dev) -> dict:
                 tag=f"_{body}")
             cases[name][kern] = {
                 "ms": pms, "k1_ms": ms, "nonces_per_s": p.lanes / (pms / 1e3),
-                "bound_ms": b_ms, "share_of_bound": b_ms / pms,
-                "int32_pipe_ms": cases[name]["int32_pipe_ms"],
+                "bound_ms": floors["ms"],
+                "share_of_bound": floors["ms"] / pms,
                 "variant": variant,
                 "sass_loop_insns_per_lane": lane, "sass_loops": loops,
                 "sass_alu_insns_per_lane": sass_alu_count(lane_ops),
@@ -1835,28 +1990,43 @@ def hit_block(dev):
     fail("no 10^9 block of cmu440 has its first hit in [1e8, 1.25e8)")
 
 
-def rates_k2(dev_info: dict, dev, one_block: dict, hit: tuple) -> dict:
+def rates_k2(dev_info: dict, outdir: str, dev, one_block: dict,
+             hit: tuple) -> dict:
     """K2 with a target nothing meets over the one_block case's block
-    (beside K1 there), the plain until scan over 2^22 of its lanes, and K2
-    to a first hit a little past lane 10^8 of another 10^9 block, beside
-    K2 and K1 over all of that block."""
+    (beside K1 there, with the SASS a nonce of its lane work for that
+    shape), the plain until scan over 2^22 of its lanes, and K2 to a first
+    hit a little past lane 10^8 of another 10^9 block, beside K2 and K1
+    over all of that block."""
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
+    from distributed_bitcoinminer_tpu_torch.tools.tune import pipe_counts
     (p,) = list(NonceSearcher("cmu440", device=dev).plan(
         10 ** 9, 2 * 10 ** 9 - 1))
     args = (p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes)
     kw = dict(rem=p.rem, k=p.k, device=dev)
     nb = int(p.template.shape[0])
-    needed = needed_int_ops(p.rem, p.k, nb) + TARGET_OPS
+    needed = needed_int_ops(p.rem, p.k, nb, target=True)
     ms = cuda_ms(lambda: sha256_cuda.sha256_until(*args, 0, 0, **kw), 3)
-    b_ms, b_by = bound_ms(p.lanes, needed, dev_info)
+    floors = bound_floors(p.lanes, needed, dev_info)
+    b_ms, b_by = floors["ms"], floors["by"]
     small = 1 << 22
     sargs = args[:4] + (small - 1, small)
     plain_ms = cuda_ms(lambda: search.span_until_scan(*sargs, 0, 0, **kw), 2)
+    per_lane, _, ops, loops = sass_loop_instructions(
+        os.path.join(sha256_cuda.BUILD_DIR, "sass_probe_rolled_one_block.so"),
+        0, outdir, tag="_until_rolled_one_block",
+        kernel="sha256_until_kernelILi{v}ELb0E")
     info = {"lanes": p.lanes, "rem": p.rem, "k": p.k, "nblocks": nb,
             "ms": ms, "k1_ms_same_block": one_block["ms"],
-            "needed_int_ops_per_lane": needed, "bound_ms": b_ms,
+            "sass_loop_insns_per_lane": per_lane, "sass_loops": loops,
+            "sass_pipes_per_lane": pipe_counts(ops),
+            "needed_int_ops_per_lane": needed[0],
+            "needed_int32_ops_per_lane": needed[1],
+            "needed_rotates_per_lane": needed[2], "bound_ms": b_ms,
             "bound_by": b_by, "share_of_bound": b_ms / ms,
+            "issue_floor_ms": floors["issue_ms"],
+            "pipes_floor_ms": floors["pipes_ms"],
+            "int32_only_ms": floors["int32_only_ms"],
             "ms_2p22": cuda_ms(lambda: sha256_cuda.sha256_until(
                 *sargs, 0, 0, **kw), 5),
             "plain_ms_2p22": plain_ms}
@@ -1867,14 +2037,16 @@ def rates_k2(dev_info: dict, dev, one_block: dict, hit: tuple) -> dict:
         *hargs, t >> 32, t & M32, **hkw), 5)
     miss = cuda_ms(lambda: sha256_cuda.sha256_until(*hargs, 0, 0, **hkw), 3)
     k1 = cuda_ms(lambda: sha256_cuda.sha256_argmin(*hargs, **hkw), 3)
-    hit_needed = needed_int_ops(hp.rem, hp.k, int(hp.template.shape[0])) \
-        + TARGET_OPS
+    hit_floors = bound_floors(f_idx - hp.lo_i + 1, needed_int_ops(
+        hp.rem, hp.k, int(hp.template.shape[0]), target=True), dev_info)
     info["first_hit"] = {
         "base": hp.base, "hit_lane": f_idx, "ms_to_hit": to_hit,
         "ms_no_target_same_block": miss, "k1_ms_same_block": k1,
         "share_of_no_target": to_hit / miss,
-        "bound_ms_to_hit": bound_ms(f_idx - hp.lo_i + 1, hit_needed,
-                                    dev_info)[0]}
+        "bound_ms_to_hit": hit_floors["ms"],
+        "issue_floor_ms_to_hit": hit_floors["issue_ms"],
+        "pipes_floor_ms_to_hit": hit_floors["pipes_ms"],
+        "int32_only_ms_to_hit": hit_floors["int32_only_ms"]}
     if to_hit > 0.2 * miss:
         fail(f"K2 took {to_hit:.2f} ms to a hit at lane {f_idx}, above 20% "
              f"of its {miss:.2f} ms over the whole block")
@@ -1959,8 +2131,8 @@ def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
     # The mouse's range: 6 blocks, 10^5 + 1 nonces.
     mouse_times = in_turns(0, 10 ** 5, 20)
     plans = list(chain.plan(lower, upper))
-    bound = sum(bound_ms(p.lanes, needed_int_ops(
-        p.rem, p.k, int(p.template.shape[0])), dev_info)[0] for p in plans)
+    floors = [bound_floors(p.lanes, needed_int_ops(
+        p.rem, p.k, int(p.template.shape[0])), dev_info) for p in plans]
     # The plain chain: the plain scan and fold of ops.searchop on the
     # card, over four 2^20-lane windows (its pace is ~30 M lanes/s).
     wins = [next(iter(chain.plan(b * 10 ** 9, b * 10 ** 9 + (1 << 20) - 1)))
@@ -2005,8 +2177,8 @@ def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
         fail(f"K6 until chain over the hit block: {got[:2]} != "
              f"(True, {hp.base + f_idx})")
     to_hit_ms = cuda_ms(until_to_hit, 5)
-    hit_needed = needed_int_ops(hp.rem, hp.k, int(hp.template.shape[0])) \
-        + TARGET_OPS
+    hit_needed = needed_int_ops(hp.rem, hp.k, int(hp.template.shape[0]),
+                                target=True)
     # R4's range through search_until: the chain to the first hit, then
     # launches that do no lane work.
     r4 = NonceSearcher("cmu440", device=dev)
@@ -2019,8 +2191,9 @@ def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
             for p in r4_plans if p.base + p.lo_i <= hit_nonce]
     r4_lanes = sum(n for _, n in upto)
     r4_bound = sum(bound_ms(n, needed_int_ops(p.rem, p.k,
-                                              int(p.template.shape[0]))
-                            + TARGET_OPS, dev_info)[0] for p, n in upto)
+                                              int(p.template.shape[0]),
+                                              target=True), dev_info)[0]
+                   for p, n in upto)
     # Where R4's time goes: digit classes 1-7 (7 blocks, 10^7 nonces) and
     # the class-8 block up to the hit, each through search_until alone.
     r4_parts = {name: cuda_ms(lambda: r4.search_until(lo, hi, R4_TARGET), 3)
@@ -2044,7 +2217,11 @@ def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
                           body_ms.items()},
             "bodies_times": body_ms,
             "per_block_ms": sum(times["per_block"]) / 2,
-            "times": times, "bound_ms": bound, "bound_by": "operations",
+            "times": times, "bound_ms": sum(f["ms"] for f in floors),
+            "bound_by": "operations",
+            "issue_floor_ms": sum(f["issue_ms"] for f in floors),
+            "pipes_floor_ms": sum(f["pipes_ms"] for f in floors),
+            "int32_only_ms": sum(f["int32_only_ms"] for f in floors),
             "mouse": {"range": [0, 10 ** 5], "blocks": 6,
                       "ms": sum(mouse_times["chain"]) / 2,
                       "per_block_ms": sum(mouse_times["per_block"]) / 2,
@@ -2070,19 +2247,15 @@ def batch_rows(jobs) -> tuple:
     return rows, list(range(len(rows)))
 
 
-def segmin_bound(rows, dev_info: dict, plan_words: int = 49) -> tuple:
-    """(least milliseconds, what bounds it) for K5 over ``rows``, one
-    segment each: the integer work each row's lanes need
-    (``needed_int_ops``) at the issue rate on every SM at the maximum SM
-    clock, against the bytes it must move (the plan table and four words
-    of block table a row in, 12 bytes per segment out) at 3.35 TB/s."""
-    clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
-    ops = sum(r[5] * needed_int_ops(r[6], r[7], int(r[1].shape[0]))
-              for r in rows)
-    ops_s = ops / (dev_info["sms"] * RATE_ISSUE_PER_CLK_PER_SM * clk_hz)
-    bytes_s = (4 * (plan_words + 4) * len(rows) + 12 * len(rows)) / 3.35e12
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
-                                       else "bytes")
+def segmin_bound(rows, dev_info: dict, plan_words: int = 49) -> dict:
+    """:func:`bound_floors` for K5 over ``rows``, one segment each: the
+    integer work each row's lanes need (``needed_int_ops``) against the
+    bytes it must move (the plan table and four words of block table a row
+    in, 12 bytes per segment out)."""
+    ops = [sum(r[5] * needed_int_ops(r[6], r[7], int(r[1].shape[0]))[j]
+               for r in rows) for j in (0, 1, 2)]
+    return bound_floors(1, ops, dev_info,
+                        (4 * (plan_words + 4) + 12) * len(rows))
 
 
 def launch_delta(fn) -> tuple:
@@ -2154,7 +2327,7 @@ def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
         sha256_cuda._segmin_blocks = lane_share
     plain_ms = cuda_ms(lambda: search.span_segmin_scan(rows, seg,
                                                        device=dev), 1)
-    b_ms, b_by = segmin_bound(rows, dev_info)
+    floors = segmin_bound(rows, dev_info)
     # The same rows under the peeled bodies (K4's rows carry their hoist),
     # and, to tell the rows' mix of tail shapes from the bodies' own cost,
     # the eight jobs all on one message (one shape per digit class); each
@@ -2186,7 +2359,7 @@ def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
                   for r in rows]
     peeled = {kern: {"kernel_ms": in_turns["mixed_messages"][kern],
                      "bound_ms": segmin_bound(
-                         rows, dev_info, 185 if kern == "K4" else 49)[0]}
+                         rows, dev_info, 185 if kern == "K4" else 49)["ms"]}
               for kern in ("K3", "K4")}
     for kern, rr in (("K3", rows), ("K4", with_hoist)):
         peeled[kern]["launch_only_ms"], peeled[kern]["host_prep_ms"] = \
@@ -2199,19 +2372,25 @@ def rates_k5(dev_info: dict, dev, one_block: dict) -> dict:
             "chains_ms": sum(times["chains"]) / 2, "times": times,
             "launches": launches, "fetches": {"k5": 1, "chains": len(jobs)},
             "even_share_ms": even_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "peeled": peeled,
+            "bound_ms": floors["ms"], "bound_by": floors["by"],
+            "issue_floor_ms": floors["issue_ms"],
+            "pipes_floor_ms": floors["pipes_ms"],
+            "int32_only_ms": floors["int32_only_ms"], "peeled": peeled,
             "bodies_in_turns": in_turns}
     brows, bseg = batch_rows([(s0, b * 10 ** 9, b * 10 ** 9 + 10 ** 8 - 1)
                               for b in range(1, 9)])
     big_ms = cuda_ms(lambda: sha256_cuda.sha256_segmin(brows, bseg,
                                                        device=dev), 3)
     lanes = sum(r[5] for r in brows)
-    bb_ms, bb_by = segmin_bound(brows, dev_info)
+    wide_floors = segmin_bound(brows, dev_info)
     wide = {"rows": len(brows), "lanes": lanes, "rem": brows[0][6],
             "k": brows[0][7], "nblocks": int(brows[0][1].shape[0]),
             "ms": big_ms, "ms_per_1e9": big_ms * 1e9 / lanes,
             "k1_ms_per_1e9": one_block["ms"] * 1e9 / one_block["lanes"],
-            "bound_ms": bb_ms, "bound_by": bb_by}
+            "bound_ms": wide_floors["ms"], "bound_by": wide_floors["by"],
+            "issue_floor_ms": wide_floors["issue_ms"],
+            "pipes_floor_ms": wide_floors["pipes_ms"],
+            "int32_only_ms": wide_floors["int32_only_ms"]}
     return {"mice": mice, "wide": wide}
 
 
@@ -2387,7 +2566,8 @@ def phase_rates(dev_info: dict, outdir: str) -> dict:
     dev = torch.device("cuda", 0)
     info = {"K1": rates_k1(dev_info, outdir, dev)}
     hit = hit_block(dev)
-    info["K2"] = rates_k2(dev_info, dev, info["K1"]["one_block"], hit)
+    info["K2"] = rates_k2(dev_info, outdir, dev, info["K1"]["one_block"],
+                          hit)
     info["K5"] = rates_k5(dev_info, dev, info["K1"]["one_block"])
     info["K6"] = rates_k6(dev_info, dev, hit)
     info["until_shapes"] = rates_until_shapes(dev)
@@ -2449,8 +2629,10 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "plain_ms": one["plain_ms_2p22"], "plain_lanes": 1 << 22,
          "ms_at_plain_lanes": one["ms_2p22"],
          "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
-         "int32_pipe_ms": one["int32_pipe_ms"],
-         "sass_issue_bound_ms": one["sass_issue_bound_ms"],
+         "bound_issue_ms": one["issue_floor_ms"],
+         "bound_pipes_ms": one["pipes_floor_ms"],
+         "int32_only_ms": one["int32_only_ms"],
+         "sass_int32_pipe_ms": one["sass_int32_pipe_ms"],
          "sass_pipes_per_lane": one["sass_pipes_per_lane"],
          "library_ms": None},
         {"name": "sha256_until", "route": "cuda", "source": src,
@@ -2462,7 +2644,12 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "plain_ms": k2["plain_ms_2p22"], "plain_lanes": 1 << 22,
          "ms_at_plain_lanes": k2["ms_2p22"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "bound_issue_ms": k2["issue_floor_ms"],
+         "bound_pipes_ms": k2["pipes_floor_ms"],
+         "int32_only_ms": k2["int32_only_ms"],
          "ms_to_first_hit": k2["first_hit"]["ms_to_hit"],
+         "bound_ms_to_first_hit": k2["first_hit"]["bound_ms_to_hit"],
+         "until_after_hit_ms": k6["until_after_hit_ms"],
          "first_hit_lane": k2["first_hit"]["hit_lane"],
          "library_ms": None},
         {"name": "sha256_segmin", "route": "cuda", "source": src,
@@ -2479,6 +2666,10 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "plain_ms": k5["mice"]["plain_ms"],
          "bound_ms": k5["mice"]["bound_ms"],
          "bound_by": k5["mice"]["bound_by"],
+         "bound_issue_ms": k5["mice"]["issue_floor_ms"],
+         "bound_pipes_ms": k5["mice"]["pipes_floor_ms"],
+         "int32_only_ms": k5["mice"]["int32_only_ms"],
+         "host_table_ms": k5["mice"]["host_prep_ms"],
          "wide_rows_ms_per_1e9": k5["wide"]["ms_per_1e9"],
          "wide_rows_bound_ms": k5["wide"]["bound_ms"],
          "library_ms": None},
@@ -2494,6 +2685,9 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "plain_ms": k6["plain_ms"], "plain_lanes": k6["plain_lanes"],
          "ms_at_plain_lanes": k6["ms_at_plain_lanes"],
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+         "bound_issue_ms": k6["issue_floor_ms"],
+         "bound_pipes_ms": k6["pipes_floor_ms"],
+         "int32_only_ms": k6["int32_only_ms"],
          "until_ms_to_hit": k6["until_to_hit"]["ms"],
          "until_lanes_to_hit": k6["until_to_hit"]["hit_lane"] + 1,
          "until_bound_ms_to_hit": k6["until_to_hit"]["bound_ms"],
@@ -2615,7 +2809,9 @@ def peeled_entry(kern: str, src: str, launches: int, check: dict,
         "plain_ms": mine["plain_ms_2p22"], "plain_lanes": 1 << 22,
         "ms_at_plain_lanes": mine["ms_2p22"],
         "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
-        "int32_pipe_ms": one["int32_pipe_ms"],
+        "bound_issue_ms": one["issue_floor_ms"],
+        "bound_pipes_ms": one["pipes_floor_ms"],
+        "int32_only_ms": one["int32_only_ms"],
         "sass_alu_insns_per_lane": mine["sass_alu_insns_per_lane"],
         "two_block_ms": rates["K1"]["two_block"][kern]["ms"],
         "two_block_digit_free_ms":
@@ -2631,250 +2827,276 @@ def peeled_entry(kern: str, src: str, launches: int, check: dict,
 
 # ------------------------------------------------------------- --against
 
-def build_against(source: str) -> dict:
-    """Start the builds of another copy of ``csrc/sha256_argmin.cu`` at
-    ``source`` (the parent commit's): its rolled and hoist libraries and
-    its hoist body's fixed-shape SASS-reading builds, one nvcc each, into
-    ``build/against_*.so``. Returns ``{key: (library, process)}``."""
-    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
-    os.makedirs(sha256_cuda.BUILD_DIR, exist_ok=True)
-    cmds = {}
-    for body in ("rolled", "hoist"):
-        lib = os.path.join(sha256_cuda.BUILD_DIR, f"against_{body}.so")
-        cmds[body] = (lib, sha256_cuda._nvcc_command(body, lib)[:-1]
-                      + [source])
-    cmds.update(sass_probe_commands(source, (("K4", "hoist"),),
-                                    "_against"))
-    return {key: (lib, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
-                                        stderr=subprocess.PIPE, text=True))
-            for key, (lib, cmd) in cmds.items()}
-
-
-def against_library(path: str, body: str):
-    """A library of the other source for ``body``, loaded with the entries
-    it has and held to ``load()``'s check of its body and plan size."""
-    import ctypes
-
-    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
-    lib = ctypes.CDLL(path)
-    for name, argtypes in sha256_cuda._ENTRIES.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    words = (sha256_cuda.HOIST_PLAN_WORDS if body == "hoist"
-             else sha256_cuda.PLAN_WORDS)
-    if lib.dbmt_sha256_body() != sha256_cuda.BODIES[body] \
-            or lib.dbmt_sha256_plan_words() != words:
-        fail(f"the other source's {body} library holds another body")
-    return lib
-
-
-def run_lanes_of(lib) -> int:
-    """The lanes a library's kernels take as one unit of work: its
-    ``dbmt_sha256_run_lanes()``, or 1 for a source without runs (one
-    lane a thread)."""
-    return (lib.dbmt_sha256_run_lanes()
-            if hasattr(lib, "dbmt_sha256_run_lanes") else 1)
-
-
-class Using:
-    """``with Using(libs, who):`` the wrappers launch the other source's
-    libraries, sized by their run length (``who`` "old"), or the
-    package's own ("new")."""
-
-    def __init__(self, libs: dict, who: str):
-        self.libs, self.who = libs, who
-        lanes = {run_lanes_of(lib) for lib in libs.values()}
-        if len(lanes) != 1:
-            fail(f"the other source's libraries disagree on their run "
-                 f"length: {sorted(lanes)}")
-        (self.run_lanes,) = lanes
-
-    def __enter__(self):
-        from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
-        self.saved = (dict(sha256_cuda._libs), sha256_cuda.RUN_LANES)
-        if self.who == "old":
-            sha256_cuda._libs.update(self.libs)
-            sha256_cuda.RUN_LANES = self.run_lanes
-        return self
-
-    def __exit__(self, *exc):
-        from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
-        sha256_cuda._libs.clear()
-        sha256_cuda._libs.update(self.saved[0])
-        sha256_cuda.RUN_LANES = self.saved[1]
-        return False
-
-
-def old_new_turns(libs: dict, launch, reps: int, answer=words,
-                  make=None) -> dict:
-    """``launch()`` timed in turns old, new, new, old (each turn the mean
-    milliseconds of ``reps`` launches after one untimed one, between
-    CUDA events); ``answer(launch())`` must be the same under both. With
-    ``make``, each turn times the callable ``make()`` returns instead
-    (made under that turn's libraries)."""
-    times, answers = {"old": [], "new": []}, {}
-    for who in ("old", "new", "new", "old"):
-        with Using(libs, who):
-            fn = make() if make else launch
-            answers[who] = answer(fn())
-            times[who].append(cuda_ms(fn, reps))
-    if answers["old"] != answers["new"]:
-        fail(f"old and new kernels disagree: {answers}")
-    old, new = (sum(v) / len(v) for v in (times["old"], times["new"]))
-    return {"old_ms": times["old"], "new_ms": times["new"], "old_mean_ms": old,
-            "new_mean_ms": new, "old_over_new": old / new}
-
-
-def ptxas_kernels(text: str) -> dict:
-    """Registers and spill stores of each kernel in nvcc's ptxas report."""
-    kernels, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"entry function '(\S+)'", line)
-        if m:   # the kernel and its template arguments, demangled
-            m = re.search(r"\d+((?:sha256|segmin|reduce|mesh|alu)"
-                          r"\w*?_kernel)"
-                          r"(I(?:L[^E]*E)+E)?", m.group(1))
-            name = m.group(1) + (m.group(2) or "")
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            kernels.setdefault(name, {})["registers"] = int(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            kernels.setdefault(name, {})["spill_stores"] = int(m.group(1))
-    return kernels
-
-
-def segmin_loads(lib: str) -> dict:
-    """Shared-memory loads (LDS) in K5's 2-block search kernel: in the
-    whole kernel and in each loop (``tools.tune.sass_loops``)."""
-    from distributed_bitcoinminer_tpu_torch.tools.tune import (opcode_counts,
-                                                               sass_loops)
-    body, loops, total = sass_loops(lib, "sha256_segmin_kernelILi2EE")
-    lds = sum(1 for ln in body.splitlines() if re.search(r"\bLDS\b", ln))
-    return {"kernel_insns": total, "kernel_lds": lds,
-            "loops": [{"insns": len(lp[2]),
-                       "lds": opcode_counts(lp[2]).get("LDS", 0)}
-                      for lp in loops]}
-
-
-def against(dev_info: dict, outdir: str, procs: dict) -> dict:
-    """The package's kernels against the other source's, in turns on this
-    card (old, new, new, old): K1 and K4 over the three rates blocks, R3's
-    K6 chain under both bodies, K2 to its first hit, K5 on the eight
-    mice's 56 rows (rolled and K4); the per-pipe SASS instructions a
-    nonce of K1 and K4 on the three rates shapes, both sources, beside
-    K7's INT32 ceiling and the issue bound; and K5's registers, spills
-    and shared-memory loads, both sources."""
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds of ``fn`` over ``reps`` runs after one
+    warm-up, the device synchronised before and after."""
     import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def against_cases(dev) -> dict:
+    """What ``--against`` times in turns, by name, through the wrappers of
+    whichever copy of the package is first on ``sys.path`` (calls that
+    the parent commit's package takes as this one does):
+    ``{name: setup}``, ``setup()`` giving ``(reps, make, answer, host)``:
+    each turn times the callable ``make()`` returns, over ``reps`` runs
+    after one, between CUDA events (on the host's clock with ``host``),
+    and ``answer`` of its result must be the same for both packages.
+
+    K1 and K4 over the three rates blocks and R3's K6 chain under both
+    bodies; K2 over each rates block with a target nothing meets, to the
+    first hit of :func:`hit_block`, and one chained launch after a hit,
+    and under K4's body over the first block and to that hit; K5 on the
+    eight mice's 56 rows, rolled and under K4 (the call, its launches
+    alone, the host's table and its copy), and over eight rows of 10^8
+    lanes of each tail shape."""
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
-    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    from distributed_bitcoinminer_tpu_torch.ops import searchop, sha256_cuda
+    from distributed_bitcoinminer_tpu_torch.ops.search import devloop_carry
     from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
         build_hoist
-    from distributed_bitcoinminer_tpu_torch.tools import tune
-    errs = {}
-    for key, (lib, proc) in procs.items():
-        _, errs[key] = proc.communicate()
-        if proc.returncode != 0:
-            fail(f"the build of the other source ({key}) failed: "
-                 f"{errs[key][-3000:]}")
-    libs = {body: against_library(procs[body][0], body)
-            for body in ("rolled", "hoist")}
-    dev = torch.device("cuda", 0)
-    info = {"blocks": {}, "sass": {}}
-    for name, data, lower, upper in RATE_BLOCKS:
-        (p,) = list(NonceSearcher(data, device=dev).plan(lower, upper))
-        args = (p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes)
-        kw = dict(rem=p.rem, k=p.k, device=dev)
-        hoist = build_hoist(p.midstate, p.template, p.rem, p.k).ops
-        nb = int(p.template.shape[0])
-        block = {"lanes": p.lanes, "rem": p.rem, "k": p.k, "nblocks": nb}
-        block["K1"] = old_new_turns(
-            libs, lambda: sha256_cuda.sha256_argmin(*args, **kw), 3)
-        block["K4"] = old_new_turns(
-            libs, lambda: sha256_cuda.sha256_argmin(
-                *args, **kw, peel=True, hoist=hoist), 3)
-        info["blocks"][name] = block
-        emit("against_block", name=name, **block)
-        v4 = sha256_cuda.variant_of("hoist", p.rem, p.k, nb)
-        sass = {}
-        for kern, old_lib, new_lib, variant in (
-                ("K1", procs["rolled"][0],
-                 os.path.join(sha256_cuda.BUILD_DIR,
-                              f"sass_probe_rolled_{name}.so"), nb - 1),
-                ("K4", procs["hoist", name][0],
-                 os.path.join(sha256_cuda.BUILD_DIR,
-                              f"sass_probe_hoist_{name}.so"), v4)):
-            sass[kern] = {}
-            for who, lib in (("old", old_lib), ("new", new_lib)):
-                _, _, ops, loops = sass_loop_instructions(
-                    lib, variant, outdir, tag=f"_against_{who}_{kern}_{name}")
-                sass[kern][who] = {**tune.pipe_counts(ops), "loops": loops,
-                                   "ops": ops}
-        info["sass"][name] = sass
-    r3 = {"K1": NonceSearcher("cmu440", device=dev),
-          "K4": NonceSearcher("cmu440", device=dev, peel=True)}
-    info["r3_chain"] = {
-        kern: old_new_turns(libs, lambda s=s: s.search(0, 1 << 32), 1,
-                            answer=lambda a: a)
-        for kern, s in r3.items()}
-    hp, t, f_idx = hit_block(dev)
-    hargs = (hp.midstate, hp.template, hp.lo_i, hp.lo_i, hp.hi_i, hp.lanes,
-             t >> 32, t & M32)
-    # found and f_idx: after a hit the arg-min words depend on timing.
-    info["k2_to_hit"] = {"hit_lane": f_idx, **old_new_turns(
-        libs, lambda: sha256_cuda.sha256_until(*hargs, rem=hp.rem, k=hp.k,
-                                               device=dev), 5,
-        answer=lambda t: words(t)[:2])}
-    rows, seg = batch_rows(mice_jobs(dev))
-    hoisted = [r + (build_hoist(r[0], r[1], r[6], r[7]).ops,) for r in rows]
+    cases, memo = {}, {}
 
-    def flat(t):
-        return words(t.reshape(-1))
-    info["k5_mice_rows"] = {"rows": len(rows)}
-    for kern, rr, kw in (("K5", rows, {}), ("K4", hoisted, {"peel": True})):
-        info["k5_mice_rows"][kern] = old_new_turns(
-            libs, lambda: sha256_cuda.sha256_segmin(rr, seg, device=dev,
-                                                    **kw), 20, answer=flat)
-        # The launches alone, the plan table prepared once per turn.
-        info["k5_mice_rows"][kern + "_launch_only"] = old_new_turns(
-            libs, None, 20, answer=flat,
-            make=lambda: sha256_cuda.prepare_segmin(rr, seg, device=dev,
-                                                    **kw).launch)
-    new_ptxas = {b: ptxas_kernels(sha256_cuda.build_info[b].get("ptxas", ""))
-                 for b in ("rolled", "hoist")}
-    info["segmin"] = {
-        who: {b: {"ptxas": {k: v for k, v in (
-            ptxas_kernels(errs[b]) if who == "old" else new_ptxas[b]).items()
-            if k.startswith("sha256_segmin")},
-                  "sass": segmin_loads(procs[b][0] if who == "old"
-                                       else sha256_cuda.LIBRARIES[b])}
-              for b in ("rolled", "hoist")}
-        for who in ("old", "new")}
-    counts = {f"{kern}_{who}": info["sass"]["one_block"][kern][who]["int32"]
-              for kern in ("K1", "K4") for who in ("old", "new")}
-    k7 = tune.probe_k7(dev, counts)
-    clk_hz = float(dev_info["clocks_max_sm_mhz"].split()[0]) * 1e6
-    sm_clocks = dev_info["sms"] * clk_hz
-    for name, block in info["blocks"].items():
-        for kern in ("K1", "K4"):
-            for who in ("old", "new"):
-                sass = info["sass"][name][kern][who]
-                rate = block["lanes"] / (block[kern][f"{who}_mean_ms"] / 1e3)
-                sass.update({
-                    "nonces_per_s": rate,
-                    "int32_ceiling_share":
-                        rate * sass["int32"] / k7["int32_insns_per_s"],
-                    "issue_share": rate * sass["all"]
-                    / (sm_clocks * RATE_ISSUE_PER_CLK_PER_SM),
-                    "int32_pipe_share": rate * sass["int32"]
-                    / (sm_clocks * RATE_INT32_PER_CLK_PER_SM),
-                    "fma_pipe_share": rate * sass["fma"]
-                    / (sm_clocks * RATE_FMA_PER_CLK_PER_SM)})
-    info["K7"] = {k: k7[k] for k in ("int32_insns_per_s",
-                                     "int32_per_clk_per_sm",
-                                     "issued_per_clk_per_sm", "sm_clock_mhz")}
+    def once(key, fn):
+        if key not in memo:
+            memo[key] = fn()
+        return memo[key]
+
+    def block(name):
+        """A rates block's plan: (args, kw, its K4 hoist)."""
+        def make():
+            _, data, lower, upper = next(b for b in RATE_BLOCKS
+                                         if b[0] == name)
+            (p,) = list(NonceSearcher(data, device=dev).plan(lower, upper))
+            return ((p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i,
+                     p.lanes), dict(rem=p.rem, k=p.k, device=dev),
+                    build_hoist(p.midstate, p.template, p.rem, p.k).ops, p)
+        return once(("block", name), make)
+
+    def hit():
+        """:func:`hit_block`'s (until arguments, kw, K4 hoist)."""
+        def make():
+            hp, t, _ = hit_block(dev)
+            return ((hp.midstate, hp.template, hp.lo_i, hp.lo_i, hp.hi_i,
+                     hp.lanes, t >> 32, t & M32),
+                    dict(rem=hp.rem, k=hp.k, device=dev),
+                    build_hoist(hp.midstate, hp.template, hp.rem, hp.k).ops)
+        return once("hit", make)
+
+    def mice(peeled):
+        def make():
+            rows, seg = batch_rows(mice_jobs(dev))
+            if peeled:
+                rows = [r + (build_hoist(r[0], r[1], r[6], r[7]).ops,)
+                        for r in rows]
+            return rows, seg, dict(device=dev, peel=peeled)
+        return once(("mice", peeled), make)
+
+    def flat(out):
+        return words(out.reshape(-1))
+
+    def first_two(out):
+        return words(out)[:2]
+
+    for name, *_ in RATE_BLOCKS:
+        cases[f"K1 {name}"] = lambda name=name: (
+            3, lambda: (lambda: sha256_cuda.sha256_argmin(
+                *block(name)[0], **block(name)[1])), words, False)
+        cases[f"K4 {name}"] = lambda name=name: (
+            3, lambda: (lambda: sha256_cuda.sha256_argmin(
+                *block(name)[0], **block(name)[1], peel=True,
+                hoist=block(name)[2])), words, False)
+        cases[f"K2 {name}, no hit"] = lambda name=name: (
+            2, lambda: (lambda: sha256_cuda.sha256_until(
+                *block(name)[0], 0, 0, **block(name)[1])), words, False)
+    for kern, peel in (("K1", False), ("K4", True)):
+        cases[f"R3's K6 chain, {kern}"] = lambda peel=peel: (
+            1, lambda: (lambda s=NonceSearcher("cmu440", device=dev,
+                                               peel=peel): s.search(
+                0, 1 << 32)), list, False)
+    cases["K2 to its hit"] = lambda: (
+        5, lambda: (lambda: sha256_cuda.sha256_until(*hit()[0], **hit()[1])),
+        first_two, False)
+
+    def after_hit():
+        args, kw, _, p = block("one_block")
+        found = devloop_carry(searchop.UNTIL_OP, dev)
+        found[0] = 1
+        return lambda: sha256_cuda.sha256_until_fold(
+            p.midstate, p.template, found, p.lo_i, p.lo_i, p.hi_i, p.lanes,
+            0, 0, p.base, **kw)
+    cases["K2 chained, after a hit"] = lambda: (200, after_hit, words, False)
+    cases["K2 under K4, one_block, no hit"] = lambda: (
+        2, lambda: (lambda: sha256_cuda.sha256_until(
+            *block("one_block")[0], 0, 0, **block("one_block")[1],
+            peel=True, hoist=block("one_block")[2])), words, False)
+    cases["K2 under K4, to its hit"] = lambda: (
+        5, lambda: (lambda: sha256_cuda.sha256_until(
+            *hit()[0], **hit()[1], peel=True, hoist=hit()[2])),
+        first_two, False)
+    for kern, peeled in (("K5", False), ("K5 under K4", True)):
+        cases[f"{kern}, mice rows: call"] = lambda peeled=peeled: (
+            20, lambda: (lambda: sha256_cuda.sha256_segmin(
+                mice(peeled)[0], mice(peeled)[1], **mice(peeled)[2])),
+            flat, False)
+        cases[f"{kern}, mice rows: launches alone"] = lambda peeled=peeled: (
+            20, lambda: sha256_cuda.prepare_segmin(
+                mice(peeled)[0], mice(peeled)[1], **mice(peeled)[2]).launch,
+            flat, False)
+        cases[f"{kern}, mice rows: host table"] = lambda peeled=peeled: (
+            50, lambda: (lambda: sha256_cuda.prepare_segmin(
+                mice(peeled)[0], mice(peeled)[1], **mice(peeled)[2])),
+            None, True)
+    # Eight rows of 10^8 lanes of each tail shape: "cmu440" from 10^9, R2's
+    # message from 10^8 (the last digit in block 1), the 50-character one
+    # from 10^9 (a digit-free second block).
+    for name, data, lower in (("one_block", "cmu440", 10 ** 9),
+                              ("two_block", R2_DATA, 10 ** 8),
+                              ("two_block_digit_free", DIGIT_FREE_DATA,
+                               10 ** 9)):
+        def wide(data=data, lower=lower):
+            s = NonceSearcher(data, device=dev)
+            rows, seg = batch_rows([(s, lower + b * 10 ** 8,
+                                     lower + (b + 1) * 10 ** 8 - 1)
+                                    for b in range(8)])
+            return lambda: sha256_cuda.sha256_segmin(rows, seg, device=dev)
+        cases[f"K5, eight 10^8 rows, {name}"] = lambda wide=wide: (
+            2, wide, flat, False)
+    return cases
+
+
+def build_report() -> dict:
+    """This process's package: the checkout it lies in, and for each lane
+    body the registers and spill stores of its K2 and K5 instantiations
+    (from the ptxas report of a build made in this process, else none)
+    and each entry's resident blocks per SM by variant."""
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    out = {"root": os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(sha256_cuda.__file__))))}
+    for body in sha256_cuda.BODIES:
+        lib = sha256_cuda.load(body)
+        ptxas = sha256_cuda.build_info.get(body, {}).get("ptxas", "")
+        out[body] = {
+            "kernels": {name: k for name, k in ptxas_kernels(ptxas).items()
+                        if re.match(r"sha256_(until|segmin)_kernel", name)},
+            "blocks_per_sm": {
+                entry: [lib.dbmt_sha256_blocks_per_sm(e, v)
+                        for v in range(3)]
+                for e, entry in enumerate(("argmin", "until", "segmin"))}}
+    return out
+
+
+def worker(root: str) -> int:
+    """``--worker ROOT``: serve :func:`against_cases` with the package of
+    the checkout at ``ROOT``, built there, one JSON line a request on
+    standard input (``{"case": name}``) and a reply on standard output
+    (``{"ms", "answer"}``, or ``{"error"}``), after a first line with
+    :func:`build_report`. Standard output carries nothing else."""
+    import traceback
+    sys.path.insert(0, os.path.abspath(root))
+    replies, sys.stdout = sys.stdout, sys.stderr
+
+    def reply(obj):
+        replies.write(json.dumps(obj) + "\n")
+        replies.flush()
+    try:
+        import torch
+
+        from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+        sha256_cuda.build_all()
+        dev = torch.device("cuda", 0)
+        report = build_report()
+        if report["root"] != os.path.abspath(root):
+            fail(f"imported the package under {report['root']}, not the "
+                 f"one under {root}")
+        reply(report)
+        cases, made = against_cases(dev), {}
+        for line in sys.stdin:
+            name = json.loads(line)["case"]
+            if name not in made:
+                made[name] = cases[name]()
+            reps, make, answer, host = made[name]
+            fn = make()
+            got = fn()
+            ms = host_ms(fn, reps) if host else cuda_ms(fn, reps)
+            reply({"ms": ms, "answer": None if answer is None
+                   else list(answer(got))})
+    except BaseException:
+        reply({"error": traceback.format_exc()[-3000:]})
+        return 1
+    return 0
+
+
+class Worker:
+    """A ``--worker`` process for the checkout at ``root``, its standard
+    error in ``outdir/worker_<who>.log``."""
+
+    def __init__(self, root: str, who: str, outdir: str):
+        self.who = who
+        self.log = open(os.path.join(outdir, f"worker_{who}.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", root],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.log,
+            text=True)
+
+    def read(self) -> dict:
+        line = self.proc.stdout.readline()
+        got = json.loads(line) if line else {"error": "no reply"}
+        if "error" in got:
+            fail(f"the {self.who} worker failed (worker_{self.who}.log): "
+                 f"{got['error']}")
+        return got
+
+    def ask(self, case: str) -> dict:
+        self.proc.stdin.write(json.dumps({"case": case}) + "\n")
+        self.proc.stdin.flush()
+        return self.read()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+
+
+def against(dev_info: dict, outdir: str, old: Worker) -> dict:
+    """The package against another checkout's (``old``, the parent
+    commit's), each through its own wrappers and kernels in a
+    :class:`Worker`, in turns on this card: every case of
+    :func:`against_cases`, old, new, new, old, the two answers equal.
+    Also each build's K2 and K5 instantiations (:func:`build_report`)."""
+    import torch
+    new = Worker(ROOT, "new", outdir)
+    workers = {"old": old, "new": new}
+    try:
+        info = {"builds": {who: w.read() for who, w in workers.items()},
+                "cases": {}}
+        for name in against_cases(torch.device("cuda", 0)):
+            times, answers = {"old": [], "new": []}, {}
+            for who in ("old", "new", "new", "old"):
+                got = workers[who].ask(name)
+                times[who].append(got["ms"])
+                answers[who] = got["answer"]
+            if answers["old"] != answers["new"]:
+                fail(f"{name}: the two packages disagree: {answers}")
+            o, n = (sum(v) / len(v) for v in (times["old"], times["new"]))
+            case = info["cases"][name] = {
+                "old_ms": times["old"], "new_ms": times["new"],
+                "old_mean_ms": o, "new_mean_ms": n, "old_over_new": o / n}
+            emit("against_case", name=name, **case)
+    finally:
+        for w in workers.values():
+            w.stop()
     info["nvidia_smi"] = dev_info["nvidia_smi"]
     emit("against", **info)
     return info
@@ -2908,6 +3130,8 @@ def cross_card(outdir: str) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"] and len(sys.argv) == 3:
+        return worker(sys.argv[2])
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script",
               file=sys.stderr)
@@ -2922,11 +3146,11 @@ def main() -> int:
     other = sys.argv[2] if len(sys.argv) == 3 \
         and sys.argv[1] == "--against" else None
     if sys.argv[1:] and not cross and other is None:
-        print("usage: chip_smoke.py [--cross-card | --against SOURCE.cu]",
+        print("usage: chip_smoke.py [--cross-card | --against CHECKOUT]",
               file=sys.stderr)
         return 2
-    if other is not None and not os.path.isfile(other):
-        print(f"chip_smoke: {other} not found", file=sys.stderr)
+    if other is not None and not os.path.isdir(os.path.join(other, PKG)):
+        print(f"chip_smoke: no {PKG}/ in {other}", file=sys.stderr)
         return 2
     outdir = os.path.join(ROOT, "chiprun_out",
                           "chip_smoke_cross_card" if cross else
@@ -2948,10 +3172,14 @@ def main() -> int:
 
     if other:
         dev_info = phase_device()
-        procs = build_against(os.path.abspath(other))
-        phase_build(outdir)
-        phase_kernel()
-        against(dev_info, outdir, procs)
+        old = Worker(os.path.abspath(other), "old", outdir)  # builds beside
+        try:
+            phase_build(outdir)
+            phase_kernel()
+        except BaseException:
+            old.stop()
+            raise
+        against(dev_info, outdir, old)
         emit("done", seconds=time.monotonic() - t0)
         print(ok, flush=True)
         return 0

@@ -27,17 +27,23 @@
 // reduced to the lexicographic (hi, lo, idx) minimum per SEGMENT, segments
 // being contiguous runs of rows (a segment id per row, sorted ascending).
 // The TPU entry runs one kernel per row and combines the rows in jnp; here
-// it is one search launch over every row of a tail-block count (NB is a
-// template parameter, so a batch is at most two search launches) plus one
-// segment-reduce launch. Rows differ in rem, k and lane count, which are
-// run-time fields of the plan. Ragged rows: each row gets a share of the
-// launch's blocks (the host's block table, proportional to its runs of
-// valid lanes), and its blocks stride over those runs. The
-// R-row plan table (49 words a row, 185 under K4) lies in device memory
-// (one copy per batch); a block copies its row's plan into shared memory
-// once. A block writes one partial key; the reduce gives each segment one
-// block, which reduces the partials of the segment's rows. No atomics; an empty segment, or one
-// whose rows have no valid lane, comes out as the all-ones sentinel.
+// the rows fall into three groups by their tail's shape (the variant: a
+// 1-block tail, a 2-block tail whose last digit lies in block 1, a 2-block
+// tail whose second block holds no digit), each group is one search launch
+// of its own instantiation (so each compiles one lane path and keeps its
+// own registers), and one segment-reduce launch follows. When more than
+// one group has rows, the groups' launches run on side streams forked from
+// and joined back to the caller's stream, so that no group waits for
+// another's last blocks. Rows differ in rem, k and lane count, which are
+// run-time fields of the plan. Ragged rows: each row gets a share of its
+// group's blocks (the host's block table, proportional to its runs of
+// valid lanes), and its blocks stride over those runs. The R-row plan
+// table (49 words a row, 185 under K4) lies in device memory (one copy per
+// batch); a block copies its row's plan into shared memory once. A block
+// writes one partial key into its group's own slots; the reduce gives
+// each segment one block, which reduces the partials of the segment's
+// rows. No atomics; an empty segment, or one whose rows have no valid
+// lane, comes out as the all-ones sentinel.
 //
 // K6 replaces the single-device entries of the TPU devloop
 // (_pallas_devloop_span_jit, _pallas_devloop_until_jit): the K1 or K2
@@ -66,19 +72,28 @@
 // repeated shards it runs once. It reads n x 20 bytes at most: launch
 // latency bounds it, so one thread does it.
 //
-// What bounds them: integer instruction issue. A lane reads no memory (the
-// plan travels by value as a kernel parameter, the round constants sit in
-// the constant bank) and a block writes 12 bytes, so the work is the
-// ~1,400 to ~3,000 integer instructions of one or two compressions per
-// lane: the rotates and logic on the INT32 pipe (64 lanes a clock per SM),
-// the adds and shifts that the pipe helpers below move on the FMA pipe
-// (IMAD, 64 more), at most 128 lanes issued a clock per SM. With the pipes
-// split so (see "the two integer pipes"), K1 and K4 issue about 75 of the
-// 128 a clock and the INT32 pipe runs at about 86% of its 64 (NVIDIA H100
-// 80GB HBM3 at 700 W, chip_smoke.py): a round's serial dependences, not
-// one pipe, now set the pace. K2 adds a compare a lane and an atomic and a
-// volatile load a run. K5 reads its row's plan (under K4, the hoist too)
-// from shared memory instead of the parameter bank.
+// What bounds them: integer instruction issue, and within it the INT32
+// pipe. A lane reads no memory (the plan travels by value as a kernel
+// parameter, the round constants sit in the constant bank) and a block
+// writes 12 bytes, so the work is the ~1,400 to ~3,000 integer
+// instructions of one or two compressions per lane. An SM issues at most
+// 128 lanes' instructions a clock, but the rotates (SHF) and the logic
+// (LOP3) run only on the INT32 pipe, 64 lanes a clock; the adds and shifts
+// that the pipe helpers below move go to the FMA pipe (IMAD, 64 more), and
+// a rotate could go there too, as two IMADs. So a lane's count bounds it
+// twice: all its instructions at 128 a clock, and the two pipes' loads at
+// 64 each with the rotates split between them so that the slower pipe is
+// as fast as it can be. As this source places them, K1's 1-block lane
+// issues 74% of its instructions on the INT32 pipe, which caps issue at
+// about 68% of 128 a clock; it runs at 58% of 128 and the INT32 pipe at
+// about 86% of its 64
+// (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py): a round's serial
+// dependences, not one pipe, set the pace. K2 adds a compare a lane and,
+// a grab of runs, one atomic (see "K2's early exit"). K5 reads its row's
+// plan (under K4, the hoist too) from shared memory instead of the
+// parameter bank. K2 and K5 ask for 2 resident blocks a SM (their
+// __launch_bounds__), which leaves a lane 90 to 128 registers: they ran
+// faster so than at 3 or 4 blocks with fewer registers.
 //
 // Design. The TPU grid runs its steps in order and carries accumulators from
 // step to step; GPU blocks run in parallel in no order. So each thread walks
@@ -94,11 +109,23 @@
 // later block may hit first, so a flag would let it hide an earlier hit.
 // Instead a qualifying lane does atomicMin on one device word f_min (reset
 // to all-ones before every launch), and a thread stops as soon as its next
-// run starts above f_min. Only lanes above the lowest hit found so far are
-// skipped, and that never passes over the true first qualifier. K2's runs
-// are handed out in ascending order from a device counter (take_run), not
-// by thread index: an SM does not run its resident blocks at one pace, and
-// a hit whose lanes a slow block owns would otherwise be found late.
+// run starts above the lowest hit it has read. Only lanes above a hit that
+// some thread has found are skipped, and that never passes over the true
+// first qualifier. K2's runs are handed out in ascending order from a
+// device counter, not by thread index: an SM does not run its resident
+// blocks at one pace, and a hit whose lanes a slow block owns would
+// otherwise be found late. Neither the counter nor the lowest hit stands
+// in front of a run (see UntilWalk): a warp's leader takes 32 x kGrab
+// runs with one atomic (in step j of the grab, lane l works its run 32 j +
+// l, so runs still ascend within a grab and grabs with the counter), and
+// it takes the next grab before the warp works the current one, so the
+// atomic's answer arrives during the lane work. A thread reads the lowest
+// hit with a relaxed load one run ahead and cuts its next run at that
+// value. A value one run stale is safe: it is a hit some thread found, so
+// cutting at it skips no lane at or below the lowest qualifying lane; it
+// only may leave a few lanes above it computed. Both device words, the
+// lowest hit and the counter (kept as its complement), start at all-ones:
+// one 8-byte memset resets them.
 //
 // The lane body. Every search entry above runs one of three bodies,
 // chosen when the library is built (DBMT_BODY; the wrapper builds one
@@ -133,8 +160,10 @@
 // t* for K3, per (t*, digit words in block 0) for K4, and per spill shape
 // for a second block that holds digits. A lane jumps to its shape's copy
 // through one switch on a warp-uniform value, so skipped rounds and
-// constant taps cost no per-lane ALU work. The tail block count and, for
-// K4, a digit-free second block are template parameters (the variant).
+// constant taps cost no per-lane ALU work. The tail's shape is every
+// body's template parameter (the variant, tail_variant): a 1-block tail, a
+// 2-block tail whose last digit lies in block 1, a 2-block tail whose
+// second block holds no digit; each instantiation compiles one lane path.
 // Only digest words 0 and 1 leave a body, so the compiler drops round
 // 63's e update and the other six feed-forward adds in every body.
 //
@@ -144,6 +173,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 
 #include <cuda_runtime.h>
 
@@ -251,8 +281,8 @@ __host__ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
 // (see "What bounds them" above). Moving more (all the
 // adds, as 2-input IMADs, or a rotate as IMAD.SHL and IMAD.HI) balanced
 // the pipes exactly but added instructions and latency to the critical
-// path, and ran slower on the card (chip_smoke.py --against reports the
-// split it measures).
+// path, and ran slower on the card (chip_smoke.py reports the split it
+// measures, as `pipes`).
 __constant__ uint32_t kOne = 1u;
 
 // a + b on the FMA pipe.
@@ -460,10 +490,7 @@ __host__ __device__ constexpr bool shape_occurs(int variant, int a, int w0) {
   for (int s = 0; s < 4; ++s) {
     for (int k = 1; k <= 9; ++k) {
       const int v = tail_variant(4 * a + s, k);
-      // K3's second block is one body whatever it holds: its variant 1
-      // covers the 2-block tails of both kinds.
-      if ((v == variant || (DBMT_BODY != 2 && variant == 1 && v == 2)) &&
-          (w0 == 0 || block0_width(4 * a + s, k) == w0)) {
+      if (v == variant && (w0 == 0 || block0_width(4 * a + s, k) == w0)) {
         return true;
       }
     }
@@ -629,9 +656,10 @@ __device__ __forceinline__ void block1_head(const Plan& p,
 // head rounds) is computed once, before the walk, by the constructor; the
 // digits once per run (run); the rest per lane. In variant 1 the last
 // digit lies in block 1, so the whole of block 0 is the same for every
-// lane of a run, and run computes it once (in K3's and the rolled body's
-// variant 1, which also serves tails whose second block holds no digit,
-// when lw says so).
+// lane of a run, and run computes it once; in variant 2 a lane compresses
+// its block 0 and then the digit-free block 1. Each variant is its own
+// instantiation, so a kernel holds one of these paths and the registers
+// it needs.
 template <int VARIANT>
 struct LaneBody {
   uint32_t s;    // rem & 3: the first digit's byte in its word
@@ -676,12 +704,6 @@ struct LaneBody {
 #endif
   }
 
-  // Whether the last digit lies in block 1 (variant 1 always; the rolled
-  // body's and K3's variant 1 also serve digit-free second blocks).
-  __device__ __forceinline__ bool last_in_block1() const {
-    return VARIANT == 1 && (DBMT_BODY == 2 || lw >= 16u);
-  }
-
   // The lanes base + dlo .. base + dhi (dhi < kRun, in ascending order):
   // visit(key) for each, stopping after the first for which it returns
   // true.
@@ -694,7 +716,7 @@ struct LaneBody {
 #if DBMT_BODY == 0
     // The tail words that can hold a digit (t* <= 15), with the run's
     // digits, and the weight of lane d's last digit in each.
-    constexpr int kWords = VARIANT == 0 ? 16 : 18;
+    constexpr int kWords = VARIANT == 1 ? 18 : 16;
     uint32_t wb[kWords], e[kWords];
 #pragma unroll
     for (int m = 0; m < kWords; ++m) {
@@ -703,7 +725,7 @@ struct LaneBody {
                                            : off == 2 ? q[2] : 0u);
       e[m] = static_cast<uint32_t>(m) == lw ? inc : 0u;
     }
-    if (last_in_block1()) {
+    if constexpr (VARIANT == 1) {
       uint32_t st0[8], w0[16];
 #pragma unroll
       for (int r = 0; r < 8; ++r) st0[r] = p.mid[r];
@@ -751,7 +773,7 @@ struct LaneBody {
 #else
     const uint32_t* entry0 = p.deep;
 #endif
-    if (last_in_block1()) {
+    if constexpr (VARIANT == 1) {
       // Block 0 holds field words 0 and, at t* = 14, 1: none varies.
       State st;
       uint32_t W[16];
@@ -834,10 +856,10 @@ struct LaneBody {
   }
 };
 
-// K2's work on one run of a thread's walk, given the lowest hit found so
-// far (all-ones: none): none when the run starts above it (so do all the
-// thread's later runs: returns false, the walk stops); else the run, cut
-// at that hit, each lane's key into best and, at the run's first lane
+// K2's work on one run of a thread's walk, given the lowest hit the thread
+// has read (all-ones: none): none when the run starts above it (so do all
+// the thread's later runs: returns false, the walk stops); else the run,
+// cut at that hit, each lane's key into best and, at the run's first lane
 // below the target, hit(lane), and the run and the walk stop there. Only
 // lanes above a found hit are skipped, so the lowest qualifying lane is
 // never passed over.
@@ -858,25 +880,91 @@ __device__ __forceinline__ bool until_run(const Body& body, const Plan& p,
   return !found;
 }
 
-// The next run of [first, last] that a thread of K2 takes: the device
-// counter *next hands out the runs in ascending order, one to each active
-// thread of the warp (one atomic a warp); false when none is left.
-__device__ __forceinline__ bool take_run(uint32_t first, uint32_t last,
-                                         uint32_t* next, uint32_t& base,
-                                         uint32_t& dlo, uint32_t& dhi) {
-  const unsigned mask = __activemask();
-  const unsigned lane = threadIdx.x & 31u;
-  const int leader = __ffs(mask) - 1;
-  uint32_t step = 0u;
-  if (static_cast<int>(lane) == leader) step = atomicAdd(next, __popc(mask));
-  step = __shfl_sync(mask, step, leader) +
-         static_cast<uint32_t>(__popc(mask & ((1u << lane) - 1u)));
-  if (step > last / kRun - first / kRun) return false;
-  base = (first / kRun + step) * kRun;
-  dlo = base < first ? first - base : 0u;
-  dhi = last - base < kRun - 1u ? last - base : kRun - 1u;
-  return true;
-}
+// ------------------------------------------------------------- K2's walk
+//
+// K2's threads take their runs (counted from the run of the window's first
+// lane) from a device counter, a warp at a time, in grabs of 32 x G runs:
+// in step j of a grab that starts at run c, lane l of the warp works run
+// c + 32 j + l. The warp's leader takes the next grab before the warp
+// works the current one, so the counter's answer arrives during the lane
+// work; and each lane reads the lowest hit one run ahead (see "K2's early
+// exit" above). A larger G takes fewer atomics, but spreads a warp's runs
+// further apart and leaves each lane more runs to check against the
+// lowest hit. Over a 10^9 block and to a hit past its lane 10^8, G = 2, 4
+// and 8 ran within 0.5% of each other and G = 1 up to 1.6% slower
+// (NVIDIA H100 80GB HBM3 at 700 W, builds of this source with each G timed
+// in turns).
+constexpr uint32_t kGrab = 4;
+
+// One warp's share of K2's walk over the runs of [first, last], for L of
+// its lanes: on the card a thread holds its own lane (L = 1) and the warp
+// meets in a shuffle and a vote; the CPU tests hold all 32 lanes of a warp
+// in one object (L = 32) and step the warps in turn. `Warp` gives the
+// lane's index in the warp, the leader's take of a grab (its first run;
+// one atomic), its broadcast to the warp, the warp's vote, the relaxed
+// load of the lowest hit and the report of a hit.
+template <uint32_t G, int L>
+struct UntilWalk {
+  uint32_t first, last;
+  uint32_t nruns;        // runs of [first, last]
+  uint32_t cur;          // the first run of the grab the warp works next
+  uint32_t lowest[L];    // each lane's lowest hit, as read a run ago
+  bool live[L];          // whether the lane may still have work
+  Key best[L];           // each lane's running minimum
+
+  template <class Warp>
+  __device__ __forceinline__ UntilWalk(uint32_t first_, uint32_t last_,
+                                       Warp& warp)
+      : first(first_), last(last_),
+        nruns(last_ / kRun - first_ / kRun + 1u) {
+    cur = warp.broadcast(warp.take(32u * G));
+    for (int l = 0; l < L; ++l) {
+      lowest[l] = warp.lowest();
+      live[l] = true;
+      best[l] = sentinel();
+    }
+  }
+
+  // Lane l's runs of the grab at cur, ascending: false once the lane is
+  // done (a run started above the lowest hit, the lane hit, or its runs
+  // passed the window's end).
+  template <class Body, class Warp>
+  __device__ __forceinline__ bool work(const Body& body, const Plan& p, int l,
+                                       Warp& warp) {
+#pragma unroll 1
+    for (uint32_t j = 0; j < G; ++j) {
+      const uint32_t r = cur + 32u * j + warp.lane(l);
+      if (r >= nruns) return false;
+      const uint32_t base = (first / kRun + r) * kRun;
+      const uint32_t dlo = base < first ? first - base : 0u;
+      const uint32_t dhi = last - base < kRun - 1u ? last - base : kRun - 1u;
+      const uint32_t seen = lowest[l];
+      lowest[l] = warp.lowest();   // for the lane's next run
+      if (!until_run(body, p, base, dlo, dhi, seen, best[l],
+                     [&](uint32_t i) { warp.hit(i); })) {
+        return false;
+      }
+    }
+    return true;
+  }
+
+  // One grab: the next one taken, this one worked, the next one made
+  // current. False when the warp is done: no run is left, or every lane
+  // is done.
+  template <class Body, class Warp>
+  __device__ __forceinline__ bool step(const Body& body, const Plan& p,
+                                       Warp& warp) {
+    if (cur >= nruns) return false;
+    const uint32_t next = warp.take(32u * G);
+    bool any = false;
+    for (int l = 0; l < L; ++l) {
+      if (live[l]) live[l] = work(body, p, l, warp);
+      any = any || live[l];
+    }
+    cur = warp.broadcast(next);
+    return warp.vote(any);
+  }
+};
 
 __device__ __forceinline__ Key warp_min(Key v) {
 #pragma unroll
@@ -1009,6 +1097,40 @@ __host__ __device__ __forceinline__ void mesh_fold_until_words(
   fold_until_words(c, f_idx, m, base_hi, base_lo);
 }
 
+// ------------------------------------------------------------ K5's table
+//
+// Host and device code: the CPU tests read a table the wrapper built
+// through it.
+
+// K5's table, one buffer of int32 words, in this order: the nrows plans of
+// kPlanWords words each; pstart[nrows] and pcount[nrows], each row's
+// partial slots; seg_rows[nsegs + 1], where each segment's rows begin;
+// then for each group g = 0, 1, 2 (the rows of variant g) its rows[n[g]]
+// and its block prefix blk[n[g] + 1] (blk[n[g]] blocks in all). Group g's
+// partial slots follow group g - 1's.
+struct SegminTable {
+  const uint32_t* plans;
+  const int* pstart;
+  const int* pcount;
+  const int* seg_rows;
+  const int* rows[3];
+  const int* blk[3];
+
+  __host__ __device__ SegminTable(const int* table, int nrows, int nsegs,
+                                  const int* n)
+      : plans(reinterpret_cast<const uint32_t*>(table)),
+        pstart(table + kPlanWords * nrows),
+        pcount(pstart + nrows),
+        seg_rows(pcount + nrows) {
+    const int* at = seg_rows + nsegs + 1;
+    for (int g = 0; g < 3; ++g) {
+      rows[g] = at;
+      blk[g] = at + n[g];
+      at = blk[g] + n[g] + 1;
+    }
+  }
+};
+
 // ------------------------------------------------------------ kernels
 
 template <int VARIANT>
@@ -1030,29 +1152,64 @@ __global__ void __launch_bounds__(kThreads)
   write_partial(best, partials);
 }
 
+// K2's warp on the card (see UntilWalk): a thread holds its own lane.
+// f_min[0] is the lowest qualifying lane found so far (all-ones: none),
+// f_min[1] the complement of the runs handed out (all-ones: none yet).
+struct CardWarp {
+  uint32_t* f_min;
+
+  __device__ __forceinline__ uint32_t lane(int) const {
+    return threadIdx.x & 31u;
+  }
+  // The leader's atomic; the other lanes' value is never read.
+  __device__ __forceinline__ uint32_t take(uint32_t runs) const {
+    return lane(0) == 0u ? ~atomicSub(f_min + 1, runs) : 0u;
+  }
+  __device__ __forceinline__ uint32_t broadcast(uint32_t v) const {
+    return __shfl_sync(0xFFFFFFFFu, v, 0);
+  }
+  __device__ __forceinline__ bool vote(bool any) const {
+    return __any_sync(0xFFFFFFFFu, any);
+  }
+  __device__ __forceinline__ uint32_t lowest() const {
+    uint32_t v;
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(f_min));
+    return v;
+  }
+  __device__ __forceinline__ void hit(uint32_t i) const {
+    atomicMin(f_min, i);
+  }
+};
+
+// K2's floor of resident blocks a SM (as K5's below). At 2 its 1-block
+// instantiation takes 119 registers and a 10^9 block took 76.7 ms, against
+// 78.5 at 3 (80 registers) and 83.6 with no floor (64, 4 blocks a SM), and
+// K1's 78.7 (NVIDIA H100 80GB HBM3 at 700 W, builds of this source with
+// each floor timed in turns).
+constexpr int kUntilMinBlocks = 2;
+
 // K2's search; with CHAINED, one launch of K6's until chain, which does
 // nothing once an earlier launch of the chain has hit (carry[0] != 0; no
 // thread of this launch writes the carry, so every thread sees one value).
-// f_min[0] holds the lowest qualifying lane found so far (all-ones: none),
-// f_min[1] the count of runs handed out (take_run).
+// A warp walks its grabs together (UntilWalk::step is warp-uniform), and
+// every thread reaches write_partial's barrier.
 template <int VARIANT, bool CHAINED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kUntilMinBlocks)
     sha256_until_kernel(const Plan p, const uint32_t* __restrict__ carry,
                         uint32_t* f_min, uint32_t* __restrict__ partials) {
   if (CHAINED && carry[0] != 0u) return;
   const LaneBody<VARIANT> body(p);
-  uint32_t first, last, base, dlo, dhi;
+  uint32_t first, last;
   valid_lanes(p, first, last);
-  const volatile uint32_t* lowest_hit = f_min;
   Key best = sentinel();
-  // One volatile load of the lowest hit a run, so a hit by any block is
-  // seen at the thread's next run. Stopping still reaches write_partial's
-  // barrier with every other thread of the block.
   if (first <= last) {
-    while (take_run(first, last, f_min + 1, base, dlo, dhi) &&
-           until_run(body, p, base, dlo, dhi, *lowest_hit, best,
-                     [&](uint32_t i) { atomicMin(f_min, i); })) {
+    CardWarp warp{f_min};
+    UntilWalk<kGrab, 1> walk(first, last, warp);
+    while (walk.step(body, p, warp)) {
     }
+    best = walk.best[0];
   }
   write_partial(best, partials);
 }
@@ -1166,14 +1323,27 @@ __device__ __forceinline__ Key segmin_lanes(const Plan& sp, uint32_t first,
   return best;
 }
 
-// K5's search: the blocks of one NB group. Block b serves row
-// group_rows[g] for the g with group_blk[g] <= b < group_blk[g + 1]
-// (group_blk ascends strictly: a row without a block is not in the group),
-// as block b - group_blk[g] of that row's group_blk[g + 1] - group_blk[g],
-// and writes its partial at slot part_base + b. Under K4 a 2-block row
-// takes the digit-free variant when its second block holds no digit.
-template <int NB>
-__global__ void __launch_bounds__(kThreads)
+// Resident blocks a K5 search kernel asks ptxas to fit on an SM
+// (__launch_bounds__' second argument): its registers are capped so that
+// they leave room for that many blocks. At
+// 2 the three instantiations take 111 to 128 registers; at 3 ptxas holds
+// them to 80 and the digit-free one spills 248 bytes; left alone it sizes
+// them from 63 to 149 (4 blocks a SM down to 1). On the eight mice's 56
+// rows the launches took 0.88 ms at 2, 0.91 at 3 and 0.98 with none, and
+// on eight 10^8-lane digit-free rows 128.8, 136.0 and 132.9 ms (NVIDIA
+// H100 80GB HBM3 at 700 W, builds of this source with each floor timed in
+// turns): here fewer warps with room for their registers beat more warps
+// held short of them.
+constexpr int kSegminMinBlocks = 2;
+
+// K5's search: the blocks of one group, the rows of one tail shape (the
+// variant). Block b serves row group_rows[g] for the g with group_blk[g]
+// <= b < group_blk[g + 1] (group_blk ascends strictly: a row without a
+// block is not in the group), as block b - group_blk[g] of that row's
+// group_blk[g + 1] - group_blk[g], and writes its partial at slot
+// part_base + b.
+template <int VARIANT>
+__global__ void __launch_bounds__(kThreads, kSegminMinBlocks)
     sha256_segmin_kernel(const uint32_t* __restrict__ plans,
                          const int* __restrict__ group_rows,
                          const int* __restrict__ group_blk, int group_n,
@@ -1203,20 +1373,7 @@ __global__ void __launch_bounds__(kThreads)
   valid_lanes(sp, first, last);
   Key best = sentinel();
   if (first <= last) {
-#if DBMT_BODY == 2
-    if constexpr (NB == 2) {
-      if (tail_variant(static_cast<int>(sp.rem), static_cast<int>(sp.k)) ==
-          2) {
-        best = segmin_lanes<2>(sp, first, last, s_local, s_nblk);
-      } else {
-        best = segmin_lanes<1>(sp, first, last, s_local, s_nblk);
-      }
-    } else {
-      best = segmin_lanes<0>(sp, first, last, s_local, s_nblk);
-    }
-#else
-    best = segmin_lanes<NB - 1>(sp, first, last, s_local, s_nblk);
-#endif
+    best = segmin_lanes<VARIANT>(sp, first, last, s_local, s_nblk);
   }
   best = block_min(best);
   if (threadIdx.x == 0) {
@@ -1258,12 +1415,11 @@ bool plan_ok(const Plan& p, int grid) {
   const bool ok = grid > 0 && grid <= (1 << 20) && p.n <= (1u << 31) &&
                   (p.nblocks == 1u || p.nblocks == 2u) && p.k >= 1u &&
                   p.k <= 9u && p.rem <= 63u;
-  // The peeled bodies pick their code by the tail's shape, which the
-  // block count must match.
-  return ok && (DBMT_BODY == 0 ||
-                (tail_variant(static_cast<int>(p.rem),
-                              static_cast<int>(p.k)) == 0) ==
-                    (p.nblocks == 1u));
+  // Every body picks its code by the tail's shape, which the block count
+  // must match.
+  return ok && (tail_variant(static_cast<int>(p.rem),
+                             static_cast<int>(p.k)) == 0) ==
+                   (p.nblocks == 1u);
 }
 
 Plan read_plan(const uint32_t* plan_words) {
@@ -1272,15 +1428,14 @@ Plan read_plan(const uint32_t* plan_words) {
   return p;
 }
 
-// The search kernels' variant for plan p: 0 for a 1-block tail, 1 for a
-// 2-block one, 2 under K4 when its second block holds no digit.
+// The search kernels' variant for plan p (tail_variant): 0 for a 1-block
+// tail, 1 for a 2-block one whose last digit lies in block 1, 2 for a
+// 2-block one whose second block holds no digit.
 int plan_variant(const Plan& p) {
   if (p.nblocks == 1u) return 0;
-  if (DBMT_BODY == 2 && tail_variant(static_cast<int>(p.rem),
-                                     static_cast<int>(p.k)) == 2) {
-    return 2;
-  }
-  return 1;
+  return tail_variant(static_cast<int>(p.rem), static_cast<int>(p.k)) == 2
+             ? 2
+             : 1;
 }
 
 // Launch K1's search kernel (K3's or K4's under the peeled bodies);
@@ -1294,27 +1449,23 @@ int launch_argmin_search(const Plan& p, uint32_t* partials, int grid,
     case 1:
       sha256_argmin_kernel<1><<<grid, kThreads, 0, s>>>(p, partials);
       break;
-#if DBMT_BODY == 2
     case 2:
       sha256_argmin_kernel<2><<<grid, kThreads, 0, s>>>(p, partials);
       break;
-#endif
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Reset f_min[0] to all-ones and the run counter f_min[1] to 0 on the
-// stream, then launch K2's search kernel (CHAINED: the until chain's);
-// returns the first error seen.
+// Reset f_min[0] (the lowest hit) and f_min[1] (the complement of the
+// runs handed out) to all-ones on the stream, one memset for both, then
+// launch K2's search kernel (CHAINED: the until chain's); returns the
+// first error seen.
 template <bool CHAINED>
 int launch_until_search(const Plan& p, const uint32_t* carry, uint32_t* f_min,
                         uint32_t* partials, int grid, cudaStream_t s) {
-  cudaError_t err = cudaMemsetAsync(f_min, 0xFF, sizeof(uint32_t), s);
-  if (err == cudaSuccess) {
-    err = cudaMemsetAsync(f_min + 1, 0, sizeof(uint32_t), s);
-  }
+  const cudaError_t err = cudaMemsetAsync(f_min, 0xFF, 2 * sizeof(uint32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (plan_variant(p)) {
     case 0:
@@ -1325,16 +1476,78 @@ int launch_until_search(const Plan& p, const uint32_t* carry, uint32_t* f_min,
       sha256_until_kernel<1, CHAINED><<<grid, kThreads, 0, s>>>(
           p, carry, f_min, partials);
       break;
-#if DBMT_BODY == 2
     case 2:
       sha256_until_kernel<2, CHAINED><<<grid, kThreads, 0, s>>>(
           p, carry, f_min, partials);
       break;
-#endif
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K5's search kernel for the group of variant g on stream gs;
+// returns cudaGetLastError() after it.
+int launch_segmin_search(int g, const SegminTable& t, int n, int grid,
+                         int part_base, uint32_t* partials, cudaStream_t gs) {
+  switch (g) {
+    case 0:
+      sha256_segmin_kernel<0><<<grid, kThreads, 0, gs>>>(
+          t.plans, t.rows[0], t.blk[0], n, part_base, partials);
+      break;
+    case 1:
+      sha256_segmin_kernel<1><<<grid, kThreads, 0, gs>>>(
+          t.plans, t.rows[1], t.blk[1], n, part_base, partials);
+      break;
+    case 2:
+      sha256_segmin_kernel<2><<<grid, kThreads, 0, gs>>>(
+          t.plans, t.rows[2], t.blk[2], n, part_base, partials);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's groups on side streams (with every group on the caller's stream,
+// one after another, the launches on the eight mice's 56 rows took 0.98 ms
+// against 0.88, NVIDIA H100 80GB HBM3 at 700 W, timed in turns). Each
+// device gets two side streams, made at its first batch with more than one
+// group, and the events that fork them from the caller's stream and join
+// them back.
+constexpr int kMaxDevices = 64;
+
+struct SideStreams {
+  cudaStream_t stream[2];
+  cudaEvent_t fork, join[2];
+};
+
+std::mutex side_lock;
+SideStreams* side_pool[kMaxDevices];
+
+// The current device's side streams into *out, made at the first call;
+// side_lock must be held. Returns the first error.
+int side_streams(SideStreams** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (side_pool[dev] == nullptr) {
+    SideStreams ss;
+    err = cudaEventCreateWithFlags(&ss.fork, cudaEventDisableTiming);
+    for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+      err = cudaStreamCreateWithFlags(&ss.stream[i], cudaStreamNonBlocking);
+      if (err == cudaSuccess) {
+        err = cudaEventCreateWithFlags(&ss.join[i], cudaEventDisableTiming);
+      }
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    side_pool[dev] = new SideStreams(ss);
+  }
+  *out = side_pool[dev];
+  return 0;
 }
 
 template <typename Kernel>
@@ -1363,73 +1576,89 @@ int dbmt_sha256_run_lanes() { return static_cast<int>(kRun); }
 
 // Resident search blocks per SM (0 on error) of the entry's kernel
 // (0: arg-min, 1: until, 2: K5's segment-min) for the variant (0: 1-block
-// tail, 1: 2-block, 2: 2-block with a digit-free second block, K4 only;
-// K5 holds every 2-block variant in its kernel for 2-block rows).
+// tail, 1: 2-block with the last digit in block 1, 2: 2-block with a
+// digit-free second block).
 int dbmt_sha256_blocks_per_sm(int entry, int variant) {
-  if (variant < 0 || variant > (DBMT_BODY == 2 ? 2 : 1)) return 0;
-  if (entry == 2) {
-    return variant == 0 ? blocks_per_sm(sha256_segmin_kernel<1>)
-                        : blocks_per_sm(sha256_segmin_kernel<2>);
-  }
+  if (variant < 0 || variant > 2) return 0;
   switch (3 * entry + variant) {
     case 0:
       return blocks_per_sm(sha256_argmin_kernel<0>);
     case 1:
       return blocks_per_sm(sha256_argmin_kernel<1>);
+    case 2:
+      return blocks_per_sm(sha256_argmin_kernel<2>);
     case 3:
       return blocks_per_sm(sha256_until_kernel<0, false>);
     case 4:
       return blocks_per_sm(sha256_until_kernel<1, false>);
-#if DBMT_BODY == 2
-    case 2:
-      return blocks_per_sm(sha256_argmin_kernel<2>);
     case 5:
       return blocks_per_sm(sha256_until_kernel<2, false>);
-#endif
+    case 6:
+      return blocks_per_sm(sha256_segmin_kernel<0>);
+    case 7:
+      return blocks_per_sm(sha256_segmin_kernel<1>);
+    case 8:
+      return blocks_per_sm(sha256_segmin_kernel<2>);
     default:
       return 0;
   }
 }
 
-// K5: `table` is one device buffer of int32 words, in this order: the
-// nrows plans of dbmt_sha256_plan_words() words each; pstart[nrows] and
-// pcount[nrows], each row's partial slots; seg_rows[nsegs + 1]; then for
-// the 1-block group its
-// rows[n1] and block prefix[n1 + 1] (grid1 = prefix[n1] blocks), and the
-// same for the 2-block group (n2, grid2). partials: 3 * (grid1 + grid2)
-// device words, the 1-block group's slots first; out: 3 * nsegs device
-// words. Enqueues the search launch of each non-empty group and the
-// reduce on `stream`; returns the first cudaGetLastError() that is not 0.
-int dbmt_sha256_segmin(const int* table, int nrows, int nsegs, int n1,
-                       int grid1, int n2, int grid2, uint32_t* partials,
-                       uint32_t* out, void* stream) {
+// K5: `table` is one device buffer of int32 words laid out as SegminTable
+// reads it, with n0, n1, n2 rows in the groups of variants 0, 1, 2 and
+// grid0, grid1, grid2 blocks; partials: 3 * (grid0 + grid1 + grid2) device
+// words, group 0's slots first; out: 3 * nsegs device words. Enqueues the
+// search launch of each non-empty group (when more than one, all but the
+// first on side streams forked from `stream` and joined back to it) and
+// the reduce on `stream`; returns the first error
+// that is not 0.
+int dbmt_sha256_segmin(const int* table, int nrows, int nsegs, int n0,
+                       int grid0, int n1, int grid1, int n2, int grid2,
+                       uint32_t* partials, uint32_t* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nrows <= 0 || nsegs <= 0 || n1 < 0 || n2 < 0 || grid1 < 0 ||
-      grid2 < 0 || grid1 + grid2 > (1 << 21)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int n[3] = {n0, n1, n2}, grids[3] = {grid0, grid1, grid2};
+  if (nrows <= 0 || nsegs <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int groups[3], ngroups = 0, part_base[3], slots = 0;
+  for (int g = 0; g < 3; ++g) {
+    if (n[g] < 0 || grids[g] < 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    part_base[g] = slots;
+    slots += grids[g];
+    if (n[g] > 0 && grids[g] > 0) groups[ngroups++] = g;
   }
-  const uint32_t* plans = reinterpret_cast<const uint32_t*>(table);
-  const int* pstart = table + kPlanWords * nrows;
-  const int* pcount = pstart + nrows;
-  const int* seg_rows = pcount + nrows;
-  const int* g1_rows = seg_rows + nsegs + 1;
-  const int* g1_blk = g1_rows + n1;
-  const int* g2_rows = g1_blk + n1 + 1;
-  const int* g2_blk = g2_rows + n2;
-  if (n1 > 0 && grid1 > 0) {
-    sha256_segmin_kernel<1><<<grid1, kThreads, 0, s>>>(plans, g1_rows, g1_blk,
-                                                       n1, 0, partials);
-    const int err = static_cast<int>(cudaGetLastError());
+  if (slots > (1 << 21)) return static_cast<int>(cudaErrorInvalidValue);
+  const SegminTable t(table, nrows, nsegs, n);
+  // The events are shared by the device's calls: hold the lock from the
+  // fork's record to the last join's wait.
+  std::unique_lock<std::mutex> hold(side_lock, std::defer_lock);
+  SideStreams* side = nullptr;
+  int err = 0;
+  if (ngroups > 1) {
+    hold.lock();
+    err = side_streams(&side);
+    if (err == 0) err = static_cast<int>(cudaEventRecord(side->fork, s));
     if (err != 0) return err;
   }
-  if (n2 > 0 && grid2 > 0) {
-    sha256_segmin_kernel<2><<<grid2, kThreads, 0, s>>>(plans, g2_rows, g2_blk,
-                                                       n2, grid1, partials);
-    const int err = static_cast<int>(cudaGetLastError());
+  for (int i = 0; i < ngroups; ++i) {
+    const int g = groups[i];
+    cudaStream_t gs = side != nullptr && i > 0 ? side->stream[i - 1] : s;
+    if (gs != s) err = static_cast<int>(cudaStreamWaitEvent(gs, side->fork, 0));
+    if (err == 0) {
+      err = launch_segmin_search(g, t, n[g], grids[g], part_base[g], partials,
+                                 gs);
+    }
+    if (err == 0 && gs != s) {
+      err = static_cast<int>(cudaEventRecord(side->join[i - 1], gs));
+      if (err == 0) {
+        err = static_cast<int>(cudaStreamWaitEvent(s, side->join[i - 1], 0));
+      }
+    }
     if (err != 0) return err;
   }
-  segmin_reduce_kernel<<<nsegs, kThreads, 0, s>>>(seg_rows, pstart, pcount,
-                                                  partials, nsegs, out);
+  segmin_reduce_kernel<<<nsegs, kThreads, 0, s>>>(t.seg_rows, t.pstart,
+                                                  t.pcount, partials, nsegs,
+                                                  out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,6 +49,7 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,6 +71,8 @@ HOIST_PLAN_WORDS = PLAN_WORDS + 8 + 32 + 32 + 64
 #: Lanes per run (``kRun``): a search thread takes whole runs of this many
 #: consecutive lanes, which share every digit but the last.
 RUN_LANES = 10
+#: Threads of a search block (``kThreads``).
+THREADS = 256
 M32 = 0xFFFFFFFF
 
 #: Kernel launches by the TPU kernel each replaces, counted where a wrapper
@@ -79,8 +82,8 @@ M32 = 0xFFFFFFFF
 #: body, and each reduce under its own wrapper's kernel, so a K6 call
 #: counts one search launch (K1, K2, K3 or K4) and one fold launch (K6).
 #: A K5 call counts each kernel it launches: one search launch per tail
-#: block count among its rows (K5, or K3 or K4 under a peeled body) and
-#: the segment reduce (K5). A mesh shard's search and reduce into its row
+#: shape (variant) among its rows (K5, or K3 or K4 under a peeled body)
+#: and the segment reduce (K5). A mesh shard's search and reduce into its row
 #: count as a K1 or K2 call does; each mesh fold counts under ``K6mesh``.
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
             "K6mesh": 0}
@@ -89,6 +92,7 @@ launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
 build_info: dict = {}
 
 _libs: dict = {}
+_grids: dict = {}   # default_grid's answers
 _lock = threading.Lock()
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _ENTRIES = {
@@ -101,7 +105,8 @@ _ENTRIES = {
     "dbmt_sha256_run_lanes": [],
     "dbmt_sha256_body": [],
     "dbmt_sha256_plan_words": [],
-    "dbmt_sha256_segmin": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "dbmt_sha256_segmin": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P],
     "dbmt_sha256_until_shard": [_P, _P, _P, _P, _P, _I, _P],
     "dbmt_mesh_fold_argmin": [_P, _I, _P, _U, _U, _P],
     "dbmt_mesh_fold_until": [_P, _I, _P, _U, _U, _P],
@@ -123,13 +128,13 @@ def body_of(peel: bool, hoist) -> str:
     return "hoist" if hoist is not None else "peel" if peel else "rolled"
 
 
-def variant_of(body: str, rem: int, k: int, nblocks: int) -> int:
+def variant_of(rem: int, k: int, nblocks: int) -> int:
     """The search kernels' variant for a tail (``plan_variant`` in the
-    source): 0 one block, 1 two, 2 two under K4 with a digit-free second
-    block."""
+    source), under every body: 0 one block, 1 two with the last digit in
+    the second, 2 two with a digit-free second block."""
     if nblocks == 1:
         return 0
-    return 2 if body == "hoist" and (rem + k - 1) >> 2 <= 15 else 1
+    return 2 if (rem + k - 1) >> 2 <= 15 else 1
 
 
 def runs(i0: int, lo_i: int, hi_i: int, n: int) -> int:
@@ -235,7 +240,8 @@ def load(body: str = "rolled"):
             words = HOIST_PLAN_WORDS if body == "hoist" else PLAN_WORDS
             if lib.dbmt_sha256_body() != BODIES[body] \
                     or lib.dbmt_sha256_plan_words() != words \
-                    or lib.dbmt_sha256_run_lanes() != RUN_LANES:
+                    or lib.dbmt_sha256_run_lanes() != RUN_LANES \
+                    or lib.dbmt_sha256_argmin_threads() != THREADS:
                 raise RuntimeError(f"{LIBRARIES[body]} holds another body")
             _libs[body] = lib
         return lib
@@ -244,45 +250,32 @@ def load(body: str = "rolled"):
 def default_grid(device: torch.device, body: str, entry: int,
                  variant: int) -> int:
     """One full wave of a search kernel: SMs x its resident blocks per SM
-    (``entry``: ``ENTRY_ARGMIN``, ``ENTRY_UNTIL`` or ``ENTRY_SEGMIN``)."""
-    per_sm = load(body).dbmt_sha256_blocks_per_sm(entry, variant)
-    if per_sm <= 0:
-        raise RuntimeError("cudaOccupancyMaxActiveBlocksPerMultiprocessor "
-                           "failed for the sha256 search kernel")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * per_sm
+    (``entry``: ``ENTRY_ARGMIN``, ``ENTRY_UNTIL`` or ``ENTRY_SEGMIN``),
+    asked of the library once per device and kernel."""
+    lib = load(body)
+    key = (lib, torch.device(device), entry, variant)
+    grid = _grids.get(key)
+    if grid is None:
+        per_sm = lib.dbmt_sha256_blocks_per_sm(entry, variant)
+        if per_sm <= 0:
+            raise RuntimeError("cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+                               " failed for the sha256 search kernel")
+        grid = _grids[key] = per_sm * torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return grid
 
 
 def plan_array(midstate, template, i0: int, lo_i: int, hi_i: int, n: int,
                rem: int, k: int, t_hi: int = 0, t_lo: int = 0,
                hoist=None):
     """The kernels' parameter block (see ``struct Plan``) as a numpy
-    uint32 vector: 49 words, the target's read by K2 and the until chain
-    only; with ``hoist`` (the operand dict of
-    ``ops.sha256_torch.build_hoist``) K4's 185, the hoist section in the
-    TPU kernel's order. Only the 16 ``cw`` words per block travel: a deep
-    window's ``cw2`` is not read, as on the TPU."""
-    import numpy as np
-    nblocks = int(template.shape[0])
-    pad = np.zeros(16 * (2 - nblocks), dtype=np.uint32)
-    parts = [np.asarray(midstate, dtype=np.uint32),
-             np.asarray(template, dtype=np.uint32).reshape(-1), pad,
-             np.asarray([rem, k, nblocks, i0, lo_i, hi_i, n, t_hi, t_lo],
-                        dtype=np.uint32)]
-    if hoist is not None:
-        kw, cw = hoist["kw"], hoist["cw"]
-        if kw.shape != (nblocks, 16) or cw.shape != (nblocks, 16) \
-                or ("ckw" in hoist) != (nblocks == 2
-                                        and (rem + k - 1) >> 2 < 16):
-            raise ValueError("the hoist does not match the tail's shape")
-        parts += [np.asarray(hoist["deep"], dtype=np.uint32),
-                  np.asarray(kw, dtype=np.uint32).reshape(-1), pad,
-                  np.asarray(cw, dtype=np.uint32).reshape(-1), pad,
-                  (np.asarray(hoist["ckw"], dtype=np.uint32)
-                   if "ckw" in hoist else np.zeros(64, dtype=np.uint32))]
-    words = np.concatenate(parts)
-    assert len(words) == (PLAN_WORDS if hoist is None else HOIST_PLAN_WORDS)
-    return words
+    uint32 vector: the one row of :func:`plan_table` for this plan, with
+    the target ``(t_hi, t_lo)`` that K2 and the until chain read. 49
+    words, or with ``hoist`` (the operand dict of
+    ``ops.sha256_torch.build_hoist``) K4's 185."""
+    row = (midstate, template, i0, lo_i, hi_i, n, rem, k) + (
+        () if hoist is None else (hoist,))
+    return plan_table([row], targets=[(t_hi, t_lo)])[0]
 
 
 def _cuda_device(device, what: str) -> torch.device:
@@ -310,16 +303,15 @@ def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
     if grid is None:
         grid = default_grid(device, body,
                             ENTRY_UNTIL if until else ENTRY_ARGMIN,
-                            variant_of(body, rem, k, nblocks))
-    threads = lib.dbmt_sha256_argmin_threads()
-    grid = max(1, min(int(grid), -(-runs(i0, lo_i, hi_i, n) // threads)))
+                            variant_of(rem, k, nblocks))
+    grid = max(1, min(int(grid), -(-runs(i0, lo_i, hi_i, n) // THREADS)))
     # partials (3 words a block), then for the until kernels the lowest
-    # hit and the run counter.
+    # hit and the complement of the runs handed out.
     scratch = torch.empty(3 * grid + 2 * until, dtype=torch.int32,
                           device=device)
     args = [scratch.data_ptr()]
     if until:
-        args.append(scratch[3 * grid:].data_ptr())
+        args.append(args[0] + 4 * 3 * grid)
     args += tail
     plan = plan_array(midstate, template, i0, lo_i, hi_i, n, rem, k,
                       *target, hoist=hoist)
@@ -507,31 +499,153 @@ def mesh_fold_until(rows: torch.Tensor, carry: torch.Tensor, base: int, *,
                       device, body)
 
 
-def _segmin_blocks(work: list[int], grid: int, threads: int) -> list[int]:
-    """Blocks of each row of one tail-block-count group: a share of the
-    ``grid`` blocks proportional to the row's runs of valid lanes
-    (:func:`runs`), at least one for a row with a valid lane, never more
-    than its runs fill, none for a row without one."""
+def _segmin_blocks(work, grid: int, threads: int) -> list[int]:
+    """Blocks of each row of one group, ``grid`` at most in all (one wave
+    of the group's kernel, unless it has more rows than that): one for a
+    row with a valid lane whose share of ``grid`` in proportion to its
+    runs of valid lanes (:func:`runs`) is below one, and the blocks left
+    to the other rows in proportion to their runs, rounded down, at least
+    one and never more than their runs fill; none for a row without a
+    valid lane."""
     total = sum(work)
-    out = []
-    for v in work:
-        if v <= 0:
-            out.append(0)
-            continue
-        out.append(max(1, min(-(-v // threads), round(grid * v / total))))
-    return out
+    small = [w > 0 and grid * w < total for w in work]
+    rest = [w for w, s in zip(work, small) if w > 0 and not s]
+    left = max(len(rest), grid - sum(small))
+    rest_work = max(1, sum(rest))
+    return [1 if s else 0 if w <= 0 else
+            max(1, min(-(-w // threads), left * w // rest_work))
+            for w, s in zip(work, small)]
+
+
+_ZEROS = np.zeros(64, dtype=np.uint32)
+
+
+def plan_table(rows, targets=None) -> np.ndarray:
+    """The plans of ``rows``, each ``(midstate, template, i0, lo_i, hi_i,
+    n, rem, k[, hoist])``, as one ``(R, words)`` uint32 array; the one
+    owner of the plan's layout (``struct Plan``): the midstate (8 words),
+    the tail template (32, a 1-block tail's second block zero), ``rem, k,
+    nblocks, i0, lo_i, hi_i, n``, and the target ``t_hi, t_lo``
+    (``targets``, one pair a row; 0 by default), 49 words; when the rows
+    carry their hoist (all of them, or none), K4's 185, the hoist section
+    in the TPU kernel's order: deep (8), kw (2 x 16), cw (2 x 16), ckw
+    (64; zero when absent), a 1-block tail's second rows zero. Only the 16
+    ``cw`` words per block travel: a deep window's ``cw2`` is not read, as
+    on the TPU. The 49 words go through one Python list and the hoists
+    through one concatenate: at a few dozen rows either is faster than
+    numpy passes over the rows."""
+    hoists = [r[8] if len(r) > 8 else None for r in rows]
+    if len({h is None for h in hoists}) > 1:
+        raise ValueError("sha256_segmin rows must all carry a hoist, or "
+                         "none")
+    words = []
+    for r, row in enumerate(rows):
+        mid, tmpl, i0, lo_i, hi_i, n, rem, k = row[:8]
+        words += mid
+        words += np.asarray(tmpl).reshape(-1).tolist()
+        if tmpl.shape[0] == 1:
+            words += _ZERO_WORDS
+        words += (rem, k, tmpl.shape[0], i0, lo_i, hi_i, n)
+        words += targets[r] if targets is not None else (0, 0)
+    table = np.array(words, dtype=np.uint32).reshape(len(rows), PLAN_WORDS)
+    if hoists[0] is None:
+        return table
+    parts = []
+    for row, h in zip(rows, hoists):
+        rem, k, nb = row[6], row[7], row[1].shape[0]
+        ckw = nb == 2 and (rem + k - 1) >> 2 < 16
+        if h["kw"].shape != (nb, 16) or h["cw"].shape != (nb, 16) \
+                or ("ckw" in h) != ckw:
+            raise ValueError("the hoist does not match the tail's shape")
+        pad = (_ZEROS[:16],) if nb == 1 else ()
+        parts += [h["deep"], h["kw"].reshape(-1), *pad,
+                  h["cw"].reshape(-1), *pad, h["ckw"] if ckw else _ZEROS]
+    return np.concatenate([table, np.concatenate(parts).reshape(
+        len(rows), HOIST_PLAN_WORDS - PLAN_WORDS)], axis=1)
+
+
+_ZERO_WORDS = [0] * 16
+
+
+class SegminTable:
+    """K5's host table (``SegminTable`` in the source) as numpy uint32
+    ``words``: the rows' plans (:func:`plan_table`), each row's partial
+    slots (``pstart``, ``pcount``), where each segment's rows begin
+    (``seg_rows``), then per group, the rows of one tail shape (the
+    variant, :func:`variant_of`), its rows and their block prefix.
+    ``counts`` and ``grids`` are each group's rows and blocks."""
+
+    def __init__(self, words, nrows: int, nsegs: int, counts: tuple,
+                 grids: tuple):
+        self.words, self.nrows, self.nsegs = words, nrows, nsegs
+        self.counts, self.grids = counts, grids
+
+
+def segmin_table(rows, seg, grid_of, threads: int = THREADS) -> SegminTable:
+    """Build K5's host table for ``rows`` and ``seg`` (as
+    :func:`sha256_segmin` takes them) without a device, in one pass over
+    the rows: the rows of variant v share ``grid_of(v)`` blocks (asked
+    only for a group with rows) in proportion to their runs of valid
+    lanes (:func:`_segmin_blocks`). Raises ValueError on a row out of
+    range."""
+    rows, seg = list(rows), [int(s) for s in seg]
+    if not rows or len(seg) != len(rows) or seg[0] < 0 \
+            or any(b < a for a, b in zip(seg, seg[1:])):
+        raise ValueError("sha256_segmin needs rows with ascending segment "
+                         "ids from 0, one per row")
+    members, work = ([], [], []), []
+    for r, row in enumerate(rows):
+        i0, lo_i, hi_i, n, rem, k = row[2:8]
+        nb = row[1].shape[0]
+        if not (0 < n <= 1 << 31 and 0 <= i0 and i0 + n - 1 <= M32
+                and 1 <= k <= 9 and 0 <= rem <= 63
+                and nb == (1 if rem + k + 9 <= 64 else 2)):
+            raise ValueError(f"row {r} out of range: i0={i0} n={n} "
+                             f"nblocks={nb} rem={rem} k={k}")
+        work.append(runs(i0, lo_i, hi_i, n))
+        members[variant_of(rem, k, nb)].append(r)
+    plans = plan_table(rows)
+    nrows, nsegs = len(rows), seg[-1] + 1
+    pstart, pcount = [0] * nrows, [0] * nrows
+    groups, counts, grids, base = [], [], [], 0
+    for v in range(3):
+        blocks = _segmin_blocks([work[r] for r in members[v]],
+                                max(1, int(grid_of(v))), threads) \
+            if members[v] else []
+        g_rows, g_blk = [], [0]
+        for r, b in zip(members[v], blocks):
+            if b:
+                pstart[r], pcount[r] = base + g_blk[-1], b
+                g_rows.append(r)
+                g_blk.append(g_blk[-1] + b)
+        groups += g_rows + g_blk
+        counts.append(len(g_rows))
+        grids.append(g_blk[-1])
+        base += g_blk[-1]
+    seg_rows = [0] * (nsegs + 1)
+    for s in seg:
+        seg_rows[s + 1] += 1
+    for s in range(nsegs):
+        seg_rows[s + 1] += seg_rows[s]
+    words = np.concatenate([plans.reshape(-1), np.array(
+        pstart + pcount + seg_rows + groups, dtype=np.uint32)])
+    return SegminTable(words, nrows, nsegs, tuple(counts), tuple(grids))
 
 
 class SegminBatch:
     """One K5 batch with its host work done (:func:`prepare_segmin`): the
-    plan and block tables on the device, the scratch and the output.
-    :meth:`launch` enqueues the search launches and the segment reduce."""
+    table on the device, the scratch and the output. :meth:`launch`
+    enqueues the search launches and the segment reduce."""
 
-    def __init__(self, lib, body: str, device, args: tuple, grids: list,
-                 out: torch.Tensor, keep: tuple):
-        self.lib, self.body, self.device = lib, body, device
-        self.args, self.grids, self.out = args, grids, out
-        self._keep = keep   # the tables the pointers in args address
+    def __init__(self, lib, body: str, device, table: SegminTable,
+                 words: torch.Tensor, scratch: torch.Tensor,
+                 out: torch.Tensor):
+        self.lib, self.body, self.device, self.out = lib, body, device, out
+        self.grids = table.grids
+        self.args = (words.data_ptr(), table.nrows, table.nsegs,
+                     *(x for g in zip(table.counts, table.grids) for x in g),
+                     scratch.data_ptr(), out.data_ptr())
+        self._keep = (words, scratch)   # what the pointers in args address
 
     def launch(self) -> torch.Tensor:
         """Enqueue the batch on the device's current stream; returns the
@@ -552,68 +666,20 @@ class SegminBatch:
 def prepare_segmin(rows, seg, *, device, grid: int | None = None,
                    peel: bool = False) -> SegminBatch:
     """The host work of :func:`sha256_segmin` (the same arguments): the
-    rows' plans and block shares as one table copied to the CUDA
-    ``device``, the scratch and the output; nothing is launched."""
-    import numpy as np
+    table (:func:`segmin_table`, each group's blocks one full wave of its
+    kernel unless ``grid`` is given) copied to the CUDA ``device``, the
+    scratch and the output; nothing is launched."""
     device = _cuda_device(device, "sha256_segmin")
-    rows, seg = list(rows), [int(x) for x in seg]
-    if not rows or len(seg) != len(rows) or seg[0] < 0 \
-            or any(b < a for a, b in zip(seg, seg[1:])):
-        raise ValueError("sha256_segmin needs rows with ascending segment "
-                         "ids from 0, one per row")
-    hoists = [r[8] if len(r) > 8 else None for r in rows]
-    if len({h is None for h in hoists}) > 1:
-        raise ValueError("sha256_segmin rows must all carry a hoist, or "
-                         "none")
-    body = body_of(peel, hoists[0])
+    rows = list(rows)
+    body = body_of(peel, rows[0][8] if rows and len(rows[0]) > 8 else None)
+    table = segmin_table(rows, seg, lambda v: grid if grid is not None
+                         else default_grid(device, body, ENTRY_SEGMIN, v))
     lib = load(body)
-    threads = lib.dbmt_sha256_argmin_threads()
-    nrows, nsegs = len(rows), seg[-1] + 1
-    plans, work, groups = [], [], {1: [], 2: []}
-    for r, (row, hoist) in enumerate(zip(rows, hoists)):
-        mid, tmpl, i0, lo_i, hi_i, n, rem, k = row[:8]
-        nb = int(tmpl.shape[0])
-        if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32 and nb in (1, 2)
-                and 1 <= k <= 9 and 0 <= rem <= 63):
-            raise ValueError(f"row {r} out of range: i0={i0} n={n} "
-                             f"nblocks={nb} rem={rem} k={k}")
-        plans.append(plan_array(mid, tmpl, i0, lo_i, hi_i, n, rem, k,
-                                hoist=hoist))
-        work.append(runs(i0, lo_i, hi_i, n))
-        groups[nb].append(r)
-    pstart, pcount = [0] * nrows, [0] * nrows
-    group_words, grids, base = [], [], 0
-    for nb in (1, 2):
-        members, blocks = groups[nb], []
-        if members:
-            g = grid if grid is not None else default_grid(
-                device, body, ENTRY_SEGMIN, nb - 1)
-            blocks = _segmin_blocks([work[r] for r in members],
-                                    max(1, int(g)), threads)
-        g_rows, g_blk = [], [0]
-        for r, b in zip(members, blocks):
-            if b:
-                pstart[r], pcount[r] = base + g_blk[-1], b
-                g_rows.append(r)
-                g_blk.append(g_blk[-1] + b)
-        group_words.append((g_rows, g_blk))
-        grids.append(g_blk[-1])
-        base += g_blk[-1]
-    seg_rows = [0] * (nsegs + 1)
-    for s in seg:
-        seg_rows[s + 1] += 1
-    for s in range(nsegs):
-        seg_rows[s + 1] += seg_rows[s]
-    (g1_rows, g1_blk), (g2_rows, g2_blk) = group_words
-    table = np.concatenate(plans + [np.asarray(
-        pstart + pcount + seg_rows + g1_rows + g1_blk + g2_rows + g2_blk,
-        dtype=np.uint32)])
-    table = torch.from_numpy(table.view(np.int32)).to(device)
-    scratch = torch.empty(max(3, 3 * base), dtype=torch.int32, device=device)
-    out = torch.empty((3, nsegs), dtype=torch.int32, device=device)
-    args = (table.data_ptr(), nrows, nsegs, len(g1_rows), grids[0],
-            len(g2_rows), grids[1], scratch.data_ptr(), out.data_ptr())
-    return SegminBatch(lib, body, device, args, grids, out, (table, scratch))
+    words = torch.from_numpy(table.words.view(np.int32)).to(device)
+    scratch = torch.empty(max(3, 3 * sum(table.grids)), dtype=torch.int32,
+                          device=device)
+    out = torch.empty((3, table.nsegs), dtype=torch.int32, device=device)
+    return SegminBatch(lib, body, device, table, words, scratch, out)
 
 
 def sha256_segmin(rows, seg, *, device, grid: int | None = None,

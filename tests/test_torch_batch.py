@@ -165,6 +165,177 @@ def test_span_segmin_router_cpu_runs_plain_and_refuses_other_devices():
         sha256_cuda.sha256_segmin(rows, [0, 1], device="cpu")
 
 
+# ------------------------------------------------------------ K5's table
+
+_TABLE_MAIN = r"""
+#include <cstdio>
+#include <vector>
+#include "table.inc"
+}  // namespace
+// Reads nrows nsegs n0 n1 n2 words, then the table's words; prints what
+// the kernels read through SegminTable: each row's plan and partial
+// slots, each segment's first row, each group's rows and block prefix.
+int main() {
+  int nrows, nsegs, n[3], words;
+  if (scanf("%d %d %d %d %d %d", &nrows, &nsegs, &n[0], &n[1], &n[2],
+            &words) != 6) {
+    return 2;
+  }
+  std::vector<unsigned> w(words);
+  for (auto& x : w) scanf("%u", &x);
+  const SegminTable t(reinterpret_cast<const int*>(w.data()), nrows, nsegs,
+                      n);
+  for (int r = 0; r < nrows; ++r) {
+    printf("row %d %d", t.pstart[r], t.pcount[r]);
+    for (int j = 0; j < kPlanWords; ++j) printf(" %u", t.plans[kPlanWords * r + j]);
+    printf("\n");
+  }
+  printf("seg");
+  for (int s = 0; s <= nsegs; ++s) printf(" %d", t.seg_rows[s]);
+  printf("\n");
+  for (int g = 0; g < 3; ++g) {
+    printf("group");
+    for (int i = 0; i < n[g]; ++i) printf(" %d", t.rows[g][i]);
+    printf(" |");
+    for (int i = 0; i <= n[g]; ++i) printf(" %d", t.blk[g][i]);
+    printf("\n");
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def table_readers(tmp_path_factory):
+    """The table reader compiled with the 49-word plan (rolled body) and
+    K4's 185-word one, the two ``g++`` at once: ``{body: executable}``."""
+    import shutil
+    import subprocess
+
+    from tests.test_torch_hoist import _SHIM
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    d = tmp_path_factory.mktemp("segmin_table")
+    src = open(sha256_cuda.SOURCE).read()
+    (d / "cuda_runtime.h").write_text(_SHIM)
+    (d / "table.inc").write_text(
+        src[:src.index("// " + "-" * 60 + " kernels\n")])
+    (d / "table.cpp").write_text(_TABLE_MAIN)
+    procs = {body: subprocess.Popen(
+        [cxx, "-std=c++17", "-O0", "-w", f"-I{d}",
+         f"-DDBMT_BODY={sha256_cuda.BODIES[body]}", "-o", str(d / body),
+         str(d / "table.cpp")]) for body in ("rolled", "hoist")}
+    for proc in procs.values():
+        assert proc.wait(timeout=300) == 0
+    return {body: d / body for body in procs}
+
+
+def _shape_rows(hoisted: bool):
+    """Rows of every tail shape, interleaved: 1-block tails, 2-block ones
+    whose last digit lies in the second block (R2's message), 2-block ones
+    whose second block holds none; a row without a valid lane, a row
+    shorter than a run; with K4's hoist when ``hoisted``."""
+    rows = []
+    for data, k, i0, lo_i, hi_i, n in (
+            ("alpha", 5, 10_000, 10_003, 99_999, 90_000),
+            ("x" * 60, 9, 100_000_000, 100_000_000, 100_299_999, 300_000),
+            ("m" * 56, 5, 10_000, 10_000, 59_999, 50_000),
+            ("alpha", 5, 20_000, 20_001, 20_000, 64),       # no valid lane
+            ("x" * 60, 4, 1_000, 1_002, 1_007, 8),          # within a run
+            ("gamma", 9, 123_000_000, 123_000_000, 123_999_999, 10 ** 6),
+            ("m" * 56, 9, 100_000_000, 100_000_005, 100_000_999, 1_000),
+            ("x" * 60, 9, 200_000_000, 200_000_000, 200_000_009, 10)):
+        mid, tmpl, rem = _plan(data, k)
+        row = (mid, tmpl, i0, lo_i, hi_i, n, rem, k)
+        rows.append(row + ((sha256_torch.build_hoist(mid, tmpl, rem, k).ops,)
+                           if hoisted else ()))
+    return rows
+
+
+@pytest.mark.parametrize("body", ["rolled", "hoist"])
+def test_segmin_table_three_groups_as_the_kernels_read_it(table_readers,
+                                                          body):
+    """``segmin_table`` (no device) on rows of all three tail shapes: every
+    row with a valid lane lands in the group of its shape
+    (``variant_of``), a row without one in none; each group's blocks are
+    its grid shared in proportion to the rows' runs (``_segmin_blocks``);
+    and the table, read
+    through the source's ``SegminTable`` (compiled as host C++), gives
+    each row its ``plan_array`` plan, partial slots that are disjoint and
+    inside its group's slots (group 0's first), each segment its first
+    row."""
+    import subprocess
+    rows = _shape_rows(body == "hoist")
+    seg = [0, 0, 1, 2, 3, 3, 4, 5]
+    grids = (37, 50, 23)
+    table = sha256_cuda.segmin_table(rows, seg, lambda v: grids[v])
+    variants = [sha256_cuda.variant_of(r[6], r[7], r[1].shape[0])
+                for r in rows]
+    assert sorted(set(variants)) == [0, 1, 2]
+    work = [sha256_cuda.runs(*r[2:6]) for r in rows]
+    valid = [w > 0 for w in work]
+    assert table.counts == tuple(sum(ok and v == g for v, ok in
+                                     zip(variants, valid)) for g in range(3))
+    shares = {}
+    for g in range(3):
+        members = [r for r in range(len(rows)) if variants[r] == g]
+        shares.update(zip(members, sha256_cuda._segmin_blocks(
+            [work[r] for r in members], grids[g], sha256_cuda.THREADS)))
+    assert table.grids == tuple(sum(shares[r] for r in range(len(rows))
+                                    if variants[r] == g) for g in range(3))
+    words = table.words.tolist()
+    stdin = (f"{table.nrows} {table.nsegs} {' '.join(map(str, table.counts))}"
+             f" {len(words)}\n" + " ".join(map(str, words)) + "\n")
+    out = subprocess.run([str(table_readers[body])], input=stdin,
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split("\n")
+    slots = set()
+    for r, (row, line) in enumerate(zip(rows, out)):
+        _, start, count, *plan = line.split()
+        start, count = int(start), int(count)
+        assert list(map(int, plan)) == sha256_cuda.plan_array(
+            *row[:8], hoist=row[8] if len(row) > 8 else None).tolist()
+        assert count == shares[r] and (count > 0) == valid[r]
+        mine = set(range(start, start + count))
+        assert not mine & slots
+        slots |= mine
+        base = sum(table.grids[:variants[r]])
+        assert mine <= set(range(base, base + table.grids[variants[r]]))
+    assert slots == set(range(sum(table.grids)))
+    assert out[len(rows)] == "seg 0 2 3 4 6 7 8"
+    pstart = [int(ln.split()[1]) for ln in out[:len(rows)]]
+    for g in range(3):
+        members, blk = out[len(rows) + 1 + g].split("|")
+        members = list(map(int, members.split()[1:]))
+        blk = list(map(int, blk.split()))
+        assert members == [r for r in range(len(rows))
+                           if variants[r] == g and valid[r]]
+        assert blk[0] == 0 and blk[-1] == table.grids[g]
+        base = sum(table.grids[:g])
+        assert [base + b for b in blk[:-1]] == [pstart[r] for r in members]
+
+
+def test_segmin_table_refuses_rows_it_cannot_search():
+    """Mixed hoists, a tail whose block count does not match its shape,
+    lanes past 2^32 and descending segments raise before anything is
+    copied or launched."""
+    rows = _shape_rows(False)
+    hoisted = _shape_rows(True)
+    grid = (lambda v: 8)
+    with pytest.raises(ValueError):
+        sha256_cuda.segmin_table([hoisted[0], rows[1]], [0, 1], grid)
+    mid, tmpl, rem = _plan("alpha", 5)
+    with pytest.raises(ValueError):   # a 1-block template at rem 61
+        sha256_cuda.segmin_table([(mid, tmpl, 0, 0, 99, 100, 61, 5)], [0],
+                                 grid)
+    with pytest.raises(ValueError):
+        sha256_cuda.segmin_table([(mid, tmpl, M32, M32, M32, 2, rem, 5)],
+                                 [0], grid)
+    with pytest.raises(ValueError):
+        sha256_cuda.segmin_table(rows[:2], [1, 0], grid)
+
+
 # ------------------------------------------------------- batched dispatch
 
 def test_dispatch_batch_equals_search_and_oracle():

@@ -237,10 +237,9 @@ def test_kernel_wrappers_refuse_a_hoist_without_peel_and_mixed_rows():
     with pytest.raises(ValueError):
         sha256_cuda.sha256_argmin(mid, tmpl, 0, 0, 99, 100, rem=8, k=5,
                                   device="cpu", peel=True, hoist=ops)
-    assert [sha256_cuda.variant_of(b, rem, k, nb)
-            for b, rem, k, nb in (("hoist", 8, 9, 1), ("hoist", 52, 9, 2),
-                                  ("hoist", 61, 9, 2), ("peel", 52, 9, 2))
-            ] == [0, 2, 1, 1]
+    assert [sha256_cuda.variant_of(rem, k, nb)
+            for rem, k, nb in ((8, 9, 1), (52, 9, 2), (61, 9, 2), (55, 1, 2),
+                               (56, 9, 2))] == [0, 2, 1, 2, 1]
     assert sha256_cuda.total_launches() == 0
 
 
@@ -432,9 +431,7 @@ int main() {
     switch (plan_variant(p)) {
       case 0: LaneBody<0>(p).run(p, i - d, d, d, one); break;
       case 1: LaneBody<1>(p).run(p, i - d, d, d, one); break;
-#if DBMT_BODY == 2
       case 2: LaneBody<2>(p).run(p, i - d, d, d, one); break;
-#endif
     }
     printf("%u %u\n", key.hi, key.lo);
   }

@@ -1,30 +1,37 @@
 """The search kernels' lane code, compiled as host C++, bit for bit.
 
 ``csrc/sha256_argmin.cu`` before its kernels (the pipe helpers, the round
-code, the lane bodies, the walk over runs of lanes and K2's per-run step)
+code, the lane bodies, the walk over runs of lanes and K2's walk in grabs)
 is compiled with ``g++`` through the CUDA shim of
-``tests/test_torch_hoist.py``, once for the rolled body (K1) and once for
-the hoist-fed peeled body (K4), and driven by a small harness:
+``tests/test_torch_hoist.py``, once for each lane body (the rolled one,
+K1's; the peeled one, K3's; the hoist-fed peeled one, K4's), and driven
+by a small harness:
 
 - the pipe helpers (``fadd``, ``fmad``, ``fshr``) and ``rotr`` against
   Python's integer arithmetic on seeded words at every shift amount;
-- both bodies, a run of lanes at a time, against the hashlib oracle at
-  every ``rem`` 0-63 and ``k`` 1-9, on the runs at both ends of the digit
-  class and a seeded one;
+- each body, a run of lanes at a time, in every variant (a 1-block tail,
+  the last digit in the second block, a digit-free second block) against
+  the hashlib oracle at every ``rem`` 0-63 and ``k`` 1-9, on the runs at
+  both ends of the digit class and a seeded one;
 - the walk over runs with a simulated ``gridDim x blockDim`` against the
   port's plain ``span_scan`` and the JAX package's ``search_span`` (jnp,
   on the CPU), on seeded windows with unaligned edges, runs cut at both
   ends and windows shorter than a run, at two grid sizes;
 - the walk with a stub body whose hashes collide on purpose, so that the
   earliest nonce must win every tie;
-- K2's walk, its threads taking runs from one shared counter in turn, in
-  several orders, against one shared lowest hit, against the plain until
-  scan.
+- K2's walk (``UntilWalk``): simulated warps of 32 lanes take grabs of
+  32 x G runs (G 1 and 4) from one shared counter, each taking its next
+  grab before it works the current one and reading the lowest hit one run
+  ahead, in several warp orders, against the plain until scan and the
+  JAX package's ``search_span_until``: seeded windows (shorter than a run
+  among them), the first hit in the last run of a grab, and a last grab
+  that crosses the window's end.
 
 Every check is exact. The kernels themselves run only on a card
 (``chip_smoke.py``).
 """
 
+import functools
 import hashlib
 import shutil
 import subprocess
@@ -32,7 +39,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from distributed_bitcoinminer_tpu.ops.search import search_span
+from distributed_bitcoinminer_tpu.ops.search import (search_span,
+                                                      search_span_until)
 from distributed_bitcoinminer_tpu_torch.ops import search, sha256_cuda
 from distributed_bitcoinminer_tpu_torch.ops import sha256_torch
 from distributed_bitcoinminer_tpu_torch.ops.sha256_host import \
@@ -45,6 +53,7 @@ SHIFTS = range(1, 32)
 
 _MAIN = r"""
 #include <cstdio>
+#include <memory>
 #include <vector>
 #include "lanes.inc"
 }  // namespace
@@ -98,27 +107,51 @@ static Key walk(const Plan& p, uint32_t threads) {
   return best;
 }
 
-// K2's search: the simulated threads take runs from one shared counter
-// (take_run; each thread is a warp of one here), one run each in turn in
-// the order given, against one shared lowest hit; a thread stops when
-// take_run or until_run says so.
-template <int V>
+// K2's warp in the CPU tests (see UntilWalk): all 32 lanes in one object,
+// the counter and the lowest hit shared by every warp.
+struct HostWarp {
+  uint32_t* counter;   // runs handed out
+  uint32_t* f_min;     // the lowest hit
+  uint32_t lane(int l) const { return static_cast<uint32_t>(l); }
+  uint32_t take(uint32_t runs) const {
+    const uint32_t c = *counter;
+    *counter += runs;
+    return c;
+  }
+  uint32_t broadcast(uint32_t v) const { return v; }
+  bool vote(bool any) const { return any; }
+  uint32_t lowest() const { return *f_min; }
+  void hit(uint32_t i) const { *f_min = i < *f_min ? i : *f_min; }
+};
+
+// K2's search: simulated warps of 32 lanes walk grabs of 32 x G runs from
+// one shared counter against one shared lowest hit, a grab a turn in the
+// order given (a warp's first turn takes its first grab, as a warp that
+// starts late does); a warp stops when its step says so.
+template <uint32_t G, int V>
 static void until(const Plan& p, const std::vector<uint32_t>& order) {
   const LaneBody<V> body(p);
-  uint32_t first, last, next = 0u;
+  uint32_t first, last, counter = 0u, f_min = ~0u;
   valid_lanes(p, first, last);
-  uint32_t f_min = ~0u;
+  HostWarp warp{&counter, &f_min};
+  std::vector<std::unique_ptr<UntilWalk<G, 32>>> walks(order.size());
   std::vector<bool> done(order.size(), first > last);
-  Key best = sentinel();
   for (bool any = true; any;) {
     any = false;
-    for (uint32_t t : order) {
-      uint32_t base, dlo, dhi;
-      if (done[t]) continue;
-      done[t] = !take_run(first, last, &next, base, dlo, dhi) ||
-                !until_run(body, p, base, dlo, dhi, f_min, best,
-                           [&](uint32_t i) { f_min = i < f_min ? i : f_min; });
+    for (uint32_t w : order) {
+      if (done[w]) continue;
+      if (walks[w] == nullptr) {
+        walks[w].reset(new UntilWalk<G, 32>(first, last, warp));
+      } else {
+        done[w] = !walks[w]->step(body, p, warp);
+      }
       any = true;
+    }
+  }
+  Key best = sentinel();
+  for (const auto& w : walks) {
+    for (int l = 0; w != nullptr && l < 32; ++l) {
+      if (key_less(w->best[l], best)) best = w->best[l];
     }
   }
   if (f_min != ~0u) {
@@ -133,9 +166,7 @@ static void by_variant(const Plan& p, A&&... a) {
   switch (plan_variant(p)) {
     case 0: F<0>::go(p, a...); break;
     case 1: F<1>::go(p, a...); break;
-#if DBMT_BODY == 2
     case 2: F<2>::go(p, a...); break;
-#endif
   }
 }
 template <int V> struct Run {
@@ -150,8 +181,13 @@ template <int V> struct Walk {
   }
 };
 template <int V> struct Until {
-  static void go(const Plan& p, const std::vector<uint32_t>& order) {
-    until<V>(p, order);
+  static void go(const Plan& p, uint32_t grab,
+                 const std::vector<uint32_t>& order) {
+    if (grab == 1u) {
+      until<1u, V>(p, order);
+    } else {
+      until<4u, V>(p, order);
+    }
   }
 };
 
@@ -195,13 +231,13 @@ int main() {
           if (key_less(mine, best)) best = mine;
         }
         printf("%u %u %u\n", best.hi, best.lo, best.idx);
-      } else {                       // until: plan threads order...
+      } else {                       // until: plan G warps order...
         const Plan p = read_plan();
-        uint32_t threads;
-        scanf("%u", &threads);
-        std::vector<uint32_t> order(threads);
-        for (auto& t : order) scanf("%u", &t);
-        by_variant<Until>(p, order);
+        uint32_t grab, warps;
+        scanf("%u %u", &grab, &warps);
+        std::vector<uint32_t> order(warps);
+        for (auto& w : order) scanf("%u", &w);
+        by_variant<Until>(p, grab, order);
       }
     }
   }
@@ -209,18 +245,18 @@ int main() {
 }
 """
 
-#: The bodies held here: K1's rolled body and K4's.
-BODIES = ("rolled", "hoist")
+#: The bodies held here: K1's rolled body, K3's and K4's.
+BODIES = ("rolled", "peel", "hoist")
 
 
-@pytest.fixture(scope="module", params=BODIES)
-def lanes_exe(request, tmp_path_factory):
-    """The harness compiled with one body: (body, executable)."""
+@pytest.fixture(scope="module")
+def lane_builds(tmp_path_factory):
+    """The harness compiled with each body, the ``g++`` processes all
+    started at once: ``{body: (process, executable)}``."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    body = request.param
-    d = tmp_path_factory.mktemp(f"lanes_{body}")
+    d = tmp_path_factory.mktemp("lanes")
     src = open(sha256_cuda.SOURCE).read()
     head = src[:src.index("// " + "-" * 60 + " kernels\n")]
     start = src.index("int plan_variant(const Plan& p) {")
@@ -228,12 +264,23 @@ def lanes_exe(request, tmp_path_factory):
     (d / "cuda_runtime.h").write_text(_SHIM)
     (d / "lanes.inc").write_text(head + "static " + variant)
     (d / "lanes.cpp").write_text(_MAIN)
-    exe = d / "lanes"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-w", f"-I{d}",
-                    f"-DDBMT_BODY={sha256_cuda.BODIES[body]}", "-o",
-                    str(exe), str(d / "lanes.cpp")], check=True,
-                   timeout=300)
-    return body, exe
+    builds = {body: (subprocess.Popen(
+        [cxx, "-std=c++17", "-O1", "-w", f"-I{d}",
+         f"-DDBMT_BODY={sha256_cuda.BODIES[body]}", "-o",
+         str(d / f"lanes_{body}"), str(d / "lanes.cpp")]),
+        d / f"lanes_{body}") for body in BODIES}
+    yield builds
+    for proc, _ in builds.values():
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module", params=BODIES)
+def lanes_exe(request, lane_builds):
+    """The harness compiled with one body: (body, executable)."""
+    proc, exe = lane_builds[request.param]
+    assert proc.wait(timeout=300) == 0
+    return request.param, exe
 
 
 def _run(exe, blocks) -> list:
@@ -366,36 +413,137 @@ def test_run_walk_earliest_nonce_wins_ties(lanes_exe):
     assert _run(exe, [("t", lines)]) == want
 
 
+#: The grab sizes K2's walk is held at: the smallest (1) and the kernel's
+#: (4, ``kGrab``).
+GRABS = (1, 4)
+#: The shape of the JAX package's until scan: it covers every window here.
+_JAX_BATCH, _JAX_NBATCHES = 4_096, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _until_want(data, k, i0, lo_i, hi_i, n, t) -> str:
+    """The plain until scan's answer for a window of ``data`` as the
+    harness prints it (found and f_idx, or the arg-min words when nothing
+    is found), held first to the JAX package's ``search_span_until`` (jnp,
+    on the CPU)."""
+    prefix = data.encode() + b" "
+    mid, tmpl = _tail(prefix, k)
+    rem = len(prefix) % 64
+    plain = [int(x) & M32 for x in search.span_until_scan(
+        mid, tmpl, i0, lo_i, hi_i, n, t >> 32, t & M32, rem=rem, k=k,
+        device="cpu").tolist()]
+    ref = [int(x) for x in search_span_until(
+        np.asarray(mid, np.uint32), tmpl, np.uint32(i0), np.uint32(lo_i),
+        np.uint32(hi_i), np.uint32(t >> 32), np.uint32(t & M32), rem=rem,
+        k=k, batch=_JAX_BATCH, nbatches=_JAX_NBATCHES)]
+    cmp = 2 if plain[0] else 5
+    assert ref[:cmp] == plain[:cmp]
+    return " ".join(map(str, plain[:cmp]))
+
+
+def _until_lines(body, rng, data, k, i0, lo_i, hi_i, n, t,
+                 grabs=GRABS) -> tuple:
+    """Harness lines for one window of ``data`` and target at each grab
+    size, one and three warps, in ascending, descending and seeded warp
+    orders, and the line the harness must print for each."""
+    want = _until_want(data, k, i0, lo_i, hi_i, n, t)
+    prefix = data.encode() + b" "
+    mid, tmpl = _tail(prefix, k)
+    plan = _plan(body, mid, tmpl, len(prefix) % 64, k, i0, lo_i, hi_i, n, t)
+    lines = []
+    for grab in grabs:
+        for warps in (1, 3):
+            for order in (list(range(warps)), list(range(warps))[::-1],
+                          [int(x) for x in rng.permutation(warps)]):
+                lines.append(f"{plan} {grab} {warps} "
+                             + " ".join(map(str, order)))
+    return lines, [want] * len(lines)
+
+
 def test_until_walk_never_skips_the_lowest_hit(lanes_exe):
-    """K2's walk with its threads taking runs from the shared counter in
-    turn (ascending, descending and seeded orders) against one shared
-    lowest hit: found and f_idx equal the plain until scan's (and, when
-    nothing is found, the arg-min words), for a dense target, one only the
-    window's arg-min meets, and one nothing meets."""
+    """K2's walk (grabs of 32 x G runs, G 1 and 4, the next grab taken
+    before the current one is worked, the lowest hit read a run ahead),
+    its warps in several orders against one shared lowest hit: found and
+    f_idx equal the plain until scan's and the JAX package's (and, when
+    nothing is found, the arg-min words), on the seeded windows (shorter
+    than a run among them) for a dense target, one only the window's
+    arg-min meets, and one nothing meets."""
     body, exe = lanes_exe
     rng = np.random.default_rng(64)
     lines, want = [], []
     for data, k, i0, lo_i, hi_i, n in WINDOWS:
         prefix = data.encode() + b" "
-        mid, tmpl = _tail(prefix, k)
-        rem = len(prefix) % 64
         hashes = sorted(_oracle(prefix, k, i)
                         for i in range(max(lo_i, i0), min(hi_i, i0 + n - 1)
                                        + 1))
         best = hashes[0][0] << 32 | hashes[0][1]
         h_mid, l_mid = hashes[len(hashes) // 2]
-        dense = h_mid << 32 | l_mid
-        for t in (dense, best + 1, 0):
-            plain = [int(x) & M32 for x in search.span_until_scan(
-                mid, tmpl, i0, lo_i, hi_i, n, t >> 32, t & M32, rem=rem,
-                k=k, device="cpu").tolist()]
-            plain = plain[:2] if plain[0] else plain
-            for threads in (4, 37):
-                orders = (list(range(threads)), list(range(threads))[::-1],
-                          [int(x) for x in rng.permutation(threads)])
-                plan = _plan(body, mid, tmpl, rem, k, i0, lo_i, hi_i, n, t)
-                for order in orders:
-                    lines.append(f"{plan} {threads} "
-                                 + " ".join(map(str, order)))
-                    want.append(" ".join(map(str, plain)))
+        for t in (h_mid << 32 | l_mid, best + 1, 0):
+            more = _until_lines(body, rng, data, k, i0, lo_i, hi_i, n, t)
+            lines += more[0]
+            want += more[1]
+    assert _run(exe, [("u", lines)]) == want
+
+
+#: Tails for the grab cases: a 1-block tail, a 2-block one whose last
+#: digit lies in the second block, and one whose second block holds none.
+GRAB_TAILS = (("cmu440", 6), ("x" * 60, 9),
+              ("a fifty-character message; its digits stay in one.", 9))
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_keys(data: str, k: int) -> tuple:
+    """The first lane of ``data``'s k-digit class and the 64-bit hash keys
+    of its first 12,000 lanes (the plain tier)."""
+    import torch
+    prefix = data.encode() + b" "
+    mid, tmpl = _tail(prefix, k)
+    lo = 10 ** (k - 1)
+    hi, low = sha256_torch.hash_lanes(mid, tmpl, torch.arange(
+        lo, lo + 12_000, dtype=torch.int64), len(prefix) % 64, k)
+    return lo, (hi.numpy().astype(np.uint64) << np.uint64(32)) \
+        | low.numpy().astype(np.uint64)
+
+
+@functools.lru_cache(maxsize=None)
+def _grab_cases(data: str, k: int, grab: int) -> tuple:
+    """Windows of ``data`` at k digits where K2's grabs of 32 x ``grab``
+    runs have edges, as (i0, lo_i, hi_i, n, target, lane the first hit
+    must be or None): the first hit in the last run of the first grab (the
+    grab's arg-min lies there, and the target is just above its hash), and
+    a window whose last grab crosses its end (a target nothing meets, and
+    one only its arg-min meets)."""
+    lo, keys = _lane_keys(data, k)
+    runs_a_grab = 32 * grab
+    for a in range(lo + 3, lo + len(keys) - 10 * runs_a_grab, 10):
+        x = a + int(np.argmin(keys[a - lo:(a // 10 + runs_a_grab) * 10 - lo]))
+        if x // 10 - a // 10 == runs_a_grab - 1:
+            break
+    else:
+        raise AssertionError("no window puts the hit in a grab's last run")
+    n = 10 * (runs_a_grab + 40)
+    cases = [(a - 3, a, a + n - 6, n, int(keys[x - lo]) + 1, x)]
+    i0, n = lo + 10_007 - 10 * runs_a_grab, 10 * (runs_a_grab + 5) + 3
+    best = int(keys[i0 - lo:i0 - lo + n].min())
+    return tuple(cases + [(i0, i0, i0 + n - 1, n, t, None)
+                          for t in (0, best + 1)])
+
+
+@pytest.mark.parametrize("grab", GRABS)
+def test_until_walk_grab_edges(lanes_exe, grab):
+    """K2's walk where its grabs have edges: the first hit in the last run
+    of the first grab (every earlier lane of that grab above the target),
+    and a window whose last grab crosses its end (a target nothing meets,
+    and one only its arg-min meets), on a 1-block tail and on both 2-block
+    shapes; against the plain until scan and the JAX package's."""
+    body, exe = lanes_exe
+    rng = np.random.default_rng(65 + grab)
+    lines, want = [], []
+    for data, k in GRAB_TAILS:
+        for i0, lo_i, hi_i, n, t, x in _grab_cases(data, k, grab):
+            more = _until_lines(body, rng, data, k, i0, lo_i, hi_i, n, t,
+                                grabs=(grab,))
+            assert x is None or more[1][0] == f"1 {x}"
+            lines += more[0]
+            want += more[1]
     assert _run(exe, [("u", lines)]) == want
