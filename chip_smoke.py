@@ -49,10 +49,14 @@ JSON line per phase:
    (1 to 4 rows, ties, all-ones rows, found and not-found carries, bases
    whose low word wraps) against their plain versions, and the shard
    searches over four-way ``device_windows`` of four of the windows,
-   merged by the folds, against the plain scan and fold of the whole
-   window (arg-min; until to the arg-min lane, with no hit, and after a
-   hit, when the shards must do no lane work). K7 over one full wave
-   against its plain version;
+   merged by the fold kernels, against the plain scan and fold of the
+   whole window; the until shards sharing one lowest-hit word, row by
+   row against the plain until scan given the lowest hit so far, with
+   the first hit in shard 0, in shard 2 only, nowhere, and after a hit
+   (no lane work), each shard's handed-out runs read from its counter
+   word (none above a stored hit), the folded carry also against the
+   plain until scan of the whole window. K7 over one full wave against
+   its plain version;
 4. e2e: the port's scheduler server and a miner on ``cuda`` as
    subprocesses through their CLIs, requests submitted with the port's
    client. The arg-min path: R1 ("cmu440", 2^26-1), R2 (a 60-character
@@ -94,8 +98,8 @@ JSON line per phase:
    (``DBMT_PEEL=1``) R1 and R4; every answer equal to the default
    path's, their launches the shard searches and reduces (K1 and K2, or
    K4 with K1/K2 reduces) and one mesh fold (K6mesh) per block served
-   and distinct device, with no single-device K6 fold. Every other
-   miner is pinned to card 0. The launch counts of each path come from
+   and distinct device, with no single-device K6 fold. Every other miner is pinned
+   to card 0. The launch counts of each path come from
    its own miner processes, which start at 0 just before the path;
 5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
    (2-block tail with digits in both blocks) and a 10^9 block whose second
@@ -120,11 +124,16 @@ JSON line per phase:
    kernel's SASS instructions a nonce (its lane loop and a tenth of the
    run loop around it), and for K1 and K4 by pipe, INT32, FMA and other,
    with the measured rate's share of K7's INT32 ceiling and of the issue
-   bound (``pipes``). The mesh: R3's chain on meshes of 1, 2 and 4 shards of card 0
-   against the K6 chain, in turns, the until chain to K2's first hit on 4
-   shards against the K6 chain, one launch of each mesh fold against its
-   plain version, and on a box with more than one card R3's chain over a
-   mesh of every card (on one card the output says it was not run); and
+   bound (``pipes``). K6's reduce-and-fold kernels alone on a wave's
+   partials (device time over 200 launches, beside their bytes bound).
+   The mesh: R3's chain on meshes of 1, 2 and 4 shards of card 0
+   against the K6 chain, in turns, the until chain on 4 shards against
+   the K6 chain to K2's first hit and over its block with no hit, each
+   mesh fold on the card alone (200 launches) against its plain
+   version, the mesh's ``hit_scope`` on a line of its own, and on a box
+   with more than one card the same chains over a mesh of every card,
+   also in ``"card"`` scope (hits shared on each card only; on one card
+   the output says it was not run); and
    ``tools.tune`` once as a subprocess, given this run's INT32
    instructions a nonce of K1 and K4 (K7's ceiling and the nonce/s it
    allows them, K1's grid sweep, K1 beside its plain scan, K2's miss and
@@ -261,6 +270,28 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int = 200) -> float:
+    """Mean device milliseconds of ``fn`` (a few tiny launches) over
+    ``reps`` back-to-back runs, between CUDA events: the stream is held
+    by a spin kernel while the launches are queued behind it, so the
+    events time the card running them, not the host queuing them (a run
+    whose queuing outlasts the spin fails)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)     # ~0.1 s at the H100's 1.98 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    if start.query():
+        fail("device_ms: the launches were queued after the spin ended")
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
 
@@ -872,14 +903,37 @@ def mesh_fold_cases() -> list:
     return cases
 
 
+def hit_windows(lo_i: int, hi_i: int, keys):
+    """A four-way mesh window inside ``[lo_i, hi_i]`` whose shard 2 holds
+    a lane with a lower hash than every lane of shards 0 and 1 (``keys``:
+    the 64-bit hashes of ``lo_i`` onwards, numpy): ``(lo, hi)``, the
+    lowest-hash lane among the first 50 candidates placed mid-shard 2
+    with shards of at least 100 lanes; None for a window too narrow."""
+    import numpy as np
+    for x in (int(i) + lo_i for i in np.argsort(keys, kind="stable")[:50]):
+        m = min((x - lo_i) * 2 // 5, (hi_i - x + 1) * 2 // 3, 1 << 18)
+        lo = x - 2 * m - m // 2
+        if m >= 100 and keys[lo - lo_i:x - m // 2 - lo_i].min() > \
+                keys[x - lo_i]:
+            return lo, lo + 4 * m - 1
+    return None
+
+
 def check_mesh(dev) -> dict:
     """K6's mesh bodies against their plain versions: the two mesh folds
     on :func:`mesh_fold_cases`; the per-shard searches over four-way
-    ``device_windows`` of the :data:`MESH_WINDOWS` cases, merged by the
-    fold kernels, against the plain scan and fold of the whole window (the
-    arg-min chain; the until chain with a target that only the window's
-    arg-min lane meets, and with one that nothing meets, and after a hit,
-    when the shards must do no lane work and the carry stay as it was)."""
+    ``device_windows`` of the :data:`MESH_WINDOWS` cases, as on one card:
+    the arg-min shards merged by the fold kernel, against the plain scan
+    and fold of the whole window; the until shards, sharing the card's
+    lowest-hit word, row by row against the plain until scan given the
+    lowest hit so far (found and f_idx always, the arg-min words when
+    found is 0), over a window of :func:`hit_windows` with the first hit
+    in shard 0, in shard 2 only (lanes of shard 3 qualify too) and
+    nowhere, and after an earlier block's hit (no lane work, the carry as
+    it was): each shard's handed-out runs read from its counter word,
+    none for a shard launched above a stored hit, and the carry after
+    the fold kernel equal both to the plain fold of the plain rows and
+    to the plain until scan of the whole window, folded."""
     import torch
     from distributed_bitcoinminer_tpu_torch.ops import (search, searchop,
                                                         sha256_cuda)
@@ -888,6 +942,16 @@ def check_mesh(dev) -> dict:
     from distributed_bitcoinminer_tpu_torch.parallel.partition import \
         device_windows
     max_err, folds = 0, 0
+
+    def held(got, want, what, **ctx):
+        nonlocal max_err
+        err = max(abs(a - b) for a, b in zip(got, want))
+        max_err = max(max_err, err)
+        if err:
+            emit("kernel", failed={"kernel": what, **ctx}, got=list(got),
+                 want=list(want))
+            fail(f"{what} disagrees with its plain version: {ctx}")
+
     for until, rows, carry, base in mesh_fold_cases():
         kernel_carry = int32_words(carry).to(dev)
         fold = sha256_cuda.mesh_fold_until if until else \
@@ -895,79 +959,126 @@ def check_mesh(dev) -> dict:
         fold(int32_words(rows).to(dev), kernel_carry, base, device=dev)
         plain = (fold_rows_until if until else fold_rows_argmin)(
             torch.tensor(carry), torch.from_numpy(rows), base)
-        got, want = words(kernel_carry), words(plain)
-        err = max(abs(a - b) for a, b in zip(got, want))
-        max_err, folds = max(max_err, err), folds + 1
-        if err:
-            emit("kernel", failed={"kernel": "K6mesh fold", "until": until},
-                 rows=rows.tolist(), carry=carry, base=base, got=got,
-                 want=want)
-            fail("a mesh fold disagrees with its plain version")
+        held(words(kernel_carry), words(plain), "K6mesh fold", until=until,
+             rows=rows.tolist(), carry=carry, base=base)
+        folds += 1
+
+    def quad(lo, hi):
+        _, lo_d, hi_d, _ = device_windows(lo, hi, 4, 1)
+        return [(int(a), int(b)) for a, b in zip(lo_d, hi_d) if a <= b]
+
     shards = []
     for rem, k, _, mid, tmpl, i0, n, lo_i, hi_i in kernel_windows():
         if (rem, k) not in MESH_WINDOWS:
             continue
-        _, lo_d, hi_d, _ = device_windows(lo_i, hi_i, 4, 1)
-        wins = [(int(a), int(b)) for a, b in zip(lo_d, hi_d) if a <= b]
+        ctx = {"rem": rem, "k": k}
+        wins = quad(lo_i, hi_i)
+        # The arg-min chain's block.
         hi_w, lo_w, idx_w = words(search.span_scan(
             mid, tmpl, lo_i, lo_i, hi_i, hi_i - lo_i + 1, rem=rem, k=k,
             device=dev))
-        runs = {}
-        # The arg-min chain's block.
+        want = words(searchop.fold_argmin(
+            searchop.carry_init(), hi_w, lo_w, idx_w, MESH_BASE >> 32,
+            MESH_BASE & M32))
         rows = torch.full((4, 3), -1, dtype=torch.int32, device=dev)
         for s, (a, b) in enumerate(wins):
             sha256_cuda.sha256_argmin(mid, tmpl, a, a, b, b - a + 1,
                                       rem=rem, k=k, device=dev, out=rows[s])
         carry = search.devloop_carry(searchop.ARGMIN_OP, dev)
         sha256_cuda.mesh_fold_argmin(rows, carry, MESH_BASE, device=dev)
-        runs["argmin"] = (words(carry), words(searchop.fold_argmin(
-            searchop.carry_init(), hi_w, lo_w, idx_w, MESH_BASE >> 32,
-            MESH_BASE & M32)), 5)
-        t = (hi_w << 32 | lo_w) + 1
-        for name, target, found in (("until_hit", t, False),
-                                    ("until_miss", 0, False),
-                                    ("until_after_hit", t, True)):
+        held(words(carry), want, "K6mesh argmin shards", **ctx)
+        # The until chain's block, on a window with the lowest hash of
+        # shards 0-2 in shard 2 (a window too narrow for one: the whole,
+        # with the target only its arg-min lane meets).
+        keys = lane_hashes(mid, tmpl, lo_i, hi_i - lo_i + 1, rem, k, dev)
+        placed = hit_windows(lo_i, hi_i, keys)
+        w_lo, w_hi = placed or (lo_i, hi_i)
+        hwins = quad(w_lo, w_hi)
+        mins = [words(search.span_scan(mid, tmpl, a, a, b, b - a + 1,
+                                       rem=rem, k=k, device=dev))
+                for a, b in hwins]
+        key = [m[0] << 32 | m[1] for m in mins]
+        cases = {"hit_in_shard_0": key[0] + 1, "hit_in_shard_2": key[2] + 1,
+                 "no_hit": 0, "after_hit": key[0] + 1} if placed else {
+            "hit_at_arg_min": int(keys.min()) + 1, "no_hit": 0,
+            "after_hit": 1}
+        handed_by_case = {}
+        for name, target in cases.items():
+            t_hi, t_lo = target >> 32, target & M32
             carry = search.devloop_carry(searchop.UNTIL_OP, dev)
-            if found:
+            if name == "after_hit":
                 carry[0] = 1
             before = words(carry)
-            rows = torch.empty((4, 5), dtype=torch.int32, device=dev)
-            rows[len(wins):] = -1
-            rows[len(wins):, 0] = 0
-            for s, (a, b) in enumerate(wins):
+            hit = torch.full((2,), -1, dtype=torch.int32, device=dev)
+            rows = torch.full((4, 5), -1, dtype=torch.int32, device=dev)
+            rows[:, 0] = 0   # an empty shard's row
+            plain_rows, lowest, handed = [], M32, []
+            for s, (a, b) in enumerate(hwins):
+                stored = lowest
                 sha256_cuda.sha256_until_shard(
-                    mid, tmpl, carry, a, a, b, b - a + 1, target >> 32,
-                    target & M32, rem=rem, k=k, device=dev, out=rows[s])
-            shard_rows = words(rows.reshape(-1))
+                    mid, tmpl, carry, a, a, b, b - a + 1, t_hi, t_lo,
+                    rem=rem, k=k, device=dev, hit=hit, first=s == 0,
+                    out=rows[s])
+                handed.append(M32 - words(hit)[1])
+                row = words(rows[s])
+                if name == "after_hit":
+                    plain = (0, M32, M32, M32, M32)
+                else:
+                    plain = words(search.span_until_scan(
+                        mid, tmpl, a, a, b, b - a + 1, t_hi, t_lo, rem=rem,
+                        k=k, device=dev, lowest=lowest))
+                    lowest = plain[1]
+                plain_rows.append(plain)
+                cmp = 2 if plain[0] else 5
+                held(row[:cmp], plain[:cmp], "K6mesh until shard", **ctx,
+                     case=name, shard=s)
+                runs = sha256_cuda.runs(a, a, b, b - a + 1)
+                if (stored < a or name == "after_hit") and handed[-1]:
+                    fail(f"a mesh until shard launched above a stored hit "
+                         f"took {handed[-1]} runs ({ctx}, {name}, shard "
+                         f"{s})")
+                if stored == M32 and name != "after_hit" and not plain[0] \
+                        and handed[-1] < runs:
+                    fail(f"a mesh until shard with no hit took "
+                         f"{handed[-1]} of its {runs} runs ({ctx}, {name})")
             sha256_cuda.mesh_fold_until(rows, carry, MESH_BASE, device=dev)
-            if found:
-                want = before
-                if shard_rows != (0, M32, M32, M32, M32) * 4:
-                    fail(f"mesh until shards did lane work after a hit: "
-                         f"{shard_rows}")
+            if name == "after_hit":
+                want = whole = before
             else:
-                f_idx, b_hi, b_lo, b_idx = words(search.span_until_scan(
-                    mid, tmpl, lo_i, lo_i, hi_i, hi_i - lo_i + 1,
-                    target >> 32, target & M32, rem=rem, k=k,
-                    device=dev))[1:]
-                want = words(searchop.fold_until(
-                    searchop.until_carry_init(), f_idx, b_hi, b_lo, b_idx,
+                want = words(fold_rows_until(
+                    torch.tensor(before), torch.tensor(plain_rows),
+                    MESH_BASE))
+                # The whole window's plain until scan, with no shared
+                # word: the answer the shards must reach.
+                whole = words(searchop.fold_until(
+                    searchop.until_carry_init(), *words(
+                        search.span_until_scan(
+                            mid, tmpl, w_lo, w_lo, w_hi, w_hi - w_lo + 1,
+                            t_hi, t_lo, rem=rem, k=k, device=dev))[1:],
                     MESH_BASE >> 32, MESH_BASE & M32))
-            runs[name] = (words(carry), want, 3 if want[0] else 8)
-        for name, (got, want, cmp) in runs.items():
-            err = max(abs(a - b) for a, b in zip(got[:cmp], want[:cmp]))
-            max_err = max(max_err, err)
-            if err:
-                emit("kernel", failed={"kernel": "K6mesh shards",
-                                       "rem": rem, "k": k, "run": name},
-                     got=got, want=want)
-                fail(f"the mesh shards disagree with the plain scan of the "
-                     f"window at rem {rem} k {k} ({name})")
-        if not runs["until_hit"][0][0]:
-            fail(f"the mesh until shards missed the arg-min lane at rem "
-                 f"{rem} k {k}")
+            cmp = 3 if want[0] else 8
+            held(words(carry)[:cmp], want[:cmp],
+                 "K6mesh until shards, rows folded", **ctx, case=name)
+            held(words(carry)[:cmp], whole[:cmp],
+                 "K6mesh until shards, whole window", **ctx, case=name)
+            if name != "no_hit" and not words(carry)[0]:
+                fail(f"the mesh until shards missed the hit ({ctx}, {name})")
+            handed_by_case[name] = handed
+        firsts = {name: words(search.span_until_scan(
+            mid, tmpl, w_lo, w_lo, w_hi, w_hi - w_lo + 1, t >> 32, t & M32,
+            rem=rem, k=k, device=dev))[1] for name, t in cases.items()
+            if name.startswith("hit")}
+        if placed and not (
+                hwins[0][0] <= firsts["hit_in_shard_0"] <= hwins[0][1]
+                and hwins[2][0] <= firsts["hit_in_shard_2"] <= hwins[2][1]
+                and handed_by_case["hit_in_shard_2"][3] == 0
+                and handed_by_case["hit_in_shard_0"][1:] == [0, 0, 0]):
+            fail(f"the mesh until windows do not place the hits ({ctx}): "
+                 f"{firsts}, {hwins}, {handed_by_case}")
         shards.append({"rem": rem, "k": k, "nblocks": int(tmpl.shape[0]),
-                       "lanes": hi_i - lo_i + 1, "windows": wins})
+                       "lanes": hi_i - lo_i + 1, "windows": wins,
+                       "until_windows": hwins, "first_hits": firsts,
+                       "handed_runs": handed_by_case})
     return {"folds": folds, "shard_cases": shards, "max_abs_err": max_err}
 
 
@@ -2210,7 +2321,28 @@ def rates_k6(dev_info: dict, dev, hit: tuple) -> dict:
         0, p.base, rem=p.rem, k=p.k, device=dev), 20)
     if words(found) != before:
         fail("a chained until launch after a hit changed the carry")
+    # K6's reduce-and-fold kernels alone, over one full wave's partials of
+    # their search kernels on the rates block (the folds' inputs: seeded
+    # keys, a lowest hit of none), on the card, over 200 launches each.
+    import numpy as np
+    alone = {}
+    for name, entry in (("argmin", sha256_cuda.ENTRY_ARGMIN),
+                        ("until", sha256_cuda.ENTRY_UNTIL)):
+        count = sha256_cuda.default_grid(dev, "rolled", entry, 0)
+        partials = int32_words(np.random.default_rng(446).integers(
+            0, M32, size=3 * count)).to(dev)
+        f_min = None if name == "argmin" else int32_words([M32]).to(dev)
+        c = search.devloop_carry(searchop.ARGMIN_OP if f_min is None
+                                 else searchop.UNTIL_OP, dev)
+        alone[name] = {
+            "partials": count,
+            "ms": device_ms(lambda: sha256_cuda.k6_fold(
+                partials, c, p.base, device=dev, f_min=f_min)),
+            # The partials and carry read once, the carry written.
+            "bound_ms": (3 * count + 1 + 2 * c.numel()) * 4 / 3.35e12 * 1e3,
+            "bound_by": "bytes"}
     return {"blocks": len(plans), "launches": 2 * len(plans),
+            "fold_alone": alone,
             "lanes": sum(p.lanes for p in plans),
             "ms": sum(times["chain"]) / 2,
             "bodies_ms": {kern: sum(v) / len(v) for kern, v in
@@ -2440,10 +2572,13 @@ def rates_until_shapes(dev) -> dict:
 def rates_mesh(dev_info: dict, dev, hit: tuple) -> dict:
     """The mesh chains on card 0: R3's arg-min chain on meshes of 1, 2 and
     4 shards against the single-device K6 chain, in turns (K6, 1, 2, 4, 4,
-    2, 1, K6); the until chain to the first hit of the ``hit`` block on 4
-    shards against the single-device one, in turns; one launch of each
-    mesh fold (4 rows) against its plain version; and, on a box with more
-    than one card, :func:`rates_multi_card`."""
+    2, 1, K6); the until chain on 4 shards against the single-device one,
+    in turns, to the first hit of the ``hit`` block (twice K6, 4, 4, K6,
+    each turn's time kept; the shards after the hit's share its lowest
+    hit and hash nothing) and over that block with a target nothing
+    meets; each mesh fold (4 rows) on the card alone, over 200 launches (:func:`device_ms`),
+    against its plain version; and, on a box with more than one card,
+    :func:`rates_multi_card`."""
     import torch
     from distributed_bitcoinminer_tpu_torch.models import (MeshNonceSearcher,
                                                            NonceSearcher)
@@ -2461,22 +2596,31 @@ def rates_mesh(dev_info: dict, dev, hit: tuple) -> dict:
     hp, t, f_idx = hit
     lower, upper = hp.base + hp.lo_i, hp.base + hp.hi_i
     until = {"K6": r3["K6"], 4: r3[4]}
+    raw = {}
     until_ms, until_answer = in_turns(
-        until, ("K6", 4, 4, "K6"),
-        lambda s: s.search_until(lower, upper, t))
+        until, ("K6", 4, 4, "K6") * 2,
+        lambda s: s.search_until(lower, upper, t), raw)
     if until_answer[1:] != (hp.base + f_idx, True):
         fail(f"the mesh until chain over the hit block: {until_answer}")
+    miss_ms, miss_answer = in_turns(
+        until, ("K6", 4, 4, "K6"),
+        lambda s: s.search_until(lower, upper, 0))
+    if miss_answer[2]:
+        fail(f"the mesh until chain hit with a target of 0: {miss_answer}")
     launches = {k: n - before[k] for k, n in sha256_cuda.launches.items()}
+    print(f"hit_scope {r3[4].hit_scope} (4 shards on card 0)", flush=True)
     rows = int32_words([[7, 1, 5], [7, 1, 3], [M32] * 3, [0, 9, 2]]).to(dev)
     rows5 = int32_words([[0, M32, 7, 1, 5], [1, 40, 7, 1, 3],
                          [0] + [M32] * 4, [1, 9, 0, 9, 2]]).to(dev)
     carry = devloop_carry(searchop.ARGMIN_OP, dev)
     ucarry = devloop_carry(searchop.UNTIL_OP, dev)
     folds = {
-        "argmin_ms": cuda_ms(lambda: sha256_cuda.mesh_fold_argmin(
+        "argmin_ms": device_ms(lambda: sha256_cuda.mesh_fold_argmin(
+            rows, carry, M32, device=dev)),
+        "until_ms": device_ms(lambda: sha256_cuda.mesh_fold_until(
+            rows5, ucarry, M32, device=dev)),
+        "argmin_host_ms": cuda_ms(lambda: sha256_cuda.mesh_fold_argmin(
             rows, carry, M32, device=dev), 200),
-        "until_ms": cuda_ms(lambda: sha256_cuda.mesh_fold_until(
-            rows5, ucarry, M32, device=dev), 200),
         "argmin_plain_ms": cuda_ms(lambda: fold_rows_argmin(
             carry, rows, M32), 20),
         "until_plain_ms": cuda_ms(lambda: fold_rows_until(
@@ -2489,58 +2633,89 @@ def rates_mesh(dev_info: dict, dev, hit: tuple) -> dict:
         multi_card = rates_multi_card(dev, hit)
     else:
         multi_card = {"not_run": "the box has one card: the cross-card "
-                                 "branch (row copies between cards, one "
-                                 "fold per card) runs with "
-                                 "--cross-card on a box with several"}
+                                 "branch (peer hit words, row copies "
+                                 "between cards, one fold per card) runs "
+                                 "with --cross-card on a box with several"}
     return {"r3_ms": r3_ms, "r3_answer": list(r3_answer),
             "r3_bound_ms": sum(bound_ms(p.lanes, needed_int_ops(
                 p.rem, p.k, int(p.template.shape[0])), dev_info)[0]
                 for p in r3["K6"].plan(0, 1 << 32)),
-            "until_to_hit_ms": until_ms, "until_answer": list(until_answer),
+            "hit_scope": r3[4].hit_scope,
+            "until_to_hit_ms": until_ms, "until_to_hit_times": raw,
+            "until_answer": list(until_answer),
+            "until_to_hit_over_k6": until_ms["4"] / until_ms["K6"],
+            "until_no_hit_ms": miss_ms, "until_no_hit_answer":
+                list(miss_answer),
             "launches": launches, "folds": folds, "multi_card": multi_card}
 
 
-def in_turns(searchers: dict, order: tuple, fn) -> tuple:
+def in_turns(searchers: dict, order: tuple, fn, raw=None) -> tuple:
     """``fn(searcher)`` timed by :func:`event_ms` for each key of
     ``order`` in turn: the mean milliseconds by key, and the one answer
-    they all gave (they must agree)."""
+    they all gave (they must agree); each turn's milliseconds by key go
+    into ``raw`` when given."""
     times, answers = {key: [] for key in searchers}, {}
     for key in order:
         times[key].append(event_ms(lambda: answers.__setitem__(
             key, fn(searchers[key]))))
     if len(set(answers.values())) != 1:
         fail(f"the mesh chains disagree: {answers}")
+    if raw is not None:
+        raw.update({str(key): v for key, v in times.items()})
     return {str(key): sum(v) / len(v) for key, v in times.items()}, \
         next(iter(answers.values()))
 
 
 def rates_multi_card(dev, hit: tuple) -> dict:
     """R3's arg-min chain, and the until chain to the first hit of the
-    ``hit`` block, over a mesh of every card against the K6 chain on card
-    ``dev``, in turns, after one untimed run of both chains over 10^6
-    nonces on each (a card's first launches load its kernels); the
-    answers must agree."""
+    ``hit`` block and over it with a target nothing meets, over a mesh of
+    every card against the K6 chain on card ``dev`` and against the same
+    mesh in ``"card"`` scope (hits shared on each card only, as without
+    peer access), in turns (twice K6, mesh,
+    card scope, card scope, mesh, K6; each turn's time kept), after one
+    untimed run of each over 10^6 nonces (arg-min and until) and of the
+    until chain to that hit (a card's first launches load its kernels,
+    and its first hit writes to the other cards' memory); the answers
+    must agree. Prints the mesh's ``hit_scope`` on a line of its own."""
     import torch
     from distributed_bitcoinminer_tpu_torch.models import (MeshNonceSearcher,
                                                            NonceSearcher)
     count = torch.cuda.device_count()
+    every = [f"cuda:{i}" for i in range(count)]
     cards = {"K6": NonceSearcher("cmu440", device=dev),
-             "all_cards": MeshNonceSearcher(
-                 "cmu440", devices=[f"cuda:{i}" for i in range(count)])}
+             "all_cards": MeshNonceSearcher("cmu440", devices=every),
+             "card_scope": MeshNonceSearcher("cmu440", devices=every)}
+    scope = cards["all_cards"].hit_scope
+    print(f"hit_scope {scope}", flush=True)
+    # The same mesh as it runs where a pair of cards lacks peer access:
+    # hits shared only on each card.
+    cards["card_scope"]._hit_scope = "card"
+    hp, t, f_idx = hit
     for searcher in cards.values():
         searcher.search(0, 10 ** 6)
         searcher.search_until(0, 10 ** 6, 0)
-    order = ("K6", "all_cards", "all_cards", "K6")
-    r3_ms, r3_answer = in_turns(cards, order, lambda s: s.search(0, 1 << 32))
-    hp, t, f_idx = hit
+        searcher.search_until(hp.base + hp.lo_i, hp.base + hp.hi_i, t)
+    order = ("K6", "all_cards", "card_scope", "card_scope", "all_cards",
+             "K6") * 2
+    raw = {"r3": {}, "until_to_hit": {}, "until_no_hit": {}}
+    r3_ms, r3_answer = in_turns(cards, order, lambda s: s.search(0, 1 << 32),
+                                raw["r3"])
     until_ms, until_answer = in_turns(
         cards, order, lambda s: s.search_until(hp.base + hp.lo_i,
-                                               hp.base + hp.hi_i, t))
+                                               hp.base + hp.hi_i, t),
+        raw["until_to_hit"])
     if until_answer[1:] != (hp.base + f_idx, True):
         fail(f"the multi-card until chain over the hit block: "
              f"{until_answer}")
-    return {"cards": count, "r3_ms": r3_ms, "r3_answer": list(r3_answer),
-            "until_to_hit_ms": until_ms, "until_answer": list(until_answer)}
+    miss_ms, miss_answer = in_turns(
+        cards, order, lambda s: s.search_until(hp.base + hp.lo_i,
+                                               hp.base + hp.hi_i, 0),
+        raw["until_no_hit"])
+    return {"cards": count, "hit_scope": scope, "times": raw, "r3_ms": r3_ms,
+            "r3_answer": list(r3_answer),
+            "until_to_hit_ms": until_ms, "until_answer": list(until_answer),
+            "until_no_hit_ms": miss_ms, "until_no_hit_answer":
+                list(miss_answer)}
 
 
 def run_tune(outdir: str, int32_per_lane: dict) -> dict:
@@ -2694,6 +2869,7 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
          "until_r4_ms": k6["until_r4"]["ms"],
          "until_r4_bound_ms": k6["until_r4"]["bound_ms"],
          "until_after_hit_ms": k6["until_after_hit_ms"],
+         "fold_alone": k6["fold_alone"],
          "library_ms": None},
         *(peeled_entry(kern, src, launches[kern], kernel[kern], rates)
           for kern, _, _ in PEELED),
@@ -2703,13 +2879,17 @@ def kernels_line(kernel: dict, e2e: dict, rates: dict) -> dict:
 
 def mesh_entry(src: str, launches: int, check: dict, rates: dict) -> dict:
     """K6's mesh bodies in the ``kernels`` line: one mesh fold launch (4
-    rows) beside its plain version and its bound, and R3's chain by shard
-    count beside the single-device K6 chain."""
+    rows) on the card beside its plain version and its bound; R3's chain
+    by shard count beside the single-device K6 chain; the until chain to
+    K2's first hit on 4 shards beside the single-device chain and K2's
+    bound to that hit."""
     mesh = rates["K6mesh"]
     folds = mesh["folds"]
+    to_hit = mesh["until_to_hit_ms"]["4"]
+    hit_bound = rates["K2"]["first_hit"]["bound_ms_to_hit"]
     return {
-        "name": "mesh_fold_argmin+mesh_fold_until", "route": "cuda",
-        "source": src,
+        "name": "mesh_fold_argmin+mesh_fold_until+sha256_until_shard",
+        "route": "cuda", "source": src,
         "replaces": "ops/sha256_pallas.py:833 and :853 (pallas_devloop_scan,"
                     " pallas_devloop_until_scan, with the pmin merge and fold"
                     " of parallel/mesh_search.py:389-407 and :434-455, in "
@@ -2717,12 +2897,19 @@ def mesh_entry(src: str, launches: int, check: dict, rates: dict) -> dict:
         "launches": launches, "checked": True,
         "max_abs_err": check["max_abs_err"],
         "ms": folds["argmin_ms"], "until_fold_ms": folds["until_ms"],
+        "fold_host_ms": folds["argmin_host_ms"],
         "rows": folds["rows"], "plain_ms": folds["argmin_plain_ms"],
         "until_plain_ms": folds["until_plain_ms"],
         "bound_ms": folds["bound_ms"], "bound_by": folds["bound_by"],
         "r3_chain_ms_by_shards": mesh["r3_ms"],
         "r3_chain_bound_ms": mesh["r3_bound_ms"],
-        "until_to_hit_ms": mesh["until_to_hit_ms"],
+        "until_to_hit_ms": to_hit,
+        "until_to_hit_single_device_ms": mesh["until_to_hit_ms"]["K6"],
+        "until_to_hit_bound_ms": hit_bound,
+        "until_to_hit_bound_by": "operations",
+        "until_to_hit_share_of_bound": hit_bound / to_hit,
+        "until_no_hit_ms": mesh["until_no_hit_ms"],
+        "hit_scope": mesh["hit_scope"],
         "multi_card": mesh["multi_card"], "library_ms": None}
 
 
@@ -2852,11 +3039,15 @@ def against_cases(dev) -> dict:
     K1 and K4 over the three rates blocks and R3's K6 chain under both
     bodies; K2 over each rates block with a target nothing meets, to the
     first hit of :func:`hit_block`, and one chained launch after a hit,
-    and under K4's body over the first block and to that hit; K5 on the
+    and under K4's body over the first block and to that hit; K6's until
+    chain over that block, to its hit and with no target met; K5 on the
     eight mice's 56 rows, rolled and under K4 (the call, its launches
     alone, the host's table and its copy), and over eight rows of 10^8
-    lanes of each tail shape."""
-    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    lanes of each tail shape; the mesh searcher on card 0, R3's chain on
+    1, 2 and 4 shards, and the until chain on 4 shards to that first hit
+    and over its block with a target nothing meets."""
+    from distributed_bitcoinminer_tpu_torch.models import (MeshNonceSearcher,
+                                                           NonceSearcher)
     from distributed_bitcoinminer_tpu_torch.ops import searchop, sha256_cuda
     from distributed_bitcoinminer_tpu_torch.ops.search import devloop_carry
     from distributed_bitcoinminer_tpu_torch.ops.sha256_torch import \
@@ -2882,7 +3073,7 @@ def against_cases(dev) -> dict:
     def hit():
         """:func:`hit_block`'s (until arguments, kw, K4 hoist)."""
         def make():
-            hp, t, _ = hit_block(dev)
+            hp, t, _ = once("hit_block", lambda: hit_block(dev))
             return ((hp.midstate, hp.template, hp.lo_i, hp.lo_i, hp.hi_i,
                      hp.lanes, t >> 32, t & M32),
                     dict(rem=hp.rem, k=hp.k, device=dev),
@@ -2932,6 +3123,28 @@ def against_cases(dev) -> dict:
             p.midstate, p.template, found, p.lo_i, p.lo_i, p.hi_i, p.lanes,
             0, 0, p.base, **kw)
     cases["K2 chained, after a hit"] = lambda: (200, after_hit, words, False)
+
+    def chained(target_of):
+        """K6's until chain over hit_block's block from a fresh carry (the
+        carry reset on the card before each launch)."""
+        def make():
+            hp, t, _ = once("hit_block", lambda: hit_block(dev))
+            init = devloop_carry(searchop.UNTIL_OP, dev)
+            carry = init.clone()
+            target = target_of(t)
+
+            def run():
+                carry.copy_(init)
+                return sha256_cuda.sha256_until_fold(
+                    hp.midstate, hp.template, carry, hp.lo_i, hp.lo_i,
+                    hp.hi_i, hp.lanes, target >> 32, target & M32, hp.base,
+                    rem=hp.rem, k=hp.k, device=dev)
+            return run
+        return make
+    cases["K6 until chain to its hit"] = lambda: (
+        5, chained(lambda t: t), lambda c: words(c)[:3], False)
+    cases["K6 until chain, no hit"] = lambda: (
+        2, chained(lambda t: 0), words, False)
     cases["K2 under K4, one_block, no hit"] = lambda: (
         2, lambda: (lambda: sha256_cuda.sha256_until(
             *block("one_block")[0], 0, 0, **block("one_block")[1],
@@ -2956,6 +3169,26 @@ def against_cases(dev) -> dict:
     # Eight rows of 10^8 lanes of each tail shape: "cmu440" from 10^9, R2's
     # message from 10^8 (the last digit in block 1), the 50-character one
     # from 10^9 (a digit-free second block).
+    # The mesh on card 0 through the searcher: R3's chain on 1, 2 and 4
+    # shards, and the until chain on 4 shards to the hit of hit_block's
+    # block and over it with a target nothing meets.
+    for shards in (1, 2, 4):
+        cases[f"R3's mesh chain, {shards} shards"] = lambda shards=shards: (
+            1, lambda: (lambda s=MeshNonceSearcher(
+                "cmu440", devices=[dev] * shards): s.search(0, 1 << 32)),
+            list, False)
+
+    def mesh_until(target_of):
+        def make():
+            hp, t, _ = once("hit_block", lambda: hit_block(dev))
+            s = MeshNonceSearcher("cmu440", devices=[dev] * 4)
+            return lambda: s.search_until(hp.base + hp.lo_i,
+                                          hp.base + hp.hi_i, target_of(t))
+        return make
+    cases["mesh until to its hit, 4 shards"] = lambda: (
+        3, mesh_until(lambda t: t), list, False)
+    cases["mesh until, no hit, 4 shards"] = lambda: (
+        2, mesh_until(lambda t: 0), list, False)
     for name, data, lower in (("one_block", "cmu440", 10 ** 9),
                               ("two_block", R2_DATA, 10 ** 8),
                               ("two_block_digit_free", DIGIT_FREE_DATA,

@@ -72,6 +72,24 @@
 // repeated shards it runs once. It reads n x 20 bytes at most: launch
 // latency bounds it, so one thread does it.
 //
+// The TPU's shards run in lockstep and take the pmin after every shard has
+// scanned its whole window; the contract is only the block's first
+// qualifying lane (or, with none, its arg-min), so here the until shards
+// of a block share one lowest-hit word on each card, and across cards a
+// hit also lowers every other card's word, written over NVLink through
+// peer pointers (reads stay local). The windows ascend with the shard, so
+// every lane of a shard that starts above a stored hit lies above it: its
+// warps take no run (starts_above_hit), and the shard costs one launch
+// and no hash. That is K2's early exit across shards, sound for K2's reason:
+// the word only ever holds a qualifying lane of this block. It is reset
+// once a block, before the block's first shard on that card; across cards
+// no late hit of block b can land after the reset for b + 1, because that
+// reset follows, on the card's stream, its fold of block b, which waits
+// for every card's shards of b (the row copies are ordered on both cards'
+// streams).
+// Bounds: the arg-min chain has no early exit, the lane work of K1; the
+// until chain to a hit, the lanes of K2 up to it, as in one launch.
+//
 // What bounds them: integer instruction issue, and within it the INT32
 // pipe. A lane reads no memory (the plan travels by value as a kernel
 // parameter, the round constants sit in the constant bank) and a block
@@ -125,7 +143,8 @@
 // cutting at it skips no lane at or below the lowest qualifying lane; it
 // only may leave a few lanes above it computed. Both device words, the
 // lowest hit and the counter (kept as its complement), start at all-ones:
-// one 8-byte memset resets them.
+// one 8-byte memset resets them (a mesh shard after its card's first of a
+// block resets only the counter: the lowest hit is the block's).
 //
 // The lane body. Every search entry above runs one of three bodies,
 // chosen when the library is built (DBMT_BODY; the wrapper builds one
@@ -966,6 +985,19 @@ struct UntilWalk {
   }
 };
 
+// Whether the lowest hit already lies below `first` (the leader's read
+// stands for the warp, so the answer is warp-uniform): a mesh until
+// shard whose window lies above a hit an earlier shard stored then starts
+// no walk, so it takes no run (its counter says none were handed out) and
+// hashes no lane. Checked before the walk, not in it: a read ahead of the
+// first grab inside UntilWalk cost the shard's walk about 0.5% (NVIDIA
+// H100 80GB HBM3 at 700 W, chip_smoke.py --against a build with it).
+template <class Warp>
+__device__ __forceinline__ bool starts_above_hit(uint32_t first,
+                                                 Warp& warp) {
+  return warp.broadcast(warp.lowest()) < first;
+}
+
 __device__ __forceinline__ Key warp_min(Key v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -1152,11 +1184,37 @@ __global__ void __launch_bounds__(kThreads)
   write_partial(best, partials);
 }
 
+// The lowest-hit words of a mesh's other cards, where a mesh until shard's
+// hits also go. Peer pointers under unified virtual addressing, to memory
+// this card was given access to (dbmt_enable_peer_access). A box holds at
+// most 8 cards.
+constexpr int kMaxPeers = 7;
+
+struct Peers {
+  uint32_t* word[kMaxPeers];
+  int n;
+};
+
+// Peers from a host array of n device pointers (false when n is out of
+// range).
+bool read_peers(uint32_t* const* words, int n, Peers& out) {
+  out = Peers{};
+  if (n < 0 || n > kMaxPeers || (n > 0 && words == nullptr)) return false;
+  for (int j = 0; j < n; ++j) out.word[j] = words[j];
+  out.n = n;
+  return true;
+}
+
 // K2's warp on the card (see UntilWalk): a thread holds its own lane.
 // f_min[0] is the lowest qualifying lane found so far (all-ones: none),
 // f_min[1] the complement of the runs handed out (all-ones: none yet).
+// SHARED (the chained launches: K6's chain and the mesh's until shards):
+// the lowest hit may also be written by other cards, so it is read and
+// written at system scope, and a hit also goes to every peer's word.
+template <bool SHARED>
 struct CardWarp {
   uint32_t* f_min;
+  const Peers& peers;
 
   __device__ __forceinline__ uint32_t lane(int) const {
     return threadIdx.x & 31u;
@@ -1173,13 +1231,27 @@ struct CardWarp {
   }
   __device__ __forceinline__ uint32_t lowest() const {
     uint32_t v;
-    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
-                 : "=r"(v)
-                 : "l"(f_min));
+    if constexpr (SHARED) {
+      asm volatile("ld.relaxed.sys.global.u32 %0, [%1];"
+                   : "=r"(v)
+                   : "l"(f_min));
+    } else {
+      asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+                   : "=r"(v)
+                   : "l"(f_min));
+    }
     return v;
   }
   __device__ __forceinline__ void hit(uint32_t i) const {
-    atomicMin(f_min, i);
+    if constexpr (SHARED) {
+      atomicMin_system(f_min, i);
+#pragma unroll
+      for (int j = 0; j < kMaxPeers; ++j) {
+        if (j < peers.n) atomicMin_system(peers.word[j], i);
+      }
+    } else {
+      atomicMin(f_min, i);
+    }
   }
 };
 
@@ -1190,22 +1262,25 @@ struct CardWarp {
 // each floor timed in turns).
 constexpr int kUntilMinBlocks = 2;
 
-// K2's search; with CHAINED, one launch of K6's until chain, which does
-// nothing once an earlier launch of the chain has hit (carry[0] != 0; no
-// thread of this launch writes the carry, so every thread sees one value).
-// A warp walks its grabs together (UntilWalk::step is warp-uniform), and
-// every thread reaches write_partial's barrier.
+// K2's search; with CHAINED, one launch of K6's until chain or one mesh
+// until shard, which does nothing once an earlier launch of the chain has
+// hit (carry[0] != 0; no thread of this launch writes the carry, so every
+// thread sees one value), and whose hits also go to `peers` (K2 gets
+// none). A warp walks its grabs together (UntilWalk::step is
+// warp-uniform), and every thread reaches write_partial's barrier.
 template <int VARIANT, bool CHAINED>
 __global__ void __launch_bounds__(kThreads, kUntilMinBlocks)
     sha256_until_kernel(const Plan p, const uint32_t* __restrict__ carry,
-                        uint32_t* f_min, uint32_t* __restrict__ partials) {
+                        uint32_t* f_min,
+                        const __grid_constant__ Peers peers,
+                        uint32_t* __restrict__ partials) {
   if (CHAINED && carry[0] != 0u) return;
   const LaneBody<VARIANT> body(p);
   uint32_t first, last;
   valid_lanes(p, first, last);
   Key best = sentinel();
-  if (first <= last) {
-    CardWarp warp{f_min};
+  CardWarp<CHAINED> warp{f_min, peers};
+  if (first <= last && !(CHAINED && starts_above_hit(first, warp))) {
     UntilWalk<kGrab, 1> walk(first, last, warp);
     while (walk.step(body, p, warp)) {
     }
@@ -1236,14 +1311,27 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// The lowest hit as the chained launches read it (CardWarp<true>): other
+// cards may write it.
+__device__ __forceinline__ uint32_t load_sys(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
 // K2's reduce: (found, f_idx, best_hi, best_lo, best_idx). With a carry,
 // the reduce of a mesh until shard (K6's mesh until body), whose search ran
 // chained: once carry[0] says an earlier block hit, that search wrote no
 // partials, and the shard's row gets (0, all-ones x 4), which the mesh fold
-// never takes. No thread writes the carry here.
+// never takes. A shard's found and f_idx come from its card's lowest-hit
+// word, which the block's earlier shards there (and, across cards, every
+// shard) share, so they may name an earlier shard's hit; best_* is then
+// not read (a row's found only goes from 0 to 1 as the word falls, so a
+// row with found 0 scanned every lane of its window). No thread writes the
+// carry here.
 __global__ void __launch_bounds__(1024)
     reduce_until_kernel(const uint32_t* __restrict__ partials, int count,
-                        const uint32_t* __restrict__ f_min,
+                        const uint32_t* f_min,
                         const uint32_t* __restrict__ carry,
                         uint32_t* __restrict__ out) {
   if (carry != nullptr && carry[0] != 0u) {
@@ -1252,7 +1340,7 @@ __global__ void __launch_bounds__(1024)
   }
   const Key best = block_min(partials_min(partials, count));
   if (threadIdx.x == 0) {
-    const uint32_t f = *f_min;
+    const uint32_t f = carry != nullptr ? load_sys(f_min) : *f_min;
     out[0] = f != ~0u ? 1u : 0u;
     out[1] = f;
     out[2] = best.hi;
@@ -1458,27 +1546,31 @@ int launch_argmin_search(const Plan& p, uint32_t* partials, int grid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Reset f_min[0] (the lowest hit) and f_min[1] (the complement of the
-// runs handed out) to all-ones on the stream, one memset for both, then
-// launch K2's search kernel (CHAINED: the until chain's); returns the
-// first error seen.
+// Reset f_min[1] (the complement of the runs handed out) and, with
+// reset_hit, f_min[0] (the lowest hit) to all-ones on the stream, one
+// memset for both, then launch K2's search kernel (CHAINED: the until
+// chain's, or a mesh until shard's, whose hits also go to `peers`);
+// returns the first error seen.
 template <bool CHAINED>
 int launch_until_search(const Plan& p, const uint32_t* carry, uint32_t* f_min,
+                        bool reset_hit, const Peers& peers,
                         uint32_t* partials, int grid, cudaStream_t s) {
-  const cudaError_t err = cudaMemsetAsync(f_min, 0xFF, 2 * sizeof(uint32_t), s);
+  const cudaError_t err =
+      cudaMemsetAsync(f_min + (reset_hit ? 0 : 1), 0xFF,
+                      (reset_hit ? 2 : 1) * sizeof(uint32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (plan_variant(p)) {
     case 0:
       sha256_until_kernel<0, CHAINED><<<grid, kThreads, 0, s>>>(
-          p, carry, f_min, partials);
+          p, carry, f_min, peers, partials);
       break;
     case 1:
       sha256_until_kernel<1, CHAINED><<<grid, kThreads, 0, s>>>(
-          p, carry, f_min, partials);
+          p, carry, f_min, peers, partials);
       break;
     case 2:
       sha256_until_kernel<2, CHAINED><<<grid, kThreads, 0, s>>>(
-          p, carry, f_min, partials);
+          p, carry, f_min, peers, partials);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1690,7 +1782,8 @@ int dbmt_sha256_until(const uint32_t* plan_words, uint32_t* partials,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!plan_ok(p, grid)) return static_cast<int>(cudaErrorInvalidValue);
   const int err =
-      launch_until_search<false>(p, nullptr, f_min, partials, grid, s);
+      launch_until_search<false>(p, nullptr, f_min, true, Peers{}, partials,
+                                 grid, s);
   if (err != 0) return err;
   reduce_until_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, nullptr,
                                          out);
@@ -1720,27 +1813,81 @@ int dbmt_sha256_until_fold(const uint32_t* plan_words, uint32_t* partials,
   const Plan p = read_plan(plan_words);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!plan_ok(p, grid)) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_until_search<true>(p, carry, f_min, partials, grid, s);
+  const int err =
+      launch_until_search<true>(p, carry, f_min, true, Peers{}, partials,
+                                grid, s);
   if (err != 0) return err;
   reduce_until_fold_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, carry,
                                               base_hi, base_lo);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6's fold alone: the reduce-and-fold kernel of dbmt_sha256_argmin_fold
+// (f_min null) or dbmt_sha256_until_fold (f_min: the launch's lowest hit)
+// over `count` partials already in device memory, folded into the carry.
+// Nothing of the chain calls it: it times that kernel by itself.
+int dbmt_k6_fold(const uint32_t* partials, int count, const uint32_t* f_min,
+                 uint32_t* carry, uint32_t base_hi, uint32_t base_lo,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (count < 1 || count > (1 << 20)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (f_min == nullptr) {
+    reduce_argmin_fold_kernel<<<1, 1024, 0, s>>>(partials, count, carry,
+                                                 base_hi, base_lo);
+  } else {
+    reduce_until_fold_kernel<<<1, 1024, 0, s>>>(partials, count, f_min,
+                                                carry, base_hi, base_lo);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K6's mesh until shard: K2's chained search over the shard's window (no
 // lane work once carry[0] != 0; carry is this device's copy of the chain's
 // 8-word carry), then its reduce into out, the shard's 5 device words
-// (found, f_idx, best_hi, best_lo, best_idx), without a fold.
+// (found, f_idx, best_hi, best_lo, best_idx). f_min is this card's two
+// words of the block: the lowest hit, shared by the block's shards here,
+// and the run counter of this launch. The counter is reset on the stream
+// before the search, and with first (the block's first shard on this
+// card) the lowest hit too. peers: npeers device pointers, the lowest-hit
+// words of the mesh's other cards, which each hit also lowers.
 int dbmt_sha256_until_shard(const uint32_t* plan_words, uint32_t* partials,
-                            uint32_t* f_min, const uint32_t* carry,
-                            uint32_t* out, int grid, void* stream) {
+                            uint32_t* f_min, int first,
+                            uint32_t* const* peers, int npeers,
+                            const uint32_t* carry, uint32_t* out, int grid,
+                            void* stream) {
   const Plan p = read_plan(plan_words);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!plan_ok(p, grid)) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_until_search<true>(p, carry, f_min, partials, grid, s);
+  Peers pw;
+  if (!plan_ok(p, grid) || !read_peers(peers, npeers, pw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int err = launch_until_search<true>(p, carry, f_min, first != 0, pw,
+                                            partials, grid, s);
   if (err != 0) return err;
   reduce_until_kernel<<<1, 1024, 0, s>>>(partials, grid, f_min, carry, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Lets kernels on `device` read and write the memory of `peer` under
+// unified virtual addressing (the mesh until shards' hits go to every
+// card's lowest-hit word). Access already enabled is not an error, and
+// the error it leaves is cleared. The current device is kept.
+int dbmt_enable_peer_access(int device, int peer) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      (void)cudaGetLastError();
+      err = cudaSuccess;
+    }
+  }
+  const cudaError_t back = cudaSetDevice(current);
+  return static_cast<int>(err != cudaSuccess ? err : back);
 }
 
 // K6's mesh folds: rows are the n shards' device rows, 3 words each

@@ -8,7 +8,10 @@ shards' results are merged and folded into the span's carry on the
 devices (``parallel.mesh_search``), which crosses the host once per span.
 The plan, the midstate cache, the lane bodies (``peel``, ``hoist``) and
 the batched dispatch are :class:`NonceSearcher`'s: coalesced mice ride the
-segment-min launch on the mesh's first device, as in the JAX package.
+segment-min launch on the mesh's first device, as in the JAX package. In
+difficulty mode the shards of a block share its lowest hit
+(``parallel.mesh_search.MeshSpan``), across cards through peer memory
+where every pair of cards has it (:attr:`MeshNonceSearcher.hit_scope`).
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ from __future__ import annotations
 from ..bitcoin.hash import hash_op
 from ..ops import searchop
 from ..ops.sha256_torch import M32
-from ..parallel.mesh_search import (make_mesh, mesh_carry,
-                                    mesh_devloop_span,
+from ..parallel.mesh_search import (MeshSpan, hit_scope, make_mesh,
+                                    mesh_carry, mesh_devloop_span,
                                     mesh_devloop_span_until)
 from .miner_model import NonceSearcher
 
@@ -39,6 +42,15 @@ class MeshNonceSearcher(NonceSearcher):
         super().__init__(data, device=self.devices[0], grid=grid, peel=peel,
                          hoist=hoist)
         self.n_devices = len(self.devices)
+        self._hit_scope = hit_scope(self.devices)
+
+    @property
+    def hit_scope(self) -> str:
+        """``"mesh"`` when a difficulty block's shards all share its
+        lowest hit (one card, a CPU mesh, or cards with peer access
+        between every pair); ``"card"`` when only each card's shards do.
+        Fixed at construction."""
+        return self._hit_scope
 
     def _chain(self, lower: int, upper: int, target: int | None = None):
         """Every block of ``[lower, upper]`` through the mesh's arg-min
@@ -46,6 +58,11 @@ class MeshNonceSearcher(NonceSearcher):
         first device's carry (unforced)."""
         op = searchop.ARGMIN_OP if target is None else searchop.UNTIL_OP
         carries = mesh_carry(op, self.devices)
+        span = None
+        if target is not None and self.devices[0].type == "cuda":
+            body = ("hoist" if self.peel and self.use_hoist
+                    else "peel" if self.peel else "rolled")
+            span = MeshSpan(self.devices, self.hit_scope, body)
         for plan in self.plan(lower, upper):
             self.device_launches += 1
             kw = dict(rem=plan.rem, k=plan.k, devices=self.devices,
@@ -57,7 +74,8 @@ class MeshNonceSearcher(NonceSearcher):
             else:
                 carries = mesh_devloop_span_until(
                     plan.midstate, plan.template, carries, plan.lo_i,
-                    plan.hi_i, target >> 32, target & M32, plan.base, **kw)
+                    plan.hi_i, target >> 32, target & M32, plan.base,
+                    span=span, **kw)
         return carries[0]
 
     def dispatch(self, lower: int, upper: int):

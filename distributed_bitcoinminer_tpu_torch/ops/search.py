@@ -85,8 +85,8 @@ def span_scan(midstate, template, i0: int, lo_i: int, hi_i: int, n: int, *,
 
 def span_until_scan(midstate, template, i0: int, lo_i: int, hi_i: int,
                     n: int, t_hi: int, t_lo: int, *, rem: int, k: int,
-                    device, chunk: int | None = None,
-                    hoist=None) -> torch.Tensor:
+                    device, chunk: int | None = None, hoist=None,
+                    lowest: int = M32) -> torch.Tensor:
     """Plain chunked difficulty scan: returns a (5,) int64 tensor on
     ``device`` holding ``(found, f_idx, best_hi, best_lo, best_idx)``.
 
@@ -95,11 +95,17 @@ def span_until_scan(midstate, template, i0: int, lo_i: int, hi_i: int,
     ``(t_hi, t_lo)``; ``f_idx`` is the lowest such lane (all-ones when
     none). ``best_*`` is the arg-min over the steps that ran, so it is
     the span's arg-min when ``found`` is 0 and is meaningful only then.
-    ``hoist``: as for :func:`span_scan`.
+    ``hoist``: as for :func:`span_scan`. ``lowest``: the lowest hit of
+    the block so far, a qualifying lane in the same lane coordinates
+    (all-ones: none; the plain version of the lowest-hit word a mesh's
+    until shards share): no lane above it is scanned, and ``f_idx`` is
+    at most it.
     """
     device, chunk = _device_chunk(device, chunk)
     best = torch.full((3,), M32, dtype=torch.int64, device=device)
     f_idx = torch.tensor(M32, dtype=torch.int64, device=device)
+    hi_i = min(hi_i, lowest)
+    n = max(0, min(n, hi_i - i0 + 1))
     lane = torch.arange(min(chunk, n), dtype=torch.int64, device=device)
     for start in range(0, n, chunk):
         i = lane[:min(chunk, n - start)] + (i0 + start)
@@ -109,6 +115,7 @@ def span_until_scan(midstate, template, i0: int, lo_i: int, hi_i: int,
         f_idx = torch.where(qual, i, M32).min()
         if int(f_idx) != M32:
             break
+    f_idx = torch.clamp(f_idx, max=lowest)
     found = (f_idx != M32).to(torch.int64)
     return torch.cat([torch.stack([found, f_idx]), best])
 

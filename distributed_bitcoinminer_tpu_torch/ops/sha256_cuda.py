@@ -31,9 +31,13 @@ of the same entry; K4's is that scan through the hoisted compression
   ``pallas_devloop_until_scan`` with the merge and fold around them
   (``parallel/mesh_search.py`` in the JAX package): each shard runs
   :func:`sha256_argmin` (into its row of the fold's input) or
-  :func:`sha256_until_shard` over its window, and :func:`mesh_fold_argmin` / :func:`mesh_fold_until` merge
-  the shards' rows into a device's carry; their plain versions are
+  :func:`sha256_until_shard` (K2's search chained on its card's carry,
+  sharing the block's lowest-hit word with the card's other shards and,
+  through peer memory, with the mesh's other cards) over its window, and
+  :func:`mesh_fold_argmin` / :func:`mesh_fold_until` merge the shards'
+  rows into a device's carry; their plain versions are
   ``parallel.mesh_search.fold_rows_argmin`` / ``fold_rows_until``.
+  :func:`k6_fold` launches K6's reduce-and-fold alone, to time it.
 
 ``ops.search`` routes between each kernel and its plain version by
 device.
@@ -107,12 +111,17 @@ _ENTRIES = {
     "dbmt_sha256_plan_words": [],
     "dbmt_sha256_segmin": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P],
-    "dbmt_sha256_until_shard": [_P, _P, _P, _P, _P, _I, _P],
+    "dbmt_sha256_until_shard": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P],
+    "dbmt_k6_fold": [_P, _I, _P, _P, _U, _U, _P],
     "dbmt_mesh_fold_argmin": [_P, _I, _P, _U, _U, _P],
     "dbmt_mesh_fold_until": [_P, _I, _P, _U, _U, _P],
+    "dbmt_enable_peer_access": [_I, _I],
 }
 #: Shards a mesh fold takes at most (``kMeshRowsMax`` in the source).
 MESH_ROWS_MAX = 1024
+#: Other cards' lowest-hit words a mesh until shard lowers at most
+#: (``kMaxPeers``).
+MAX_PEERS = 7
 #: dbmt_sha256_blocks_per_sm's entry numbers.
 ENTRY_ARGMIN, ENTRY_UNTIL, ENTRY_SEGMIN = 0, 1, 2
 #: The counter of a search launch under each body (None: the entry's own,
@@ -288,13 +297,15 @@ def _cuda_device(device, what: str) -> torch.device:
 def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
             lo_i: int, hi_i: int, n: int, rem: int, k: int,
             device: torch.device, grid, *, until: bool, peel: bool, hoist,
-            tail: list, target: tuple = (0, 0)) -> None:
+            tail: list, target: tuple = (0, 0), f_min=None) -> None:
     """Allocate the scratch, call the C entry ``entry`` of the body's
     library on the current stream of ``device`` with the plan, the scratch
-    pointers and then ``tail`` (the entry's output and carry arguments),
-    raise on a nonzero cudaError, count the search launch (K3 or K4 under
-    a peeled body, else K2 when ``until``, else K1) and the reduce launch
-    under ``reduce_kernel``."""
+    pointers (for the until kernels the lowest hit and run counter after
+    the partials, or ``f_min``'s two words when given) and then ``tail``
+    (the entry's output and carry arguments), raise on a nonzero
+    cudaError, count the search launch (K3 or K4 under a peeled body, else
+    K2 when ``until``, else K1) and the reduce launch under
+    ``reduce_kernel``."""
     if not (0 < n <= 1 << 31 and i0 + n - 1 <= M32):
         raise ValueError(f"lane window out of range: i0={i0} n={n}")
     body = body_of(peel, hoist)
@@ -307,11 +318,13 @@ def _launch(reduce_kernel: str, entry: str, midstate, template, i0: int,
     grid = max(1, min(int(grid), -(-runs(i0, lo_i, hi_i, n) // THREADS)))
     # partials (3 words a block), then for the until kernels the lowest
     # hit and the complement of the runs handed out.
-    scratch = torch.empty(3 * grid + 2 * until, dtype=torch.int32,
+    own_words = until and f_min is None
+    scratch = torch.empty(3 * grid + 2 * own_words, dtype=torch.int32,
                           device=device)
     args = [scratch.data_ptr()]
     if until:
-        args.append(args[0] + 4 * 3 * grid)
+        args.append(args[0] + 4 * 3 * grid if own_words
+                    else f_min.data_ptr())
     args += tail
     plan = plan_array(midstate, template, i0, lo_i, hi_i, n, rem, k,
                       *target, hoist=hoist)
@@ -348,6 +361,21 @@ def _out(out, words: int, device: torch.device) -> torch.Tensor:
 
 def _base_words(base: int) -> list:
     return [base >> 32 & M32, base & M32]
+
+
+def _peer_words(tensors) -> tuple:
+    """``tensors`` (at most :data:`MAX_PEERS` (1,) int32 CUDA tensors on
+    other cards) as the C entry takes them: a ctypes array of their
+    pointers and its length."""
+    tensors = list(tensors)
+    if len(tensors) > MAX_PEERS or not all(
+            isinstance(w, torch.Tensor) and w.is_cuda
+            and w.dtype == torch.int32 and w.shape == (1,)
+            for w in tensors):
+        raise ValueError(f"peers must be at most {MAX_PEERS} (1,) int32 "
+                         f"CUDA tensors")
+    return (ctypes.c_void_p * max(1, len(tensors)))(
+        *(w.data_ptr() for w in tensors)), len(tensors)
 
 
 def sha256_argmin(midstate, template, i0: int, lo_i: int, hi_i: int,
@@ -431,25 +459,95 @@ def sha256_until_fold(midstate, template, carry: torch.Tensor, i0: int,
 
 def sha256_until_shard(midstate, template, carry: torch.Tensor, i0: int,
                        lo_i: int, hi_i: int, n: int, t_hi: int, t_lo: int,
-                       *, rem: int, k: int, device, grid: int | None = None,
+                       *, rem: int, k: int, device, hit: torch.Tensor,
+                       first: bool = True, peers=(), grid: int | None = None,
                        peel: bool = False, hoist=None,
                        out=None) -> torch.Tensor:
     """K6's mesh until body for one shard: K2's search (K3's or K4's)
-    over the shard's lanes, chained on ``carry`` (this device's (8,)
-    int32 copy of the mesh's until carry, read only): once ``carry[0]``
-    says an earlier block hit, the launch does no lane work. Returns the
-    shard's (5,) int32 row ``(found, f_idx, best_hi, best_lo, best_idx)``
-    as :func:`sha256_until` gives it, or ``(0, all-ones x 4)`` after a
-    hit, written into ``out`` when given; nothing is folded or
-    synchronised."""
+    over the shard's lanes, in the block's lane coordinates, chained on
+    ``carry`` (this device's (8,) int32 copy of the mesh's until carry):
+    once ``carry[0]`` says an earlier block hit, the launch does no lane
+    work.
+
+    ``hit``: this card's (2,) int32 words of the block, the lowest hit
+    that the block's shards on this card share and the run counter of the
+    launch (``parallel.mesh_search.MeshSpan``). The launch resets the
+    counter, and with ``first`` (the block's first shard on this card)
+    the lowest hit, to all-ones on the stream before its search; a shard
+    whose lanes lie above a hit already stored takes no run and hashes
+    no lane. ``peers``: the lowest-hit words ((1,) int32 tensors) of the
+    mesh's other cards, which each hit of this shard also lowers through
+    peer memory (peer access enabled, :func:`enable_peer_access`).
+
+    Returns the shard's (5,) int32 row ``(found, f_idx, best_hi, best_lo,
+    best_idx)``, written into ``out`` when given: ``found`` and ``f_idx``
+    from the card's lowest-hit word as the reduce reads it (the lowest
+    hit of this shard or of an earlier one that shares the word), the
+    ``best_*`` words as :func:`sha256_until` gives them, meaningful only
+    when ``found`` is 0; ``(0, all-ones x 4)`` after a hit. Nothing is
+    folded or synchronised."""
     device = _cuda_device(device, "sha256_until_shard")
     _check_carry(carry, 8, device)
+    _check_words(hit, 2, device, "hit")
+    words, npeers = _peer_words(peers)
     out = _out(out, 5, device)
     _launch("K2", "dbmt_sha256_until_shard", midstate, template, i0,
             lo_i, hi_i, n, rem, k, device, grid, until=True, peel=peel,
-            hoist=hoist, tail=[carry.data_ptr(), out.data_ptr()],
+            hoist=hoist, f_min=hit,
+            tail=[int(first), ctypes.addressof(words), npeers,
+                  carry.data_ptr(), out.data_ptr()],
             target=(t_hi, t_lo))
     return out
+
+
+def k6_fold(partials: torch.Tensor, carry: torch.Tensor, base: int, *,
+            device, f_min=None, body: str = "rolled") -> torch.Tensor:
+    """K6's reduce-and-fold kernel alone, the second launch of
+    :func:`sha256_argmin_fold` (or, with ``f_min``, of
+    :func:`sha256_until_fold`): the minimum of ``partials`` (a (3 x
+    count,) int32 device tensor of (hi, lo, idx) keys) folded into
+    ``carry`` (5 words; 8 with ``f_min``, the launch's (1,) lowest hit) in
+    place. The chain never calls it: it times that kernel by itself.
+    Counts under ``K6``; nothing is synchronised."""
+    device = _cuda_device(device, "k6_fold")
+    _check_carry(carry, 5 if f_min is None else 8, device)
+    for t, what in ((partials, "partials"), (f_min, "f_min")):
+        if t is not None and not (t.is_cuda and t.device == carry.device
+                                  and t.dtype == torch.int32
+                                  and t.is_contiguous() and t.numel()):
+            raise ValueError(f"{what} must be a contiguous int32 tensor "
+                             f"beside the carry")
+    if partials.numel() % 3:
+        raise ValueError("partials hold 3 words a block")
+    lib = load(body)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dbmt_k6_fold(partials.data_ptr(), partials.numel() // 3,
+                               None if f_min is None else f_min.data_ptr(),
+                               carry.data_ptr(), *_base_words(base), stream)
+    if err != 0:
+        raise RuntimeError(f"dbmt_k6_fold launch failed: cudaError {err}")
+    launches["K6"] += 1
+    return carry
+
+
+_peer_access: set = set()
+
+
+def enable_peer_access(device, peer, body: str = "rolled") -> None:
+    """Let kernels on the CUDA ``device`` write ``peer``'s memory through
+    peer pointers (``cudaDeviceEnablePeerAccess``; once a pair per
+    process). Raises when the runtime refuses; ask
+    ``torch.cuda.can_device_access_peer`` first."""
+    a = _cuda_device(device, "peer access").index
+    b = _cuda_device(peer, "peer access").index
+    if (a, b) in _peer_access:
+        return
+    err = load(body).dbmt_enable_peer_access(a, b)
+    if err != 0:
+        raise RuntimeError(f"cudaDeviceEnablePeerAccess({a} -> {b}) "
+                           f"failed: cudaError {err}")
+    _peer_access.add((a, b))
 
 
 def _mesh_fold(entry: str, rows, width: int, carry, words: int, base: int,

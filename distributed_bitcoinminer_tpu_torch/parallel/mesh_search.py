@@ -16,7 +16,15 @@ counterpart of the JAX test suite's virtual CPU devices). For each aligned
    row: K1's search (K3's, K4's) in the arg-min chain
    (``ops.sha256_cuda.sha256_argmin``); in the until chain K2's
    search chained on its device's carry, which does no lane work once
-   that carry says found (``sha256_until_shard``);
+   that carry says found (``sha256_until_shard``). The until shards of a
+   block share its lowest hit (:class:`MeshSpan`): one word per card,
+   which every shard there reads and lowers, and which across cards each
+   hit also lowers on every other card through peer memory
+   (:func:`hit_scope` ``"mesh"``; ``"card"`` where a pair of cards has no
+   peer access). The windows ascend, so a shard that starts above a
+   stored hit hashes no lane: the block stops at its first hit as a
+   single-device launch does, where the TPU's lockstep shards each scan
+   their whole window;
 3. the rows are merged into the exact lexicographic ``(hash_hi, hash_lo,
    idx)`` minimum, the staged pmins of the JAX package's
    ``_pmin_lex_argmin`` (until: also the lowest first hit; the windows
@@ -28,11 +36,18 @@ counterpart of the JAX test suite's virtual CPU devices). For each aligned
    mesh fold kernel. On one card the rows need no copy and the fold runs
    once.
 
+A card resets its lowest-hit word before the block's first shard there,
+on its stream, after its fold of the block before, which waited for
+every shard of that block on every card; so no late hit of one block can
+land in the next block's word (:func:`_cuda_block`).
+
 The span crosses the host once, as one fetch of the first device's carry.
 On a CUDA mesh every step is a kernel (``ops.sha256_cuda``); on a CPU mesh
-(``("cpu",) * n``) the plain scans per shard, :func:`mesh_lex_min` and the
-plain folds :func:`fold_rows_argmin` and :func:`fold_rows_until` (the mesh
-fold kernels' plain versions). A mesh of mixed device types raises.
+(``("cpu",) * n``) the plain scans per shard (the until scans passing the
+lowest hit on from shard to shard, the plain version of the shared word),
+:func:`mesh_lex_min` and the plain folds :func:`fold_rows_argmin` and
+:func:`fold_rows_until` (the mesh fold kernels' plain versions). A mesh of
+mixed device types raises.
 """
 
 from __future__ import annotations
@@ -143,13 +158,59 @@ def _windows(lo_i: int, hi_i: int, n: int) -> list:
             if lo_d[s] <= hi_d[s]]
 
 
+class MeshSpan:
+    """The until chain's lowest-hit words on a CUDA mesh, made once a span
+    and handed to each of its blocks.
+
+    ``words[t]``: holder ``t``'s (2,) int32 tensor, the lowest hit of the
+    current until block on that card (shared by the block's shards
+    there) and the run counter of its current shard launch; all-ones at
+    first, both reset by the shard launches (``sha256_until_shard``).
+    ``hit_peers[t]``: in ``"mesh"`` scope across cards, the other
+    holders' lowest-hit words, which the shards on ``t`` also lower;
+    peer access between the cards is enabled here (once a pair per
+    process). ``body``: the library that enables it."""
+
+    def __init__(self, devices, scope: str, body: str = "rolled"):
+        holders = distinct(devices)
+        peers = scope == "mesh" and len(holders) > 1
+        if peers:
+            for a in holders:
+                for b in holders:
+                    if a != b:
+                        sha256_cuda.enable_peer_access(a, b, body=body)
+        self.words = {t: torch.full((2,), -1, dtype=torch.int32, device=t)
+                      for t in holders}
+        self.hit_peers = {t: [self.words[u][:1] for u in holders if u != t]
+                          if peers else [] for t in holders}
+
+
+def hit_scope(devices) -> str:
+    """Where a mesh's until shards' hits reach: ``"mesh"`` when every
+    shard sees every other's (one card, a CPU mesh, or cards that can
+    all reach each other's memory), else ``"card"``: each card's shards
+    share their card's word only."""
+    holders = distinct(devices)
+    if len(holders) == 1 or _mesh_type(devices) == "cpu":
+        return "mesh"
+    if len(holders) - 1 > sha256_cuda.MAX_PEERS or not all(
+            torch.cuda.can_device_access_peer(a, b)
+            for a in holders for b in holders if a != b):
+        return "card"
+    return "mesh"
+
+
 def _cuda_block(devices: tuple, carries: tuple, windows: list, width: int,
                 search, fold) -> tuple:
-    """One block on a CUDA mesh: ``search(device, row, carry, lo, hi)``
-    per shard with a window, writing its row of its device's rows tensor;
-    then on every distinct device the other devices' rows copied in and
-    ``fold(rows, carry, device)``. An empty shard's row is all-ones, with
-    found 0 in the until layout."""
+    """One block on a CUDA mesh: ``search(device, row, carry, lo, hi,
+    first)`` per shard with a window, writing its row of its device's rows
+    tensor (``first``: the block's first shard on that device); then on
+    every distinct device the other devices' rows copied in and
+    ``fold(rows, carry, device)``. Each copy is ordered on both cards'
+    streams, so a card's fold of block b waits for every shard of b on
+    every card, and the card's work on block b + 1 (its lowest-hit word's
+    reset first) comes after that fold. An empty shard's row is all-ones,
+    with found 0 in the until layout."""
     n, holders = len(devices), distinct(devices)
     rows = {}
     for t in holders:
@@ -158,9 +219,12 @@ def _cuda_block(devices: tuple, carries: tuple, windows: list, width: int,
             rows[t][len(windows):] = -1
             if width == 5:
                 rows[t][len(windows):, 0] = 0
+    seen = set()
     for s, lo, hi in windows:
         d = devices[s]
-        search(d, rows[d][s], carries[holders.index(d)], lo, hi)
+        search(d, rows[d][s], carries[holders.index(d)], lo, hi,
+               d not in seen)
+        seen.add(d)
     for t, carry in zip(holders, carries):
         for s, _, _ in windows:
             if devices[s] != t:
@@ -192,7 +256,7 @@ def mesh_devloop_span(midstate, template, carries: tuple, lo_i: int,
         return (fold_rows_argmin(carries[0], torch.stack(rows), base),)
     body = sha256_cuda.body_of(peel, hoist)
 
-    def search(d, row, _carry, lo, hi):
+    def search(d, row, _carry, lo, hi, _first):
         sha256_cuda.sha256_argmin(
             midstate, template, lo, lo, hi, hi - lo + 1, rem=rem, k=k,
             device=d, grid=grid, peel=peel, hoist=hoist, out=row)
@@ -204,35 +268,41 @@ def mesh_devloop_span(midstate, template, carries: tuple, lo_i: int,
 
 def mesh_devloop_span_until(midstate, template, carries: tuple, lo_i: int,
                             hi_i: int, t_hi: int, t_lo: int, base: int, *,
-                            rem: int, k: int, devices,
+                            rem: int, k: int, devices, span,
                             grid: int | None = None, peel: bool = False,
                             hoist=None) -> tuple:
     """One block of the mesh difficulty chain: each shard's early-exit scan
     of its window below the target ``(t_hi, t_lo)``, merged (the lowest
     first hit and the arg-min fallback) and folded into ``carries`` (one
-    8-word carry per distinct device). Once the carries say an earlier
-    block hit, no shard does lane work and the carries stay as they are,
-    so the span costs one fetch wherever the hit lands. Returns the
-    updated carries (in place on a CUDA mesh)."""
+    8-word carry per distinct device). The block's shards share its
+    lowest hit (on a CUDA mesh the words of ``span``, the span's
+    :class:`MeshSpan`; None on a CPU mesh), so a shard above a stored hit
+    does no lane work; once the carries say an earlier block hit, no
+    shard does lane work and the carries stay as they are, so the span
+    costs one fetch wherever the hit lands. Returns the updated carries
+    (in place on a CUDA mesh)."""
     devices = tuple(devices)
     hoist = hoist if peel else None
     windows = _windows(lo_i, hi_i, len(devices))
     if _mesh_type(devices) == "cpu":
         if int(carries[0][0]):
             return carries
-        rows = [span_until_scan(midstate, template, lo, lo, hi, hi - lo + 1,
-                                t_hi, t_lo, rem=rem, k=k, device="cpu",
-                                hoist=hoist)
-                for _, lo, hi in windows]
+        rows, lowest = [], M32
+        for _, lo, hi in windows:
+            rows.append(span_until_scan(
+                midstate, template, lo, lo, hi, hi - lo + 1, t_hi, t_lo,
+                rem=rem, k=k, device="cpu", hoist=hoist, lowest=lowest))
+            lowest = int(rows[-1][1])
         rows += [torch.tensor([0] + [M32] * 4, dtype=torch.int64)] * (
             len(devices) - len(windows))
         return (fold_rows_until(carries[0], torch.stack(rows), base),)
     body = sha256_cuda.body_of(peel, hoist)
 
-    def search(d, row, carry, lo, hi):
+    def search(d, row, carry, lo, hi, first):
         sha256_cuda.sha256_until_shard(
             midstate, template, carry, lo, lo, hi, hi - lo + 1, t_hi, t_lo,
-            rem=rem, k=k, device=d, grid=grid, peel=peel, hoist=hoist,
+            rem=rem, k=k, device=d, hit=span.words[d], first=first,
+            peers=span.hit_peers[d], grid=grid, peel=peel, hoist=hoist,
             out=row)
 
     def fold(rows, carry, d):

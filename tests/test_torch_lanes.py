@@ -25,7 +25,9 @@ by a small harness:
   ahead, in several warp orders, against the plain until scan and the
   JAX package's ``search_span_until``: seeded windows (shorter than a run
   among them), the first hit in the last run of a grab, and a last grab
-  that crosses the window's end.
+  that crosses the window's end; and as a mesh until shard's walk, with
+  the lowest hit already stored by an earlier shard: no run taken and no
+  lane hashed above it, the first qualifier still found below it.
 
 Every check is exact. The kernels themselves run only on a card
 (``chip_smoke.py``).
@@ -124,14 +126,37 @@ struct HostWarp {
   void hit(uint32_t i) const { *f_min = i < *f_min ? i : *f_min; }
 };
 
+// A lane body that counts the lanes it hashes and keeps the highest.
+template <int V>
+struct CountingBody {
+  LaneBody<V> body;
+  uint32_t* hashed;
+  uint32_t* top;
+  template <class Visit>
+  void run(const Plan& p, uint32_t base, uint32_t dlo, uint32_t dhi,
+           Visit&& visit) const {
+    body.run(p, base, dlo, dhi, [&](const Key& k) {
+      *top = *hashed == 0u || k.idx > *top ? k.idx : *top;
+      ++*hashed;
+      return visit(k);
+    });
+  }
+};
+
 // K2's search: simulated warps of 32 lanes walk grabs of 32 x G runs from
 // one shared counter against one shared lowest hit, a grab a turn in the
 // order given (a warp's first turn takes its first grab, as a warp that
-// starts late does); a warp stops when its step says so.
-template <uint32_t G, int V>
-static void until(const Plan& p, const std::vector<uint32_t>& order) {
-  const LaneBody<V> body(p);
-  uint32_t first, last, counter = 0u, f_min = ~0u;
+// starts late does); a warp stops when its step says so. SHARED: as a
+// mesh until shard, whose lowest hit starts at `preset` (all-ones: none;
+// else a hit an earlier shard stored) and whose warps start no walk when
+// it lies below the window (starts_above_hit), printing the lanes hashed,
+// the highest of them and the runs handed out too.
+template <uint32_t G, int V, bool SHARED>
+static void until(const Plan& p, const std::vector<uint32_t>& order,
+                  uint32_t preset) {
+  uint32_t hashed = 0u, top = 0u;
+  const CountingBody<V> body{LaneBody<V>(p), &hashed, &top};
+  uint32_t first, last, counter = 0u, f_min = preset;
   valid_lanes(p, first, last);
   HostWarp warp{&counter, &f_min};
   std::vector<std::unique_ptr<UntilWalk<G, 32>>> walks(order.size());
@@ -141,6 +166,10 @@ static void until(const Plan& p, const std::vector<uint32_t>& order) {
     for (uint32_t w : order) {
       if (done[w]) continue;
       if (walks[w] == nullptr) {
+        if (SHARED && starts_above_hit(first, warp)) {
+          done[w] = true;
+          continue;
+        }
         walks[w].reset(new UntilWalk<G, 32>(first, last, warp));
       } else {
         done[w] = !walks[w]->step(body, p, warp);
@@ -154,7 +183,10 @@ static void until(const Plan& p, const std::vector<uint32_t>& order) {
       if (key_less(w->best[l], best)) best = w->best[l];
     }
   }
-  if (f_min != ~0u) {
+  if (SHARED) {
+    printf("%u %u %u %u %u\n", f_min != ~0u ? 1u : 0u, f_min, hashed, top,
+           counter);
+  } else if (f_min != ~0u) {
     printf("1 %u\n", f_min);
   } else {  // no hit: every lane was visited, and best is the arg-min
     printf("0 %u %u %u %u\n", f_min, best.hi, best.lo, best.idx);
@@ -182,11 +214,18 @@ template <int V> struct Walk {
 };
 template <int V> struct Until {
   static void go(const Plan& p, uint32_t grab,
-                 const std::vector<uint32_t>& order) {
-    if (grab == 1u) {
-      until<1u, V>(p, order);
+                 const std::vector<uint32_t>& order, uint32_t preset,
+                 bool shared) {
+    if (shared) {
+      if (grab == 1u) {
+        until<1u, V, true>(p, order, preset);
+      } else {
+        until<4u, V, true>(p, order, preset);
+      }
+    } else if (grab == 1u) {
+      until<1u, V, false>(p, order, preset);
     } else {
-      until<4u, V>(p, order);
+      until<4u, V, false>(p, order, preset);
     }
   }
 };
@@ -231,13 +270,15 @@ int main() {
           if (key_less(mine, best)) best = mine;
         }
         printf("%u %u %u\n", best.hi, best.lo, best.idx);
-      } else {                       // until: plan G warps order...
+      } else {  // until: plan G warps order...; shared: plan lowest G ...
         const Plan p = read_plan();
-        uint32_t grab, warps;
+        const bool shared = mode[0] == 'p';
+        uint32_t lowest = ~0u, grab, warps;
+        if (shared) scanf("%u", &lowest);
         scanf("%u %u", &grab, &warps);
         std::vector<uint32_t> order(warps);
         for (auto& w : order) scanf("%u", &w);
-        by_variant<Until>(p, grab, order);
+        by_variant<Until>(p, grab, order, lowest, shared);
       }
     }
   }
@@ -483,6 +524,57 @@ def test_until_walk_never_skips_the_lowest_hit(lanes_exe):
             lines += more[0]
             want += more[1]
     assert _run(exe, [("u", lines)]) == want
+
+
+def test_until_walk_with_a_preset_lowest_hit(lanes_exe):
+    """K2's walk started with the lowest hit already stored, as a mesh
+    until shard finds it when an earlier shard of its block (on its card,
+    or through peer memory) has hit: over a window that lies above the
+    stored hit, no warp takes a run and no lane is hashed, and the walk
+    reports that hit; from a window below it, the walk still finds the
+    window's first qualifier (the plain until scan's, given the same
+    lowest hit) and hashes no lane above the stored hit. G 1 and 4, one
+    and three warps in several orders, on the seeded windows with at
+    least two qualifying lanes under a dense target."""
+    body, exe = lanes_exe
+    rng = np.random.default_rng(66)
+    lines, checks = [], []
+    for data, k, i0, lo_i, hi_i, n in WINDOWS:
+        first, last = max(lo_i, i0), min(hi_i, i0 + n - 1)
+        prefix = data.encode() + b" "
+        keys = {i: _oracle(prefix, k, i) for i in range(first, last + 1)}
+        order = sorted(keys.values())
+        t_hi, t_lo = order[len(order) // 2]
+        t = t_hi << 32 | t_lo
+        qual = [i for i, key in keys.items() if key < (t_hi, t_lo)]
+        if len(qual) < 2:
+            continue
+        mid, tmpl = _tail(prefix, k)
+        rem = len(prefix) % 64
+        plan = _plan(body, mid, tmpl, rem, k, i0, lo_i, hi_i, n, t)
+        # Above: an earlier shard's hit below this window (a lane of the
+        # block before `first`). Below: a later qualifying lane of this
+        # window, and the window's last lane plus one.
+        for lowest in (first - 1, qual[-1], last + 1):
+            plain = [int(x) & M32 for x in search.span_until_scan(
+                mid, tmpl, i0, lo_i, hi_i, n, t_hi, t_lo, rem=rem, k=k,
+                device="cpu", lowest=lowest).tolist()]
+            for grab in GRABS:
+                for warps in (1, 3):
+                    for ordr in (list(range(warps)),
+                                 [int(x) for x in rng.permutation(warps)]):
+                        lines.append(f"{plan} {lowest} {grab} {warps} "
+                                     + " ".join(map(str, ordr)))
+                        checks.append((first, lowest, plain[:2]))
+    assert len(checks) >= 4 * 3 * 2 * 2 * 2
+    for line, (first, lowest, plain) in zip(_run(exe, [("p", lines)]),
+                                            checks):
+        found, f_idx, hashed, top, handed = map(int, line.split())
+        assert [found, f_idx] == plain
+        if lowest < first:
+            assert (f_idx, hashed, handed) == (lowest, 0, 0)
+        else:
+            assert f_idx < lowest and 0 < hashed and top <= lowest
 
 
 #: Tails for the grab cases: a 1-block tail, a 2-block one whose last

@@ -120,32 +120,87 @@ def test_mesh_search_equals_oracle_and_single_device(span, n):
     assert sha256_cuda.total_launches() == 0   # the CPU mesh ran no kernel
 
 
+def _scanned(lo: int, hi: int, lowest: int) -> int:
+    """Lanes the plain until scan of a shard's window ``[lo, hi]`` hashes
+    given the block's lowest hit so far (it scans none above it)."""
+    return max(0, min(hi, lowest) - lo + 1)
+
+
+def _counting_until_scans(scans: list):
+    """A stand-in for the mesh's plain until scan that records each
+    shard's ``(lo, hi, lowest)`` and then scans."""
+    until_scan = search.span_until_scan
+
+    def counting(*args, **kw):
+        scans.append((args[3], args[4], kw.get("lowest", M32)))
+        return until_scan(*args, **kw)
+    return mock.patch.object(mesh_search, "span_until_scan", counting)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 4])
 @pytest.mark.parametrize("case", ["hit", "miss", "hit_first_block"])
 def test_mesh_search_until_equals_oracle_and_single_device(case, n):
     """A hit inside a multi-block span, a target nothing meets, and a hit
     in the first of several blocks (every later shard search must then do
-    no lane work)."""
+    no lane work). Within a block the shards pass the lowest hit on (the
+    plain version of the word they share on a card): every shard after
+    the one holding a block's first hit scans no lane."""
     lower, upper = SPANS["classes"]
     best = scan_min("cmu440", lower, upper)[0]
     target = {"hit": (1 << 64) // 50, "miss": best,
               "hit_first_block": 1 << 63}[case]
     want = scan_until("cmu440", lower, upper, target)
     scans = []
-
-    def counting(*args, **kw):
-        scans.append(args[2:6])
-        return until_scan(*args, **kw)
-    until_scan = search.span_until_scan
-    with mock.patch.object(mesh_search, "span_until_scan", counting):
+    with _counting_until_scans(scans):
         got = _cpu_mesh(n).search_until(lower, upper, target)
     assert got == want
     assert got == NonceSearcher("cmu440", device="cpu").search_until(
         lower, upper, target)
     assert want[2] == (case != "miss")
+    after_hit = [s for s in scans if s[2] != M32]
+    assert all(lowest < lo and _scanned(lo, hi, lowest) == 0
+               for lo, hi, lowest in after_hit)
+    if case == "miss":
+        assert not after_hit
     if case == "hit_first_block":
         assert want[1] < 100
-        assert all(lo < 100 for _, lo, _, _ in scans)   # block 0 only
+        assert all(lo < 100 for lo, _, _ in scans)   # block 0 only
+        # Shard 0 holds the block's first hit: the others scan nothing
+        # (block 0's 5 lanes fill at most 3 shard windows).
+        assert len(after_hit) == len(scans) - 1 == min(n, 3) - 1
+
+
+def _only_shard_2_hits() -> tuple:
+    """A one-block span of "cmu440" whose four shard windows have their
+    lowest hash in shard 2 (below every lane of shards 0 and 1), and the
+    target that only that lane of shards 0-2 meets: (lower, upper,
+    target, the lane's nonce)."""
+    for lower in range(1000, 9000, 400):
+        upper = lower + 399
+        _, lo_d, hi_d, _ = device_windows(lower, upper, 4, 1)
+        mins = [scan_min("cmu440", int(a), int(b))
+                for a, b in zip(lo_d, hi_d)]
+        if mins[2][0] < min(mins[0][0], mins[1][0]):
+            return lower, upper, mins[2][0] + 1, mins[2][1]
+    raise AssertionError("no span puts its lowest hash in shard 2")
+
+
+def test_mesh_until_only_shard_2_hits():
+    """Only shard 2 of four holds a lane below the target: shards 0 and 1
+    scan their whole windows, shard 2 finds the hit, shard 3 (above it)
+    scans nothing; the answer is the oracle's and the single-device
+    searcher's."""
+    lower, upper, target, nonce = _only_shard_2_hits()
+    want = scan_until("cmu440", lower, upper, target)
+    assert want[1:] == (nonce, True)
+    scans = []
+    with _counting_until_scans(scans):
+        got = _cpu_mesh(4).search_until(lower, upper, target)
+    assert got == want == NonceSearcher(
+        "cmu440", device="cpu").search_until(lower, upper, target)
+    lanes = [_scanned(lo, hi, lowest) for lo, hi, lowest in scans]
+    assert lanes[:2] == [100, 100] and 0 < lanes[2] <= 100
+    assert lanes[3] == 0 and scans[3][2] == nonce < scans[3][0]
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -397,7 +452,13 @@ def test_mesh_kernel_wrappers_refuse_cpu():
                                   device="cpu", out=rows[0, :3])
     with pytest.raises(ValueError, match="CUDA device"):
         sha256_cuda.sha256_until_shard(None, None, carry, 0, 0, 0, 1, 0, 0,
-                                       rem=0, k=1, device="cpu")
+                                       rem=0, k=1, device="cpu",
+                                       hit=carry[:2])
+    with pytest.raises(ValueError, match="CUDA device"):
+        sha256_cuda.k6_fold(rows.reshape(-1)[:6], carry[:5], 0,
+                            device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        sha256_cuda.enable_peer_access("cpu", "cpu")
     with pytest.raises(ValueError, match="CUDA device"):
         alu_probe.alu_probe(1, device="cpu")
     assert sha256_cuda._libs == {} and alu_probe._lib == []
@@ -428,9 +489,10 @@ def test_cross_card_block_copies_rows_and_folds_on_every_holder(width):
     search and fold and two distinct CPU device keys in the place of two
     cards: shards 0 and 2 on one, 1 and 3 on the other, the last shard's
     window empty. Each shard searches on its own device with that
-    device's carry, into its row there; each holder then has every
-    shard's row (the other device's copied in, the empty shard's the
-    sentinel) and folds once, with its own carry."""
+    device's carry, into its row there (the first shard on each device
+    told so); each holder then has every shard's row (the other device's
+    copied in, the empty shard's the sentinel) and folds once, with its
+    own carry."""
     a, b = torch.device("cpu"), torch.device("cpu", 0)
     devices = (a, b, a, b)
     carries = (torch.zeros(width + 3, dtype=torch.int32),
@@ -438,8 +500,8 @@ def test_cross_card_block_copies_rows_and_folds_on_every_holder(width):
     windows = [(0, 10, 19), (1, 20, 29), (2, 30, 39)]
     searched, folded = [], []
 
-    def search(d, row, carry, lo, hi):
-        searched.append((d, carry, lo, hi))
+    def search(d, row, carry, lo, hi, first):
+        searched.append((d, carry, lo, hi, first))
         row.copy_(torch.arange(width, dtype=torch.int32) + lo)
 
     def fold(rows, carry, d):
@@ -448,16 +510,183 @@ def test_cross_card_block_copies_rows_and_folds_on_every_holder(width):
     out = mesh_search._cuda_block(devices, carries, windows, width, search,
                                   fold)
     assert out is carries
-    assert [(d, lo, hi) for d, _, lo, hi in searched] == \
+    assert [(d, lo, hi) for d, _, lo, hi, _ in searched] == \
         [(devices[s], lo, hi) for s, lo, hi in windows]
-    assert all(c is carries[d != a] for d, c, _, _ in searched)
+    assert all(c is carries[d != a] for d, c, *_ in searched)
+    assert [e[4] for e in searched] == [True, True, False]
     empty = [0] + [-1] * 4 if width == 5 else [-1] * 3
     want = torch.tensor([[lo + j for j in range(width)]
                          for _, lo, _ in windows] + [empty],
                         dtype=torch.int32)
     assert [d for d, _, _ in folded] == [a, b]
-    for (_, carry, rows), mine in zip(folded, carries):
-        assert carry is mine and torch.equal(rows, want)
+    for (_, carry, got), mine in zip(folded, carries):
+        assert carry is mine and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("scope", ["mesh", "card"])
+def test_mesh_span_shares_hit_words_by_scope(scope, monkeypatch):
+    """A span's words over two (stub) cards, shards 0 and 2 on one, 1 and
+    3 on the other: one (2,) all-ones word pair a card. In "mesh" scope
+    each card's peers are the other card's lowest-hit word and peer
+    access is enabled for each ordered pair, with the searcher's body; in
+    "card" scope a card has no peers and nothing is enabled. One card
+    never has peers."""
+    enabled = []
+    monkeypatch.setattr(sha256_cuda, "enable_peer_access",
+                        lambda a, b, body: enabled.append((a, b, body)))
+    a, b = torch.device("cpu"), torch.device("cpu", 0)
+    span = mesh_search.MeshSpan((a, b, a, b), scope, "hoist")
+    assert set(span.words) == {a, b}
+    assert all(torch.equal(w, torch.full((2,), -1, dtype=torch.int32))
+               for w in span.words.values())
+    if scope == "mesh":
+        assert enabled == [(a, b, "hoist"), (b, a, "hoist")]
+        for t, u in ((a, b), (b, a)):
+            assert [w.data_ptr() for w in span.hit_peers[t]] == \
+                [span.words[u].data_ptr()]
+            assert span.hit_peers[t][0].shape == (1,)
+    else:
+        assert span.hit_peers == {a: [], b: []} and not enabled
+    assert mesh_search.MeshSpan((a,) * 4, scope).hit_peers == {a: []}
+    assert len(enabled) == (2 if scope == "mesh" else 0)
+
+
+def _stub_mesh_kernels(monkeypatch, log: list):
+    """The mesh plane's kernel wrappers replaced by stubs that log each
+    call (and write a row as the shards' reduces would) and a mesh type
+    check that takes CPU device keys for cards."""
+    monkeypatch.setattr(mesh_search, "_mesh_type", lambda devices: "cuda")
+
+    def shard(kind):
+        def stub(*args, device, out, **kw):
+            log.append((kind, device, out, kw))
+            out.fill_(1)
+        return stub
+
+    def mesh_fold(kind):
+        def stub(rows, carry, base, *, device, body):
+            log.append((kind, device, rows, carry, base))
+        return stub
+    for name, kind in (("sha256_argmin", "argmin"),
+                       ("sha256_until_shard", "until"),
+                       ("mesh_fold_argmin", "fold"),
+                       ("mesh_fold_until", "fold")):
+        monkeypatch.setattr(sha256_cuda, name, (
+            mesh_fold if kind == "fold" else shard)(kind))
+
+
+def _two_blocks(until: bool, devices, carries, span):
+    """Blocks [0, 99] and [100, 199] of one plan through the mesh
+    router."""
+    mid, tmpl = [0] * 8, torch.zeros((1, 16), dtype=torch.int64)
+    for lo, hi in ((0, 99), (100, 199)):
+        if until:
+            mesh_search.mesh_devloop_span_until(
+                mid, tmpl, carries, lo, hi, 0, 0, 1000, rem=0, k=3,
+                devices=devices, span=span)
+        else:
+            mesh_search.mesh_devloop_span(mid, tmpl, carries, lo, hi, 1000,
+                                          rem=0, k=3, devices=devices)
+
+
+def test_cross_card_until_resets_each_word_once_a_block_after_the_folds(
+        monkeypatch):
+    """The until chain over two stub cards (shards 0 and 2 on one, 1 and
+    3 on the other) for two blocks: each shard gets its card's hit words
+    and the other card's lowest-hit word as its peer; each card's lowest
+    hit is reset once a block, by its first shard there, and in block 2
+    only after every card folded block 1 (each fold waits for every
+    shard's row of its block, copied in on both cards' streams, so no
+    late hit of block 1 lands in block 2's word)."""
+    monkeypatch.setattr(sha256_cuda, "enable_peer_access",
+                        lambda a, b, body: None)
+    a, b = torch.device("cpu"), torch.device("cpu", 0)
+    devices = (a, b, a, b)
+    span = mesh_search.MeshSpan(devices, "mesh")
+    carries = (torch.zeros(8, dtype=torch.int32),
+               torch.zeros(8, dtype=torch.int32))
+    log = []
+    _stub_mesh_kernels(monkeypatch, log)
+    _two_blocks(True, devices, carries, span)
+    kinds = [e[0] for e in log]
+    assert kinds == (["until"] * 4 + ["fold"] * 2) * 2
+    for e in log:
+        if e[0] == "until":
+            d, kw = e[1], e[3]
+            other = b if d == a else a
+            assert kw["hit"] is span.words[d]
+            assert [w.data_ptr() for w in kw["peers"]] == \
+                [span.words[other].data_ptr()]
+    for block in (log[:6], log[6:]):
+        resets = [e[1] for e in block if e[0] == "until" and e[3]["first"]]
+        assert resets == [a, b]   # shards 0 and 1, the first on each card
+        assert [e[1] for e in block if e[0] == "fold"] == [a, b]
+        # every holder folds all four rows, the other card's copied in
+        for e in block:
+            if e[0] == "fold":
+                assert torch.equal(e[2], torch.ones((4, 5),
+                                                    dtype=torch.int32))
+    first_reset = next(j for j, e in enumerate(log[6:], 6)
+                       if e[0] == "until" and e[3]["first"])
+    assert first_reset == 6 and all(e[0] == "fold" for e in log[4:6])
+
+
+def test_hit_scope_needs_peer_access_between_every_pair(monkeypatch):
+    """``hit_scope``: "mesh" on one card and on a CPU mesh (the searcher's
+    read-only attribute); across (stub) cards "mesh" only when every
+    ordered pair can reach the other's memory, else "card"; "card" past
+    the peers a shard can write. Asking enables no peer access (the
+    span does, :class:`MeshSpan`)."""
+    mesh = _cpu_mesh(3)
+    assert mesh.hit_scope == "mesh"
+    with pytest.raises(AttributeError):
+        mesh.hit_scope = "card"
+    monkeypatch.setattr(mesh_search, "_mesh_type", lambda devices: "cuda")
+    enabled = []
+    monkeypatch.setattr(sha256_cuda, "enable_peer_access",
+                        lambda a, b, body: enabled.append((a, b, body)))
+    a, b = torch.device("cpu"), torch.device("cpu", 0)
+    assert mesh_search.hit_scope((a, a, a)) == "mesh"
+    denied = {(b, a)}
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda x, y: (x, y) not in denied)
+    assert mesh_search.hit_scope((a, b, a, b)) == "card"
+    denied.clear()
+    assert mesh_search.hit_scope((a, b, a, b)) == "mesh"
+    many = tuple(torch.device("cpu", i) for i in range(
+        sha256_cuda.MAX_PEERS + 2))
+    assert mesh_search.hit_scope(many) == "card"
+    assert not enabled
+
+
+@pytest.mark.parametrize("until", [False, True])
+def test_one_card_mesh_folds_once_a_block(until, monkeypatch):
+    """Four shards on one (stub) card for two blocks: each block's four
+    shard searches write the four rows of one rows tensor, then one mesh
+    fold merges them into the card's carry (no row is copied); the until
+    shards share the card's hit words, reset by each block's first
+    shard, with no peers."""
+    d = torch.device("cpu")
+    devices = (d,) * 4
+    carry = torch.zeros(8 if until else 5, dtype=torch.int32)
+    span = mesh_search.MeshSpan(devices, mesh_search.hit_scope(devices))
+    assert span.hit_peers == {d: []}
+    log = []
+    _stub_mesh_kernels(monkeypatch, log)
+    _two_blocks(until, devices, (carry,), span if until else None)
+    shard = "until" if until else "argmin"
+    assert [e[0] for e in log] == ([shard] * 4 + ["fold"]) * 2
+    for block in (log[:5], log[5:]):
+        _, dev, rows, folded, base = block[4]
+        assert dev == d and folded is carry and base == 1000
+        assert rows.shape == (4, 5 if until else 3)
+        assert [e[2].data_ptr() for e in block[:4]] == \
+            [r.data_ptr() for r in rows]
+        for j, (_, dev, _, kw) in enumerate(block[:4]):
+            assert dev == d
+            if until:
+                assert kw["first"] == (j == 0) and kw["peers"] == []
+                assert kw["hit"] is span.words[d]
 
 
 @pytest.mark.gpu
