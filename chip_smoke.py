@@ -98,7 +98,29 @@ JSON line per phase:
    (``DBMT_PEEL=1``) R1 and R4; every answer equal to the default
    path's, their launches the shard searches and reduces (K1 and K2, or
    K4 with K1/K2 reduces) and one mesh fold (K6mesh) per block served
-   and distinct device, with no single-device K6 fold. Every other miner is pinned
+   and distinct device, with no single-device K6 fold. Then the lease
+   path, on a new server with 2 s leases (``DBMT_LEASE_GRACE_S``,
+   ``DBMT_LEASE_FLOOR_S``), a 0.1 s sweep and 1 s age alarms: a wedged
+   miner (this script's ``--fault-miner wedge``: the port's
+   ``MinerWorker`` with each searcher wrapped in ``WedgeableSearcher``,
+   its gate released by SIGUSR1) joins first, then one miner; R4, R3
+   twice and R1, each answer equal to the default path's, the wedged
+   miner's chunk 0 of the first three blowing its lease and re-issued
+   (the third blow quarantines it), R1 served by the other miner as one
+   chunk; then SIGUSR1: the wedged miner serves its three blown chunks
+   late on the card (K2, K1, K6), which lifts its quarantine, and R1
+   again splits over both; the server must log the blown leases, the
+   re-issues, the quarantine, its lifting and the in-flight alarm. Then
+   the verification path, on a new server auditing every arg-min chunk
+   over its whole range (``DBMT_AUDIT_P=1``, ``DBMT_AUDIT_MAX=2^32``):
+   two miners and two liars (``--fault-miner sentinel`` and
+   ``wrong_hash``: ``ByzantineSearcher`` with its lie flag set) serve R3,
+   R1 and R3, each equal to the default path's; the server must log a
+   failed audit and a failed claim, and in the last request neither liar
+   serves a chunk (both below the trust bar). Every other server runs
+   with ``DBMT_AUDIT_P=0`` (random audits would add launches no path
+   expects) and leases at their defaults; each server's count of blown
+   leases is reported. Every other miner is pinned
    to card 0. The launch counts of each path come from
    its own miner processes, which start at 0 just before the path;
 5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
@@ -156,6 +178,7 @@ non-zero without the ``ok`` line. It imports nothing of JAX.
 from __future__ import annotations
 
 import ast
+import glob
 import hashlib
 import json
 import os
@@ -1187,21 +1210,33 @@ class Cluster:
         self.outdir = outdir
         self.port = free_port()
         self.hostport = f"127.0.0.1:{self.port}"
+        # No random audits (the server's default, 2% of the arg-min
+        # chunks): they would add launches that no path's check expects.
+        # The verification path turns them on for its own server.
         self.env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                         + os.environ.get("PYTHONPATH", ""),
-                        DBMT_MESH_DEVICES="cuda:0")
+                        DBMT_MESH_DEVICES="cuda:0", DBMT_AUDIT_P="0")
         self.procs, self.handles, self.logs = [], [], {}
 
     def spawn(self, name: str, module: str, args: list,
               env: dict | None = None) -> str:
-        """Start one process logging to its own file; returns the log."""
+        """Start one of the package's CLIs logging to its own file;
+        returns the log."""
+        return self.launch(name, ["-m", f"{PKG}.apps.{module}", *args], env)
+
+    def launch(self, name: str, argv: list, env: dict | None = None) -> str:
         log = self.logs[name] = os.path.join(self.outdir, f"e2e_{name}.log")
         self.handles.append(open(log, "w"))
         self.procs.append(subprocess.Popen(
-            [sys.executable, "-m", f"{PKG}.apps.{module}", *args],
-            cwd=self.outdir, env={**self.env, **(env or {})},
+            [sys.executable, *argv], cwd=self.outdir,
+            env={**self.env, **(env or {})},
             stdout=self.handles[-1], stderr=subprocess.STDOUT))
         return log
+
+    def spawn_fault_miner(self, name: str, mode: str) -> str:
+        """A miner whose searcher fails in ``mode`` (:func:`fault_miner`)."""
+        return self.launch(name, [os.path.abspath(__file__),
+                                  "--fault-miner", mode, self.hostport])
 
     def start(self, name: str, module: str, args: list, ready: str,
               env: dict | None = None) -> str:
@@ -1265,6 +1300,11 @@ def start_miners(c: Cluster, names: list, envs: list) -> list:
             fail(f"{name}'s counts were not 0 before its path: "
                  f"{read_counts(logs[-1])}")
     return logs
+
+
+def sum_launches(by_miner: dict) -> dict:
+    """Launches per kernel summed over a path's miners."""
+    return {k: sum(c[k] for c in by_miner.values()) for k in KERNELS}
 
 
 def served_chunks(miner_logs: list) -> list:
@@ -1472,6 +1512,8 @@ def phase_e2e(outdir: str) -> dict:
     mice_runs = [run_mice(outdir, True), run_mice(outdir, False)]
     peeled = run_peeled(outdir)
     mesh = run_mesh(outdir)
+    lease = run_lease(outdir)
+    verify = run_verify(outdir)
     for path, counts, kernels in (("arg-min", argmin_launches, ("K1", "K6")),
                                   ("difficulty", until_launches,
                                    ("K2", "K6"))):
@@ -1542,8 +1584,17 @@ def phase_e2e(outdir: str) -> dict:
     check_mice(mice_runs, dev)
     check_peeled(peeled, by_name, dev)
     check_mesh_paths(mesh, by_name)
+    check_lease(lease, by_name)
+    check_verify(verify, by_name)
+    # Leases run on every path at their defaults (30 s on a cold pool, 2 s
+    # at least on a warm one); a blown one is reported here, not hidden.
+    blown = {os.path.basename(log)[4:-4]: count_lines(
+        log, {"n": LEASE_LINES["blown"]})["n"]
+        for log in sorted(glob.glob(os.path.join(outdir,
+                                                 "e2e_*server.log")))}
     info = {"requests": results, "mice": mice_runs, "peeled": peeled,
-            "mesh": mesh,
+            "mesh": mesh, "lease": lease, "verify": verify,
+            "blown_leases_by_server": blown,
             "launches": {"arg-min": argmin_launches,
                          "difficulty": until_launches,
                          "mice": mice_runs[0]["launches"],
@@ -1552,7 +1603,9 @@ def phase_e2e(outdir: str) -> dict:
                             for leg, run in peeled.items()},
                          **{f"mesh_{leg}": run["launches"]
                             for leg, run in mesh.items()
-                            if isinstance(run, dict)}}}
+                            if isinstance(run, dict)},
+                         "lease": sum_launches(lease["launches"]),
+                         "verify": sum_launches(verify["launches"])}}
     emit("e2e", **info)
     return info
 
@@ -1717,6 +1770,261 @@ def check_mesh_paths(mesh: dict, default: dict) -> None:
                 and not any(counts[k] for k in ("K3", "K5", "K6"))):
             fail(f"the mesh path {leg} launched {counts} over {blocks} "
                  f"blocks on {len(devices)} shards, {holders} devices")
+
+
+#: The lease path's server: 2 s leases on a cold pool (and as the floor on
+#: a warm one), a sweep every 0.1 s, the age alarms after 1 s, no audits.
+LEASE_SERVER_ENV = {"DBMT_LEASE_GRACE_S": "2", "DBMT_LEASE_FLOOR_S": "2",
+                    "DBMT_LEASE_TICK_S": "0.1", "DBMT_QUEUE_ALARM_S": "1",
+                    "DBMT_AUDIT_P": "0"}
+#: The verification path's server: every arg-min chunk audited, over its
+#: whole range (an honest audit restores the exact chunk arg-min).
+VERIFY_SERVER_ENV = {"DBMT_AUDIT_P": "1", "DBMT_AUDIT_MAX": str(1 << 32)}
+#: The server's lines each path counts.
+LEASE_LINES = {"blown": "blew the lease", "reissued": "speculatively re-issuing",
+               "quarantined": "quarantined after",
+               "lifted": "quarantine lifted", "inflight_alarms": "in flight for",
+               "queue_alarms": "queued for"}
+VERIFY_LINES = {"audit_failed": "FAILED an audit",
+                "claim_failed": "FAILED the claim check"}
+
+
+def fault_miner(mode: str, hostport: str) -> int:
+    """``--fault-miner MODE HOSTPORT``: the port's ``MinerWorker`` on card 0
+    (warmed up as the miner CLI does), each searcher
+    ``default_searcher_factory(data, "cuda")`` wrapped in the port's
+    ``WedgeableSearcher`` (``wedge``: its gate clear until SIGUSR1 sets
+    it) or ``ByzantineSearcher`` (``sentinel``, ``wrong_hash``: its lie
+    flag set). It logs as the miner CLI does. It exists for the lease and
+    verification paths; the miner CLI has no fault knob."""
+    import asyncio
+    import logging
+    import signal
+    import threading
+    sys.path.insert(0, ROOT)
+    from distributed_bitcoinminer_tpu_torch.apps.miner import (
+        MinerWorker, default_searcher_factory, warm_up)
+    from distributed_bitcoinminer_tpu_torch.lsp.params import Params
+    from distributed_bitcoinminer_tpu_torch.lspnet.chaos import (
+        ByzantineSearcher, WedgeableSearcher)
+    from distributed_bitcoinminer_tpu_torch.utils.config import \
+        coalesce_from_env
+    if mode not in ("wedge", "sentinel", "wrong_hash"):
+        print(f"chip_smoke: unknown fault {mode!r}", file=sys.stderr)
+        return 2
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    warm_up("cuda")
+    gate, lie = threading.Event(), threading.Event()
+    lie.set()
+
+    def factory(data):
+        inner = default_searcher_factory(data, "cuda")
+        return WedgeableSearcher(inner, gate) if mode == "wedge" \
+            else ByzantineSearcher(inner, data, mode, lie)
+
+    async def serve():
+        asyncio.get_running_loop().add_signal_handler(signal.SIGUSR1,
+                                                      gate.set)
+        worker = MinerWorker(hostport, params=Params(),
+                             searcher_factory=factory,
+                             coalesce=coalesce_from_env().enabled)
+        try:
+            await worker.join()
+            logging.getLogger("dbmt.miner").info(
+                "joined %s on cuda (%s)", hostport, mode)
+            await worker.run()
+        finally:
+            await worker.close()
+    asyncio.run(serve())
+    return 0
+
+
+def count_lines(log_path: str, lines: dict) -> dict:
+    with open(log_path, errors="replace") as f:
+        text = f.read()
+    return {name: text.count(line) for name, line in lines.items()}
+
+
+def scheduler_counts(log_path: str) -> dict:
+    """The server's last ``scheduler counts`` line (its counters after
+    its last answer)."""
+    last = {}
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            if "scheduler counts " in line:
+                last = json.loads(line.split("scheduler counts ", 1)[1])
+    return last
+
+
+def wait_until(what: str, cond, proc, timeout: float = 120) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if proc.poll() is not None or time.monotonic() > deadline:
+            fail(f"{what} never happened")
+        time.sleep(0.1)
+
+
+def argmin_submit(c: Cluster, name: str, data: str, max_nonce: int):
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import submit
+    return timed(name, data, max_nonce, lambda: asyncio.run(
+        asyncio.wait_for(submit(c.hostport, data, max_nonce), 300)))
+
+
+def run_lease(outdir: str) -> dict:
+    """The lease path on a new server (``LEASE_SERVER_ENV``): a wedged
+    miner W joins first, then one miner A through the CLI. R4: W's chunk 0
+    blows its lease and goes, with its target, to A; R3 twice: W's third
+    blown lease quarantines it; R1: A alone, one chunk; then SIGUSR1
+    releases W, which serves its three blown chunks late (they pop as
+    stale and lift the quarantine); R1 again splits over both."""
+    import asyncio
+    import signal
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import submit_until
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    r4 = UNTIL_REQUESTS[0]
+    results = []
+    with Cluster(outdir) as c:
+        server_log = c.start("lease_server", "server", [str(c.port)],
+                             "Server listening on port",
+                             env=LEASE_SERVER_ENV)
+        w_log = c.spawn_fault_miner("lease_wedged", "wedge")
+        w_proc = c.procs[-1]
+        wait_for_line(w_log, "joined ", w_proc)
+        a_logs = start_miners(c, ["lease_miner"], [None])
+        if read_counts(w_log):
+            fail("the wedged miner's counts were not 0 before its path")
+        results.append(timed("R4", *r4[1:3], lambda: asyncio.run(
+            asyncio.wait_for(submit_until(c.hostport, *r4[1:]), 300))))
+        for _ in range(2):
+            results.append(argmin_submit(c, *by_name["R3"]))
+        results.append(argmin_submit(c, *by_name["R1"]))
+        held = served_chunks([w_log])
+        t_signal = time.monotonic()
+        w_proc.send_signal(signal.SIGUSR1)
+        wait_for_line(server_log, LEASE_LINES["lifted"], w_proc)
+        wait_until("the wedged miner's three late chunks",
+                   lambda: len(served_chunks([w_log])) >= 3, w_proc)
+        late_s = time.monotonic() - t_signal
+        results.append(argmin_submit(c, "R1 again", *by_name["R1"][1:]))
+        launches = {"wedged": path_launches([w_log]),
+                    "miner": path_launches(a_logs)}
+        chunks = {"wedged": served_chunks([w_log]),
+                  "miner": served_chunks(a_logs)}
+        lines = count_lines(server_log, LEASE_LINES)
+        counts = scheduler_counts(server_log)
+    return {"requests": results, "launches": launches, "chunks": chunks,
+            "wedged_served_before_release": len(held),
+            "late_chunks_s": late_s, "server_lines": lines,
+            "scheduler_counts": counts}
+
+
+def check_lease(run: dict, default: dict) -> None:
+    """Every answer equal to the same request's on the default paths; the
+    server's lines: blown leases and re-issues, a quarantine, its lifting
+    and the in-flight alarm; W served nothing until released, then its
+    three blown chunks and R1 again's chunk 0, through the kernels; A
+    served R1 as one chunk."""
+    names = [r["request"] for r in run["requests"]]
+    if names != ["R4", "R3", "R3", "R1", "R1 again"]:
+        fail(f"lease path: requests {names}")
+    for r in run["requests"]:
+        want = default[r["request"]]
+        if (r["hash"], r["nonce"]) != (want["hash"], want["nonce"]):
+            fail(f"lease path {r['request']}: {r['hash'], r['nonce']} != "
+                 f"the default path's {want['hash'], want['nonce']}")
+    lines = run["server_lines"]
+    if lines["blown"] < 3 or lines["reissued"] < 3 \
+            or not lines["quarantined"] or not lines["lifted"] \
+            or not lines["inflight_alarms"]:
+        fail(f"lease path: the server logged {lines}")
+    _, data, max_nonce = next(r for r in ARGMIN_REQUESTS if r[0] == "R1")
+    whole, half = [data, 0, max_nonce + 1], [data, 0, (max_nonce + 1) // 2]
+    wedged, miner = run["chunks"]["wedged"], run["chunks"]["miner"]
+    if run["wedged_served_before_release"] or len(wedged) != 4 \
+            or wedged[3] != half or whole not in miner:
+        fail(f"lease path: the wedged miner served {wedged} "
+             f"({run['wedged_served_before_release']} before its "
+             f"release), the other {miner}")
+    w = run["launches"]["wedged"]
+    if not (w["K1"] and w["K2"] and w["K6"]) or w["K3"] or w["K4"]:
+        fail(f"lease path: the wedged miner launched {w}")
+
+
+def run_verify(outdir: str) -> dict:
+    """The verification path on a new server (``VERIFY_SERVER_ENV``): two
+    miners through the CLI and two liars (``sentinel``, ``wrong_hash``),
+    R3, R1, R3; each miner's served chunks read before the last request
+    and after it."""
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    results = []
+    with Cluster(outdir) as c:
+        server_log = c.start("verify_server", "server", [str(c.port)],
+                             "Server listening on port",
+                             env=VERIFY_SERVER_ENV)
+        logs = {"sentinel": c.spawn_fault_miner("verify_sentinel",
+                                                "sentinel"),
+                "wrong_hash": c.spawn_fault_miner("verify_wrong_hash",
+                                                  "wrong_hash"),
+                "miner": c.spawn("verify_miner", "miner",
+                                 [c.hostport, "--device", "cuda"]),
+                "miner2": c.spawn("verify_miner2", "miner",
+                                  [c.hostport, "--device", "cuda"])}
+        for (name, log), proc in zip(logs.items(), c.procs[-4:]):
+            wait_for_line(log, "joined ", proc)
+            if read_counts(log):
+                fail(f"verification path: {name}'s counts were not 0")
+        results.append(argmin_submit(c, *by_name["R3"]))
+        results.append(argmin_submit(c, *by_name["R1"]))
+        time.sleep(0.5)
+        before = {n: len(served_chunks([log])) for n, log in logs.items()}
+        results.append(argmin_submit(c, *by_name["R3"]))
+        launches = {n: path_launches([log]) for n, log in logs.items()}
+        after = {n: len(served_chunks([log])) for n, log in logs.items()}
+        lines = count_lines(server_log, VERIFY_LINES)
+        counts = scheduler_counts(server_log)
+        with open(server_log, errors="replace") as f:
+            trust = re.findall(r"miner (\d+) FAILED .*\(trust -> "
+                               r"([0-9.e-]+)\)", f.read())
+    return {"requests": results, "launches": launches,
+            "served_before_last": before, "served_after_last": after,
+            "server_lines": lines, "scheduler_counts": counts,
+            "trust_after_failures": [[int(m), float(t)] for m, t in trust]}
+
+
+def check_verify(run: dict, default: dict) -> None:
+    """Every answer equal to the default path's; a failed audit and a
+    failed claim in the server's log; in the last request neither liar
+    served a chunk (both below the trust bar) and the two miners served
+    it through the kernels."""
+    for r in run["requests"]:
+        want = default[r["request"]]
+        if (r["hash"], r["nonce"]) != (want["hash"], want["nonce"]):
+            fail(f"verification path {r['request']}: "
+                 f"{r['hash'], r['nonce']} != the default path's "
+                 f"{want['hash'], want['nonce']}")
+    if not (run["server_lines"]["audit_failed"]
+            and run["server_lines"]["claim_failed"]):
+        fail(f"verification path: the server logged "
+             f"{run['server_lines']}")
+    before, after = run["served_before_last"], run["served_after_last"]
+    for liar in ("sentinel", "wrong_hash"):
+        if after[liar] != before[liar]:
+            fail(f"verification path: the {liar} liar served "
+                 f"{after[liar] - before[liar]} chunks of the last request")
+    for name in ("miner", "miner2"):
+        counts = run["launches"][name]
+        if after[name] <= before[name] or not (counts["K1"] and counts["K6"]):
+            fail(f"verification path: {name} served {after[name]} chunks, "
+                 f"launched {counts}")
+    bar = 0.2    # VerifyParams.trust_bar
+    convicted = {m for m, t in run["trust_after_failures"] if t < bar}
+    if len(convicted) < 2:
+        fail(f"verification path: miners below the trust bar {convicted}, "
+             f"from {run['trust_after_failures']}")
 
 
 def per_block_search(searcher, lower: int, upper: int, scan):
@@ -3365,6 +3673,8 @@ def cross_card(outdir: str) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--worker"] and len(sys.argv) == 3:
         return worker(sys.argv[2])
+    if sys.argv[1:2] == ["--fault-miner"] and len(sys.argv) == 4:
+        return fault_miner(sys.argv[2], sys.argv[3])
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script",
               file=sys.stderr)

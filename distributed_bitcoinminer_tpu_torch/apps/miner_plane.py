@@ -1,23 +1,41 @@
-"""Miner plane: the pool roster, pending FIFOs, throughput and windows.
+"""Miner plane: the pool roster, pending FIFOs, leases, trust and windows.
 
-Counterpart of the JAX package's ``apps/miner_plane.py``, without leases,
-striping, trust and quarantine. It owns everything miner-facing:
+Counterpart of the JAX package's ``apps/miner_plane.py``, without
+striping. It owns everything miner-facing:
 
 - the roster (join order) and each miner's pending FIFO: every Request
   written to a miner pushes a chunk record, and since miners answer in
   order over exactly-once LSP, each Result pops exactly the chunk it
   answers (:meth:`MinerPlane.pop_result`);
+- the lease plane: every assignment carries a deadline sized from the
+  miner's throughput EWMA (else the pool's, else a flat grace); a sweep
+  (:meth:`MinerPlane.check_leases`) blows expired leases and re-issues
+  each blown chunk once to another eligible miner (the first Result
+  wins, the other pops as a duplicate), and ``quarantine_after``
+  consecutive blown leases bar a miner from new work until it answers
+  again. A chunk assigned behind others gets a deadline that budgets
+  them too, tightened when it reaches the head of the FIFO. A miner
+  whose card hangs inside a kernel keeps its connection alive, so this
+  is what moves its chunks;
+- trust (the verification tier's half): a score per miner, decayed by
+  the scheduler's claim checks and audits (:meth:`MinerPlane.trust_fail`)
+  and stepped back by each answer; below the bar a miner gets no new
+  grants, like a quarantined one, and takes no audits;
+- the desperation pool: when every miner is quarantined or distrusted,
+  the least-bad available one still serves;
 - parked chunks of dropped miners, absorbed by a joining or freed miner
   (ref: server.go:222-244, 285-304, 326-376);
-- the pool's throughput EWMA, sampled over a wall-clock window per miner
-  (:meth:`MinerPlane.observe_result`), which sizes QoS chunks;
+- the throughput EWMAs, per miner and for the pool, sampled over a
+  wall-clock window per miner (:meth:`MinerPlane.observe_result`), which
+  size leases and QoS chunks;
 - the QoS capacity pool, and the coalescing windows: small argmin chunks
   of different requests granted to one miner in one pump pass share a
   ``coalesce_id``, count as ONE live chunk against the QoS depth, and may
   share one device launch on that miner.
 
 The scheduler decides who gets what; this plane executes the grant
-(:meth:`MinerPlane.assign_chunk`) and never touches merge state.
+(:meth:`MinerPlane.assign_chunk`), reports every lease transition through
+the ``lease_event`` callback, and never touches merge state.
 """
 
 from __future__ import annotations
@@ -27,7 +45,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..bitcoin.message import new_request
-from ..utils.config import CoalesceParams
+from ..utils.config import CoalesceParams, LeaseParams, VerifyParams
 
 
 @dataclass
@@ -42,14 +60,21 @@ class Chunk:
     # FIFO (its Result must still pop in order) but no longer counts
     # against the miner's availability.
     cancelled: bool = False
+    # Lease plane. Each FIFO entry is one assignment: a re-issue pushes a
+    # fresh Chunk (same job, idx and range) onto the takeover miner's
+    # FIFO, while the blown original stays in its miner's FIFO.
+    assigned_at: float = 0.0   # reset when the lease starts
+    deadline: float = 0.0
+    # False until the chunk reaches the head of its miner's FIFO (with
+    # fifo_aware); until then the deadline budgets the chunks ahead too.
+    lease_started: bool = False
+    lease_blown: bool = False  # expiry seen (counted once per entry)
+    reissued: bool = False     # a copy is already in flight elsewhere
     # Chunks sharing a coalesce_id were granted into one miner's
     # coalescing window: they may share a launch and count as ONE live
-    # chunk (miner_live). None = stock accounting.
+    # chunk (miner_live). None = stock accounting; a re-issued copy never
+    # inherits it.
     coalesce_id: Optional[int] = None
-    # When the miner started on it: stamped at assignment, again when the
-    # chunk reaches the head of its miner's FIFO.
-    assigned_at: float = 0.0
-    started: bool = False
 
     @property
     def size(self) -> int:
@@ -61,6 +86,15 @@ class Chunk:
 class MinerState:
     conn_id: int
     pending: list = field(default_factory=list)
+    # Observed throughput (nonces/s EWMA; None until a window closes),
+    # consecutive blown leases, and the quarantine latch (set at
+    # quarantine_after blown leases, cleared by the miner's next answer).
+    rate_ewma: Optional[float] = None
+    blown_streak: int = 0
+    quarantined: bool = False
+    # In [trust_floor, 1.0]: decays per claim or audit failure, steps back
+    # per answer; stays 1.0 for a miner that never lies.
+    trust: float = 1.0
     # The wall-clock window accumulating answered nonces (observe_result).
     win_t0: float = 0.0
     win_nonces: int = 0
@@ -74,23 +108,32 @@ class MinerState:
 class MinerPlane:
     """The miner-facing half of the scheduler.
 
-    ``write(conn_id, msg)`` is the scheduler's wire write; ``inflight``
-    its live ``{job_id: Request}`` map (read here: recovery and the
-    parked queue skip retired jobs and answered chunks).
+    Callbacks, the scheduler's: ``write(conn_id, msg)`` its wire write;
+    ``inflight`` its live ``{job_id: Request}`` map (read here: the sweep
+    and recovery skip retired jobs and answered chunks);
+    ``lease_event(kind, chunk, miner_conn, **info)`` the log of every
+    lease transition (``blown``, ``reissue``, ``quarantine``,
+    ``quarantine_lifted``, ``park``); ``dispatch()`` its pump (a lifted
+    quarantine frees a miner mid-pop); ``count(name)`` its counters.
     """
 
     #: Wall-clock span one throughput sample must cover: the pipelined
     #: miner answers a prefetched chunk milliseconds after the previous
     #: one, so per-chunk size/elapsed samples would read far too high.
     RATE_WINDOW_S = 0.5
-    #: Weight of the newest sample in the pool's rate EWMA.
-    EWMA_ALPHA = 0.3
 
-    def __init__(self, coalesce: CoalesceParams, *, write: Callable,
-                 inflight: dict):
+    def __init__(self, lease: LeaseParams, coalesce: CoalesceParams, *,
+                 write: Callable, inflight: dict, lease_event: Callable,
+                 dispatch: Callable, count: Callable,
+                 verify: Optional[VerifyParams] = None):
+        self.lease = lease
         self.coalesce = coalesce
+        self.verify = verify if verify is not None else VerifyParams()
         self._write = write
         self._inflight = inflight
+        self._lease_event = lease_event
+        self._dispatch = dispatch
+        self._count = count
         self.miners: list[MinerState] = []      # join order
         self._by_conn: dict[int, MinerState] = {}
         self.parked: list[Chunk] = []           # chunks of dropped miners
@@ -120,16 +163,20 @@ class MinerPlane:
 
     def recover(self, miner: MinerState) -> None:
         """Hand every unanswered chunk of a dropped miner to an eligible
-        miner, else park it."""
+        miner, else park it. A chunk already answered by its re-issued
+        copy, or with a copy in flight, needs no recovery."""
         for chunk in miner.pending:
             req = self._inflight.get(chunk.job_id)
-            if req is None or chunk.cancelled or req.answered[chunk.idx]:
+            if req is None or chunk.cancelled:
+                continue
+            if req.answered[chunk.idx] or chunk.reissued:
                 continue
             takeover = next(iter(self.eligible()), None)
             if takeover is not None:
                 self.assign_chunk(takeover, chunk)
             else:
                 self.parked.append(chunk)
+                self._lease_event("park", chunk, miner.conn_id)
 
     def next_parked(self, skip_key=None) -> Optional[Chunk]:
         """Pop the next parked chunk that still needs executing; one of a
@@ -144,8 +191,43 @@ class MinerPlane:
             return chunk
         return None
 
+    def distrusted(self, miner: MinerState) -> bool:
+        """Below the trust bar: no new grants, no audits."""
+        return miner.trust < self.verify.trust_bar
+
     def eligible(self) -> list[MinerState]:
-        return [m for m in self.miners if m.available]
+        """Miners that may take new work: available, not quarantined, not
+        distrusted."""
+        return [m for m in self.miners
+                if m.available and not m.quarantined
+                and not self.distrusted(m)]
+
+    def desperation_pool(self) -> list[MinerState]:
+        """When EVERY miner is quarantined or distrusted: the least-bad
+        available one (lowest blown streak, then highest trust, then
+        highest throughput), else nothing. One healthy miner, even a busy
+        one, disables it: waiting for it beats feeding a bad one."""
+        if not self.lease.desperation or not self.miners:
+            return []
+        if not all(m.quarantined or self.distrusted(m)
+                   for m in self.miners):
+            return []
+        avail = [m for m in self.miners if m.available]
+        if not avail:
+            return []
+        return [min(avail, key=lambda m: (m.blown_streak, -m.trust,
+                                          -(m.rate_ewma or 0.0)))]
+
+    def pick_auditor(self, *exclude: int) -> Optional[MinerState]:
+        """Any trusted, unquarantined miner other than the excluded conn
+        ids, busy or not (an audit queues behind its chunks): the least
+        loaded, ties in join order."""
+        cands = [m for m in self.miners
+                 if m.conn_id not in exclude
+                 and not m.quarantined and not self.distrusted(m)]
+        if not cands:
+            return None
+        return min(cands, key=self.miner_live)
 
     def cancel_job(self, job_id: int) -> None:
         """Mark a retiring job's pending chunks cancelled (late Results
@@ -173,9 +255,15 @@ class MinerPlane:
         return n + len(groups)
 
     def capacity_pool(self, depth: int) -> list[MinerState]:
-        """Miners below the per-miner live-chunk cap, least loaded first
+        """Miners below the per-miner live-chunk cap, neither quarantined
+        nor distrusted, and not sitting on a blown lease (a chunk granted
+        behind a wedged one would wait a whole lease), least loaded first
         (ties keep join order)."""
-        pool = [m for m in self.miners if self.miner_live(m) < depth]
+        pool = [m for m in self.miners
+                if not m.quarantined and not self.distrusted(m)
+                and self.miner_live(m) < depth
+                and not any(c.lease_blown and not c.cancelled
+                            for c in m.pending)]
         pool.sort(key=self.miner_live)
         return pool
 
@@ -193,14 +281,15 @@ class MinerPlane:
 
     def window_slot(self, window: dict, job_id: int):
         """The first open window with a free lane that does not already
-        hold ``job_id`` (windows batch ACROSS requests): ``(miner,
-        slot)``, or ``(None, None)``. ``window`` maps a miner's conn id
-        to ``[coalesce_id, lanes_used, {job_ids}]`` for one pump pass."""
+        hold ``job_id`` (windows batch ACROSS requests), on a live
+        unquarantined miner: ``(miner, slot)``, or ``(None, None)``.
+        ``window`` maps a miner's conn id to ``[coalesce_id, lanes_used,
+        {job_ids}]`` for one pump pass."""
         for conn_id, slot in window.items():
             if slot[1] >= self.coalesce.lanes or job_id in slot[2]:
                 continue
             m = self.find_miner(conn_id)
-            if m is not None:
+            if m is not None and not m.quarantined:
                 return m, slot
         return None, None
 
@@ -218,54 +307,169 @@ class MinerPlane:
     # --------------------------------------------------- grant / complete
 
     def assign_chunk(self, miner: MinerState, chunk: Chunk) -> None:
-        """One chunk onto one miner's FIFO, and its Request on the wire."""
-        chunk.cancelled = False
+        """One chunk onto one miner's FIFO, its lease stamped, and its
+        Request on the wire. At the head of the FIFO (or with
+        ``fifo_aware`` off) the lease starts now; behind other chunks the
+        deadline is the latest one ahead plus this chunk's own lease, and
+        is tightened when the chunk reaches the head (:meth:`pop_result`)."""
         chunk.assigned_at = time.monotonic()
-        chunk.started = not miner.pending
+        chunk.lease_blown = False
+        chunk.reissued = False
+        chunk.lease_started = False
+        chunk.deadline = 0.0
         miner.pending.append(chunk)
+        if not self.lease.fifo_aware or len(miner.pending) == 1:
+            self.start_lease(miner, chunk)
+        else:
+            now = chunk.assigned_at
+            ahead = max((c.deadline for c in miner.pending[:-1]),
+                        default=now)
+            chunk.deadline = max(now, ahead) + self.lease_for(miner, chunk)
         self._write(miner.conn_id, new_request(chunk.data, chunk.lower,
                                                chunk.upper, chunk.target))
 
     def pop_result(self, conn_id: int):
         """An arriving Result pops the miner's oldest pending chunk, feeds
-        the throughput window, and a freed miner absorbs one parked chunk
-        (before the scheduler's stale check, so a stale answer still
-        frees it; the chunk this Result answers is not handed back).
-        Returns ``(miner, chunk)``, or None."""
+        the throughput window, starts the next chunk's lease, and a freed
+        miner absorbs one parked chunk (before the scheduler's stale
+        check, so a stale answer still frees it; the chunk this Result
+        answers is not handed back; a distrusted miner absorbs none unless
+        desperation picks it). Returns ``(miner, chunk)``, or None."""
         miner = self.find_miner(conn_id)
         if miner is None or not miner.pending:
             return None
         chunk = miner.pending.pop(0)
         self.observe_result(miner, chunk)
-        if miner.pending and not miner.pending[0].started:
-            miner.pending[0].assigned_at = time.monotonic()
-            miner.pending[0].started = True
-        if self.parked and miner.available:
+        if miner.pending and not miner.pending[0].lease_started:
+            self.start_lease(miner, miner.pending[0])
+        if self.parked and miner.available and (
+                not self.distrusted(miner)
+                or miner in self.desperation_pool()):
             parked = self.next_parked(skip_key=(chunk.job_id, chunk.idx))
             if parked is not None:
                 self.assign_chunk(miner, parked)
         return miner, chunk
 
-    def observe_result(self, miner: MinerState, chunk: Chunk) -> None:
-        """Throughput sampling over a wall-clock window per miner:
-        answered nonces accumulate until ``RATE_WINDOW_S`` has passed
-        since the window opened (at the first chunk's start), then one
-        sample feeds the pool's EWMA. A difficulty chunk (its early exit
-        scans an unknown part of the range) resets the window instead."""
+    # --------------------------------------------------------- lease plane
+
+    def start_lease(self, miner: MinerState, chunk: Chunk) -> None:
+        """The miner is (about to be) computing this chunk: re-stamp
+        ``assigned_at``, so the throughput sample and the overdue time
+        measure compute, not FIFO wait, and set the deadline."""
         now = time.monotonic()
-        if chunk.target:
+        chunk.assigned_at = now
+        chunk.deadline = now + self.lease_for(miner, chunk)
+        chunk.lease_started = True
+
+    def lease_for(self, miner: MinerState, chunk: Chunk) -> float:
+        """Headroom over the EWMA-predicted scan time (the miner's rate,
+        else the pool's), clamped below; ``grace_s`` on a cold pool."""
+        if not self.lease.enabled:
+            return float("inf")
+        rate = miner.rate_ewma if miner.rate_ewma is not None \
+            else self.pool_rate
+        if rate is None or rate <= 0:
+            return self.lease.grace_s
+        return max(self.lease.floor_s, chunk.size / rate * self.lease.factor)
+
+    def observe_result(self, miner: MinerState, chunk: Chunk) -> None:
+        """Per-pop bookkeeping, for every pop (a stale answer was computed
+        too): throughput sampling, the streak reset, a trust step back,
+        and a quarantine lifted (then the scheduler's pump runs).
+
+        Throughput is sampled over a wall-clock window per miner:
+        answered nonces accumulate until ``RATE_WINDOW_S`` has passed
+        since the window opened (at a chunk's lease start), then one
+        sample feeds the miner's EWMA and the pool's. A blown chunk (its
+        time measures the wedge) or a difficulty chunk (its early exit
+        scans an unknown part of the range) resets the window instead."""
+        alpha = self.lease.ewma_alpha
+        now = time.monotonic()
+        if chunk.assigned_at and not chunk.lease_blown and not chunk.target:
+            if miner.win_nonces == 0 \
+                    or now - miner.win_t0 > 4 * self.RATE_WINDOW_S:
+                # A fresh window, or a stale one (an idle gap must not
+                # deflate the sample), opened at this chunk's start.
+                miner.win_t0 = chunk.assigned_at or now
+                miner.win_nonces = 0
+            miner.win_nonces += chunk.size
+            elapsed = now - miner.win_t0
+            if elapsed >= self.RATE_WINDOW_S:
+                rate = miner.win_nonces / elapsed
+                miner.win_t0, miner.win_nonces = now, 0
+                miner.rate_ewma = rate if miner.rate_ewma is None else \
+                    alpha * rate + (1 - alpha) * miner.rate_ewma
+                self.pool_rate = rate if self.pool_rate is None else \
+                    alpha * rate + (1 - alpha) * self.pool_rate
+        else:
             miner.win_t0, miner.win_nonces = 0.0, 0
+        miner.blown_streak = 0
+        # The claim check runs after this step, so a lying Result's decay
+        # lands last and a liar never gains trust from its own lie.
+        if miner.trust < 1.0:
+            miner.trust = min(1.0, miner.trust + self.verify.trust_recover)
+        if miner.quarantined:
+            miner.quarantined = False
+            self._lease_event("quarantine_lifted", chunk, miner.conn_id)
+            self._dispatch()
+
+    def trust_fail(self, miner: MinerState, reason: str) -> float:
+        """Decay ``miner``'s trust after a claim or audit failure
+        (``reason`` ``"claim"`` or ``"audit"``, counted per kind),
+        clamped at the floor. Returns the new score."""
+        v = self.verify
+        miner.trust = max(v.trust_floor, miner.trust * v.trust_decay)
+        self._count("trust_decays_" + reason)
+        return miner.trust
+
+    def check_leases(self) -> None:
+        """One lease sweep over every in-flight job: blow expired leases
+        (quarantining repeat offenders) and re-issue each blown chunk
+        once to another eligible miner. A blown chunk with no taker is
+        re-issued on a later sweep, once a miner frees up or joins."""
+        if not self._inflight:
             return
-        if miner.win_nonces == 0 \
-                or now - miner.win_t0 > 4 * self.RATE_WINDOW_S:
-            # A fresh window, or a stale one (an idle gap must not
-            # deflate the sample), opened at this chunk's start.
-            miner.win_t0, miner.win_nonces = chunk.assigned_at or now, 0
-        miner.win_nonces += chunk.size
-        elapsed = now - miner.win_t0
-        if elapsed >= self.RATE_WINDOW_S:
-            rate = miner.win_nonces / elapsed
-            miner.win_t0, miner.win_nonces = now, 0
-            a = self.EWMA_ALPHA
-            self.pool_rate = rate if self.pool_rate is None else \
-                a * rate + (1 - a) * self.pool_rate
+        now = time.monotonic()
+        for miner in list(self.miners):
+            for chunk in list(miner.pending):
+                if chunk.cancelled:
+                    continue
+                curr = self._inflight.get(chunk.job_id)
+                if curr is None or curr.answered[chunk.idx]:
+                    continue
+                if not chunk.lease_blown:
+                    if now < chunk.deadline:
+                        continue
+                    chunk.lease_blown = True
+                    self._count("leases_blown")
+                    # With the at-assignment clock a chunk can blow while
+                    # others still sit ahead of it: counted, as noise.
+                    spurious = (not self.lease.fifo_aware
+                                and miner.pending[0] is not chunk)
+                    if spurious:
+                        self._count("leases_blown_spurious")
+                    miner.blown_streak += 1
+                    self._lease_event("blown", chunk, miner.conn_id,
+                                      streak=miner.blown_streak,
+                                      spurious=spurious,
+                                      overdue_s=now - chunk.assigned_at)
+                    if (miner.blown_streak >= self.lease.quarantine_after
+                            and not miner.quarantined):
+                        miner.quarantined = True
+                        self._count("quarantines")
+                        self._lease_event("quarantine", chunk,
+                                          miner.conn_id,
+                                          streak=miner.blown_streak)
+                if chunk.reissued:
+                    continue
+                takeover = next(
+                    (m for m in self.eligible() if m is not miner), None)
+                if takeover is None:
+                    continue   # retry next sweep
+                chunk.reissued = True
+                self._count("reissues")
+                self._lease_event("reissue", chunk, miner.conn_id,
+                                  to_miner=takeover.conn_id)
+                self.assign_chunk(takeover, Chunk(
+                    chunk.job_id, chunk.data, chunk.lower, chunk.upper,
+                    target=chunk.target, idx=chunk.idx))

@@ -3,9 +3,9 @@
 The request state machine of the JAX package's ``apps/scheduler.py``
 (itself the state machine of the reference coordinator, ref: bitcoin/
 server/server.go:19-403), with the reference's method names. The pool
-roster, pending FIFOs and coalescing windows live in
-:mod:`.miner_plane`; the per-tenant queue index in :mod:`.tenant_plane`;
-the deficit-round-robin state in :mod:`.qos`.
+roster, pending FIFOs, leases, trust and coalescing windows live in
+:mod:`.miner_plane`; the per-tenant queue index and the age alarms in
+:mod:`.tenant_plane`; the deficit-round-robin state in :mod:`.qos`.
 
 - Stock FIFO dispatch (``QosParams(enabled=False)``): ONE request in
   flight at a time. ``_load_balance`` makes bounds exclusive (``upper +=
@@ -27,9 +27,6 @@ the deficit-round-robin state in :mod:`.qos`.
   chunks of different requests may be granted into one miner's
   COALESCING WINDOW: they share a ``coalesce_id``, count as one live
   chunk, and the miner runs them as one batched launch.
-- Claim check: every Result is a claim; its hash is recomputed on the
-  host with ``hash_op`` and its nonce must lie in the chunk. A failed
-  claim is not merged and its range runs again on another miner.
 - Result merge: strict ``<`` on the uint64 hash; the barrier releases the
   Result to the client when every chunk of the request has been answered
   (ref: server.go:257-325).
@@ -39,6 +36,31 @@ the deficit-round-robin state in :mod:`.qos`.
 - Client drop: its queued requests are purged and its in-flight requests
   are cancelled at once — miners are freed, parked chunks cleared, the
   next queued work starts.
+- Lease plane: a miner whose card hangs inside a kernel keeps its
+  connection (and its heartbeats) alive, so a drop never comes. Every
+  assigned chunk carries a LEASE; the sweep (:meth:`Scheduler.sweep`,
+  every ``tick_s``) blows an expired one and speculatively RE-ISSUES the
+  chunk to another eligible miner (the first Result wins, the other pops
+  as a duplicate); ``quarantine_after`` consecutive blown leases
+  QUARANTINE a miner until it answers again; a pool that is wholly
+  quarantined or distrusted serves through DESPERATION dispatch to its
+  least-bad miner. Leases change latency under faults, never the answer.
+  The sweep also expires audits and raises the queue-age and in-flight
+  alarms; a dispatch pass that finds queued work and no eligible miner
+  logs once per starvation episode.
+- Verification tier: every Result is a CLAIM. The claim check recomputes
+  its hash on the host (``hash_op``), and its nonce must lie in the
+  chunk; a failed claim decays the miner's trust, is not merged, and its
+  range runs again on another miner. A true pair need not be the
+  minimum: with probability ``audit_p`` a random subwindow of an
+  answered arg-min chunk is AUDITED (re-run on a disjoint miner under a
+  job id of its own, :class:`AuditRecord`), and the request's reply
+  waits for its audits. An auditor that finds a better hash convicts the
+  claimant and its pair repairs the answer; an auditor that misses the
+  claimed winner inside its window is convicted itself and the window is
+  audited again elsewhere. Below the trust bar a miner gets no grants.
+- ``stats`` holds the JAX package's counters (:data:`STAT_COUNTERS`),
+  logged as one ``scheduler counts`` JSON line after each answer.
 
 Difficulty merge: a Request carrying a ``Target`` is forwarded with the
 target on every chunk. Chunks cover ascending disjoint sub-ranges and each
@@ -49,12 +71,16 @@ chunk has answered (prefix release), whatever is still in flight. When no
 chunk qualifies, the barrier answers the exact arg-min. A miner that
 answers without echoing the target (a stock miner) makes the merge weak:
 the answer is still qualifying when one exists, but not guaranteed first,
-and the scheduler logs it.
+and the scheduler logs it. Difficulty chunks are never audited: an early
+exit leaves the rest of a window unscanned.
 """
 
 from __future__ import annotations
 
+import asyncio
+import json
 import logging
+import random
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -63,15 +89,26 @@ from ..bitcoin.hash import MAX_U64, hash_op
 from ..bitcoin.message import Message, MsgType, new_result
 from ..lsp.errors import LspError
 from ..lsp.server import AsyncServer
-from ..utils.config import (CoalesceParams, QosParams, coalesce_from_env,
-                            qos_from_env)
+from ..utils.config import (CoalesceParams, LeaseParams, QosParams,
+                            VerifyParams, coalesce_from_env, lease_from_env,
+                            qos_from_env, verify_from_env)
 from .miner_plane import Chunk, MinerPlane, MinerState
 from .qos import QosPlane
 from .tenant_plane import TenantQueue
 
 logger = logging.getLogger("dbmt.scheduler")
 
-__all__ = ["Chunk", "MinerState", "Request", "Scheduler"]
+__all__ = ["AuditRecord", "Chunk", "MinerState", "Request", "Scheduler",
+           "STAT_COUNTERS"]
+
+#: Every counter in ``Scheduler.stats``, by the JAX package's names.
+STAT_COUNTERS = (
+    "results_sent", "dup_results", "leases_blown", "leases_blown_spurious",
+    "reissues", "quarantines", "desperation_dispatch", "no_eligible_miner",
+    "queue_alarms", "inflight_alarms", "qos_grants", "qos_window_grants",
+    "claims_checked", "claims_failed", "audits_issued", "audits_passed",
+    "audits_failed", "audits_inconclusive", "trust_decays_claim",
+    "trust_decays_audit")
 
 
 @dataclass
@@ -91,7 +128,11 @@ class Request:
     # target (then the answer is qualifying, not guaranteed first).
     chunk_q: dict = field(default_factory=dict)
     weak: bool = False
-    started: float = 0.0
+    started: float = 0.0           # at dispatch
+    queued_at: float = 0.0         # at arrival
+    # The age alarms' last warnings, queued and in flight apart.
+    last_alarm: float = 0.0
+    last_inflight_alarm: float = 0.0
     qkey: int = 0                  # tenant-queue index stamp
     # QoS: "wholesale" (every chunk assigned at dispatch) or "chunked"
     # (chunk plan held here, granted one chunk at a time).
@@ -99,30 +140,65 @@ class Request:
     chunk_bounds: list = field(default_factory=list)  # chunked: [(lo, up)]
     next_chunk: int = 0            # chunked: first ungranted idx
     granted_chunks: int = 0
+    # Outstanding audits of this request's chunks: the reply waits for
+    # them (an audit after the reply could only detect a lie, not stop it).
+    audit_holds: int = 0
+
+
+@dataclass
+class AuditRecord:
+    """One outstanding audit: a subwindow of an answered arg-min chunk,
+    re-run on a DISJOINT miner under a fresh job id that never enters
+    the in-flight map. Its Result routes here instead of the merge (so
+    an audit outlives its request, and the lease sweep and recovery,
+    which skip jobs not in flight, never touch it); the sweep expires it
+    at ``deadline`` instead."""
+    job_id: int          # the job whose chunk is audited
+    idx: int             # that chunk's idx
+    suspect: int         # conn id of the miner whose claim is audited
+    auditor: int         # conn id of the miner re-running the window
+    lower: int           # the window, bounds inclusive (the miner reads
+    upper: int           # ``Upper`` inclusive)
+    claimed_hash: int    # the suspect's claim for the whole chunk
+    claimed_nonce: int
+    deadline: float = float("inf")
 
 
 class Scheduler:
-    """Single-actor scheduler over an :class:`AsyncServer`. ``qos`` and
-    ``coalesce`` default to the environment's (``DBMT_*`` knobs)."""
+    """Single-actor scheduler over an :class:`AsyncServer`. ``qos``,
+    ``coalesce``, ``lease`` and ``verify`` default to the environment's
+    (``DBMT_*`` knobs); ``audit_rng`` draws the audits (a seeded
+    ``random.Random`` makes them reproducible)."""
 
     def __init__(self, server: AsyncServer, qos: Optional[QosParams] = None,
-                 coalesce: Optional[CoalesceParams] = None):
+                 coalesce: Optional[CoalesceParams] = None,
+                 lease: Optional[LeaseParams] = None,
+                 verify: Optional[VerifyParams] = None,
+                 audit_rng: Optional[random.Random] = None):
         self.server = server
         self.qos = qos if qos is not None else qos_from_env()
         coalesce = coalesce if coalesce is not None else coalesce_from_env()
+        self.lease = lease if lease is not None else lease_from_env()
+        self.verify = verify if verify is not None else verify_from_env()
+        self._audit_rng = audit_rng if audit_rng is not None \
+            else random.Random()
+        # Outstanding audits by audit job id (off the job id counter, so
+        # never a live request's).
+        self._audits: dict[int, AuditRecord] = {}
         # In-flight requests by job id, oldest first. The stock FIFO path
         # keeps at most one; the QoS plane runs several.
         self._inflight: dict[int, Request] = {}
         self._chunked_inflight = 0
         self.queue = TenantQueue()
         self.qos_plane = QosPlane()
-        self.miner_plane = MinerPlane(coalesce, write=self._write,
-                                      inflight=self._inflight)
+        self.stats = dict.fromkeys(STAT_COUNTERS, 0)
+        self.miner_plane = MinerPlane(
+            self.lease, coalesce, write=self._write, inflight=self._inflight,
+            lease_event=self._on_lease_event, dispatch=self._maybe_dispatch,
+            count=self._count, verify=self.verify)
         self._next_job_id = 0
         self._dispatching = False
-        self.stats = {"results_sent": 0, "dup_results": 0,
-                      "claims_checked": 0, "claims_failed": 0,
-                      "qos_grants": 0, "qos_window_grants": 0}
+        self._starved = False          # the no-eligible-miner latch
 
     @property
     def current(self) -> Optional[Request]:
@@ -137,14 +213,21 @@ class Scheduler:
     def miners(self) -> list:
         return self.miner_plane.miners
 
+    def _count(self, name: str) -> None:
+        self.stats[name] += 1
+
     async def run(self) -> None:
-        """Serve until the LSP server is closed."""
-        while True:
-            try:
-                conn_id, payload = await self.server.read()
-            except LspError:
-                return
-            self.handle(conn_id, payload)
+        """Serve until the LSP server is closed; the sweep runs beside."""
+        sweeper = asyncio.get_running_loop().create_task(self._lease_loop())
+        try:
+            while True:
+                try:
+                    conn_id, payload = await self.server.read()
+                except LspError:
+                    return
+                self.handle(conn_id, payload)
+        finally:
+            sweeper.cancel()
 
     def handle(self, conn_id: int, payload) -> None:
         """Handle ONE transport item — a payload or a conn-death
@@ -163,6 +246,29 @@ class Scheduler:
         elif msg.type == MsgType.RESULT:
             self._on_result(conn_id, msg)
 
+    async def _lease_loop(self) -> None:
+        """The scheduler's one timer: a sweep every ``tick_s``."""
+        while True:
+            await asyncio.sleep(self.lease.tick_s)
+            try:
+                self.sweep()
+            except Exception:   # noqa: BLE001 — the sweep must never die
+                logger.exception("lease sweep failed; continuing")
+
+    def sweep(self) -> None:
+        """One tick: lease checks (when leases are on), audit expiry, and
+        the queue-age and in-flight alarms."""
+        mp = self.miner_plane
+        if self.lease.enabled:
+            mp.check_leases()
+        if self._audits:
+            self._expire_audits()
+        self.queue.check_queue_age(
+            self._inflight, self.lease.queue_alarm_s,
+            self.qos_plane.grant_share, self._count, len(mp.miners),
+            len(mp.eligible()),
+            distrusted_n=sum(1 for m in mp.miners if mp.distrusted(m)))
+
     # ---------------------------------------------------------------- events
 
     def _on_request(self, conn_id: int, msg: Message) -> None:
@@ -170,7 +276,8 @@ class Scheduler:
             self.qos_plane.tenant(conn_id, self.qos.weight_for(conn_id))
         self.queue.enqueue(Request(conn_id=conn_id, data=msg.data,
                                    lower=msg.lower, upper=msg.upper,
-                                   target=msg.target))
+                                   target=msg.target,
+                                   queued_at=time.monotonic()))
         self._maybe_dispatch()
 
     def _on_join(self, conn_id: int, msg: Optional[Message] = None) -> None:
@@ -182,6 +289,11 @@ class Scheduler:
         if popped is None:
             return
         miner, chunk = popped
+        if self._audits:
+            rec = self._audits.pop(chunk.job_id, None)
+            if rec is not None:
+                self._on_audit_result(rec, miner, chunk, msg)
+                return
         curr = self._inflight.get(chunk.job_id)
         if curr is None:
             # Stale Result of a retired request; under QoS it freed a slot.
@@ -189,11 +301,17 @@ class Scheduler:
                 self._maybe_dispatch()
             return
         if curr.answered[chunk.idx]:
-            self.stats["dup_results"] += 1
+            # The loser of a re-issue race: the copy scanned the same
+            # range and has merged already.
+            self._count("dup_results")
+            logger.info("duplicate Result for job %d chunk %d from miner %d "
+                        "(speculation loser)", curr.job_id, chunk.idx,
+                        conn_id)
             if self.qos.enabled:
                 self._maybe_dispatch()
             return
-        if not self._claim_ok(curr, chunk, miner, msg):
+        if self.verify.enabled and not self._claim_ok(curr, chunk, miner,
+                                                      msg):
             return
         if msg.hash < curr.min_hash:
             curr.min_hash = msg.hash
@@ -201,6 +319,8 @@ class Scheduler:
         curr.answered[chunk.idx] = True
         if self.qos.enabled:
             self.qos_plane.on_chunk_answered(curr.conn_id)
+        if self.verify.audit_p > 0 and not curr.target:
+            self._maybe_audit(curr, chunk, miner, msg)
         if curr.target and msg.target != curr.target and not curr.weak:
             curr.weak = True
             logger.info(
@@ -219,51 +339,28 @@ class Scheduler:
                 nonce, q_hash = curr.chunk_q[c]
                 self._finish(curr, q_hash, nonce, early=True)
                 return
-        if all(curr.answered):
+        if curr.answered and all(curr.answered) and not curr.audit_holds:
             # Full barrier: an arg-min request, or a target missed
-            # everywhere (the exact arg-min).
+            # everywhere (the exact arg-min). Outstanding audits hold it;
+            # the last one to resolve finishes the request.
             self._finish(curr, curr.min_hash, curr.min_nonce)
         elif self.qos.enabled:
             # The answering miner freed a slot: grant the next chunk.
             self._maybe_dispatch()
 
-    def _claim_ok(self, curr: Request, chunk: Chunk, miner: MinerState,
-                  msg: Message) -> bool:
-        """Claim check: the nonce lies in the chunk (``Upper`` read
-        inclusive), the hash equals the host recompute, and a difficulty
-        claim entering the qualifying set satisfies the target bound on
-        the RECOMPUTED hash (never the claimed one). A failed claim leaves
-        ``answered[idx]`` False, sends the range to another eligible
-        miner, or parks it, and pumps the queue: the liar's popped chunk
-        freed a slot."""
-        self.stats["claims_checked"] += 1
-        actual = hash_op(curr.data, msg.nonce)
-        if chunk.lower <= msg.nonce <= chunk.upper \
-                and actual == msg.hash \
-                and not (curr.target and msg.hash < curr.target
-                         and not actual < curr.target):
-            return True
-        self.stats["claims_failed"] += 1
-        logger.warning("miner %d: claim (%d, %d) for [%d, %d] failed the "
-                       "check; re-running the range", miner.conn_id,
-                       msg.hash, msg.nonce, chunk.lower, chunk.upper)
-        copy = Chunk(chunk.job_id, chunk.data, chunk.lower, chunk.upper,
-                     target=chunk.target, idx=chunk.idx)
-        takeover = next((m for m in self.miner_plane.eligible()
-                         if m is not miner), None)
-        if takeover is not None:
-            self.miner_plane.assign_chunk(takeover, copy)
-        else:
-            self.miner_plane.parked.append(copy)
-        self._maybe_dispatch()
-        return False
-
     def _on_drop(self, conn_id: int) -> None:
         miner = self.miner_plane.drop_miner(conn_id)
         if miner is not None:
             logger.info("miner %d dropped", conn_id)
-            self.miner_plane.recover(miner)
-            self._maybe_dispatch()
+            if self._audits:
+                # A dead auditor's audits hold their requests' replies:
+                # audit the windows again elsewhere, or release them.
+                for c in miner.pending:
+                    rec = self._audits.pop(c.job_id, None)
+                    if rec is not None:
+                        self._reaudit_or_release(rec)
+            if self._inflight:
+                self.miner_plane.recover(miner)
             return
         logger.info("client %d dropped", conn_id)
         self.queue.purge_tenant(conn_id)
@@ -273,6 +370,211 @@ class Scheduler:
                     if r.conn_id == conn_id]:
             self._retire(req)
 
+    def _on_lease_event(self, kind: str, chunk: Chunk, miner_conn: int,
+                        **info) -> None:
+        """The miner plane's lease transitions, and the verification
+        tier's verdicts, as log lines (the JAX package's words)."""
+        if kind == "blown":
+            logger.warning(
+                "miner %d blew the lease on job %d chunk %d "
+                "[%d, %d) after %.2fs (streak %d)%s",
+                miner_conn, chunk.job_id, chunk.idx,
+                chunk.lower, chunk.upper, info.get("overdue_s", 0.0),
+                info["streak"],
+                " [spurious: miner had not reached this chunk]"
+                if info.get("spurious", False) else "")
+        elif kind == "quarantine":
+            logger.warning(
+                "miner %d quarantined after %d consecutive "
+                "blown leases; no new assignments until it "
+                "answers", miner_conn, info["streak"])
+        elif kind == "reissue":
+            logger.warning(
+                "speculatively re-issuing job %d chunk %d [%d, %d) "
+                "from miner %d to miner %d",
+                chunk.job_id, chunk.idx, chunk.lower, chunk.upper,
+                miner_conn, info["to_miner"])
+        elif kind == "quarantine_lifted":
+            logger.info("miner %d answered; quarantine lifted", miner_conn)
+        elif kind == "claim_failed":
+            logger.warning(
+                "miner %d FAILED the claim check on job %d chunk %d: "
+                "claimed hash %s for nonce %s, recomputed %s "
+                "(trust -> %.3g)%s",
+                miner_conn, chunk.job_id, chunk.idx,
+                info.get("claimed"), info.get("nonce"),
+                info.get("actual"), info.get("trust", 0.0),
+                " [audit re-execution]" if info.get("audit") else "")
+        elif kind == "audit_failed":
+            logger.warning(
+                "miner %d FAILED an audit on job %s chunk %s: claimed "
+                "argmin hash %s, but auditor %s found %s at nonce %s "
+                "inside [%d, %d] (trust -> %s)",
+                miner_conn, info.get("job", chunk.job_id), info.get("idx"),
+                info.get("claimed"), info.get("auditor"), info.get("found"),
+                info.get("found_nonce"), chunk.lower, chunk.upper,
+                info.get("trust"))
+
+    # ----------------------------------------------------- verification
+
+    def _claim_ok(self, curr: Request, chunk: Chunk, miner: MinerState,
+                  msg: Message) -> bool:
+        """Claim check: the nonce lies in the chunk (``Upper`` read
+        inclusive), the hash equals the host recompute, and a difficulty
+        claim entering the qualifying set satisfies the target bound on
+        the RECOMPUTED hash (never the claimed one). A failed claim decays
+        the miner's trust and leaves ``answered[idx]`` False; unless a
+        re-issued copy is in flight, the range goes to another eligible
+        miner, or parks; then the queue is pumped (the liar's popped chunk
+        freed a slot)."""
+        self._count("claims_checked")
+        actual = hash_op(curr.data, msg.nonce)
+        if chunk.lower <= msg.nonce <= chunk.upper \
+                and actual == msg.hash \
+                and not (curr.target and msg.hash < curr.target
+                         and not actual < curr.target):
+            return True
+        self._count("claims_failed")
+        mp = self.miner_plane
+        trust = mp.trust_fail(miner, "claim")
+        self._on_lease_event("claim_failed", chunk, miner.conn_id,
+                             nonce=msg.nonce, claimed=msg.hash,
+                             actual=actual, trust=trust)
+        if not chunk.reissued:
+            copy = Chunk(chunk.job_id, chunk.data, chunk.lower, chunk.upper,
+                         target=chunk.target, idx=chunk.idx)
+            takeover = next((m for m in mp.eligible() if m is not miner),
+                            None)
+            if takeover is not None:
+                mp.assign_chunk(takeover, copy)
+            else:
+                mp.parked.append(copy)
+        self._maybe_dispatch()
+        return False
+
+    def _maybe_audit(self, curr: Request, chunk: Chunk, miner: MinerState,
+                     msg: Message) -> None:
+        """With probability ``audit_p``, audit a random subwindow (at most
+        ``audit_max_nonces``) of the chunk just merged on a disjoint miner
+        and hold the request's reply. No auditor, no audit."""
+        v = self.verify
+        if self._audit_rng.random() >= v.audit_p:
+            return
+        auditor = self.miner_plane.pick_auditor(miner.conn_id)
+        if auditor is None:
+            return
+        span = min(v.audit_max_nonces, chunk.size)
+        lo = chunk.lower + self._audit_rng.randrange(chunk.size - span + 1)
+        self._issue_audit(AuditRecord(
+            job_id=chunk.job_id, idx=chunk.idx, suspect=miner.conn_id,
+            auditor=auditor.conn_id, lower=lo, upper=lo + span - 1,
+            claimed_hash=msg.hash, claimed_nonce=msg.nonce),
+            curr.data, auditor)
+        curr.audit_holds += 1
+
+    def _issue_audit(self, rec: AuditRecord, data: str,
+                     auditor: MinerState) -> None:
+        """Grant one audit window to ``auditor`` under a fresh job id,
+        expiring after its lease times the chunks ahead of it plus one.
+        The caller owns the hold."""
+        self._next_job_id += 1
+        aid = self._next_job_id
+        ac = Chunk(aid, data, rec.lower, rec.upper)
+        rec.auditor = auditor.conn_id
+        rec.deadline = time.monotonic() + \
+            self.miner_plane.lease_for(auditor, ac) \
+            * (1 + len(auditor.pending))
+        self._audits[aid] = rec
+        self._count("audits_issued")
+        self.miner_plane.assign_chunk(auditor, ac)
+
+    def _resolve_audit(self, rec: AuditRecord) -> None:
+        """Release one hold of the audited request (whatever the verdict)
+        and finish it if nothing else holds it."""
+        curr = self._inflight.get(rec.job_id)
+        if curr is None:
+            return
+        if curr.audit_holds:
+            curr.audit_holds -= 1
+        if not curr.audit_holds and curr.answered and all(curr.answered):
+            self._finish(curr, curr.min_hash, curr.min_nonce)
+
+    def _reaudit_or_release(self, rec: AuditRecord) -> None:
+        """An audit lost its auditor (drop, expiry, or conviction):
+        re-issue the window to another disjoint miner, else count it
+        inconclusive and release the hold."""
+        curr = self._inflight.get(rec.job_id)
+        if curr is None:
+            return
+        auditor = self.miner_plane.pick_auditor(rec.suspect, rec.auditor)
+        if auditor is not None:
+            self._issue_audit(rec, curr.data, auditor)
+            return
+        self._count("audits_inconclusive")
+        self._resolve_audit(rec)
+
+    def _expire_audits(self) -> None:
+        now = time.monotonic()
+        for aid, rec in [(a, r) for a, r in self._audits.items()
+                         if now >= r.deadline]:
+            del self._audits[aid]
+            logger.warning(
+                "audit of job %d chunk %d expired on auditor %d; "
+                "re-issuing", rec.job_id, rec.idx, rec.auditor)
+            self._reaudit_or_release(rec)
+
+    def _on_audit_result(self, rec: AuditRecord, miner: MinerState,
+                         chunk: Chunk, msg: Message) -> None:
+        """Cross-check an audit Result against the audited claim. The
+        auditor's Result is claim-checked first (a lying auditor is
+        convicted and the window audited again). Then a better real hash
+        inside the window convicts the suspect (it claimed the whole
+        chunk's minimum) and merges into the held request; an auditor
+        that misses a claimed winner lying inside its window is convicted
+        and the window audited again; else the audit passes."""
+        mp = self.miner_plane
+        curr = self._inflight.get(rec.job_id)
+        self._count("claims_checked")
+        actual = hash_op(chunk.data, msg.nonce)
+        if msg.nonce < rec.lower or msg.nonce > rec.upper \
+                or actual != msg.hash:
+            self._count("claims_failed")
+            trust = mp.trust_fail(miner, "claim")
+            self._on_lease_event("claim_failed", chunk, miner.conn_id,
+                                 nonce=msg.nonce, claimed=msg.hash,
+                                 actual=actual, trust=trust, audit=True)
+            self._reaudit_or_release(rec)
+            self._maybe_dispatch()
+            return
+        if msg.hash < rec.claimed_hash:
+            self._count("audits_failed")
+            suspect = mp.find_miner(rec.suspect)
+            trust = (mp.trust_fail(suspect, "audit")
+                     if suspect is not None else None)
+            self._on_lease_event("audit_failed", chunk, rec.suspect,
+                                 job=rec.job_id, idx=rec.idx,
+                                 claimed=rec.claimed_hash,
+                                 found=msg.hash, found_nonce=msg.nonce,
+                                 auditor=miner.conn_id, trust=trust)
+            if curr is not None and msg.hash < curr.min_hash:
+                curr.min_hash = msg.hash
+                curr.min_nonce = msg.nonce
+        elif rec.lower <= rec.claimed_nonce <= rec.upper \
+                and msg.hash != rec.claimed_hash:
+            trust = mp.trust_fail(miner, "audit")
+            self._on_lease_event("audit_failed", chunk, miner.conn_id,
+                                 job=rec.job_id, idx=rec.idx,
+                                 claimed=rec.claimed_hash,
+                                 found=msg.hash, found_nonce=msg.nonce,
+                                 auditor=miner.conn_id, trust=trust)
+            self._reaudit_or_release(rec)
+            self._maybe_dispatch()
+            return
+        else:
+            self._count("audits_passed")
+        self._resolve_audit(rec)
+        self._maybe_dispatch()
+
     # --------------------------------------------------------------- dispatch
 
     def _finish(self, curr: Request, h: int, nonce: int,
@@ -280,12 +582,13 @@ class Scheduler:
         """Answer the client and retire the request. ``early`` = prefix
         release: the job's other chunks are still in flight."""
         self._write(curr.conn_id, new_result(h, nonce))
-        self.stats["results_sent"] += 1
+        self._count("results_sent")
         logger.info("request %d served in %.3fs: [%d, %d) over %d chunks%s%s",
                     curr.job_id, time.monotonic() - curr.started,
                     curr.lower, curr.upper, curr.num_chunks,
                     " (prefix release)" if early else "",
                     " (weak merge)" if curr.weak else "")
+        logger.info("scheduler counts %s", json.dumps(self.stats))
         self._retire(curr)
 
     def _retire(self, curr: Request) -> None:
@@ -307,7 +610,8 @@ class Scheduler:
         """Start queued work when the pool can take it: the stock FIFO
         pump or the QoS grant pump. Re-entrancy guard: an empty-range
         request finishes inside its own dispatch, and the outer pump loop
-        then drains the queue iteratively."""
+        then drains the queue iteratively. Queued work with nothing in
+        flight and no eligible miner logs once per starvation episode."""
         if self._dispatching:
             return
         self._dispatching = True
@@ -318,14 +622,37 @@ class Scheduler:
                 self._fifo_pump()
         finally:
             self._dispatching = False
+        if not self._inflight and len(self.queue) \
+                and not self.miner_plane.eligible():
+            if not self._starved:
+                self._starved = True
+                self._count("no_eligible_miner")
+                miners = self.miner_plane.miners
+                logger.warning(
+                    "no eligible miner for %d queued request(s): pool=%d "
+                    "quarantined=%d busy=%d — queue is stalled until a "
+                    "miner joins, frees, or answers",
+                    len(self.queue), len(miners),
+                    sum(1 for m in miners if m.quarantined),
+                    sum(1 for m in miners
+                        if not m.available and not m.quarantined))
+        elif not len(self.queue):
+            self._starved = False
 
     def _fifo_pump(self) -> None:
-        """Pop the queue head whenever nothing is in flight."""
+        """Pop the queue head whenever nothing is in flight; a wholly
+        quarantined or distrusted pool serves through desperation."""
         while not self._inflight and len(self.queue):
             pool = self.miner_plane.eligible()
+            desperate = False
             if not pool:
-                break
-            self._load_balance(self.queue.pop_head(), pool)
+                pool = self.miner_plane.desperation_pool()
+                if not pool:
+                    break
+                desperate = True
+            self._load_balance(self.queue.pop_head(), pool,
+                               desperate=desperate)
+            self._starved = False
 
     def _start(self, req: Request, mode: str) -> None:
         self._next_job_id += 1
@@ -335,9 +662,21 @@ class Scheduler:
         self._inflight[req.job_id] = req
         req.upper += 1  # inclusive -> exclusive
 
-    def _load_balance(self, request: Request, pool: list[MinerState]) -> None:
-        """Wholesale dispatch: split the range evenly over ``pool``."""
+    def _load_balance(self, request: Request, pool: list[MinerState],
+                      desperate: bool = False) -> None:
+        """Wholesale dispatch: split the range evenly over ``pool`` (the
+        eligible miners, or the one-miner desperation pool)."""
         self._start(request, "wholesale")
+        if desperate:
+            self._count("desperation_dispatch")
+            m = pool[0]
+            logger.warning(
+                "DESPERATION dispatch: entire pool (%d miner(s)) is "
+                "quarantined; assigning request %r [%d, %d] to least-bad "
+                "miner %d (blown streak %d, rate %s) as a last resort",
+                len(self.miner_plane.miners), request.data, request.lower,
+                request.upper - 1, m.conn_id, m.blown_streak,
+                f"{m.rate_ewma:.0f}/s" if m.rate_ewma else "unknown")
         num = len(pool)
         total = request.upper - request.lower
         if total <= 0:
@@ -447,7 +786,8 @@ class Scheduler:
     def _qos_pump(self) -> None:
         """The QoS grant loop: while grantable work and capacity exist,
         pick the next tenant by DRR and execute ONE grant — a chunk, a
-        chunked activation, or a stock wholesale dispatch.
+        chunked activation, or a stock wholesale dispatch (through
+        desperation when the whole pool is quarantined or distrusted).
 
         The pass carries a coalescing-window map (miner conn id ->
         ``[coalesce_id, lanes_used, {job_ids}]``): a small grant may land
@@ -468,7 +808,8 @@ class Scheduler:
         if not backlogged:
             return
         if not mp.capacity_pool(self.qos.depth) and \
-                (self._inflight or not mp.eligible()):
+                (self._inflight or not (mp.eligible()
+                                        or mp.desperation_pool())):
             return     # saturated: nothing grantable this event
         window: dict = {}
         while True:
@@ -478,7 +819,7 @@ class Scheduler:
             cap_pool = mp.capacity_pool(self.qos.depth)
             cold, small_bound = self._qos_small_bound()
             none_inflight = not self._inflight
-            can_start = bool(mp.eligible())
+            can_start = bool(mp.eligible()) or bool(mp.desperation_pool())
             candidates = {}
             for t, (kind, req, cost) in heads.items():
                 joinable = (mp.window_room(window, req.job_id)
@@ -498,9 +839,13 @@ class Scheduler:
             self.queue.dequeue(req)
             if not self._inflight and self._qos_is_small(
                     req.upper - req.lower + 1, cold, small_bound):
-                self._load_balance(req, mp.eligible())
+                pool, desperate = mp.eligible(), False
+                if not pool:
+                    pool, desperate = mp.desperation_pool(), True
+                self._load_balance(req, pool, desperate=desperate)
             else:
                 self._qos_activate(req, cap_pool, window)
+            self._starved = False
 
     def _qos_activate(self, req: Request, pool: list[MinerState],
                       window: dict) -> None:
@@ -544,7 +889,7 @@ class Scheduler:
                 cid = slot[0]
                 slot[1] += 1
                 slot[2].add(req.job_id)
-                self.stats["qos_window_grants"] += 1
+                self._count("qos_window_grants")
         if miner is None:
             if not pool:
                 return    # window gone and no capacity: next pump turn
@@ -553,7 +898,7 @@ class Scheduler:
                 cid = mp.open_window(window, miner, req.job_id)
         req.next_chunk += 1
         req.granted_chunks += 1
-        self.stats["qos_grants"] += 1
+        self._count("qos_grants")
         self.qos_plane.on_grant(req.conn_id, up - lo)
         mp.assign_chunk(miner, Chunk(req.job_id, req.data, lo, up,
                                      target=req.target, idx=idx,

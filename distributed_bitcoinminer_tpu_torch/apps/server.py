@@ -2,6 +2,9 @@
 
 Usage: ``python -m distributed_bitcoinminer_tpu_torch.apps.server <port>``
 (ref: bitcoin/server/server.go:430-472; prints "Server listening on port N").
+The scheduler takes its lease plane and verification tier from the
+environment (``lease_from_env``, ``verify_from_env``: the ``DBMT_LEASE_*``,
+``DBMT_QUEUE_ALARM_S``, ``DBMT_AUDIT_*`` and ``DBMT_TRUST_*`` knobs).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import sys
 
 from ..lsp.params import Params
 from ..lsp.server import new_async_server
+from ..utils.config import lease_from_env, verify_from_env
 from .scheduler import Scheduler
 
 
@@ -19,7 +23,8 @@ async def serve(port: int, params: Params | None = None) -> None:
     server = await new_async_server(port, params or Params())
     print("Server listening on port", server.port, flush=True)
     try:
-        await Scheduler(server).run()
+        await Scheduler(server, lease=lease_from_env(),
+                        verify=verify_from_env()).run()
     finally:
         await server.close()
 

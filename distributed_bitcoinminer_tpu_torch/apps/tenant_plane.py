@@ -4,12 +4,18 @@ Counterpart of the queue half of the JAX package's
 ``apps/tenant_plane.py``: an insertion-ordered map of every queued
 request plus a FIFO per tenant (client conn id), so enqueue, the global
 head pop, a targeted dequeue and a tenant's purge are O(1)-amortized,
-and the QoS pump's per-tenant head scan is O(backlogged tenants).
+and the QoS pump's per-tenant head scan is O(backlogged tenants); and
+the queue-age alarms of the JAX package's ``TenantPlane``
+(:meth:`TenantQueue.check_queue_age`), which the scheduler's sweep runs.
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from collections import deque
+
+logger = logging.getLogger("dbmt.scheduler")
 
 
 class TenantQueue:
@@ -70,3 +76,41 @@ class TenantQueue:
     def backlog_tenants(self) -> list:
         """Tenants with queued work, first-queued order."""
         return list(self._by_tenant)
+
+    def check_queue_age(self, inflight: dict, bound: float, grant_share,
+                        count, miners_n: int, eligible_n: int,
+                        distrusted_n: int = 0) -> None:
+        """Age alarms: each tenant's OLDEST queued request past ``bound``
+        seconds, and every request IN FLIGHT past it, logs a warning (and
+        counts ``queue_alarms`` or ``inflight_alarms``), at most once per
+        bound interval per request. ``grant_share(tenant)`` is the
+        tenant's share of the granted nonces, so a starved mouse reads
+        apart from a busy elephant. Observability only."""
+        if bound <= 0:
+            return
+        now = time.monotonic()
+        for _tenant, req in self.tenant_heads():
+            age = now - req.queued_at
+            if age < bound or now - req.last_alarm < bound:
+                continue
+            req.last_alarm = now
+            count("queue_alarms")
+            logger.warning(
+                "tenant %d: oldest request %r [%d, %d] queued for %.1fs "
+                "(bound %.1fs): grant_share=%.3f pool=%d eligible=%d "
+                "distrusted=%d in_flight=%d",
+                req.conn_id, req.data, req.lower, req.upper, age, bound,
+                grant_share(req.conn_id), miners_n, eligible_n,
+                distrusted_n, len(inflight))
+        for req in inflight.values():
+            if now - req.started < bound \
+                    or now - req.last_inflight_alarm < bound:
+                continue
+            req.last_inflight_alarm = now
+            count("inflight_alarms")
+            logger.warning(
+                "request %d (tenant %d) in flight for %.1fs (bound %.1fs): "
+                "%d/%d chunks answered, %d granted, grant_share=%.3f",
+                req.job_id, req.conn_id, now - req.started, bound,
+                sum(req.answered), req.num_chunks, req.granted_chunks,
+                grant_share(req.conn_id))

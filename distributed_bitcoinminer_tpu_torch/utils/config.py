@@ -1,6 +1,8 @@
-"""Parameter blocks of the fair-share QoS plane and cross-request
-coalescing, with the JAX package's defaults (its ``utils/config.py``
-``QosParams`` and ``CoalesceParams``), cut to the fields the port reads.
+"""Parameter blocks of the fair-share QoS plane, cross-request
+coalescing, the lease plane and the verification tier, with the JAX
+package's defaults (its ``utils/config.py`` ``QosParams``,
+``CoalesceParams``, ``LeaseParams`` and ``VerifyParams``), cut to the
+fields the port reads.
 
 Constructor arguments carry the settings; the server and miner CLIs read
 them from the environment through :func:`qos_from_env` and
@@ -22,6 +24,17 @@ them from the environment through :func:`qos_from_env` and
   A miner with at least two entries searches over the mesh
   (``MeshNonceSearcher``), as the JAX package's factory takes its mesh
   searcher on a box with more than one device.
+
+The server also reads the lease plane's and the verification tier's
+knobs, each the twin of a ``DBM_*`` knob of the JAX package
+(:func:`lease_from_env`, :func:`verify_from_env`): ``DBMT_LEASE_GRACE_S``,
+``DBMT_LEASE_FACTOR``, ``DBMT_LEASE_FLOOR_S``, ``DBMT_LEASE_TICK_S``,
+``DBMT_LEASE_QUARANTINE``, ``DBMT_QUEUE_ALARM_S``; ``DBMT_AUDIT_P``
+(default 0.02 from the environment, 0.0 in ``VerifyParams()``),
+``DBMT_AUDIT_MAX``, ``DBMT_TRUST_DECAY``, ``DBMT_TRUST_RECOVER``,
+``DBMT_TRUST_FLOOR``, ``DBMT_TRUST_BAR``. Their on/off switches
+(``LeaseParams.enabled``, ``fifo_aware``, ``desperation``,
+``VerifyParams.enabled``) are constructor fields only.
 """
 
 from __future__ import annotations
@@ -129,3 +142,84 @@ def mesh_from_env(device="cuda") -> tuple:
     if torch.device(device).type != "cuda":
         return ()
     return tuple(f"cuda:{i}" for i in range(torch.cuda.device_count()))
+
+
+@dataclass(frozen=True)
+class LeaseParams:
+    """Chunk leases (the scheduler's lease plane).
+
+    A chunk's lease is ``max(floor_s, factor * size / rate)``, ``rate``
+    the assigned miner's throughput EWMA, else the pool's, else the flat
+    ``grace_s`` on a cold pool. An expired lease re-issues the chunk to
+    another eligible miner (the first Result wins); ``quarantine_after``
+    consecutive blown leases bar a miner from new work until it answers
+    again; ``desperation`` lets a wholly quarantined or distrusted pool
+    still serve through its least-bad miner. ``fifo_aware`` starts a
+    chunk's clock when it reaches the head of its miner's FIFO (until
+    then its deadline budgets the chunks ahead of it). ``tick_s`` is the
+    sweep's period; ``queue_alarm_s`` bounds a request's age queued or
+    in flight before the sweep warns.
+    """
+    enabled: bool = True
+    grace_s: float = 30.0
+    factor: float = 4.0
+    floor_s: float = 2.0
+    tick_s: float = 1.0
+    quarantine_after: int = 3
+    ewma_alpha: float = 0.3        # weight of the newest throughput sample
+    queue_alarm_s: float = 30.0
+    fifo_aware: bool = True
+    desperation: bool = True
+
+
+@dataclass(frozen=True)
+class VerifyParams:
+    """The verification tier: claim checks, audits and trust.
+
+    With ``enabled`` every Result's ``(hash, nonce)`` is recomputed on the
+    host before it merges; a false claim is re-run on another miner. With
+    probability ``audit_p`` a random subwindow (at most
+    ``audit_max_nonces``) of an answered arg-min chunk is re-run on a
+    disjoint miner and the request's reply waits for it: a better hash
+    found there convicts the miner that claimed the chunk and repairs the
+    answer. A miner's trust starts at 1.0, multiplies by ``trust_decay``
+    per failure, steps back by ``trust_recover`` per answer (clamped to
+    ``[trust_floor, 1.0]``); below ``trust_bar`` it gets no new grants.
+    """
+    enabled: bool = True
+    audit_p: float = 0.0
+    audit_max_nonces: int = 1 << 16
+    trust_decay: float = 0.25
+    trust_recover: float = 0.05
+    trust_floor: float = 0.01
+    trust_bar: float = 0.2
+
+
+def lease_from_env() -> LeaseParams:
+    d = LeaseParams()
+    return LeaseParams(
+        grace_s=float_env("DBMT_LEASE_GRACE_S", d.grace_s),
+        factor=float_env("DBMT_LEASE_FACTOR", d.factor),
+        floor_s=float_env("DBMT_LEASE_FLOOR_S", d.floor_s),
+        tick_s=float_env("DBMT_LEASE_TICK_S", d.tick_s),
+        quarantine_after=int_env("DBMT_LEASE_QUARANTINE",
+                                 d.quarantine_after),
+        queue_alarm_s=float_env("DBMT_QUEUE_ALARM_S", d.queue_alarm_s))
+
+
+def verify_from_env() -> VerifyParams:
+    """The tier from the environment; audits default to 0.02 here (the
+    JAX package's env default), while ``VerifyParams()`` keeps 0.0."""
+    d = VerifyParams()
+    return VerifyParams(
+        audit_p=min(1.0, max(0.0, float_env("DBMT_AUDIT_P", 0.02))),
+        audit_max_nonces=max(1, int_env("DBMT_AUDIT_MAX",
+                                        d.audit_max_nonces)),
+        trust_decay=min(0.99, max(0.01, float_env("DBMT_TRUST_DECAY",
+                                                  d.trust_decay))),
+        trust_recover=min(0.99, max(0.001, float_env("DBMT_TRUST_RECOVER",
+                                                     d.trust_recover))),
+        trust_floor=min(1.0, max(0.0, float_env("DBMT_TRUST_FLOOR",
+                                                d.trust_floor))),
+        trust_bar=min(1.0, max(0.0, float_env("DBMT_TRUST_BAR",
+                                              d.trust_bar))))

@@ -32,6 +32,7 @@ from distributed_bitcoinminer_tpu_torch.lsp import Params
 from distributed_bitcoinminer_tpu_torch.lsp.server import new_async_server
 from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
 from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+from distributed_bitcoinminer_tpu_torch.utils.config import VerifyParams
 
 
 def fast_params(epoch_ms=50, limit=5, window=5):
@@ -74,7 +75,10 @@ class Cluster:
             self.scheduler = RefScheduler(self.server)
         else:
             self.server = await new_async_server(0, self.params)
-            self.scheduler = Scheduler(self.server)
+            # No random audits: they would add chunks to the miners'
+            # counts that the scenarios pin.
+            self.scheduler = Scheduler(self.server,
+                                       verify=VerifyParams(audit_p=0.0))
         self.tasks.append(asyncio.create_task(self.scheduler.run()))
         return self
 

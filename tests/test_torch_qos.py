@@ -34,8 +34,10 @@ from distributed_bitcoinminer_tpu_torch.bitcoin.hash import (hash_op,
                                                              scan_until)
 from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
     Message, new_request, new_result)
-from distributed_bitcoinminer_tpu_torch.utils.config import (CoalesceParams,
-                                                             QosParams)
+from distributed_bitcoinminer_tpu_torch.utils.config import \
+    CoalesceParams, QosParams
+from distributed_bitcoinminer_tpu_torch.utils.config import \
+    VerifyParams as PortVerifyParams
 
 MINER_A, MINER_B, MINER_C = 101, 102, 103
 TEN_X, TEN_Y, TEN_Z = 1, 2, 3
@@ -68,7 +70,8 @@ class Pair:
         self.port = Scheduler(
             self.port_server, qos=QosParams(enabled=qos is not False,
                                              **qos_kw),
-            coalesce=CoalesceParams(enabled=coalesce, lanes=lanes))
+            coalesce=CoalesceParams(enabled=coalesce, lanes=lanes),
+            verify=PortVerifyParams(audit_p=0.0))
         self.ref = RefScheduler(
             self.ref_server, lease=LeaseParams(),
             qos=RefQosParams(enabled=qos is not False, lazy=False, **qos_kw),
@@ -82,6 +85,9 @@ class Pair:
             self.port.miner_plane.observe_result = lambda m, c: None
             self.ref._pool_rate = pin
             self.ref._observe_result = lambda m, c: None
+            # The JAX plane calls its own method, not the scheduler's
+            # shim: pin it too, so neither side samples a rate.
+            self.ref.miner_plane.observe_result = lambda m, c: None
 
     def both(self, fn):
         fn(self.port)
