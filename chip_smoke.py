@@ -117,12 +117,36 @@ JSON line per phase:
    ``wrong_hash``: ``ByzantineSearcher`` with its lie flag set) serve R3,
    R1 and R3, each equal to the default path's; the server must log a
    failed audit and a failed claim, and in the last request neither liar
-   serves a chunk (both below the trust bar). Every other server runs
-   with ``DBMT_AUDIT_P=0`` (random audits would add launches no path
-   expects) and leases at their defaults; each server's count of blown
-   leases is reported. Every other miner is pinned
-   to card 0. The launch counts of each path come from
-   its own miner processes, which start at 0 just before the path;
+   serves a chunk (both below the trust bar). Then the sched path, on
+   two new servers of two miners each, the result cache on. The first
+   stripes in 0.05 s chunks (``SCHED_SERVER_ENV``) and one of its miners
+   joins with a measured rate hint (``DBMT_RATE_HINT=probe``, the probe
+   run on its card; the probe is launch-bound on an H100, so its hint
+   is far below the steady rate, and at the default 5 s wholesale bound
+   the cold pool would chunk R3 instead of striping it: this server's
+   bound is 60 s): R3 on the cold pool, striped from the hint
+   (``chunks_striped`` > 0), equal to the default path's; R3 again,
+   answered from the cache with no launch on either miner; a message of
+   2^33 nonces on the warm pool, striped, held to the claim check and a
+   direct search; R4, equal to the default path's, with its prefix
+   release over the ascending striped chunks. The second
+   (``SCHED_QOS_ENV``: chunking, one admission token a tenant, one
+   request queued at most, weights 1 and 3 by conn id) after a warm-up:
+   the elephant and, while it runs, a tenant whose second mouse is shed
+   at admission and four tenants writing a mouse each at once, past the
+   queue's bound (the oldest shed); then two tenants' chunked elephants,
+   the weight-3 one (written second) finishing first; every shed
+   tenant's client disconnected and no other, the shed warnings adding
+   up to ``qos_shed``, every answer equal to the plain scan, a direct
+   search or the mice path's elephant. The probe's hint is printed
+   beside R3's nonces/s. Every other server runs with
+   ``DBMT_AUDIT_P=0`` (random audits would add launches no path
+   expects), ``DBMT_CACHE=0`` (the cache would answer the repeated R1,
+   R3 of the arg-min, lease and verification paths without the miners)
+   and leases at their defaults; each server's count of blown leases is
+   reported. Every other miner is pinned to card 0. The launch counts
+   of each path come from its own miner processes, which start at 0
+   just before the path;
 5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
    (2-block tail with digits in both blocks) and a 10^9 block whose second
    tail block holds no digit; K2 over the first block with a target
@@ -1212,10 +1236,15 @@ class Cluster:
         self.hostport = f"127.0.0.1:{self.port}"
         # No random audits (the server's default, 2% of the arg-min
         # chunks): they would add launches that no path's check expects.
-        # The verification path turns them on for its own server.
+        # The verification path turns them on for its own server. No
+        # result cache: it would answer the paths' repeated requests (R1
+        # again, the lease path's second R3, the verification path's last
+        # R3) without the miners, which those requests are there to
+        # measure. The sched path turns it on for its own servers.
         self.env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                         + os.environ.get("PYTHONPATH", ""),
-                        DBMT_MESH_DEVICES="cuda:0", DBMT_AUDIT_P="0")
+                        DBMT_MESH_DEVICES="cuda:0", DBMT_AUDIT_P="0",
+                        DBMT_CACHE="0")
         self.procs, self.handles, self.logs = [], [], {}
 
     def spawn(self, name: str, module: str, args: list,
@@ -1514,6 +1543,7 @@ def phase_e2e(outdir: str) -> dict:
     mesh = run_mesh(outdir)
     lease = run_lease(outdir)
     verify = run_verify(outdir)
+    sched = run_sched(outdir)
     for path, counts, kernels in (("arg-min", argmin_launches, ("K1", "K6")),
                                   ("difficulty", until_launches,
                                    ("K2", "K6"))):
@@ -1586,6 +1616,12 @@ def phase_e2e(outdir: str) -> dict:
     check_mesh_paths(mesh, by_name)
     check_lease(lease, by_name)
     check_verify(verify, by_name)
+    check_sched(sched, by_name, mice_runs[0], dev)
+    st = sched["striping"]
+    print(f"sched: rate hint {st['rate_hint']:.6g} nonces/s (the probe), "
+          f"R3 {st['requests'][0]['nonces_per_s']:.6g} nonces/s striped "
+          f"from it, {st['requests'][2]['nonces_per_s']:.6g} on the warm "
+          f"pool", flush=True)
     # Leases run on every path at their defaults (30 s on a cold pool, 2 s
     # at least on a warm one); a blown one is reported here, not hidden.
     blown = {os.path.basename(log)[4:-4]: count_lines(
@@ -1593,7 +1629,7 @@ def phase_e2e(outdir: str) -> dict:
         for log in sorted(glob.glob(os.path.join(outdir,
                                                  "e2e_*server.log")))}
     info = {"requests": results, "mice": mice_runs, "peeled": peeled,
-            "mesh": mesh, "lease": lease, "verify": verify,
+            "mesh": mesh, "lease": lease, "verify": verify, "sched": sched,
             "blown_leases_by_server": blown,
             "launches": {"arg-min": argmin_launches,
                          "difficulty": until_launches,
@@ -1605,7 +1641,8 @@ def phase_e2e(outdir: str) -> dict:
                             for leg, run in mesh.items()
                             if isinstance(run, dict)},
                          "lease": sum_launches(lease["launches"]),
-                         "verify": sum_launches(verify["launches"])}}
+                         "verify": sum_launches(verify["launches"]),
+                         "sched": sched["launches"]}}
     emit("e2e", **info)
     return info
 
@@ -2025,6 +2062,287 @@ def check_verify(run: dict, default: dict) -> None:
     if len(convicted) < 2:
         fail(f"verification path: miners below the trust bar {convicted}, "
              f"from {run['trust_after_failures']}")
+
+
+#: The sched path's first server: striping in chunks of 0.05 s, so each
+#: miner's 2^31 share of R3 (about 0.17 s of work) is several chunks.
+#: The wholesale bound is raised from 5 s to 60 s because of a known
+#: fault of the probe: its 2^17 nonces are launch-bound on an H100, so
+#: the cold pool's only rate, the probe's hint, is 20-30x below the
+#: steady rate; R3 would be estimated at about 10 s and chunked by the
+#: QoS plane, not dispatched wholesale and striped (ROADMAP).
+SCHED_SERVER_ENV = {"DBMT_CACHE": "1", "DBMT_STRIPE_CHUNK_S": "0.05",
+                    "DBMT_QOS_WHOLESALE_S": "60"}
+#: The first server's miners: one probes its rate before joining.
+SCHED_MINER_ENVS = [{"DBMT_RATE_HINT": "probe"}, None]
+#: The message of the third request, over 2^32 on the warm pool.
+SCHED_WARM = ("sched warm pool", (1 << 33) - 1)
+#: The second server: chunked from 0.1 s in 0.05 s chunks (as the mice
+#: path), one admission token per tenant (burst 1, refilled once in 100
+#: s), at most one request queued, and weights by conn id. The LSP server
+#: numbers conns from 1 in the order they connect, miners and clients
+#: alike: the two miners are 1 and 2, the warm-up's client 3, then the
+#: elephant (4), one tenant writing two mice at once (5: its second is
+#: shed at admission), four tenants writing a mouse each at once (6-9:
+#: beyond one queued, the oldest is shed), and last the weights' two
+#: tenants (10 and 11). The weights come last, once the elephant is
+#: answered, so their two tenants contend only with each other.
+SCHED_ELEPHANT_CONN, SCHED_ADMISSION_CONN, SCHED_OVERLOAD_CONN = 4, 5, 6
+SCHED_WEIGHT_LIGHT, SCHED_WEIGHT_HEAVY = 10, 11
+SCHED_QOS_ENV = {"DBMT_CACHE": "1", "DBMT_QOS_WHOLESALE_S": "0.1",
+                 "DBMT_QOS_CHUNK_S": "0.05", "DBMT_QOS_RATE": "0.01",
+                 "DBMT_QOS_BURST": "1", "DBMT_QOS_MAX_QUEUED": "1",
+                 "DBMT_QOS_WEIGHTS": f"{SCHED_WEIGHT_LIGHT}:1,"
+                                     f"{SCHED_WEIGHT_HEAVY}:3"}
+#: The weights' two elephants, about 0.7 s of the pool each.
+SCHED_ELEPHANTS = {SCHED_WEIGHT_LIGHT: ("weight one", (1 << 33) - 1),
+                   SCHED_WEIGHT_HEAVY: ("weight three", (1 << 33) - 1)}
+SCHED_ADMISSION_MICE = (("admission a", 10 ** 5 - 1),
+                        ("admission b", 10 ** 5 - 1))
+SCHED_OVERLOAD_MICE = tuple((f"overload {j}", 10 ** 5 - 1)
+                            for j in range(4))
+SHED_LINE = re.compile(r"QoS shed \((\w+)\): request .* from tenant (\d+) "
+                       r"\(\+(\d+) queued")
+
+
+async def open_tenants(hostport: str, n: int, first_conn: int) -> list:
+    """``n`` client connections, opened one after another, so the server
+    numbers them ``first_conn``, ``first_conn + 1``, ...; fails
+    otherwise."""
+    from distributed_bitcoinminer_tpu_torch.lsp.client import \
+        new_async_client
+    clients = []
+    for j in range(n):
+        client = await new_async_client(hostport)
+        if client.conn_id() != first_conn + j:
+            fail(f"sched path: conn {client.conn_id()} where "
+                 f"{first_conn + j} was expected")
+        clients.append(client)
+    return clients
+
+
+async def tenant_results(client, requests: tuple, t0: float) -> dict:
+    """Write ``requests`` ``(data, max_nonce)`` at once on ``client`` and
+    read their Results: ``{"results": [[hash, nonce, seconds], ...],
+    "disconnected": bool}`` (the connection lost before every Result
+    came, as the client CLI's ``Disconnected``)."""
+    from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
+        Message, MsgType, new_request)
+    from distributed_bitcoinminer_tpu_torch.lsp.errors import LspError
+    for data, max_nonce in requests:
+        client.write(new_request(data, 0, max_nonce).to_json())
+    out, lost = [], False
+    try:
+        while len(out) < len(requests):
+            msg = Message.from_json(await client.read())
+            if msg.type == MsgType.RESULT:
+                out.append([msg.hash, msg.nonce, time.monotonic() - t0])
+    except LspError:
+        lost = True
+    finally:
+        await client.close()
+    return {"conn": client.conn_id(), "requests": [list(r) for r in requests],
+            "results": out, "disconnected": lost}
+
+
+def run_sched(outdir: str) -> dict:
+    """The sched path: the scheduler's striping, rate-hint JOIN, result
+    cache, admission, shedding and weights, on two new servers of two
+    miners each. The first (``SCHED_SERVER_ENV``; one miner probes its
+    rate, ``DBMT_RATE_HINT=probe``): R3 on the cold pool, striped from
+    the hint; R3 again, from the cache; ``SCHED_WARM`` on the warm pool;
+    R4. The second (``SCHED_QOS_ENV``): a warm-up, the elephant and,
+    while it runs, a tenant shed at admission and four writing at once
+    past the queue's bound; then the weights' two elephants (the light
+    one written first)."""
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import (
+        submit, submit_until)
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    r4 = UNTIL_REQUESTS[0]
+    out = {}
+    with Cluster(outdir) as c:
+        server_log = c.start("sched_server", "server", [str(c.port)],
+                             "Server listening on port",
+                             env=SCHED_SERVER_ENV)
+        miners = start_miners(c, ["sched_probe_miner", "sched_miner"],
+                              SCHED_MINER_ENVS)
+        with open(miners[0], errors="replace") as f:
+            hint = re.search(r"rate hint ([0-9.e+]+) nonces/s", f.read())
+        if hint is None:
+            fail("sched path: the probing miner logged no rate hint")
+        steps, striped, counts = [], [], {}
+        launches = []
+        for name, submit_fn in (
+                ("R3", lambda: asyncio.run(asyncio.wait_for(
+                    submit(c.hostport, *by_name["R3"][1:]), 300))),
+                ("R3 again", lambda: asyncio.run(asyncio.wait_for(
+                    submit(c.hostport, *by_name["R3"][1:]), 300))),
+                ("warm", lambda: asyncio.run(asyncio.wait_for(
+                    submit(c.hostport, *SCHED_WARM), 300))),
+                ("R4", lambda: asyncio.run(asyncio.wait_for(
+                    submit_until(c.hostport, *r4[1:]), 300)))):
+            launches.append(path_launches(miners))
+            data, max_nonce = (SCHED_WARM if name == "warm"
+                               else by_name["R3"][1:] if name != "R4"
+                               else r4[1:3])
+            steps.append(timed(name, data, max_nonce, submit_fn))
+            time.sleep(0.2)
+            counts = scheduler_counts(server_log)
+            striped.append(counts.get("chunks_striped", 0))
+        launches.append(path_launches(miners))
+        with open(server_log, errors="replace") as f:
+            text = f.read()
+        out["striping"] = {
+            "requests": steps, "rate_hint": float(hint.group(1)),
+            "chunks_striped_after_each": striped,
+            "launches_before_each": launches,
+            "launches_by_miner": {os.path.basename(m): path_launches([m])
+                                  for m in miners},
+            "chunks_by_miner": {os.path.basename(m): len(served_chunks([m]))
+                                for m in miners},
+            "cache_replay_logged": "answered from the result cache" in text,
+            "prefix_release_logged": "(prefix release)" in text,
+            "hint_joined_logged": "joined with rate hint" in text,
+            "scheduler_counts": counts}
+        first_miners = miners
+    with Cluster(outdir) as c:
+        server_log = c.start("sched_qos_server", "server", [str(c.port)],
+                             "Server listening on port", env=SCHED_QOS_ENV)
+        miners = start_miners(c, ["sched_qos_miner", "sched_qos_miner2"],
+                              [None, None])
+        warm = timed("warm-up", *MICE_WARM_UP, lambda: asyncio.run(
+            asyncio.wait_for(submit(c.hostport, *MICE_WARM_UP), 300)))
+
+        async def drive():
+            (el,) = await open_tenants(c.hostport, 1, SCHED_ELEPHANT_CONN)
+            t0 = time.monotonic()
+            el_task = asyncio.create_task(tenant_results(el, (ELEPHANT,),
+                                                         t0))
+            await asyncio.sleep(0.3)
+            (adm,) = await open_tenants(c.hostport, 1, SCHED_ADMISSION_CONN)
+            adm_task = asyncio.create_task(tenant_results(
+                adm, SCHED_ADMISSION_MICE, time.monotonic()))
+            over = await open_tenants(c.hostport, len(SCHED_OVERLOAD_MICE),
+                                      SCHED_OVERLOAD_CONN)
+            t1 = time.monotonic()
+            overload = asyncio.gather(*(
+                tenant_results(cl, (mouse,), t1)
+                for cl, mouse in zip(over, SCHED_OVERLOAD_MICE)))
+            # The weights once the elephant is answered, while the shed
+            # clients still wait to see their connections die.
+            el_res = await el_task
+            light, heavy = await open_tenants(c.hostport, 2,
+                                              SCHED_WEIGHT_LIGHT)
+            t0 = time.monotonic()
+            weights = await asyncio.gather(*(
+                tenant_results(cl, (SCHED_ELEPHANTS[cl.conn_id()],), t0)
+                for cl in (light, heavy)))
+            return weights, el_res, await adm_task, await overload
+        weights, el, adm, overload = asyncio.run(asyncio.wait_for(drive(),
+                                                                  300))
+        time.sleep(0.5)
+        with open(server_log, errors="replace") as f:
+            sheds = [[kind, int(t), 1 + int(sib)]
+                     for kind, t, sib in SHED_LINE.findall(f.read())]
+        out["qos"] = {"warm_up": warm, "weights": weights, "elephant": el,
+                      "admission": adm, "overload": overload,
+                      "shed_lines": sheds,
+                      "scheduler_counts": scheduler_counts(server_log),
+                      "launches_by_miner": {
+                          os.path.basename(m): path_launches([m])
+                          for m in miners}}
+    out["launches"] = sum_launches({**{m: path_launches([m])
+                                       for m in first_miners},
+                                    **{m: path_launches([m])
+                                       for m in miners}})
+    return out
+
+
+def check_sched(run: dict, default: dict, mice: dict, dev) -> None:
+    """The sched path's checks. R3 striped (``chunks_striped`` > 0), the
+    same answer as the default path's; R3 again from the cache with no
+    launch on either miner; the warm message striped, held to the claim
+    check and a direct search at 37 blocks; R4 equal to the default
+    path's, released early when its hit lies in the lower half. Sheds at
+    admission and under overload, the victims in the warning lines
+    adding up to ``qos_shed``, exactly their tenants' clients
+    disconnected; every answered mouse equal to the plain scan, the
+    elephant to the mice path's, the weights' elephants to the claim
+    check and a direct search, the weight-3 one finished first."""
+    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    st = run["striping"]
+    r3, again, warm, r4 = st["requests"]
+    striped = st["chunks_striped_after_each"]
+    for r in (r3, again, r4):
+        want = default[r["request"].replace(" again", "")]
+        if (r["hash"], r["nonce"]) != (want["hash"], want["nonce"]):
+            fail(f"sched path {r['request']}: {r['hash'], r['nonce']} != "
+                 f"the default path's {want['hash'], want['nonce']}")
+    if not striped[0] > 0 or not striped[2] > striped[1] \
+            or not st["hint_joined_logged"]:
+        fail(f"sched path: chunks_striped {striped}, hint joined "
+             f"{st['hint_joined_logged']}")
+    before, after = st["launches_before_each"][1:3]
+    if before != after or not st["cache_replay_logged"] \
+            or st["scheduler_counts"].get("cache_hits", 0) < 1:
+        fail(f"sched path: R3 again launched {before} -> {after}, cache "
+             f"replay logged {st['cache_replay_logged']}")
+    want = NonceSearcher(warm["data"], device=dev, grid=37).search(
+        0, warm["max_nonce"] + 1)
+    if hash_op(warm["data"], warm["nonce"]) != warm["hash"] \
+            or (warm["hash"], warm["nonce"]) != want:
+        fail(f"sched path warm: {warm['hash'], warm['nonce']} != direct "
+             f"{want}")
+    if default["R4"]["chunk"] == 0 and not st["prefix_release_logged"]:
+        fail("sched path: R4 hit in the lower half but no prefix release")
+    for name, counts in st["launches_by_miner"].items():
+        if not (counts["K1"] and counts["K6"]):
+            fail(f"sched path: {name} launched {counts}")
+    q = run["qos"]
+    kinds = {k for k, _, _ in q["shed_lines"]}
+    victims = sum(n for _, _, n in q["shed_lines"])
+    if kinds != {"admission", "overload"} \
+            or victims != q["scheduler_counts"].get("qos_shed"):
+        fail(f"sched path: sheds {q['shed_lines']} against qos_shed "
+             f"{q['scheduler_counts'].get('qos_shed')}")
+    shed_conns = {t for _, t, _ in q["shed_lines"]}
+    clients = [q["admission"], *q["overload"]]
+    if SCHED_ADMISSION_CONN not in shed_conns:
+        fail(f"sched path: the admission tenant was not shed: "
+             f"{q['shed_lines']}")
+    plain = {}
+    for cl in clients:
+        if cl["disconnected"] != (cl["conn"] in shed_conns):
+            fail(f"sched path: conn {cl['conn']} disconnected "
+                 f"{cl['disconnected']}, shed {cl['conn'] in shed_conns}")
+        for (data, mx), (h, n, _) in zip(cl["requests"], cl["results"]):
+            if (data, mx) not in plain:
+                plain[data, mx] = plain_search(
+                    NonceSearcher(data, device=dev), 0, mx + 1)
+            if (h, n) != plain[data, mx]:
+                fail(f"sched path mouse {data!r}: {(h, n)} != plain "
+                     f"{plain[data, mx]}")
+    el, want_el = q["elephant"], mice["elephant"]
+    if el["disconnected"] or [el["results"][0][:2]] != \
+            [[want_el["hash"], want_el["nonce"]]]:
+        fail(f"sched path elephant: {el} != the mice path's {want_el}")
+    done = {}
+    for w in q["weights"]:
+        (data, mx), = w["requests"]
+        if w["disconnected"]:
+            fail(f"sched path: weight tenant {w['conn']} disconnected")
+        h, n, secs = w["results"][0]
+        want = NonceSearcher(data, device=dev, grid=37).search(0, mx + 1)
+        if hash_op(data, n) != h or (h, n) != want:
+            fail(f"sched path weights {data!r}: {(h, n)} != direct {want}")
+        done[w["conn"]] = secs
+    if not done[SCHED_WEIGHT_HEAVY] < done[SCHED_WEIGHT_LIGHT]:
+        fail(f"sched path: the weight-3 elephant finished at "
+             f"{done[SCHED_WEIGHT_HEAVY]:.3f} s, the weight-1 one at "
+             f"{done[SCHED_WEIGHT_LIGHT]:.3f} s")
 
 
 def per_block_search(searcher, lower: int, upper: int, scan):

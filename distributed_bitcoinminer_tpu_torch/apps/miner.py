@@ -33,6 +33,16 @@ error) ends the miner: the scheduler sees the connection die and gives
 the chunk to another miner. It never answers from another device or
 through another kernel.
 
+The JOIN may carry a rate hint (nonces/s) that warms the scheduler's
+view of this miner before its first answer (``DBMT_RATE_HINT``: unset or
+0 sends none, a number sends it, ``probe`` measures it with
+:func:`measure_rate_hint` on the miner's own searcher and device; a probe
+that raises ends the miner before it joins). The probe's 2^17 nonces
+(the JAX package's size) are too few to fill a large card: there the
+hint is a launch-bound figure, many times below the steady rate, and a
+cold pool seeded from it estimates requests that much longer, so more
+of them are chunked by the QoS plane instead of dispatched wholesale.
+
 Usage: ``python -m distributed_bitcoinminer_tpu_torch.apps.miner
 <host:port> [--device cuda|cpu]`` (default ``cuda``; ``DBMT_COALESCE=0``
 turns coalescing off). On a box with more than one card, or with
@@ -56,6 +66,7 @@ from ..lsp.client import AsyncClient, new_async_client
 from ..lsp.errors import LspError
 from ..lsp.params import Params
 from ..ops import sha256_cuda
+from ..utils._env import str_env
 from ..utils.config import (CoalesceParams, PeelParams, coalesce_from_env,
                             mesh_from_env, peel_from_env)
 
@@ -84,7 +95,8 @@ class MinerWorker:
     ``pipeline`` selects the overlapped executor (default) over the serial
     loop, ``pipeline_depth`` bounds its Request queue; ``coalesce``,
     ``coalesce_lanes`` and ``coalesce_max`` set the drain into batched
-    launches (defaults: the JAX package's, ``CoalesceParams``).
+    launches (defaults: the JAX package's, ``CoalesceParams``);
+    ``rate_hint`` (nonces/s, 0 = none) rides the JOIN.
     """
 
     # Searchers kept per message string; LRU-bounded so a stream of distinct
@@ -96,8 +108,10 @@ class MinerWorker:
                  pipeline: bool = True, pipeline_depth: int = 8,
                  coalesce: bool = True,
                  coalesce_lanes: int = CoalesceParams.lanes,
-                 coalesce_max: int = CoalesceParams.max_nonces):
+                 coalesce_max: int = CoalesceParams.max_nonces,
+                 rate_hint: float = 0.0):
         self.hostport = hostport
+        self.rate_hint = rate_hint
         self.params = params
         self.searcher_factory = searcher_factory
         self._searchers: OrderedDict[str, object] = OrderedDict()
@@ -112,9 +126,11 @@ class MinerWorker:
         self.coalesced_chunks = 0
 
     async def join(self) -> None:
-        """Connect and send Join (ref: miner.go:24-34)."""
+        """Connect and send Join (ref: miner.go:24-34), with the rate hint
+        when there is one (a hint-less Join keeps the reference's
+        bytes)."""
         self.client = await new_async_client(self.hostport, self.params)
-        self.client.write(new_join().to_json())
+        self.client.write(new_join(rate=int(self.rate_hint)).to_json())
 
     async def run(self) -> None:
         """Serve Requests until the connection dies (silent exit, like
@@ -440,14 +456,41 @@ class MinerWorker:
             await self.client.close()
 
 
+def measure_rate_hint(searcher, probe_nonces: int = 1 << 17) -> float:
+    """The rate-hint probe (nonces/s): one warm pass, then one timed pass
+    over the adjacent window of ``probe_nonces``, both inside one aligned
+    10^9 block, through ``searcher.search``. A search that raises is not
+    caught: a miner joins with a measured hint or not at all."""
+    base = 100_000_000
+    searcher.search(base, base + probe_nonces - 1)
+    t0 = time.monotonic()
+    searcher.search(base + probe_nonces, base + 2 * probe_nonces - 1)
+    return probe_nonces / max(time.monotonic() - t0, 1e-6)
+
+
+def _resolve_rate_hint(factory) -> float:
+    """``DBMT_RATE_HINT``: unset or 0 sends no hint, a number sends it,
+    ``probe`` measures it with :func:`measure_rate_hint` on
+    ``factory``'s searcher."""
+    raw = str_env("DBMT_RATE_HINT", "0")
+    if raw.strip().lower() == "probe":
+        hint = measure_rate_hint(factory("dbmt rate probe"))
+        sha256_cuda.reset_launches()   # the counts are of requests served
+        return hint
+    try:
+        return max(0.0, float(raw))
+    except ValueError:
+        return 0.0
+
+
 async def _run_miner(hostport: str, device: str,
                      body: PeelParams = PeelParams(),
-                     mesh: tuple = ()) -> int:
+                     mesh: tuple = (), rate_hint: float = 0.0) -> int:
     worker = MinerWorker(
         hostport, params=Params(),
         searcher_factory=lambda data: default_searcher_factory(
             data, device, body, mesh),
-        coalesce=coalesce_from_env().enabled)
+        coalesce=coalesce_from_env().enabled, rate_hint=rate_hint)
     try:
         try:
             await worker.join()
@@ -488,7 +531,11 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(name)s %(message)s")
     if any(resolve_device(d).type == "cuda" for d in mesh or (device,)):
         warm_up(device, body, mesh)
-    return asyncio.run(_run_miner(args[0], device, body, mesh))
+    rate_hint = _resolve_rate_hint(
+        lambda data: default_searcher_factory(data, device, body, mesh))
+    if rate_hint > 0:
+        logger.info("rate hint %.6g nonces/s", rate_hint)
+    return asyncio.run(_run_miner(args[0], device, body, mesh, rate_hint))
 
 
 def warm_up(device, body: PeelParams = PeelParams(),

@@ -1,7 +1,8 @@
 """Miner plane: the pool roster, pending FIFOs, leases, trust and windows.
 
-Counterpart of the JAX package's ``apps/miner_plane.py``, without
-striping. It owns everything miner-facing:
+Counterpart of the JAX package's ``apps/miner_plane.py``, without its
+metric series, the gateway's repeat-JOIN hint refresh and the adapt
+plane's per-miner chunk seconds. It owns everything miner-facing:
 
 - the roster (join order) and each miner's pending FIFO: every Request
   written to a miner pushes a chunk record, and since miners answer in
@@ -27,7 +28,13 @@ striping. It owns everything miner-facing:
   (ref: server.go:222-244, 285-304, 326-376);
 - the throughput EWMAs, per miner and for the pool, sampled over a
   wall-clock window per miner (:meth:`MinerPlane.observe_result`), which
-  size leases and QoS chunks;
+  size leases, stripes and QoS chunks; a miner may JOIN with a rate
+  hint (:meth:`MinerPlane.on_join`), which seeds its EWMA (and an empty
+  pool's) as a claim: decayed each sweep, replaced outright by the first
+  measured window, discarded on the first failed claim or audit;
+- the stripe planner (:meth:`MinerPlane.stripe_chunks`): a miner's share
+  of a wholesale request in chunks of ``chunk_s`` seconds at its rate,
+  weighted by its trust, at most ``depth``;
 - the QoS capacity pool, and the coalescing windows: small argmin chunks
   of different requests granted to one miner in one pump pass share a
   ``coalesce_id``, count as ONE live chunk against the QoS depth, and may
@@ -41,11 +48,13 @@ the ``lease_event`` callback, and never touches merge state.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..bitcoin.message import new_request
-from ..utils.config import CoalesceParams, LeaseParams, VerifyParams
+from ..utils.config import (CoalesceParams, LeaseParams, StripeParams,
+                            VerifyParams)
 
 
 @dataclass
@@ -92,6 +101,9 @@ class MinerState:
     rate_ewma: Optional[float] = None
     blown_streak: int = 0
     quarantined: bool = False
+    # True while rate_ewma holds the miner's own JOIN hint, not a measured
+    # sample: the first measured window replaces it.
+    rate_hinted: bool = False
     # In [trust_floor, 1.0]: decays per claim or audit failure, steps back
     # per answer; stays 1.0 for a miner that never lies.
     trust: float = 1.0
@@ -121,13 +133,18 @@ class MinerPlane:
     #: miner answers a prefetched chunk milliseconds after the previous
     #: one, so per-chunk size/elapsed samples would read far too high.
     RATE_WINDOW_S = 0.5
+    #: The rate-hint JOIN's bounds: a hint is clamped to the cap, and
+    #: until a measured window confirms it, decays by this factor a sweep.
+    RATE_HINT_CAP = 1e12
+    RATE_HINT_DECAY = 0.98
 
     def __init__(self, lease: LeaseParams, coalesce: CoalesceParams, *,
                  write: Callable, inflight: dict, lease_event: Callable,
-                 dispatch: Callable, count: Callable,
+                 dispatch: Callable, count: Callable, stripe: StripeParams,
                  verify: Optional[VerifyParams] = None):
         self.lease = lease
         self.coalesce = coalesce
+        self.stripe = stripe
         self.verify = verify if verify is not None else VerifyParams()
         self._write = write
         self._inflight = inflight
@@ -138,6 +155,10 @@ class MinerPlane:
         self._by_conn: dict[int, MinerState] = {}
         self.parked: list[Chunk] = []           # chunks of dropped miners
         self.pool_rate: Optional[float] = None  # pool throughput EWMA
+        # True while pool_rate holds only a JOIN hint.
+        self._pool_hinted = False
+        # Stripe plans: how many shares were cut into how many chunks.
+        self.stripe_depths: Counter = Counter()
         self._next_coalesce_id = 0
 
     # ------------------------------------------------------------- roster
@@ -145,9 +166,21 @@ class MinerPlane:
     def find_miner(self, conn_id: int) -> Optional[MinerState]:
         return self._by_conn.get(conn_id)
 
-    def on_join(self, conn_id: int) -> MinerState:
-        """A joining miner immediately absorbs one parked chunk, if any."""
+    def on_join(self, conn_id: int, rate_hint: float = 0.0) -> MinerState:
+        """A joining miner immediately absorbs one parked chunk, if any.
+        ``rate_hint`` (nonces/s; 0 = none) seeds its rate EWMA at
+        ``min(hint, RATE_HINT_CAP) * trust``, flagged as a claim, and an
+        empty pool's rate with it (a warm pool's is measured and
+        outranks claims); seeded before the parked chunk, so that chunk's
+        lease is sized from it."""
         miner = MinerState(conn_id=conn_id)
+        if rate_hint > 0:
+            miner.rate_ewma = min(float(rate_hint),
+                                  self.RATE_HINT_CAP) * miner.trust
+            miner.rate_hinted = True
+            if self.pool_rate is None:
+                self.pool_rate = miner.rate_ewma
+                self._pool_hinted = True
         chunk = self.next_parked()
         if chunk is not None:
             self.assign_chunk(miner, chunk)
@@ -397,6 +430,14 @@ class MinerPlane:
             if elapsed >= self.RATE_WINDOW_S:
                 rate = miner.win_nonces / elapsed
                 miner.win_t0, miner.win_nonces = now, 0
+                # A JOIN hint is a claim: the first measured window
+                # replaces it instead of blending with it.
+                if miner.rate_hinted:
+                    miner.rate_hinted = False
+                    miner.rate_ewma = None
+                if self._pool_hinted:
+                    self._pool_hinted = False
+                    self.pool_rate = None
                 miner.rate_ewma = rate if miner.rate_ewma is None else \
                     alpha * rate + (1 - alpha) * miner.rate_ewma
                 self.pool_rate = rate if self.pool_rate is None else \
@@ -416,11 +457,45 @@ class MinerPlane:
     def trust_fail(self, miner: MinerState, reason: str) -> float:
         """Decay ``miner``'s trust after a claim or audit failure
         (``reason`` ``"claim"`` or ``"audit"``, counted per kind),
-        clamped at the floor. Returns the new score."""
+        clamped at the floor; an unconfirmed JOIN hint is discarded (a
+        caught liar's claim of its own rate is worth nothing). Returns
+        the new score."""
         v = self.verify
         miner.trust = max(v.trust_floor, miner.trust * v.trust_decay)
         self._count("trust_decays_" + reason)
+        if miner.rate_hinted:
+            miner.rate_hinted = False
+            miner.rate_ewma = None
         return miner.trust
+
+    def decay_rate_hints(self) -> None:
+        """One sweep's decay of the unconfirmed hints, the miners' and the
+        pool's, so a stale or inflated claim bleeds away."""
+        for m in self.miners:
+            if m.rate_hinted and m.rate_ewma:
+                m.rate_ewma *= self.RATE_HINT_DECAY
+        if self._pool_hinted and self.pool_rate:
+            self.pool_rate *= self.RATE_HINT_DECAY
+
+    # ------------------------------------------------------------ striping
+
+    def stripe_chunks(self, miner: MinerState, share: int) -> int:
+        """Chunks for one miner's ``share`` of a wholesale request:
+        ``ceil(share / (rate * trust * chunk_s))``, at most ``depth``;
+        1 (the stock split) with striping off, a trivial share, or no
+        rate yet."""
+        if not self.stripe.enabled or share <= 1:
+            return 1
+        rate = miner.rate_ewma if miner.rate_ewma is not None \
+            else self.pool_rate
+        if rate is None or rate <= 0:
+            return 1
+        # Weighted by trust: the rate may be an unauthenticated hint.
+        target = max(1, int(rate * miner.trust * self.stripe.chunk_s))
+        return max(1, min(self.stripe.depth, -(-share // target)))
+
+    def observe_stripe(self, n_chunks: int) -> None:
+        self.stripe_depths[n_chunks] += 1
 
     def check_leases(self) -> None:
         """One lease sweep over every in-flight job: blow expired leases

@@ -1,50 +1,117 @@
-"""Fair-share QoS plane: per-tenant deficit-round-robin state.
+"""Fair-share QoS plane: per-tenant deficit-round-robin and admission state.
 
-Counterpart of the JAX package's ``apps/qos.py`` (``TenantState``,
-``QosPlane``), without admission buckets and metric series. Tenants are
-client conn ids. Each carries a deficit in NONCES; :meth:`QosPlane.pick`
-walks a ring of the backlogged tenants: the head is granted while its
-deficit covers its next item's cost, is topped up by ``weight *
-quantum`` at most once per ring cycle, and the ring rotates past it once
-it cannot afford. The quantum is the largest candidate cost of the pick,
-so every backlogged tenant is granted within ``ceil(1/weight)`` cycles,
-and sustained grant share converges to the weight ratio. The items are
-chunks, so an elephant yields the pool to a mouse between chunks.
+Counterpart of the JAX package's ``apps/qos.py`` (``TokenBucket``,
+``TenantState``, ``QosPlane``), without its metric series. Tenants are
+client conn ids. Three mechanisms:
+
+- **Deficit-round-robin at chunk granularity.** Each tenant carries a
+  deficit in NONCES. :meth:`QosPlane.pick` walks a ring of the
+  backlogged tenants: the head is granted while its deficit covers its
+  next item's cost, is topped up by ``weight * quantum`` at most once per
+  ring cycle, and the ring rotates past it once it cannot afford. The
+  quantum is the largest candidate cost of the pick, so every backlogged
+  tenant is granted within ``ceil(1/weight)`` cycles, and sustained grant
+  share converges to the weight ratio. The items are chunks, so an
+  elephant yields the pool to a mouse between chunks.
+  :meth:`QosPlane.pick_lazy` walks the same ring but prices each visited
+  tenant's head on demand, with the largest cost seen so far as the
+  quantum (the lazy pump).
+- **Token-bucket admission.** A bucket per tenant of ``burst`` tokens
+  refilled at ``rate`` a second; a request that finds it empty is shed
+  (:meth:`QosPlane.admit`). The scheduler answers cache replays before
+  admission, so they spend no token.
+- **In-flight and shed bookkeeping.** Granted-unanswered chunks per
+  tenant (the scheduler's ``max_inflight`` cap reads them), sheds per
+  tenant, and the idle-tenant GC (:meth:`QosPlane.gc`).
 
 The scheduler owns chunk plans and miner choice; this plane answers
-"whose turn is it" and keeps the per-tenant in-flight counts.
+"whose turn is it" and keeps the per-tenant accounting.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
+
+__all__ = ["LAZY_REMOVE", "QosPlane", "TenantState", "TokenBucket"]
+
+#: What a :meth:`QosPlane.pick_lazy` head callback returns for a tenant
+#: with no backlog at all: the walk drops it from the ring on the spot,
+#: and its deficit with it.
+LAZY_REMOVE = object()
+
+
+class TokenBucket:
+    """``burst`` tokens, refilled at ``rate`` a second, read off
+    ``clock``. ``rate <= 0`` admits everything and reads full."""
+
+    __slots__ = ("rate", "burst", "_tokens", "_t", "_clock")
+
+    def __init__(self, rate: float, burst: float,
+                 clock: Callable[[], float] = time.monotonic):
+        self.rate = rate
+        self.burst = max(1.0, burst)
+        self._tokens = self.burst
+        self._clock = clock
+        self._t = clock()
+
+    def _refill(self) -> None:
+        now = self._clock()
+        self._tokens = min(self.burst,
+                           self._tokens + (now - self._t) * self.rate)
+        self._t = now
+
+    def take(self, n: float = 1.0) -> bool:
+        """Spend ``n`` tokens; False (and nothing spent) when short."""
+        if self.rate <= 0:
+            return True
+        self._refill()
+        if self._tokens < n:
+            return False
+        self._tokens -= n
+        return True
+
+    @property
+    def level(self) -> float:
+        if self.rate <= 0:
+            return self.burst
+        self._refill()
+        return self._tokens
+
+    @property
+    def full(self) -> bool:
+        return self.level >= self.burst - 1e-9
 
 
 class TenantState:
-    """Per-tenant DRR state (one per live client conn)."""
+    """Per-tenant DRR and admission state (one per live client conn)."""
 
     __slots__ = ("tenant", "weight", "deficit", "inflight",
-                 "granted_nonces", "granted_chunks")
+                 "granted_nonces", "granted_chunks", "shed", "bucket")
 
-    def __init__(self, tenant, weight: float):
+    def __init__(self, tenant, weight: float, bucket: TokenBucket):
         self.tenant = tenant
         self.weight = max(weight, 1e-3)
         self.deficit = 0.0
         self.inflight = 0          # granted, not yet answered, chunks
         self.granted_nonces = 0
         self.granted_chunks = 0
+        self.shed = 0
+        self.bucket = bucket
 
 
 class QosPlane:
     """Tenant registry + DRR ring. The scheduler executes every
-    decision; the plane owns whose-turn-is-it and the accounting."""
+    decision; the plane owns whose-turn-is-it and the accounting.
+    ``clock`` feeds the admission buckets."""
 
     #: Safety valve on the DRR walk: weights are clamped to >= 1e-3, but
     #: a pick must terminate even on corrupted state.
     MAX_PASSES = 1024
 
-    def __init__(self):
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
         self.tenants: Dict[object, TenantState] = {}
         self.ring: deque = deque()        # backlogged tenant ids, DRR order
         self._in_ring: set = set()
@@ -52,13 +119,19 @@ class QosPlane:
         # quantum once per round, not once per missed pick).
         self._topped: set = set()
         self.total_granted_nonces = 0
+        # The lazy walk's quantum: the largest head cost it has priced
+        # since the ring last drained.
+        self._lazy_quantum = 0.0
 
-    def tenant(self, tenant, weight: float = 1.0) -> TenantState:
-        """The tenant's state, created on first sight with ``weight``
-        (later calls ignore it)."""
+    def tenant(self, tenant, weight: float = 1.0, rate: float = 0.0,
+               burst: float = 8.0) -> TenantState:
+        """The tenant's state, created on first sight with ``weight`` and
+        an admission bucket of ``rate`` and ``burst`` (later calls ignore
+        them; :meth:`set_weight` changes a live tenant's weight)."""
         st = self.tenants.get(tenant)
         if st is None:
-            st = self.tenants[tenant] = TenantState(tenant, weight)
+            st = self.tenants[tenant] = TenantState(
+                tenant, weight, TokenBucket(rate, burst, self._clock))
         return st
 
     def _ensure_ring(self, tenant) -> None:
@@ -87,14 +160,52 @@ class QosPlane:
                     st.deficit = 0.0
                 self._ensure_ring(tenant)
 
+    def backlog_enter(self, tenant) -> None:
+        """The lazy pump's ring entry, the moment a tenant gains backlog
+        (a request queued, a chunked activation with chunks left): one
+        entering starts from zero deficit, one already in the ring keeps
+        what it earned."""
+        if tenant in self._in_ring:
+            return
+        st = self.tenants.get(tenant)
+        if st is not None:
+            st.deficit = 0.0
+        self._ensure_ring(tenant)
+
+    def set_weight(self, tenant, weight: float) -> None:
+        if tenant in self.tenants:
+            self.tenants[tenant].weight = max(weight, 1e-3)
+
     def forget(self, tenant) -> None:
-        """Drop a tenant for good (its conn closed)."""
+        """Drop a tenant for good (its conn closed, or the idle GC)."""
         if self.tenants.pop(tenant, None) is None:
             return
         self._topped.discard(tenant)
         if tenant in self._in_ring:
             self._in_ring.discard(tenant)
             self.ring.remove(tenant)
+
+    def gc(self, busy: set) -> None:
+        """Forget every tenant not in ``busy`` (no queued or in-flight
+        work) with nothing granted outstanding and a full admission
+        bucket: it holds nothing worth keeping."""
+        for tenant in [t for t, st in self.tenants.items()
+                       if t not in busy and st.inflight == 0
+                       and st.bucket.full]:
+            self.forget(tenant)
+
+    # ----------------------------------------------------------- admission
+
+    def admit(self, tenant) -> bool:
+        """Spend one admission token; False = shed at admission."""
+        return self.tenants[tenant].bucket.take(1.0)
+
+    def on_shed(self, tenant) -> None:
+        st = self.tenants.get(tenant)
+        if st is not None:
+            st.shed += 1
+
+    # ----------------------------------------------------------------- DRR
 
     def pick(self, candidates: Dict[object, int]) -> Optional[object]:
         """DRR choice among ``{tenant: next_item_cost_in_nonces}``, which
@@ -126,6 +237,50 @@ class QosPlane:
                 visited = 0
                 self._topped.clear()
         return next(iter(candidates))   # unreachable safety valve
+
+    def pick_lazy(self, head_fn) -> Optional[object]:
+        """The lazy pump's DRR choice: the ring is walked and
+        ``head_fn(tenant)`` prices the visited tenant's next item on
+        demand, returning its cost in nonces (grantable now), None
+        (backlogged, not grantable now) or :data:`LAZY_REMOVE` (no
+        backlog: dropped from the ring, its deficit with it). The same
+        rules as :meth:`pick`, with the largest cost priced so far as the
+        quantum. Returns the tenant to grant, or None."""
+        for _cycle in range(self.MAX_PASSES):
+            visited = 0
+            candidate_seen = False
+            while visited < len(self.ring):
+                tenant = self.ring[0]
+                cost = head_fn(tenant)
+                if cost is LAZY_REMOVE:
+                    self.ring.popleft()
+                    self._in_ring.discard(tenant)
+                    self._topped.discard(tenant)
+                    st = self.tenants.get(tenant)
+                    if st is not None:
+                        st.deficit = 0.0
+                    continue               # the visit is not spent
+                if cost is not None:
+                    candidate_seen = True
+                    if cost > self._lazy_quantum:
+                        self._lazy_quantum = float(cost)
+                    st = self.tenant(tenant)
+                    if st.deficit >= cost:
+                        return tenant
+                    if tenant not in self._topped:
+                        self._topped.add(tenant)
+                        st.deficit += st.weight * self._lazy_quantum
+                        if st.deficit >= cost:
+                            return tenant
+                self.ring.rotate(-1)
+                visited += 1
+            if not self.ring:
+                self._lazy_quantum = 0.0   # idle plane: a fresh quantum
+                return None
+            if not candidate_seen:
+                return None                # nothing grantable this pass
+            self._topped.clear()           # a new cycle may top up afresh
+        return None                        # safety valve
 
     def on_grant(self, tenant, nonces: int) -> None:
         """Account one executed grant: debit the deficit, count it in

@@ -3,9 +3,11 @@
 The request state machine of the JAX package's ``apps/scheduler.py``
 (itself the state machine of the reference coordinator, ref: bitcoin/
 server/server.go:19-403), with the reference's method names. The pool
-roster, pending FIFOs, leases, trust and coalescing windows live in
-:mod:`.miner_plane`; the per-tenant queue index and the age alarms in
-:mod:`.tenant_plane`; the deficit-round-robin state in :mod:`.qos`.
+roster, pending FIFOs, leases, trust, rate hints, the stripe planner and
+coalescing windows live in :mod:`.miner_plane`; the per-tenant queue
+index, admission, shedding, weights and the age alarms in
+:mod:`.tenant_plane`; the deficit-round-robin state and the admission
+buckets in :mod:`.qos`.
 
 - Stock FIFO dispatch (``QosParams(enabled=False)``): ONE request in
   flight at a time. ``_load_balance`` makes bounds exclusive (``upper +=
@@ -16,6 +18,19 @@ roster, pending FIFOs, leases, trust and coalescing windows live in
   bounds but the miner treats ``Upper`` as inclusive (ref: miner.go:51-52),
   so each chunk scans one extra nonce and the system as a whole scans
   ``[0, maxNonce+1]``.
+- Striping (default on, ``StripeParams``): each miner's even-split share
+  of a wholesale request is cut into up to ``depth`` contiguous chunks of
+  ``chunk_s`` seconds at its rate (:meth:`MinerPlane.stripe_chunks`), so
+  the pipelined miner's FIFO stays full. The whole plan is built first,
+  with chunk indices ascending with the nonces across miners (the
+  difficulty merge's prefix release reads them in that order); a cold
+  pool gives the stock one chunk a miner. A miner may JOIN with a rate
+  hint, which warms its rate (and an empty pool's) until a measured
+  window replaces it.
+- Result cache (default on, ``CacheParams``): an LRU of finished answers
+  keyed on ``(data, lower, upper, target)``. A repeated request is
+  answered at arrival, or, when it queued behind its original, at
+  dispatch, without touching the pool. Weak merges are not stored.
 - Fair-share QoS dispatch (default on): tenants are client conn ids. A
   request estimated to scan longer than ``wholesale_s`` at the pool's
   throughput, or one that starts while chunked work is in flight, is
@@ -26,7 +41,17 @@ roster, pending FIFOs, leases, trust and coalescing windows live in
   traffic is bit-identical to it. Within one pump pass, small argmin
   chunks of different requests may be granted into one miner's
   COALESCING WINDOW: they share a ``coalesce_id``, count as one live
-  chunk, and the miner runs them as one batched launch.
+  chunk, and the miner runs them as one batched launch. The lazy pump
+  (``QosParams(lazy=True)``, the JAX package's default; the port's is
+  the eager pump) walks the DRR ring and prices each visited tenant's
+  head on demand from per-tenant indexes, instead of rebuilding every
+  head before each grant (the eager pump).
+- Admission and shedding (QoS): a request that finds its tenant's token
+  bucket empty is shed at arrival (a cache replay spends no token); with
+  more than ``max_queued`` requests queued, the oldest is shed. A shed
+  closes the tenant's conn (classic LSP has no reject message) and takes
+  its other queued requests with it. Per-tenant DRR weights come from
+  ``QosParams.weights`` or :meth:`Scheduler.set_tenant_weight`.
 - Result merge: strict ``<`` on the uint64 hash; the barrier releases the
   Result to the client when every chunk of the request has been answered
   (ref: server.go:257-325).
@@ -89,26 +114,55 @@ from ..bitcoin.hash import MAX_U64, hash_op
 from ..bitcoin.message import Message, MsgType, new_result
 from ..lsp.errors import LspError
 from ..lsp.server import AsyncServer
-from ..utils.config import (CoalesceParams, LeaseParams, QosParams,
-                            VerifyParams, coalesce_from_env, lease_from_env,
-                            qos_from_env, verify_from_env)
+from ..utils.config import (CacheParams, CoalesceParams, LeaseParams,
+                            QosParams, StripeParams, VerifyParams,
+                            cache_from_env, coalesce_from_env,
+                            lease_from_env, qos_from_env, stripe_from_env,
+                            verify_from_env)
 from .miner_plane import Chunk, MinerPlane, MinerState
-from .qos import QosPlane
-from .tenant_plane import TenantQueue
+from .qos import LAZY_REMOVE
+from .tenant_plane import TenantPlane
 
 logger = logging.getLogger("dbmt.scheduler")
 
-__all__ = ["AuditRecord", "Chunk", "MinerState", "Request", "Scheduler",
-           "STAT_COUNTERS"]
+__all__ = ["AuditRecord", "Chunk", "MinerState", "Request", "ResultCache",
+           "Scheduler", "STAT_COUNTERS"]
 
 #: Every counter in ``Scheduler.stats``, by the JAX package's names.
 STAT_COUNTERS = (
     "results_sent", "dup_results", "leases_blown", "leases_blown_spurious",
-    "reissues", "quarantines", "desperation_dispatch", "no_eligible_miner",
-    "queue_alarms", "inflight_alarms", "qos_grants", "qos_window_grants",
-    "claims_checked", "claims_failed", "audits_issued", "audits_passed",
-    "audits_failed", "audits_inconclusive", "trust_decays_claim",
-    "trust_decays_audit")
+    "reissues", "quarantines", "cache_hits", "cache_misses", "cache_stores",
+    "desperation_dispatch", "no_eligible_miner", "chunks_striped",
+    "queue_alarms", "inflight_alarms", "qos_grants", "qos_shed",
+    "qos_window_grants", "claims_checked", "claims_failed", "audits_issued",
+    "audits_passed", "audits_failed", "audits_inconclusive",
+    "trust_decays_claim", "trust_decays_audit")
+
+
+class ResultCache:
+    """An LRU of ``size`` finished answers ``(hash, nonce)``, keyed on the
+    request ``(data, lower, upper, target)``. An answer is a function of
+    its key (the arg-min, or the first qualifying nonce, of a fixed
+    range), except a weak difficulty merge's, which is never stored."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._d: dict = {}     # insertion order is recency order
+
+    def get(self, key):
+        hit = self._d.pop(key, None)
+        if hit is not None:
+            self._d[key] = hit          # refresh its recency
+        return hit
+
+    def put(self, key, value) -> None:
+        self._d.pop(key, None)
+        self._d[key] = value
+        while len(self._d) > self.size:
+            self._d.pop(next(iter(self._d)))
+
+    def __len__(self):
+        return len(self._d)
 
 
 @dataclass
@@ -130,6 +184,7 @@ class Request:
     weak: bool = False
     started: float = 0.0           # at dispatch
     queued_at: float = 0.0         # at arrival
+    cache_key: Optional[tuple] = None  # (data, lower, upper, target)
     # The age alarms' last warnings, queued and in flight apart.
     last_alarm: float = 0.0
     last_inflight_alarm: float = 0.0
@@ -166,20 +221,25 @@ class AuditRecord:
 
 class Scheduler:
     """Single-actor scheduler over an :class:`AsyncServer`. ``qos``,
-    ``coalesce``, ``lease`` and ``verify`` default to the environment's
-    (``DBMT_*`` knobs); ``audit_rng`` draws the audits (a seeded
-    ``random.Random`` makes them reproducible)."""
+    ``coalesce``, ``stripe``, ``cache``, ``lease`` and ``verify`` default
+    to the environment's (``DBMT_*`` knobs); ``audit_rng`` draws the
+    audits (a seeded ``random.Random`` makes them reproducible)."""
 
     def __init__(self, server: AsyncServer, qos: Optional[QosParams] = None,
                  coalesce: Optional[CoalesceParams] = None,
                  lease: Optional[LeaseParams] = None,
                  verify: Optional[VerifyParams] = None,
-                 audit_rng: Optional[random.Random] = None):
+                 audit_rng: Optional[random.Random] = None,
+                 stripe: Optional[StripeParams] = None,
+                 cache: Optional[CacheParams] = None):
         self.server = server
-        self.qos = qos if qos is not None else qos_from_env()
         coalesce = coalesce if coalesce is not None else coalesce_from_env()
+        stripe = stripe if stripe is not None else stripe_from_env()
+        cache = cache if cache is not None else cache_from_env()
         self.lease = lease if lease is not None else lease_from_env()
         self.verify = verify if verify is not None else verify_from_env()
+        self.results: Optional[ResultCache] = \
+            ResultCache(cache.size) if cache.enabled else None
         self._audit_rng = audit_rng if audit_rng is not None \
             else random.Random()
         # Outstanding audits by audit job id (off the job id counter, so
@@ -189,16 +249,30 @@ class Scheduler:
         # keeps at most one; the QoS plane runs several.
         self._inflight: dict[int, Request] = {}
         self._chunked_inflight = 0
-        self.queue = TenantQueue()
-        self.qos_plane = QosPlane()
+        # The lazy pump's per-tenant indexes: each tenant's chunked
+        # in-flight requests with ungranted chunks (activation order) and
+        # its count of in-flight requests.
+        self._qos_chunked_reqs: dict = {}     # tenant -> {job_id: Request}
+        self._tenant_inflight: dict = {}      # tenant -> requests in flight
         self.stats = dict.fromkeys(STAT_COUNTERS, 0)
+        self.tenant_plane = TenantPlane(
+            qos if qos is not None else qos_from_env(), self._count,
+            close_conn=getattr(server, "close_conn", None))
         self.miner_plane = MinerPlane(
             self.lease, coalesce, write=self._write, inflight=self._inflight,
             lease_event=self._on_lease_event, dispatch=self._maybe_dispatch,
-            count=self._count, verify=self.verify)
+            count=self._count, verify=self.verify, stripe=stripe)
         self._next_job_id = 0
         self._dispatching = False
         self._starved = False          # the no-eligible-miner latch
+
+    @property
+    def qos(self) -> QosParams:
+        return self.tenant_plane.qos
+
+    @property
+    def qos_plane(self):
+        return self.tenant_plane.qos_plane
 
     @property
     def current(self) -> Optional[Request]:
@@ -213,8 +287,16 @@ class Scheduler:
     def miners(self) -> list:
         return self.miner_plane.miners
 
-    def _count(self, name: str) -> None:
-        self.stats[name] += 1
+    def _count(self, name: str, n: int = 1) -> None:
+        self.stats[name] += n
+
+    def _log_counts(self) -> None:
+        logger.info("scheduler counts %s", json.dumps(self.stats))
+
+    def set_tenant_weight(self, tenant, weight: float) -> None:
+        """Override one tenant's DRR weight (the environment's path is
+        ``DBMT_QOS_WEIGHTS``)."""
+        self.tenant_plane.set_weight(tenant, weight)
 
     async def run(self) -> None:
         """Serve until the LSP server is closed; the sweep runs beside."""
@@ -256,32 +338,89 @@ class Scheduler:
                 logger.exception("lease sweep failed; continuing")
 
     def sweep(self) -> None:
-        """One tick: lease checks (when leases are on), audit expiry, and
-        the queue-age and in-flight alarms."""
+        """One tick: lease checks (when leases are on), audit expiry, the
+        rate hints' decay, the queue-age and in-flight alarms, and under
+        QoS the idle-tenant GC."""
         mp = self.miner_plane
+        tp = self.tenant_plane
         if self.lease.enabled:
             mp.check_leases()
         if self._audits:
             self._expire_audits()
-        self.queue.check_queue_age(
+        mp.decay_rate_hints()
+        tp.check_queue_age(
             self._inflight, self.lease.queue_alarm_s,
             self.qos_plane.grant_share, self._count, len(mp.miners),
             len(mp.eligible()),
             distrusted_n=sum(1 for m in mp.miners if mp.distrusted(m)))
+        if self.qos.enabled:
+            tp.gc(set(tp.backlog_tenants())
+                  | {r.conn_id for r in self._inflight.values()})
 
     # ---------------------------------------------------------------- events
 
     def _on_request(self, conn_id: int, msg: Message) -> None:
-        if self.qos.enabled:
-            self.qos_plane.tenant(conn_id, self.qos.weight_for(conn_id))
-        self.queue.enqueue(Request(conn_id=conn_id, data=msg.data,
-                                   lower=msg.lower, upper=msg.upper,
-                                   target=msg.target,
-                                   queued_at=time.monotonic()))
+        """A cache hit is answered at once; under QoS the tenant's bucket
+        admits the request or sheds it; then it queues."""
+        request = self._build_request(conn_id, msg)
+        if request is None:
+            return
+        if self.qos.enabled and not self.tenant_plane.admit(conn_id):
+            self._shed(request, "admission")
+            return
+        self._intake(request)
+
+    def _build_request(self, conn_id: int, msg: Message):
+        """The arriving request, or None when the result cache answered
+        it."""
+        key = (msg.data, msg.lower, msg.upper, msg.target)
+        if self.results is not None:
+            hit = self._cache_lookup(key)
+            if hit is not None:
+                self._write(conn_id, new_result(*hit))
+                self._count("results_sent")
+                logger.info("request %r [%d, %d] target=%d answered from "
+                            "the result cache", msg.data, msg.lower,
+                            msg.upper, msg.target)
+                self._log_counts()
+                return None
+        return Request(conn_id=conn_id, data=msg.data, lower=msg.lower,
+                       upper=msg.upper, target=msg.target, cache_key=key,
+                       queued_at=time.monotonic())
+
+    def _cache_lookup(self, key, count_miss: bool = True):
+        """The cached answer, counted as a hit or a miss (``count_miss``
+        off for the dispatch-time check of a key that missed at
+        arrival)."""
+        hit = self.results.get(key)
+        if hit is not None:
+            self._count("cache_hits")
+        elif count_miss:
+            self._count("cache_misses")
+        return hit
+
+    def _intake(self, request: Request) -> None:
+        """Queue the request; under QoS, past ``max_queued`` the oldest
+        queued request is shed; then pump."""
+        tp = self.tenant_plane
+        tp.enqueue(request)
+        bound = self.qos.max_queued if self.qos.enabled else 0
+        if bound > 0:
+            while len(tp) > bound:
+                self._shed(tp.pop_head(), "overload")
         self._maybe_dispatch()
 
+    def _shed(self, req: Request, reason: str) -> None:
+        self.tenant_plane.shed(req, reason)
+        self._log_counts()
+
     def _on_join(self, conn_id: int, msg: Optional[Message] = None) -> None:
-        self.miner_plane.on_join(conn_id)
+        """``msg.rate`` is the miner's rate hint (0: none)."""
+        rate_hint = float(msg.rate) if msg is not None else 0.0
+        self.miner_plane.on_join(conn_id, rate_hint=rate_hint)
+        if rate_hint > 0:
+            logger.info("miner %d joined with rate hint %.3g nonces/s",
+                        conn_id, rate_hint)
         self._maybe_dispatch()
 
     def _on_result(self, conn_id: int, msg: Message) -> None:
@@ -363,7 +502,7 @@ class Scheduler:
                 self.miner_plane.recover(miner)
             return
         logger.info("client %d dropped", conn_id)
-        self.queue.purge_tenant(conn_id)
+        self.tenant_plane.purge_tenant(conn_id)
         if self.qos.enabled:
             self.qos_plane.forget(conn_id)
         for req in [r for r in self._inflight.values()
@@ -583,12 +722,18 @@ class Scheduler:
         release: the job's other chunks are still in flight."""
         self._write(curr.conn_id, new_result(h, nonce))
         self._count("results_sent")
+        if self.results is not None and curr.cache_key is not None \
+                and not curr.weak:
+            # A weak merge's answer is a qualifying nonce, not a function
+            # of the key.
+            self.results.put(curr.cache_key, (h, nonce))
+            self._count("cache_stores")
         logger.info("request %d served in %.3fs: [%d, %d) over %d chunks%s%s",
                     curr.job_id, time.monotonic() - curr.started,
                     curr.lower, curr.upper, curr.num_chunks,
                     " (prefix release)" if early else "",
                     " (weak merge)" if curr.weak else "")
-        logger.info("scheduler counts %s", json.dumps(self.stats))
+        self._log_counts()
         self._retire(curr)
 
     def _retire(self, curr: Request) -> None:
@@ -598,9 +743,19 @@ class Scheduler:
         released (ungranted chunks simply evaporate), and the queue is
         pumped."""
         self.miner_plane.cancel_job(curr.job_id)
-        if self._inflight.pop(curr.job_id, None) is not None \
-                and curr.qos_mode == "chunked":
-            self._chunked_inflight -= 1
+        if self._inflight.pop(curr.job_id, None) is not None:
+            if curr.qos_mode == "chunked":
+                self._chunked_inflight -= 1
+            n = self._tenant_inflight.get(curr.conn_id, 0)
+            if n <= 1:
+                self._tenant_inflight.pop(curr.conn_id, None)
+            else:
+                self._tenant_inflight[curr.conn_id] = n - 1
+            d = self._qos_chunked_reqs.get(curr.conn_id)
+            if d is not None:
+                d.pop(curr.job_id, None)
+                if not d:
+                    del self._qos_chunked_reqs[curr.conn_id]
         if self.qos.enabled:
             self.qos_plane.release(
                 curr.conn_id, curr.granted_chunks - sum(curr.answered))
@@ -608,21 +763,24 @@ class Scheduler:
 
     def _maybe_dispatch(self) -> None:
         """Start queued work when the pool can take it: the stock FIFO
-        pump or the QoS grant pump. Re-entrancy guard: an empty-range
-        request finishes inside its own dispatch, and the outer pump loop
-        then drains the queue iteratively. Queued work with nothing in
-        flight and no eligible miner logs once per starvation episode."""
+        pump, or the QoS grant pump (lazy or eager). Re-entrancy guard:
+        an empty-range request finishes inside its own dispatch, and the
+        outer pump loop then drains the queue iteratively. Queued work
+        with nothing in flight and no eligible miner logs once per
+        starvation episode."""
         if self._dispatching:
             return
         self._dispatching = True
         try:
-            if self.qos.enabled:
-                self._qos_pump()
-            else:
+            if not self.qos.enabled:
                 self._fifo_pump()
+            elif self.qos.lazy:
+                self._qos_pump_lazy()
+            else:
+                self._qos_pump()
         finally:
             self._dispatching = False
-        if not self._inflight and len(self.queue) \
+        if not self._inflight and len(self.tenant_plane) \
                 and not self.miner_plane.eligible():
             if not self._starved:
                 self._starved = True
@@ -632,17 +790,17 @@ class Scheduler:
                     "no eligible miner for %d queued request(s): pool=%d "
                     "quarantined=%d busy=%d — queue is stalled until a "
                     "miner joins, frees, or answers",
-                    len(self.queue), len(miners),
+                    len(self.tenant_plane), len(miners),
                     sum(1 for m in miners if m.quarantined),
                     sum(1 for m in miners
                         if not m.available and not m.quarantined))
-        elif not len(self.queue):
+        elif not len(self.tenant_plane):
             self._starved = False
 
     def _fifo_pump(self) -> None:
         """Pop the queue head whenever nothing is in flight; a wholly
         quarantined or distrusted pool serves through desperation."""
-        while not self._inflight and len(self.queue):
+        while not self._inflight and len(self.tenant_plane):
             pool = self.miner_plane.eligible()
             desperate = False
             if not pool:
@@ -650,9 +808,27 @@ class Scheduler:
                 if not pool:
                     break
                 desperate = True
-            self._load_balance(self.queue.pop_head(), pool,
-                               desperate=desperate)
+            req = self.tenant_plane.pop_head()
+            if self._replay_at_dispatch(req):
+                continue
+            self._load_balance(req, pool, desperate=desperate)
             self._starved = False
+
+    def _replay_at_dispatch(self, req: Request) -> bool:
+        """A duplicate that queued behind its original is answered from
+        the cache when it reaches dispatch. True = answered (the caller
+        drops it)."""
+        if self.results is None or req.cache_key is None:
+            return False
+        hit = self._cache_lookup(req.cache_key, count_miss=False)
+        if hit is None:
+            return False
+        self._write(req.conn_id, new_result(*hit))
+        self._count("results_sent")
+        logger.info("queued request %r [%d, %d] answered from the result "
+                    "cache at dispatch", req.data, req.lower, req.upper)
+        self._log_counts()
+        return True
 
     def _start(self, req: Request, mode: str) -> None:
         self._next_job_id += 1
@@ -660,12 +836,16 @@ class Scheduler:
         req.qos_mode = mode
         req.started = time.monotonic()
         self._inflight[req.job_id] = req
+        self._tenant_inflight[req.conn_id] = \
+            self._tenant_inflight.get(req.conn_id, 0) + 1
         req.upper += 1  # inclusive -> exclusive
 
     def _load_balance(self, request: Request, pool: list[MinerState],
                       desperate: bool = False) -> None:
         """Wholesale dispatch: split the range evenly over ``pool`` (the
-        eligible miners, or the one-miner desperation pool)."""
+        eligible miners, or the one-miner desperation pool), each share
+        striped (:meth:`MinerPlane.stripe_chunks`)."""
+        mp = self.miner_plane
         self._start(request, "wholesale")
         if desperate:
             self._count("desperation_dispatch")
@@ -674,7 +854,7 @@ class Scheduler:
                 "DESPERATION dispatch: entire pool (%d miner(s)) is "
                 "quarantined; assigning request %r [%d, %d] to least-bad "
                 "miner %d (blown streak %d, rate %s) as a last resort",
-                len(self.miner_plane.miners), request.data, request.lower,
+                len(mp.miners), request.data, request.lower,
                 request.upper - 1, m.conn_id, m.blown_streak,
                 f"{m.rate_ewma:.0f}/s" if m.rate_ewma else "unknown")
         num = len(pool)
@@ -687,23 +867,35 @@ class Scheduler:
         leftover = total - individual * num
         if individual == 0:  # more miners than nonces
             individual, leftover, num = 1, 0, total
-        request.num_chunks = request.granted_chunks = num
-        request.answered = [False] * num
+        # The whole plan first: chunk indices ascend with the nonces
+        # across miners (the prefix release reads them in that order).
+        plan: list[tuple[MinerState, int, int]] = []
         start = request.lower
-        bounds = []
-        for idx in range(num):
-            end = start + individual + (leftover if idx == 0 else 0)
-            bounds.append((start, end))
+        for i in range(num):
+            end = start + individual + (leftover if i == 0 else 0)
+            share = end - start
+            n_i = mp.stripe_chunks(pool[i], share)
+            mp.observe_stripe(n_i)
+            base = start
+            for j in range(n_i):
+                size = share // n_i + (1 if j < share % n_i else 0)
+                plan.append((pool[i], base, base + size))
+                base += size
             start = end
+        if len(plan) > num:
+            self._count("chunks_striped", len(plan) - num)
+        request.num_chunks = request.granted_chunks = len(plan)
+        request.answered = [False] * len(plan)
         if self.qos.enabled:
             # Wholesale chunks count against the tenant's share like
             # granted ones, so later contended rounds stay fair.
-            for lo, up in bounds:
+            self.tenant_plane.tenant(request.conn_id)
+            for _, lo, up in plan:
                 self.qos_plane.on_grant(request.conn_id, up - lo)
-        for idx, (lo, up) in enumerate(bounds):
-            self.miner_plane.assign_chunk(pool[idx], Chunk(
-                request.job_id, request.data, lo, up,
-                target=request.target, idx=idx))
+        for idx, (miner, lo, up) in enumerate(plan):
+            mp.assign_chunk(miner, Chunk(request.job_id, request.data, lo,
+                                         up, target=request.target,
+                                         idx=idx))
 
     # ------------------------------------------------------------ QoS plane
 
@@ -765,7 +957,7 @@ class Scheduler:
         none_inflight = not self._inflight
         pool_n = len(self.miner_plane.miners) or 1
         busy = {r.conn_id for r in self._inflight.values()}
-        for t, req in self.queue.tenant_heads():
+        for t, req in self.tenant_plane.tenant_heads():
             if t in heads or t in busy:
                 continue
             st = tenants.get(t)
@@ -798,10 +990,10 @@ class Scheduler:
         mp = self.miner_plane
         if self._inflight and not self._chunked_inflight:
             return      # wholesale in flight: no start may flow
-        if not len(self.queue) and not self._chunked_inflight:
+        if not len(self.tenant_plane) and not self._chunked_inflight:
             return
         backlogged = list(dict.fromkeys(
-            self.queue.backlog_tenants()
+            self.tenant_plane.backlog_tenants()
             + [r.conn_id for r in self._inflight.values()
                if r.qos_mode == "chunked" and r.next_chunk < r.num_chunks]))
         self.qos_plane.sync_backlog(backlogged)
@@ -836,16 +1028,128 @@ class Scheduler:
             if kind == "chunk":
                 self._qos_grant(req, cap_pool, window)
                 continue
-            self.queue.dequeue(req)
-            if not self._inflight and self._qos_is_small(
-                    req.upper - req.lower + 1, cold, small_bound):
-                pool, desperate = mp.eligible(), False
-                if not pool:
-                    pool, desperate = mp.desperation_pool(), True
-                self._load_balance(req, pool, desperate=desperate)
-            else:
-                self._qos_activate(req, cap_pool, window)
-            self._starved = False
+            self.tenant_plane.dequeue(req)
+            if self._replay_at_dispatch(req):
+                continue
+            self._qos_dispatch(req, cap_pool, window, cold, small_bound)
+
+    def _qos_dispatch(self, req: Request, cap_pool: list, window: dict,
+                      cold: bool, small_bound: float) -> None:
+        """A dequeued start: wholesale (through desperation when the whole
+        pool is quarantined or distrusted) when nothing is in flight and
+        it is small, by the same predicate that priced it; else chunked."""
+        mp = self.miner_plane
+        if not self._inflight and self._qos_is_small(
+                req.upper - req.lower + 1, cold, small_bound):
+            pool, desperate = mp.eligible(), False
+            if not pool:
+                pool, desperate = mp.desperation_pool(), True
+            self._load_balance(req, pool, desperate=desperate)
+        else:
+            self._qos_activate(req, cap_pool, window)
+        self._starved = False
+
+    def _qos_pump_lazy(self) -> None:
+        """The lazy QoS grant loop: the grants of :meth:`_qos_pump`
+        (chunk heads, starts, the wholesale or chunked dispatch, windows,
+        DRR), but the DRR ring itself is walked (:meth:`QosPlane.
+        pick_lazy`) and each visited tenant's head is priced on demand
+        from ``_qos_chunked_reqs`` and the tenant's queue head. Ring
+        entry comes at the edges (the enqueue hook, a chunked
+        activation); a tenant with no backlog leaves on the walk. The
+        grant order may differ from the eager pump's; its guarantees do
+        not."""
+        mp = self.miner_plane
+        tp = self.tenant_plane
+        if self._inflight and not self._chunked_inflight:
+            return
+        if not len(tp) and not self._chunked_inflight:
+            return
+        if not mp.capacity_pool(self.qos.depth) and \
+                (self._inflight or not (mp.eligible()
+                                        or mp.desperation_pool())):
+            return     # saturated: nothing grantable this event
+        window: dict = {}
+        cap = self.qos.max_inflight
+        tenants = self.qos_plane.tenants
+        while True:
+            # A wholesale dispatch of this pass withholds further starts.
+            if self._inflight and not self._chunked_inflight:
+                break
+            cap_pool = mp.capacity_pool(self.qos.depth)
+            cold, small_bound = self._qos_small_bound()
+            none_inflight = not self._inflight
+            can_start = bool(mp.eligible()) or bool(mp.desperation_pool())
+            pool_n = len(mp.miners) or 1
+            heads: dict = {}     # the tenants priced by this pick's walk
+
+            def head_for(tenant):
+                # The chunk head: the tenant's oldest chunked in-flight
+                # request with ungranted chunks (retired or exhausted
+                # entries pruned as they surface).
+                reqs = self._qos_chunked_reqs.get(tenant)
+                creq = None
+                while reqs:
+                    cand = next(iter(reqs.values()))
+                    if cand.job_id not in self._inflight or \
+                            cand.next_chunk >= cand.num_chunks:
+                        reqs.pop(cand.job_id, None)
+                        if not reqs:
+                            self._qos_chunked_reqs.pop(tenant, None)
+                        continue
+                    creq = cand
+                    break
+                st = tenants.get(tenant)
+                at_cap = cap > 0 and st is not None and st.inflight >= cap
+                if creq is not None:
+                    if at_cap:
+                        return None
+                    lo, up = creq.chunk_bounds[creq.next_chunk]
+                    cost = up - lo
+                    joinable = (mp.window_room(window, creq.job_id)
+                                and mp.coalescible_cost(creq.target, cost))
+                    if not (cap_pool or joinable):
+                        return None
+                    heads[tenant] = ("chunk", creq, cost)
+                    return cost
+                # The start head: the tenant's oldest queued request.
+                sreq = tp.tenant_head(tenant)
+                if sreq is None:
+                    return LAZY_REMOVE
+                if self._tenant_inflight.get(tenant) or at_cap:
+                    return None
+                total = sreq.upper - sreq.lower + 1
+                if none_inflight and self._qos_is_small(total, cold,
+                                                        small_bound):
+                    if not can_start:
+                        return None
+                    cost = max(1, total)
+                else:
+                    _, cost = self._qos_chunk_plan(max(1, total), pool_n)
+                    joinable = (mp.window_room(window, sreq.job_id)
+                                and mp.coalescible_cost(sreq.target, cost))
+                    if not (cap_pool or joinable):
+                        return None
+                heads[tenant] = ("start", sreq, cost)
+                return cost
+
+            t = self.qos_plane.pick_lazy(head_for)
+            if t is None:
+                break
+            kind, req, _cost = heads[t]
+            if kind == "chunk":
+                self._qos_grant(req, cap_pool, window)
+                if req.next_chunk >= req.num_chunks:
+                    d = self._qos_chunked_reqs.get(t)
+                    if d is not None:
+                        d.pop(req.job_id, None)
+                        if not d:
+                            self._qos_chunked_reqs.pop(t, None)
+                continue
+            tp.dequeue(req)
+            if self._replay_at_dispatch(req):
+                continue
+            self._qos_dispatch(req, cap_pool, window, cold, small_bound)
 
     def _qos_activate(self, req: Request, pool: list[MinerState],
                       window: dict) -> None:
@@ -868,6 +1172,9 @@ class Scheduler:
             base += step
         req.num_chunks = n
         req.answered = [False] * n
+        self._qos_chunked_reqs.setdefault(req.conn_id, {})[req.job_id] = req
+        if self.tenant_plane.lazy:
+            self.qos_plane.backlog_enter(req.conn_id)
         self._qos_grant(req, pool, window)
 
     def _qos_grant(self, req: Request, pool: list[MinerState],

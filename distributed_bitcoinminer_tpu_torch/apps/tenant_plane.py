@@ -1,12 +1,18 @@
-"""The request queue, indexed per tenant.
+"""The tenant plane: the request queue, admission, shedding and weights.
 
-Counterpart of the queue half of the JAX package's
-``apps/tenant_plane.py``: an insertion-ordered map of every queued
-request plus a FIFO per tenant (client conn id), so enqueue, the global
-head pop, a targeted dequeue and a tenant's purge are O(1)-amortized,
-and the QoS pump's per-tenant head scan is O(backlogged tenants); and
-the queue-age alarms of the JAX package's ``TenantPlane``
-(:meth:`TenantQueue.check_queue_age`), which the scheduler's sweep runs.
+Counterpart of the JAX package's ``apps/tenant_plane.py``, without its
+trace, flight-recorder and capture hooks. :class:`TenantPlane` holds an
+insertion-ordered map of every queued request plus a FIFO per tenant
+(client conn id), so enqueue, the global head pop, a targeted dequeue
+and a tenant's purge are O(1)-amortized, and the QoS pump's per-tenant
+head scan is O(backlogged tenants); the queue-age alarms
+(:meth:`TenantPlane.check_queue_age`), which the scheduler's sweep runs;
+the :class:`~.qos.QosPlane` and everything tenant-facing around it:
+per-tenant weight overrides, admission through each tenant's token
+bucket, the SHED (classic LSP has no reject message, so the shed closes
+the tenant's conn, and its other queued requests go with it) and the
+idle-tenant GC. Under the lazy pump every enqueue enters its tenant
+into the DRR ring.
 """
 
 from __future__ import annotations
@@ -14,14 +20,32 @@ from __future__ import annotations
 import logging
 import time
 from collections import deque
+from typing import Callable, Optional
+
+from ..lsp.errors import LspError
+from ..utils.config import QosParams
+from .qos import QosPlane
 
 logger = logging.getLogger("dbmt.scheduler")
 
 
-class TenantQueue:
-    """Queued requests in arrival order, with per-tenant FIFO heads."""
+class TenantPlane:
+    """Queued requests in arrival order, with per-tenant FIFO heads, and
+    the tenants' QoS state. ``count(name)`` is the scheduler's counter
+    bump; ``close_conn(conn_id)`` the transport's close, which the shed
+    uses. The admission buckets read ``time.monotonic`` through this
+    module at each call."""
 
-    def __init__(self):
+    def __init__(self, qos: QosParams, count: Callable,
+                 close_conn: Optional[Callable] = None):
+        self.qos = qos
+        # The lazy pump enters a tenant into the DRR ring on each
+        # enqueue; the eager pump syncs the ring itself.
+        self.lazy = qos.enabled and qos.lazy
+        self._count = count
+        self._close_conn = close_conn
+        self.qos_plane = QosPlane(clock=lambda: time.monotonic())
+        self._tenant_weights: dict = {}    # per-tenant overrides
         self._queue: dict = {}       # qkey -> request, arrival order
         self._by_tenant: dict = {}   # tenant -> deque of its requests
         self._next_qkey = 0
@@ -38,6 +62,8 @@ class TenantQueue:
         req.qkey = self._next_qkey
         self._queue[req.qkey] = req
         self._by_tenant.setdefault(req.conn_id, deque()).append(req)
+        if self.lazy:
+            self.qos_plane.backlog_enter(req.conn_id)
 
     def dequeue(self, req) -> None:
         """Remove one specific queued request (a pump grant)."""
@@ -77,6 +103,11 @@ class TenantQueue:
         """Tenants with queued work, first-queued order."""
         return list(self._by_tenant)
 
+    def tenant_head(self, tenant):
+        """One tenant's oldest queued request, or None."""
+        dq = self._by_tenant.get(tenant)
+        return dq[0] if dq else None
+
     def check_queue_age(self, inflight: dict, bound: float, grant_share,
                         count, miners_n: int, eligible_n: int,
                         distrusted_n: int = 0) -> None:
@@ -114,3 +145,50 @@ class TenantQueue:
                 req.job_id, req.conn_id, now - req.started, bound,
                 sum(req.answered), req.num_chunks, req.granted_chunks,
                 grant_share(req.conn_id))
+
+
+    def weight_for(self, tenant) -> float:
+        w = self._tenant_weights.get(tenant)
+        return w if w is not None else self.qos.weight_for(tenant)
+
+    def set_weight(self, tenant, weight: float) -> None:
+        self._tenant_weights[tenant] = max(weight, 1e-3)
+        self.qos_plane.set_weight(tenant, weight)
+
+    def tenant(self, conn_id):
+        """The tenant's QoS state, created on first sight with its weight
+        and an admission bucket of the configured rate and burst."""
+        return self.qos_plane.tenant(conn_id, self.weight_for(conn_id),
+                                     self.qos.rate, self.qos.burst)
+
+    def admit(self, conn_id) -> bool:
+        """Create the tenant on first sight and spend one admission
+        token; False = shed it."""
+        self.tenant(conn_id)
+        return self.qos_plane.admit(conn_id)
+
+    def shed(self, req, reason: str) -> None:
+        """Shed one request (``reason`` ``"admission"`` or
+        ``"overload"``): its tenant's other queued requests go with it,
+        each counted in ``qos_shed``, and the tenant's conn is closed, so
+        its client sees the connection die (its in-flight work finishes;
+        the reply's write fails)."""
+        others = self.purge_tenant(req.conn_id)
+        victims = [req] + [r for r in others if r is not req]
+        for victim in victims:
+            self._count("qos_shed")
+            self.qos_plane.on_shed(victim.conn_id)
+        logger.warning(
+            "QoS shed (%s): request %r [%d, %d] from tenant %d "
+            "(+%d queued sibling(s)); closing its conn so the client "
+            "backs off and resubmits", reason, req.data, req.lower,
+            req.upper, req.conn_id, len(victims) - 1)
+        if self._close_conn is not None:
+            try:
+                self._close_conn(req.conn_id)
+            except LspError:
+                logger.info("shed: conn %d already closed", req.conn_id)
+
+    def gc(self, busy: set) -> None:
+        """The idle-tenant GC, run by the sweep (:meth:`QosPlane.gc`)."""
+        self.qos_plane.gc(busy)

@@ -1,19 +1,28 @@
-"""Parameter blocks of the fair-share QoS plane, cross-request
-coalescing, the lease plane and the verification tier, with the JAX
-package's defaults (its ``utils/config.py`` ``QosParams``,
-``CoalesceParams``, ``LeaseParams`` and ``VerifyParams``), cut to the
-fields the port reads.
+"""Parameter blocks of the fair-share QoS plane, striping, the result
+cache, cross-request coalescing, the lease plane and the verification
+tier, with the JAX package's defaults (its ``utils/config.py``
+``QosParams``, ``StripeParams``, ``CacheParams``, ``CoalesceParams``,
+``LeaseParams`` and ``VerifyParams``), cut to the fields the port reads.
 
 Constructor arguments carry the settings; the server and miner CLIs read
-them from the environment through :func:`qos_from_env` and
-:func:`coalesce_from_env` (knobs documented in the port's README):
+them from the environment through the ``*_from_env`` readers (knobs
+documented in the port's README), each knob the twin of a ``DBM_*`` knob
+of the JAX package, parsed and clamped the same way:
 
-- ``DBMT_QOS_CHUNK_S`` (default 1.0): seconds of one miner's work per
-  chunk of a chunked request;
-- ``DBMT_QOS_WHOLESALE_S`` (default 5.0): requests estimated below this
-  dispatch wholesale, like the stock path;
-- ``DBMT_COALESCE`` (default 1): 0 turns off the scheduler's coalescing
-  windows and the miner's drain into one batched launch;
+- :func:`qos_from_env`: ``DBMT_QOS_CHUNK_S`` (default 1.0, seconds of one
+  miner's work per chunk of a chunked request), ``DBMT_QOS_MAX_CHUNKS``,
+  ``DBMT_QOS_DEPTH``, ``DBMT_QOS_WHOLESALE_S`` (default 5.0: requests
+  estimated below it dispatch wholesale), ``DBMT_QOS_MAX_QUEUED`` (the
+  overload bound), ``DBMT_QOS_MAX_INFLIGHT``, ``DBMT_QOS_RATE`` and
+  ``DBMT_QOS_BURST`` (the admission buckets; rate 0 admits everything),
+  ``DBMT_QOS_WEIGHT_DEFAULT`` and ``DBMT_QOS_WEIGHTS`` (``conn:weight``
+  pairs, comma-separated; malformed pairs are ignored);
+- :func:`stripe_from_env`: ``DBMT_STRIPE_CHUNK_S`` (0 turns striping
+  off), ``DBMT_STRIPE_DEPTH``;
+- :func:`cache_from_env`: ``DBMT_CACHE`` (default 1), ``DBMT_CACHE_SIZE``;
+- :func:`coalesce_from_env`: ``DBMT_COALESCE`` (default 1): 0 turns off
+  the scheduler's coalescing windows and the miner's drain into one
+  batched launch;
 - ``DBMT_PEEL`` (default 0, as the JAX package's ``DBM_PEEL``): 1 runs
   every search launch of the miner with the peeled lane body;
 - ``DBMT_HOIST`` (default 1, as ``DBM_HOIST``): under ``DBMT_PEEL=1``,
@@ -26,15 +35,15 @@ them from the environment through :func:`qos_from_env` and
   searcher on a box with more than one device.
 
 The server also reads the lease plane's and the verification tier's
-knobs, each the twin of a ``DBM_*`` knob of the JAX package
-(:func:`lease_from_env`, :func:`verify_from_env`): ``DBMT_LEASE_GRACE_S``,
-``DBMT_LEASE_FACTOR``, ``DBMT_LEASE_FLOOR_S``, ``DBMT_LEASE_TICK_S``,
-``DBMT_LEASE_QUARANTINE``, ``DBMT_QUEUE_ALARM_S``; ``DBMT_AUDIT_P``
-(default 0.02 from the environment, 0.0 in ``VerifyParams()``),
-``DBMT_AUDIT_MAX``, ``DBMT_TRUST_DECAY``, ``DBMT_TRUST_RECOVER``,
-``DBMT_TRUST_FLOOR``, ``DBMT_TRUST_BAR``. Their on/off switches
-(``LeaseParams.enabled``, ``fifo_aware``, ``desperation``,
-``VerifyParams.enabled``) are constructor fields only.
+knobs (:func:`lease_from_env`, :func:`verify_from_env`):
+``DBMT_LEASE_GRACE_S``, ``DBMT_LEASE_FACTOR``, ``DBMT_LEASE_FLOOR_S``,
+``DBMT_LEASE_TICK_S``, ``DBMT_LEASE_QUARANTINE``, ``DBMT_QUEUE_ALARM_S``;
+``DBMT_AUDIT_P`` (default 0.02 from the environment, 0.0 in
+``VerifyParams()``), ``DBMT_AUDIT_MAX``, ``DBMT_TRUST_DECAY``,
+``DBMT_TRUST_RECOVER``, ``DBMT_TRUST_FLOOR``, ``DBMT_TRUST_BAR``. Their
+on/off switches (``QosParams.enabled`` and ``lazy``,
+``StripeParams.enabled``, ``LeaseParams.enabled``, ``fifo_aware``,
+``desperation``, ``VerifyParams.enabled``) are constructor fields only.
 """
 
 from __future__ import annotations
@@ -57,16 +66,28 @@ class QosParams:
     single-tenant traffic bit-identical to the stock FIFO scheduler.
     ``max_inflight`` caps a tenant's granted-unanswered chunks (0 = no
     cap); ``weights`` maps tenant id strings to DRR weights, the others
-    get ``default_weight``.
+    get ``default_weight``. Admission: a token bucket per tenant of
+    ``burst`` tokens refilled at ``rate`` a second (0 = no admission
+    control) sheds a request that finds it empty; with more than
+    ``max_queued`` requests queued (0 = no bound) the oldest is shed.
+    ``lazy`` picks the lazy grant pump (the DRR ring walked, each
+    tenant's head priced on demand) over the eager one. The JAX package
+    defaults to the lazy pump; the port keeps the eager one, which
+    serves mice beside an elephant sooner (the lazy pump's quantum
+    keeps the largest cost priced since its ring last drained).
     """
     enabled: bool = True
     chunk_s: float = 1.0
     max_chunks: int = 4096
     depth: int = 2
     wholesale_s: float = 5.0
+    max_queued: int = 1024         # queued bound (0 = unbounded)
     max_inflight: int = 256
+    rate: float = 0.0              # admission tokens a second (0 = off)
+    burst: float = 8.0             # admission bucket capacity
     default_weight: float = 1.0
     weights: tuple = ()            # ((tenant_id_str, weight), ...)
+    lazy: bool = False             # the lazy grant pump
 
     def __post_init__(self):
         # chunk_s <= 0 pins the wholesale path (the 0-disables convention).
@@ -104,11 +125,79 @@ class CoalesceParams:
             object.__setattr__(self, "enabled", False)
 
 
+@dataclass(frozen=True)
+class StripeParams:
+    """Request striping: each miner's even-split share of a wholesale
+    request is cut into up to ``depth`` contiguous chunks of ``chunk_s``
+    seconds of work at that miner's throughput EWMA (the pool's when it
+    has none), so its pending FIFO keeps the pipelined miner busy. A cold
+    rate gives one chunk a miner (the stock split); ``enabled=False``
+    always does. Chunk indices still ascend with the nonce range.
+    """
+    enabled: bool = True
+    chunk_s: float = 1.0
+    depth: int = 8
+
+    def __post_init__(self):
+        # chunk_s <= 0 disables striping (the 0-disables convention).
+        if self.chunk_s <= 0:
+            object.__setattr__(self, "enabled", False)
+
+
+@dataclass(frozen=True)
+class CacheParams:
+    """The scheduler's result cache: an LRU of ``size`` answers keyed on
+    ``(data, lower, upper, target)``; a repeated request is answered
+    from it without touching the pool. Weak difficulty merges are never
+    stored."""
+    enabled: bool = True
+    size: int = 256
+
+
+def _weights_env(name: str) -> tuple:
+    """``conn:weight`` pairs, comma-separated; a malformed pair is
+    skipped."""
+    weights = []
+    for part in str_env(name, "").split(","):
+        part = part.strip()
+        if not part or ":" not in part:
+            continue
+        tenant, _, raw = part.partition(":")
+        try:
+            weights.append((tenant.strip(), float(raw)))
+        except ValueError:
+            continue
+    return tuple(weights)
+
+
 def qos_from_env() -> QosParams:
     d = QosParams()
     return QosParams(
         chunk_s=float_env("DBMT_QOS_CHUNK_S", d.chunk_s),
-        wholesale_s=float_env("DBMT_QOS_WHOLESALE_S", d.wholesale_s))
+        max_chunks=max(1, int_env("DBMT_QOS_MAX_CHUNKS", d.max_chunks)),
+        depth=max(1, int_env("DBMT_QOS_DEPTH", d.depth)),
+        wholesale_s=float_env("DBMT_QOS_WHOLESALE_S", d.wholesale_s),
+        max_queued=max(0, int_env("DBMT_QOS_MAX_QUEUED", d.max_queued)),
+        max_inflight=max(0, int_env("DBMT_QOS_MAX_INFLIGHT",
+                                    d.max_inflight)),
+        rate=max(0.0, float_env("DBMT_QOS_RATE", d.rate)),
+        burst=max(1.0, float_env("DBMT_QOS_BURST", d.burst)),
+        default_weight=float_env("DBMT_QOS_WEIGHT_DEFAULT",
+                                 d.default_weight),
+        weights=_weights_env("DBMT_QOS_WEIGHTS"))
+
+
+def stripe_from_env() -> StripeParams:
+    d = StripeParams()
+    return StripeParams(
+        chunk_s=float_env("DBMT_STRIPE_CHUNK_S", d.chunk_s),
+        depth=max(1, int_env("DBMT_STRIPE_DEPTH", d.depth)))
+
+
+def cache_from_env() -> CacheParams:
+    d = CacheParams()
+    return CacheParams(enabled=int_env("DBMT_CACHE", 1) != 0,
+                       size=max(1, int_env("DBMT_CACHE_SIZE", d.size)))
 
 
 def coalesce_from_env() -> CoalesceParams:

@@ -63,9 +63,10 @@ def cpu_factory(delay: float = 0.0):
 class Cluster:
     """A scheduler (the port's, or the JAX package's) plus miners."""
 
-    def __init__(self, params, ref_scheduler=False):
+    def __init__(self, params, ref_scheduler=False, qos=None):
         self.params = params
         self.ref_scheduler = ref_scheduler
+        self.qos = qos             # the port scheduler's QosParams
         self.tasks = []
         self.miners = []
 
@@ -77,7 +78,7 @@ class Cluster:
             self.server = await new_async_server(0, self.params)
             # No random audits: they would add chunks to the miners'
             # counts that the scenarios pin.
-            self.scheduler = Scheduler(self.server,
+            self.scheduler = Scheduler(self.server, qos=self.qos,
                                        verify=VerifyParams(audit_p=0.0))
         self.tasks.append(asyncio.create_task(self.scheduler.run()))
         return self

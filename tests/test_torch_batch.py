@@ -563,7 +563,9 @@ def test_mice_share_launches_end_to_end(ref, coalesce):
               else 0) for j in range(3)] for t in range(3)]
 
     async def scenario():
-        async with Cluster(params, ref_scheduler=ref) as c:
+        qos = None if ref else QosParams(wholesale_s=0.1, chunk_s=0.05,
+                                         lazy=False)
+        async with Cluster(params, ref_scheduler=ref, qos=qos) as c:
             if ref:
                 c.scheduler.lease = LeaseParams(enabled=False)
                 c.scheduler.qos = RefQosParams(wholesale_s=0.1, chunk_s=0.05,
@@ -571,7 +573,6 @@ def test_mice_share_launches_end_to_end(ref, coalesce):
                 c.scheduler.coalesce = RefCoalesceParams(enabled=coalesce)
                 c.scheduler.adapt_plane = None
             else:
-                c.scheduler.qos = QosParams(wholesale_s=0.1, chunk_s=0.05)
                 c.scheduler.miner_plane.coalesce = CoalesceParams(
                     enabled=coalesce)
             workers = [await c.start_miner(worker=MinerWorker(

@@ -88,12 +88,16 @@ class Pair:
         verify = {"audit_p": 0.0, **(verify or {})}
         qos_kw = qos_kw or {}
         self.port_server, self.ref_server = FakeServer(), FakeServer()
+        # Both sides pinned alike: the eager pump, no striping, no cache.
         self.port = Scheduler(
-            self.port_server, qos=config.QosParams(enabled=qos, **qos_kw),
+            self.port_server,
+            qos=config.QosParams(enabled=qos, lazy=False, **qos_kw),
             coalesce=config.CoalesceParams(),
             lease=config.LeaseParams(**lease_kw),
             verify=config.VerifyParams(**verify),
-            audit_rng=random.Random(seed))
+            audit_rng=random.Random(seed),
+            stripe=config.StripeParams(enabled=False),
+            cache=config.CacheParams(enabled=False))
         self.ref = RefScheduler(
             self.ref_server, lease=ref_config.LeaseParams(**lease_kw),
             qos=ref_config.QosParams(enabled=qos, lazy=False, **qos_kw),
@@ -272,7 +276,7 @@ def test_desperation_disabled_knob_keeps_starvation_latch(clock):
     p.request(CLIENT_X, "still starved", 99)
     assert p.port.stats["desperation_dispatch"] == 0
     assert p.port.stats["no_eligible_miner"] == 1
-    assert p.port.current is None and len(p.port.queue) == 1
+    assert p.port.current is None and len(p.port.tenant_plane) == 1
 
 
 def test_desperation_requires_whole_pool_quarantined(clock):
@@ -287,7 +291,7 @@ def test_desperation_requires_whole_pool_quarantined(clock):
                 job_id=999, data="busy", lower=0, upper=9))
     p.request(CLIENT_X, "patience", 99)
     assert p.port.stats["desperation_dispatch"] == 0
-    assert p.port.current is None and len(p.port.queue) == 1
+    assert p.port.current is None and len(p.port.tenant_plane) == 1
     assert p.requests_to(MINER_A) == []
 
 
@@ -490,7 +494,7 @@ def _drive(clock, seed, qos):
     for _ in range(2):                # the drain: two fresh miners
         join()
     for _ in range(1000):
-        if not (p.busy() or len(p.port.queue) or p.port.inflight):
+        if not (p.busy() or len(p.port.tenant_plane) or p.port.inflight):
             break
         if p.busy():
             for m in p.busy():        # every miner answers its head

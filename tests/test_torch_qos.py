@@ -29,13 +29,17 @@ from distributed_bitcoinminer_tpu.utils.metrics import Registry
 from distributed_bitcoinminer_tpu_torch.apps.qos import QosPlane
 from distributed_bitcoinminer_tpu_torch.apps.scheduler import Request, \
     Scheduler
-from distributed_bitcoinminer_tpu_torch.apps.tenant_plane import TenantQueue
+from distributed_bitcoinminer_tpu_torch.apps.tenant_plane import TenantPlane
 from distributed_bitcoinminer_tpu_torch.bitcoin.hash import (hash_op,
                                                              scan_until)
 from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
     Message, new_request, new_result)
 from distributed_bitcoinminer_tpu_torch.utils.config import \
+    CacheParams as PortCacheParams
+from distributed_bitcoinminer_tpu_torch.utils.config import \
     CoalesceParams, QosParams
+from distributed_bitcoinminer_tpu_torch.utils.config import \
+    StripeParams as PortStripeParams
 from distributed_bitcoinminer_tpu_torch.utils.config import \
     VerifyParams as PortVerifyParams
 
@@ -67,11 +71,14 @@ class Pair:
         qos_kw.setdefault("depth", 2)
         lanes = 4
         self.port_server, self.ref_server = FakeServer(), FakeServer()
+        # Both sides pinned alike: the eager pump, no striping, no cache.
         self.port = Scheduler(
             self.port_server, qos=QosParams(enabled=qos is not False,
-                                             **qos_kw),
+                                             lazy=False, **qos_kw),
             coalesce=CoalesceParams(enabled=coalesce, lanes=lanes),
-            verify=PortVerifyParams(audit_p=0.0))
+            verify=PortVerifyParams(audit_p=0.0),
+            stripe=PortStripeParams(enabled=False),
+            cache=PortCacheParams(enabled=False))
         self.ref = RefScheduler(
             self.ref_server, lease=LeaseParams(),
             qos=RefQosParams(enabled=qos is not False, lazy=False, **qos_kw),
@@ -155,7 +162,7 @@ def test_window_stacks_mice_from_many_tenants_on_one_miner():
     assert p.port.current.qos_mode == "chunked"
     p.request(TEN_Y, "mouse y", 9)
     p.request(TEN_Z, "mouse z", 9)
-    assert len(p.port.queue) == 2
+    assert len(p.port.tenant_plane) == 2
     p.answer(MINER_A)
     p.check()
     assert p.port.stats["qos_window_grants"] >= 1
@@ -325,7 +332,7 @@ def test_drr_sync_forget_release():
 
 
 def test_tenant_queue_index():
-    q = TenantQueue()
+    q = TenantPlane(QosParams(), lambda name, n=1: None)
     reqs = [Request(conn_id=t, data=f"r{i}", lower=0, upper=i)
             for i, t in enumerate([TEN_X, TEN_Y, TEN_X, TEN_Z, TEN_Y])]
     for r in reqs:

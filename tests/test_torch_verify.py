@@ -300,7 +300,7 @@ def test_byzantine_storm_never_answers_wrong(clock, seed, qos):
         else:
             p.sweep()
     for _ in range(500):
-        if not (p.busy() or len(p.port.queue) or p.port.inflight):
+        if not (p.busy() or len(p.port.tenant_plane) or p.port.inflight):
             break
         for m in p.busy():
             if m in p.busy():
