@@ -75,8 +75,13 @@ JSON line per phase:
    where the until chain's hit-and-fold on real lanes is held to the
    plain version); and R5 ("cmu440", 2^26-1, target 1) through the
    client CLI's fifth argument, which must equal R1. Then the mice path,
-   twice, on a new server (QoS chunking from 0.1 s, 0.05 s chunks) and two
-   miners each time: a warm-up request that gives the scheduler its
+   five times, on a new server (QoS chunking from 0.1 s, 0.05 s chunks) and
+   two miners each time, in turns with the server's adapt plane on (the
+   default; once more with its admission controller,
+   ``DBMT_ADAPT_ADMIT=1``) and then off (``DBMT_ADAPT=0``), then four
+   times on a warm pool, the admission controller on and off in turns (a
+   second elephant, ("warm pool", 2^36-1), served first until the chunk
+   controller has moved): a warm-up request that gives the scheduler its
    throughput sample, then an elephant ("cmu440", 2^34-1) and, while it
    runs, 64 mice of 10^5-10^6 nonces over 8 messages from 8 client
    connections; first with coalescing on (the mice share coalescing
@@ -85,7 +90,15 @@ JSON line per phase:
    each mouse held to the plain scan on the card and the elephant to the
    claim check and a direct search at 1,001 blocks; the mice's p50/p99
    request seconds, the elephant's wall time and the coalesced
-   dispatches and their mean width, both runs side by side. Then the
+   dispatches and their mean width, the runs side by side, and the adapt
+   plane's last values (``scheduler adapt``: chunk seconds, window bound,
+   admission rate), each within its controller's floor and ceiling; a
+   tenant shed only where the admission controller is on; every chunked
+   activation planned from the chunk seconds in force (the plane's last
+   logged value) at its logged pool rate, the planned chunks of every
+   answered elephant served by the miners as planned, and on the warm
+   pool an elephant planned from a moved value; the
+   checks that count launches read the adapt-off runs. Then the
    peeled paths, each on a new server: two miners with ``DBMT_PEEL=1``
    (K4) serve R1, R2, R3 and R4 (R4 with the prefix release check); the
    mice path once more, with coalescing, on ``DBMT_PEEL=1`` miners; one
@@ -117,8 +130,9 @@ JSON line per phase:
    ``wrong_hash``: ``ByzantineSearcher`` with its lie flag set) serve R3,
    R1 and R3, each equal to the default path's; the server must log a
    failed audit and a failed claim, and in the last request neither liar
-   serves a chunk (both below the trust bar). Then the sched path, on
-   two new servers of two miners each, the result cache on. The first
+   serves a chunk (both below the trust bar). Then the sched path, twice,
+   adapt on and then off, on two new servers of two miners each, the
+   result cache on. The first
    stripes in 0.05 s chunks (``SCHED_SERVER_ENV``) and one of its miners
    joins with a measured rate hint (``DBMT_RATE_HINT=probe``, the probe
    run on its card; the probe is launch-bound on an H100, so its hint
@@ -138,8 +152,21 @@ JSON line per phase:
    the weight-3 one (written second) finishing first; every shed
    tenant's client disconnected and no other, the shed warnings adding
    up to ``qos_shed``, every answer equal to the plain scan, a direct
-   search or the mice path's elephant. The probe's hint is printed
-   beside R3's nonces/s. Every other server runs with
+   search or the mice path's elephant; the adapt-on run is held to every
+   answer (the warm message's and the weights' to the adapt-off run's)
+   and its controllers to their bounds, the adapt-off run also to the
+   striped chunk counts and the weights' order. The probe's hint is
+   printed beside R3's nonces/s. Then the ``trace`` check, from the
+   traces each server writes when it stops (``DBMT_TRACE_EXPORT``; every
+   server runs in a directory of its own, ``e2e_<name>/``, where it logs
+   to ``log.txt``): on the arg-min path every Result folded a span into
+   its request's trace, each span's phases present and >= 0, its
+   ``force_s`` no more than the request's seconds, and the Perfetto
+   export one ``request`` slice a request; on the mice path each
+   coalesced window's spans share one launch id, as many as its lanes;
+   on the lease path a flight-recorder dump is one JSON line holding the
+   blown leases; R4's and R5's seconds split into their chunks' span
+   phases and the scheduler's remainder. Every other server runs with
    ``DBMT_AUDIT_P=0`` (random audits would add launches no path
    expects), ``DBMT_CACHE=0`` (the cache would answer the repeated R1,
    R3 of the arg-min, lease and verification paths without the miners)
@@ -194,6 +221,14 @@ JSON line per phase:
    the FMA pipe); beside it, not as a floor, every rotate and logic
    instruction on the INT32 pipe (``int32_only_ms``) and the INT32
    instructions of K1's own SASS loop on that pipe.
+
+6. census: ``tools.trace_census`` as a subprocess, given the rates
+   phase's census of K1's lane body on the 1-block tail (its SASS
+   instructions a nonce by pipe and the work a nonce needs): one K1
+   search of 2^29 lanes and R3's chain under ``torch.profiler``, each
+   call's kernel device time, busy union, window and idle share, and
+   nonces/s from device time, printed beside the card's name and power
+   limit.
 
 Then the ``kernels`` line and, last, the ``ok`` line. Any failure exits
 non-zero without the ``ok`` line. It imports nothing of JAX.
@@ -1228,7 +1263,11 @@ class Cluster:
     logging under ``outdir``; stopped, all of them, on exit. A miner runs
     on card 0 alone unless its own environment names a mesh
     (``DBMT_MESH_DEVICES``), so the single-device paths stay so on a box
-    with several cards."""
+    with several cards. A server runs in a directory of its own,
+    ``e2e_<name>/``, where it logs to ``log.txt`` and, when it stops,
+    exports its request traces (``trace.json`` and ``trace.json.jsonl``,
+    ``DBMT_TRACE_EXPORT``); its standard output goes to
+    ``e2e_<name>.log``."""
 
     def __init__(self, outdir: str):
         self.outdir = outdir
@@ -1245,19 +1284,32 @@ class Cluster:
                         + os.environ.get("PYTHONPATH", ""),
                         DBMT_MESH_DEVICES="cuda:0", DBMT_AUDIT_P="0",
                         DBMT_CACHE="0")
-        self.procs, self.handles, self.logs = [], [], {}
+        self.procs, self.handles, self.logs, self.outs = [], [], {}, {}
 
     def spawn(self, name: str, module: str, args: list,
               env: dict | None = None) -> str:
         """Start one of the package's CLIs logging to its own file;
-        returns the log."""
-        return self.launch(name, ["-m", f"{PKG}.apps.{module}", *args], env)
+        returns the log (a server's ``log.txt``)."""
+        argv = ["-m", f"{PKG}.apps.{module}", *args]
+        if module != "server":
+            return self.launch(name, argv, env)
+        cwd = server_dir(self.outdir, name)
+        os.makedirs(cwd, exist_ok=True)
+        for old in glob.glob(os.path.join(cwd, "*")):
+            os.remove(old)
+        open(os.path.join(cwd, "log.txt"), "w").close()
+        self.launch(name, argv, {"DBMT_TRACE_EXPORT": os.path.join(
+            cwd, "trace.json"), **(env or {})}, cwd=cwd)
+        self.logs[name] = os.path.join(cwd, "log.txt")
+        return self.logs[name]
 
-    def launch(self, name: str, argv: list, env: dict | None = None) -> str:
-        log = self.logs[name] = os.path.join(self.outdir, f"e2e_{name}.log")
+    def launch(self, name: str, argv: list, env: dict | None = None,
+               cwd: str | None = None) -> str:
+        log = self.logs[name] = self.outs[name] = os.path.join(
+            self.outdir, f"e2e_{name}.log")
         self.handles.append(open(log, "w"))
         self.procs.append(subprocess.Popen(
-            [sys.executable, *argv], cwd=self.outdir,
+            [sys.executable, *argv], cwd=cwd or self.outdir,
             env={**self.env, **(env or {})},
             stdout=self.handles[-1], stderr=subprocess.STDOUT))
         return log
@@ -1273,7 +1325,7 @@ class Cluster:
         server listens; a miner joins after warming the device up, so
         requests time requests, not process start). Returns its log."""
         log = self.spawn(name, module, args, env)
-        wait_for_line(log, ready, self.procs[-1])
+        wait_for_line(self.outs[name], ready, self.procs[-1])
         return log
 
     def __enter__(self):
@@ -1291,6 +1343,118 @@ class Cluster:
         for fh in self.handles:
             fh.close()
         return False
+
+
+def server_dir(outdir: str, name: str) -> str:
+    """The working directory of the server ``name`` of a path."""
+    return os.path.join(outdir, f"e2e_{name}")
+
+
+def exported_traces(outdir: str, name: str) -> tuple:
+    """The server ``name``'s exported traces, once it has stopped: its
+    trace dicts and its Perfetto document."""
+    base = os.path.join(server_dir(outdir, name), "trace.json")
+    if not os.path.exists(base):
+        fail(f"server {name} exported no traces ({base})")
+    with open(base + ".jsonl") as f:
+        dicts = [json.loads(line) for line in f if line.strip()]
+    with open(base) as f:
+        return dicts, json.load(f)
+
+
+def adapt_state(log_path: str) -> dict | None:
+    """The scheduler's last ``scheduler adapt`` line (its controllers'
+    values), or None when it logged none (the plane off)."""
+    last = None
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            if "scheduler adapt " in line:
+                last = json.loads(line.split("scheduler adapt ", 1)[1])
+    return last
+
+
+def check_adapt_bounds(where: str, state: dict | None) -> None:
+    """A mounted adapt plane's values inside their controllers' floors
+    and ceilings (``apps/adapt.py``'s class constants)."""
+    from distributed_bitcoinminer_tpu_torch.apps.adapt import (
+        AdmissionController, ChunkSizeController, CoalesceWindowController)
+    bounds = {"chunk_s": (ChunkSizeController.FLOOR_S,
+                          ChunkSizeController.CEIL_S),
+              "small_s": (CoalesceWindowController.FLOOR_S,
+                          CoalesceWindowController.CEIL_S),
+              "admit_rate": (AdmissionController.RATE_FLOOR,
+                             AdmissionController.RATE_CEIL)}
+    if not state:
+        fail(f"{where}: the adapt plane logged no state")
+    for key, (lo, hi) in bounds.items():
+        if key in state and not lo <= state[key] <= hi:
+            fail(f"{where}: adapt {key} {state[key]} outside [{lo}, {hi}]")
+
+
+#: The scheduler's line for a chunked activation's plan, and for an
+#: answer.
+PLAN_LINE = re.compile(r"request (\d+) ('.*'|\".*\") \[(\d+), (\d+)\] "
+                       r"chunked: (\d+) chunks of (\d+) nonces at chunk_s "
+                       r"(\S+), pool rate (\S+)$")
+ANSWER_LINE = re.compile(r"request (\d+) served in ")
+
+
+def check_chunk_plans(run: dict) -> dict:
+    """The chunk seconds reach the planner and the miners. Each chunked
+    activation of a mice run was planned from the chunk seconds in force
+    (the adapt plane's last logged ``chunk_s``; the server's
+    ``DBMT_QOS_CHUNK_S`` before the plane's first line or with the plane
+    off), its chunk count and size are the planner's for its logged pool
+    rate, and every chunk of an answered plan of several chunks was
+    served by a miner with the planned bounds. Returns the plans'
+    counts: all, of several chunks, planned after the chunk controller's
+    first move, and both."""
+    from distributed_bitcoinminer_tpu_torch.utils.config import QosParams
+    max_chunks = QosParams().max_chunks
+    in_force = float(MICE_SERVER_ENV["DBMT_QOS_CHUNK_S"])
+    moved = False
+    plans, answered = [], set()
+    with open(run["server_log"], errors="replace") as f:
+        for line in f:
+            if "scheduler adapt " in line:
+                state = json.loads(line.split("scheduler adapt ", 1)[1])
+                in_force = state.get("chunk_s", in_force)
+                moved = moved or state.get("chunk_adjustments", 0) > 0
+            elif m := PLAN_LINE.search(line.rstrip("\n")):
+                plans.append({"job": int(m[1]),
+                              "data": ast.literal_eval(m[2]),
+                              "lower": int(m[3]), "upper": int(m[4]),
+                              "n": int(m[5]), "size": int(m[6]),
+                              "chunk_s": float(m[7]),
+                              "rate": ast.literal_eval(m[8]),
+                              "in_force": in_force, "after_move": moved})
+            elif m := ANSWER_LINE.search(line):
+                answered.add(int(m[1]))
+    served = {tuple(c) for c in served_chunks(run["miner_logs"])}
+    for p in plans:
+        total = p["upper"] - p["lower"]
+        if p["rate"]:
+            n = -(-total // max(1, int(p["rate"] * p["chunk_s"])))
+        else:
+            n = 2       # cold: an even split over the path's two miners
+        n = max(1, min(max_chunks, n, total))
+        if round(p["chunk_s"], 6) != p["in_force"] \
+                or (p["n"], p["size"]) != (n, total // n):
+            fail(f"{run['tag']}: a plan not made from the chunk seconds in "
+                 f"force ({p['in_force']}): {p}, expected {n} chunks")
+        if p["n"] < 2 or p["job"] not in answered:
+            continue
+        base, size, rem = p["lower"], *divmod(total, p["n"])
+        for i in range(p["n"]):
+            step = size + (1 if i < rem else 0)
+            if (p["data"], base, base + step) not in served:
+                fail(f"{run['tag']}: planned chunk {p['data']!r} [{base}, "
+                     f"{base + step}] of request {p['job']} not served")
+            base += step
+    multi = [p for p in plans if p["n"] >= 2]
+    return {"plans": len(plans), "multi_chunk": len(multi),
+            "after_move": sum(p["after_move"] for p in plans),
+            "multi_chunk_after_move": sum(p["after_move"] for p in multi)}
 
 
 def timed(name: str, data: str, max_nonce: int, submit_fn) -> dict:
@@ -1374,6 +1538,11 @@ MICE_TENANTS, MICE_PER_TENANT, MICE_SEED = 8, 8, 440
 #: The server's QoS settings: a request above 0.1 s of the pool's work
 #: while any is in flight is chunked, in chunks of 0.05 s.
 MICE_SERVER_ENV = {"DBMT_QOS_WHOLESALE_S": "0.1", "DBMT_QOS_CHUNK_S": "0.05"}
+#: The warm-pool mice path: after the warm-up an elephant of its own, about
+#: five card-seconds, is served until the adapt plane's chunk controller
+#: has moved (its first sweeps), and only then come the elephant and the
+#: mice of the mice path, while it is still served.
+WARM_ELEPHANT = ("warm pool", (1 << 36) - 1)
 
 
 def mice_traffic() -> list:
@@ -1386,45 +1555,76 @@ def mice_traffic() -> list:
              for j in range(MICE_PER_TENANT)] for c in range(MICE_TENANTS)]
 
 
-async def tenant_mice(hostport: str, mice: list) -> list:
+async def tenant_mice(hostport: str, mice: list) -> dict:
     """One client connection: write every mouse at once, then read the
     Results (a tenant's requests are served in order). Returns
-    ``(hash, nonce, seconds from the writes)`` per mouse."""
+    ``{"results": [(hash, nonce, seconds from the writes), ...],
+    "disconnected": bool}`` (the server shed the tenant and closed its
+    connection before every Result came)."""
     from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
         Message, MsgType, new_request)
     from distributed_bitcoinminer_tpu_torch.lsp.client import \
         new_async_client
+    from distributed_bitcoinminer_tpu_torch.lsp.errors import LspError
     client = await new_async_client(hostport)
     t0 = time.monotonic()
     for data, max_nonce in mice:
         client.write(new_request(data, 0, max_nonce).to_json())
-    out = []
+    out, lost = [], False
     try:
         while len(out) < len(mice):
             msg = Message.from_json(await client.read())
             if msg.type == MsgType.RESULT:
                 out.append((msg.hash, msg.nonce, time.monotonic() - t0))
+    except LspError:
+        lost = True
     finally:
         await client.close()
-    return out
+    return {"results": out, "disconnected": lost}
+
+
+async def chunk_moved(log_path: str, served) -> None:
+    """Wait until the server's chunk controller has moved (its ``scheduler
+    adapt`` line counts an adjustment); fails if the task ``served`` ends
+    first."""
+    import asyncio
+    while not served.done():
+        state = adapt_state(log_path)
+        if state and state.get("chunk_adjustments", 0) > 0:
+            return
+        await asyncio.sleep(0.1)
+    fail(f"the chunk controller did not move while {WARM_ELEPHANT} was "
+         f"served ({log_path})")
 
 
 def run_mice(outdir: str, coalesce: bool, miner_env: dict | None = None,
-             tag: str | None = None) -> dict:
+             tag: str | None = None, adapt: bool | None = None,
+             admit: bool = False, warm: bool = False) -> dict:
     """The mice path on a new server and two miners, all with
-    ``DBMT_COALESCE`` on or off (the miners also with ``miner_env``): the
-    warm-up, then the elephant and the mice. Returns the answers, the
-    request seconds, and the miners' launches and coalesced
-    dispatches."""
+    ``DBMT_COALESCE`` on or off (the miners also with ``miner_env``), the
+    server's adapt plane on or off (``DBMT_ADAPT``; None: its default,
+    on), with its admission controller when ``admit``
+    (``DBMT_ADAPT_ADMIT=1``, the JAX package's default): the warm-up,
+    then, when ``warm``, :data:`WARM_ELEPHANT` until the chunk controller
+    has moved, then the elephant and the mice. Returns the answers, the
+    request seconds, the tenants shed (their connections closed), the
+    miners' launches and coalesced dispatches, the adapt plane's last
+    values, and the server's and the miners' logs."""
     import asyncio
 
     from distributed_bitcoinminer_tpu_torch.apps.client import submit
-    tag = tag or ("mice" if coalesce else "mice_per_chunk")
+    tag = tag or (("mice" if coalesce else "mice_per_chunk")
+                  + ("_adapt" if adapt else "") + ("_admit" if admit else ""))
     env = {"DBMT_COALESCE": "1" if coalesce else "0"}
+    server_env = {**MICE_SERVER_ENV, **env}
+    if adapt is not None:
+        server_env["DBMT_ADAPT"] = "1" if adapt else "0"
+    if admit:
+        server_env["DBMT_ADAPT_ADMIT"] = "1"
     traffic = mice_traffic()
     with Cluster(outdir) as c:
-        c.start(f"{tag}_server", "server", [str(c.port)],
-                "Server listening on port", env={**MICE_SERVER_ENV, **env})
+        server_log = c.start(f"{tag}_server", "server", [str(c.port)],
+                             "Server listening on port", env=server_env)
         names = [f"{tag}_miner", f"{tag}_miner2"]
         logs = [c.spawn(n, "miner", [c.hostport, "--device", "cuda"],
                         {**env, **(miner_env or {})}) for n in names]
@@ -1432,22 +1632,32 @@ def run_mice(outdir: str, coalesce: bool, miner_env: dict | None = None,
             wait_for_line(log, "joined ", proc)
             if read_counts(log):
                 fail(f"{name}'s counts were not 0 before its path")
-        warm = timed("warm-up", *MICE_WARM_UP, lambda: asyncio.run(
+        warm_up = timed("warm-up", *MICE_WARM_UP, lambda: asyncio.run(
             asyncio.wait_for(submit(c.hostport, *MICE_WARM_UP), 300)))
 
         async def both():
+            pool = None
+            if warm:
+                pool = asyncio.create_task(submit(c.hostport,
+                                                  *WARM_ELEPHANT))
+                await chunk_moved(server_log, pool)
             t0 = time.monotonic()
             elephant = asyncio.create_task(submit(c.hostport, *ELEPHANT))
             await asyncio.sleep(0.3)
             mice = await asyncio.gather(*(tenant_mice(c.hostport, m)
                                           for m in traffic))
             res = await elephant
-            return res, time.monotonic() - t0, mice
-        el, el_s, mice = asyncio.run(asyncio.wait_for(both(), 300))
+            return res, time.monotonic() - t0, mice, \
+                (await pool if pool else None)
+        el, el_s, mice, pool = asyncio.run(asyncio.wait_for(both(), 300))
         time.sleep(0.5)
         counts = {log: read_counts(log) for log in logs}
-    if el is None:
-        fail(f"{tag}: the elephant's client disconnected")
+        adapt_values = adapt_state(server_log)
+        with open(server_log, errors="replace") as f:
+            sheds = [[kind, int(t), 1 + int(sib)]
+                     for kind, t, sib in SHED_LINE.findall(f.read())]
+    if el is None or warm and pool is None:
+        fail(f"{tag}: an elephant's client disconnected")
     launches = dict.fromkeys(KERNELS, 0)
     for log in logs:
         for kern, n in launches_of(counts[log]).items():
@@ -1455,16 +1665,25 @@ def run_mice(outdir: str, coalesce: bool, miner_env: dict | None = None,
     dispatches = sum(counts[log].get("coalesced_dispatches", 0)
                      for log in logs)
     chunks = sum(counts[log].get("coalesced_chunks", 0) for log in logs)
-    secs = sorted(r[2] for t in mice for r in t)
+    secs = sorted(r[2] for t in mice for r in t["results"])
     return {"coalesce": coalesce, "miner_env": miner_env or {},
-            "warm_up": warm,
+            "tag": tag, "adapt_env": adapt, "admit": admit,
+            "adapt": adapt_values, "warm_up": warm_up,
+            "warm_elephant": {"data": WARM_ELEPHANT[0],
+                              "max_nonce": WARM_ELEPHANT[1],
+                              "hash": pool[0], "nonce": pool[1]}
+            if warm else None,
+            "server_log": server_log, "miner_logs": logs,
             "elephant": {"data": ELEPHANT[0], "max_nonce": ELEPHANT[1],
                          "hash": el[0], "nonce": el[1], "seconds": el_s},
             "mice": [[data, mx, h, n, sec] for t, m in zip(mice, traffic)
-                     for (data, mx), (h, n, sec) in zip(m, t)],
-            "mice_p50_s": secs[len(secs) // 2],
-            "mice_p99_s": secs[min(len(secs) - 1,
-                                   int(0.99 * len(secs)))],
+                     for (data, mx), (h, n, sec) in zip(m, t["results"])],
+            "mice_answered": len(secs),
+            "tenants_disconnected": sum(t["disconnected"] for t in mice),
+            "shed_lines": sheds,
+            "mice_p50_s": secs[len(secs) // 2] if secs else None,
+            "mice_p99_s": secs[min(len(secs) - 1, int(0.99 * len(secs)))]
+            if secs else None,
             "coalesced_dispatches": dispatches,
             "coalesced_chunks": chunks,
             "mean_width": chunks / dispatches if dispatches else 0.0,
@@ -1472,9 +1691,11 @@ def run_mice(outdir: str, coalesce: bool, miner_env: dict | None = None,
 
 
 def check_mice(runs: list, dev) -> None:
-    """Every mouse of both runs equal to the plain scan on the card; the
-    elephant equal in both runs to a direct search at 1,001 blocks, after
-    the hashlib claim check; K5 launched on the coalescing run."""
+    """Every answered mouse of every run equal to the plain scan on the
+    card; the elephants equal in every run to a direct search at 1,001
+    blocks, after the hashlib claim check; K5 launched on the coalescing
+    run; no tenant shed unless the run mounts the admission controller,
+    and then the shed tenants exactly those disconnected."""
     from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     plain = {}
@@ -1486,18 +1707,31 @@ def check_mice(runs: list, dev) -> None:
             if (h, n) != plain[data, mx]:
                 fail(f"mouse {data!r} {mx}: {(h, n)} != plain "
                      f"{plain[data, mx]} (coalesce {run['coalesce']})")
-    data, mx = ELEPHANT
-    want = NonceSearcher(data, device=dev, grid=1001).search(0, mx + 1)
+    direct = {}
     for run in runs:
-        el = run["elephant"]
-        if hash_op(data, el["nonce"]) != el["hash"] \
-                or not 0 <= el["nonce"] <= mx + 1:
-            fail(f"elephant: claim check failed: {el}")
-        if (el["hash"], el["nonce"]) != want:
-            fail(f"elephant: {el['hash'], el['nonce']} != direct {want}")
-        el["direct_grid1001"] = list(want)
+        for el in (run["elephant"], run["warm_elephant"]):
+            if el is None:
+                continue
+            data, mx = el["data"], el["max_nonce"]
+            if (data, mx) not in direct:
+                direct[data, mx] = NonceSearcher(
+                    data, device=dev, grid=1001).search(0, mx + 1)
+            want = direct[data, mx]
+            if hash_op(data, el["nonce"]) != el["hash"] \
+                    or not 0 <= el["nonce"] <= mx + 1:
+                fail(f"elephant: claim check failed: {el}")
+            if (el["hash"], el["nonce"]) != want:
+                fail(f"elephant {data!r}: {el['hash'], el['nonce']} != "
+                     f"direct {want}")
+            el["direct_grid1001"] = list(want)
     if runs[0]["launches"]["K5"] <= 0:
         fail(f"the mice path launched no K5: {runs[0]['launches']}")
+    for run in runs:
+        shed = {t for _, t, _ in run["shed_lines"]}
+        if (shed or run["tenants_disconnected"]) and not run["admit"] \
+                or len(shed) != run["tenants_disconnected"]:
+            fail(f"{run['tag']}: {run['tenants_disconnected']} tenants "
+                 f"disconnected, sheds {run['shed_lines']}")
 
 
 def phase_e2e(outdir: str) -> dict:
@@ -1538,12 +1772,23 @@ def phase_e2e(outdir: str) -> dict:
         until_launches = path_launches(miners)
         with open(server_log, errors="replace") as f:
             server_text = f.read()
-    mice_runs = [run_mice(outdir, True), run_mice(outdir, False)]
+    # The mice path in turns: the adapt plane on (the default), then off.
+    mice_adapt = [run_mice(outdir, True, adapt=True),
+                  run_mice(outdir, False, adapt=True),
+                  run_mice(outdir, True, adapt=True, admit=True)]
+    mice_runs = [run_mice(outdir, True, adapt=False),
+                 run_mice(outdir, False, adapt=False)]
+    # The warm pool, the admission controller on and off in turns (the
+    # adapt plane on).
+    mice_warm = [run_mice(outdir, True, adapt=True, admit=admit, warm=True,
+                          tag=f"mice_warm{'_admit' if admit else ''}_{i}")
+                 for i in (1, 2) for admit in (True, False)]
     peeled = run_peeled(outdir)
     mesh = run_mesh(outdir)
     lease = run_lease(outdir)
     verify = run_verify(outdir)
-    sched = run_sched(outdir)
+    sched_adapt = run_sched(outdir, adapt=True)
+    sched = run_sched(outdir, adapt=False)
     for path, counts, kernels in (("arg-min", argmin_launches, ("K1", "K6")),
                                   ("difficulty", until_launches,
                                    ("K2", "K6"))):
@@ -1611,12 +1856,35 @@ def phase_e2e(outdir: str) -> dict:
     if (r5["hash"], r5["nonce"]) != (r1["hash"], r1["nonce"]):
         fail(f"R5 {r5['hash'], r5['nonce']} != R1 "
              f"{r1['hash'], r1['nonce']}")
-    check_mice(mice_runs, dev)
+    check_mice(mice_runs + mice_adapt + mice_warm, dev)
+    for run in mice_adapt + mice_warm:
+        check_adapt_bounds(run["tag"], run["adapt"])
+    for run in mice_adapt + mice_runs + mice_warm:
+        run["plans"] = check_chunk_plans(run)
+    for run in mice_warm:
+        if not run["adapt"].get("chunk_adjustments") \
+                or not run["plans"]["multi_chunk_after_move"]:
+            fail(f"{run['tag']}: no elephant planned from a moved chunk "
+                 f"seconds: {run['adapt']}, {run['plans']}")
+    for run in mice_adapt + mice_runs + mice_warm:
+        print(f"{run['tag']}: {run['mice_answered']} mice answered, "
+              f"{run['tenants_disconnected']} tenants shed; p50 "
+              f"{run['mice_p50_s']} s, p99 {run['mice_p99_s']} s, "
+              f"elephant {run['elephant']['seconds']:.3f} s; adapt "
+              f"{json.dumps(run['adapt']) if run['adapt'] else 'off'}; "
+              f"chunk plans {json.dumps(run['plans'])}", flush=True)
     check_peeled(peeled, by_name, dev)
     check_mesh_paths(mesh, by_name)
     check_lease(lease, by_name)
     check_verify(verify, by_name)
     check_sched(sched, by_name, mice_runs[0], dev)
+    check_sched(sched_adapt, by_name, mice_runs[0], dev, counted=False,
+                answers=sched)
+    for run in (sched_adapt, sched):
+        print(f"{run['tag']}: adapt "
+              f"{json.dumps(run['adapt']) if any(run['adapt'].values()) else 'off'}",
+              flush=True)
+    traced = check_trace(outdir, results, mice_runs[0], lease)
     st = sched["striping"]
     print(f"sched: rate hint {st['rate_hint']:.6g} nonces/s (the probe), "
           f"R3 {st['requests'][0]['nonces_per_s']:.6g} nonces/s striped "
@@ -1624,17 +1892,24 @@ def phase_e2e(outdir: str) -> dict:
           f"pool", flush=True)
     # Leases run on every path at their defaults (30 s on a cold pool, 2 s
     # at least on a warm one); a blown one is reported here, not hidden.
-    blown = {os.path.basename(log)[4:-4]: count_lines(
+    blown = {os.path.basename(os.path.dirname(log))[4:]: count_lines(
         log, {"n": LEASE_LINES["blown"]})["n"]
-        for log in sorted(glob.glob(os.path.join(outdir,
-                                                 "e2e_*server.log")))}
-    info = {"requests": results, "mice": mice_runs, "peeled": peeled,
-            "mesh": mesh, "lease": lease, "verify": verify, "sched": sched,
-            "blown_leases_by_server": blown,
+        for log in sorted(glob.glob(os.path.join(outdir, "e2e_*server",
+                                                 "log.txt")))}
+    info = {"requests": results, "mice": mice_runs, "mice_adapt": mice_adapt,
+            "mice_warm": mice_warm,
+            "peeled": peeled, "mesh": mesh, "lease": lease,
+            "verify": verify, "sched": sched, "sched_adapt": sched_adapt,
+            "trace": traced, "blown_leases_by_server": blown,
             "launches": {"arg-min": argmin_launches,
                          "difficulty": until_launches,
                          "mice": mice_runs[0]["launches"],
                          "mice_per_chunk": mice_runs[1]["launches"],
+                         "mice_adapt": mice_adapt[0]["launches"],
+                         "mice_per_chunk_adapt": mice_adapt[1]["launches"],
+                         "mice_adapt_admit": mice_adapt[2]["launches"],
+                         **{run["tag"]: run["launches"]
+                            for run in mice_warm},
                          **{f"peeled_{leg}": run["launches"]
                             for leg, run in peeled.items()},
                          **{f"mesh_{leg}": run["launches"]
@@ -1642,9 +1917,121 @@ def phase_e2e(outdir: str) -> dict:
                             if isinstance(run, dict)},
                          "lease": sum_launches(lease["launches"]),
                          "verify": sum_launches(verify["launches"]),
-                         "sched": sched["launches"]}}
+                         "sched": sched["launches"],
+                         "sched_adapt": sched_adapt["launches"]}}
     emit("e2e", **info)
     return info
+
+
+#: The span keys every chunk's span carries (``dispatch_s`` too unless it
+#: is a blocking chunk, ``serial``; ``gap_s`` from each miner's second
+#: chunk on).
+SPAN_ALWAYS = ("queue_s", "wait_s", "force_s")
+
+
+def trace_spans(dicts: list) -> list:
+    """``(trace dict, miner_span event)`` of every folded span."""
+    return [(d, ev) for d in dicts for ev in d["events"]
+            if ev["event"] == "miner_span"]
+
+
+def check_trace(outdir: str, results: list, mice: dict, lease: dict) -> dict:
+    """The tracing plane's checks, from the servers' exported traces
+    (read once they have stopped). The arg-min path: every Result folded
+    a span into its request's trace (as many ``miner_span`` as
+    ``result`` events), each span holds the phases (``SPAN_ALWAYS``,
+    ``dispatch_s`` on a two-phase chunk, ``gap_s`` on all but each
+    miner's first), each >= 0, its ``force_s`` no more than the request's
+    wall time at the client, and the Perfetto document has one
+    ``request`` slice a request. The mice path (coalescing on, adapt
+    off): the spans of a coalesced window share its launch id, as many as
+    its ``lanes``. The lease path: a flight-recorder dump is one JSON line
+    holding the blown leases. The difficulty path: R4's and R5's seconds
+    split into each miner's span phases and the scheduler's remainder
+    (the client's wall time less the longest chunk's phases)."""
+    from distributed_bitcoinminer_tpu_torch.utils.trace import SPAN_PHASES
+    argmin = [r for r in results if r["request"] in
+              {n for n, _, _ in ARGMIN_REQUESTS}]
+    dicts, doc = exported_traces(outdir, "server")
+    jobs = sorted((d for d in dicts if isinstance(d["key"], int)),
+                  key=lambda d: d["key"])
+    if len(jobs) != len(argmin):
+        fail(f"trace: {len(jobs)} traces on the arg-min path, "
+             f"{len(argmin)} requests")
+    first_seen, spans = set(), 0
+    for d, r in zip(jobs, argmin):
+        names = [ev["event"] for ev in d["events"]]
+        if d["meta"]["upper"] != r["max_nonce"] or names[-1] != "reply":
+            fail(f"trace of {r['request']}: {d['meta']}, last {names[-1]}")
+        if names.count("miner_span") != names.count("result") \
+                or not names.count("result"):
+            fail(f"trace of {r['request']}: {names.count('result')} "
+                 f"results, {names.count('miner_span')} spans")
+        for _, ev in trace_spans([d]):
+            spans += 1
+            need = set(SPAN_ALWAYS)
+            if not ev.get("serial"):
+                need.add("dispatch_s")
+            if ev["miner"] in first_seen:
+                need.add("gap_s")
+            first_seen.add(ev["miner"])
+            if not need <= set(ev) or any(ev[k] < 0 for k in SPAN_PHASES
+                                          if k in ev):
+                fail(f"trace of {r['request']}: span {ev}")
+            if ev["force_s"] > r["seconds"]:
+                fail(f"trace of {r['request']}: force {ev['force_s']} s > "
+                     f"the request's {r['seconds']} s")
+    slices = [e for e in doc["traceEvents"] if e["ph"] == "X"
+              and e["name"].startswith("request ")]
+    if len(slices) != len(argmin):
+        fail(f"trace: {len(slices)} request slices in the export, "
+             f"{len(argmin)} requests")
+    mdicts, _ = exported_traces(outdir, f"{mice['tag']}_server")
+    windows: dict = {}
+    for _, ev in trace_spans(mdicts):
+        if "launch" in ev:
+            windows.setdefault((ev["miner"], ev["launch"]), []).append(
+                ev["lanes"])
+    bad = {k: v for k, v in windows.items()
+           if len(set(v)) != 1 or v[0] != len(v)}
+    if not windows or bad:
+        fail(f"trace: coalesced windows {len(windows)}, mismatched {bad}")
+    dumps = []
+    with open(os.path.join(server_dir(outdir, "lease_server"),
+                           "log.txt"), errors="replace") as f:
+        for line in f:
+            if "flight recorder dump (" in line:
+                dumps.append(json.loads(line.split("): ", 1)[1]))
+    if not dumps or not any(ev["event"] == "lease_blown"
+                            for d in dumps for ev in d["events"]):
+        fail(f"trace: {len(dumps)} flight dumps on the lease path")
+    udicts, _ = exported_traces(outdir, "until_server")
+    split = {}
+    for name, data, max_nonce, target in UNTIL_REQUESTS:
+        (d,) = [d for d in udicts if d["meta"]["target"] == target]
+        r = next(x for x in results if x["request"] == name)
+        ev = {e["event"]: e for e in d["events"]}
+        chunks = [{k: e.get(k) for k in ("miner", "idx", *SPAN_PHASES)}
+                  for _, e in trace_spans([d])]
+        longest = max(sum(c[k] or 0.0 for k in SPAN_PHASES if k != "gap_s")
+                      for c in chunks)
+        split[name] = {
+            "client_s": r["seconds"],
+            "queued_s": ev["dispatch"]["t"] - ev["enqueue"]["t"],
+            "dispatch_to_reply_s": ev["reply"]["elapsed_s"],
+            "chunks": chunks, "longest_chunk_s": longest,
+            "scheduler_remainder_s": r["seconds"] - longest}
+    out = {"argmin_spans": spans, "argmin_request_slices": len(slices),
+           "coalesced_windows": len(windows),
+           "lease_flight_dumps": len(dumps), "split": split}
+    print(f"trace: {spans} spans on the arg-min path, one request slice "
+          f"each of {len(slices)}; {len(windows)} coalesced windows' "
+          f"spans share their launch; {len(dumps)} flight dumps on the "
+          f"lease path; " + "; ".join(
+              f"{n} {v['client_s']:.4f} s = chunk {v['longest_chunk_s']:.4f}"
+              f" + remainder {v['scheduler_remainder_s']:.4f}"
+              for n, v in split.items()), flush=True)
+    return out
 
 
 #: The peeled paths' miners: K4 (the default hoist), then K3.
@@ -2145,28 +2532,31 @@ async def tenant_results(client, requests: tuple, t0: float) -> dict:
             "results": out, "disconnected": lost}
 
 
-def run_sched(outdir: str) -> dict:
+def run_sched(outdir: str, adapt: bool) -> dict:
     """The sched path: the scheduler's striping, rate-hint JOIN, result
     cache, admission, shedding and weights, on two new servers of two
-    miners each. The first (``SCHED_SERVER_ENV``; one miner probes its
-    rate, ``DBMT_RATE_HINT=probe``): R3 on the cold pool, striped from
-    the hint; R3 again, from the cache; ``SCHED_WARM`` on the warm pool;
-    R4. The second (``SCHED_QOS_ENV``): a warm-up, the elephant and,
-    while it runs, a tenant shed at admission and four writing at once
-    past the queue's bound; then the weights' two elephants (the light
-    one written first)."""
+    miners each, their adapt plane on or off (``DBMT_ADAPT``). The first
+    (``SCHED_SERVER_ENV``; one miner probes its rate,
+    ``DBMT_RATE_HINT=probe``): R3 on the cold pool, striped from the
+    hint; R3 again, from the cache; ``SCHED_WARM`` on the warm pool; R4.
+    The second (``SCHED_QOS_ENV``): a warm-up, the elephant and, while it
+    runs, a tenant shed at admission and four writing at once past the
+    queue's bound; then the weights' two elephants (the light one written
+    first)."""
     import asyncio
 
     from distributed_bitcoinminer_tpu_torch.apps.client import (
         submit, submit_until)
     by_name = {r[0]: r for r in ARGMIN_REQUESTS}
     r4 = UNTIL_REQUESTS[0]
-    out = {}
+    tag = "sched_adapt" if adapt else "sched"
+    adapt_env = {"DBMT_ADAPT": "1" if adapt else "0"}
+    out = {"tag": tag, "adapt": {}}
     with Cluster(outdir) as c:
-        server_log = c.start("sched_server", "server", [str(c.port)],
+        server_log = c.start(f"{tag}_server", "server", [str(c.port)],
                              "Server listening on port",
-                             env=SCHED_SERVER_ENV)
-        miners = start_miners(c, ["sched_probe_miner", "sched_miner"],
+                             env={**SCHED_SERVER_ENV, **adapt_env})
+        miners = start_miners(c, [f"{tag}_probe_miner", f"{tag}_miner"],
                               SCHED_MINER_ENVS)
         with open(miners[0], errors="replace") as f:
             hint = re.search(r"rate hint ([0-9.e+]+) nonces/s", f.read())
@@ -2206,11 +2596,13 @@ def run_sched(outdir: str) -> dict:
             "prefix_release_logged": "(prefix release)" in text,
             "hint_joined_logged": "joined with rate hint" in text,
             "scheduler_counts": counts}
+        out["adapt"]["striping"] = adapt_state(server_log)
         first_miners = miners
     with Cluster(outdir) as c:
-        server_log = c.start("sched_qos_server", "server", [str(c.port)],
-                             "Server listening on port", env=SCHED_QOS_ENV)
-        miners = start_miners(c, ["sched_qos_miner", "sched_qos_miner2"],
+        server_log = c.start(f"{tag}_qos_server", "server", [str(c.port)],
+                             "Server listening on port",
+                             env={**SCHED_QOS_ENV, **adapt_env})
+        miners = start_miners(c, [f"{tag}_qos_miner", f"{tag}_qos_miner2"],
                               [None, None])
         warm = timed("warm-up", *MICE_WARM_UP, lambda: asyncio.run(
             asyncio.wait_for(submit(c.hostport, *MICE_WARM_UP), 300)))
@@ -2253,6 +2645,7 @@ def run_sched(outdir: str) -> dict:
                       "launches_by_miner": {
                           os.path.basename(m): path_launches([m])
                           for m in miners}}
+        out["adapt"]["qos"] = adapt_state(server_log)
     out["launches"] = sum_launches({**{m: path_launches([m])
                                        for m in first_miners},
                                     **{m: path_launches([m])
@@ -2260,7 +2653,8 @@ def run_sched(outdir: str) -> dict:
     return out
 
 
-def check_sched(run: dict, default: dict, mice: dict, dev) -> None:
+def check_sched(run: dict, default: dict, mice: dict, dev,
+                counted: bool = True, answers: dict | None = None) -> None:
     """The sched path's checks. R3 striped (``chunks_striped`` > 0), the
     same answer as the default path's; R3 again from the cache with no
     launch on either miner; the warm message striped, held to the claim
@@ -2270,7 +2664,12 @@ def check_sched(run: dict, default: dict, mice: dict, dev) -> None:
     adding up to ``qos_shed``, exactly their tenants' clients
     disconnected; every answered mouse equal to the plain scan, the
     elephant to the mice path's, the weights' elephants to the claim
-    check and a direct search, the weight-3 one finished first."""
+    check and a direct search, the weight-3 one finished first. The
+    adapt-on run (``counted`` off) is held to every answer (the warm
+    message's and the weights' to the adapt-off run ``answers``) and its
+    controllers to their floors and ceilings, not to the striped chunk
+    counts or the weights' finishing order, which the adapt plane's
+    chunk seconds move."""
     from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     st = run["striping"]
@@ -2281,7 +2680,10 @@ def check_sched(run: dict, default: dict, mice: dict, dev) -> None:
         if (r["hash"], r["nonce"]) != (want["hash"], want["nonce"]):
             fail(f"sched path {r['request']}: {r['hash'], r['nonce']} != "
                  f"the default path's {want['hash'], want['nonce']}")
-    if not striped[0] > 0 or not striped[2] > striped[1] \
+    if not counted:
+        for where, state in run["adapt"].items():
+            check_adapt_bounds(f"{run['tag']} {where}", state)
+    if counted and (not striped[0] > 0 or not striped[2] > striped[1]) \
             or not st["hint_joined_logged"]:
         fail(f"sched path: chunks_striped {striped}, hint joined "
              f"{st['hint_joined_logged']}")
@@ -2290,8 +2692,12 @@ def check_sched(run: dict, default: dict, mice: dict, dev) -> None:
             or st["scheduler_counts"].get("cache_hits", 0) < 1:
         fail(f"sched path: R3 again launched {before} -> {after}, cache "
              f"replay logged {st['cache_replay_logged']}")
-    want = NonceSearcher(warm["data"], device=dev, grid=37).search(
-        0, warm["max_nonce"] + 1)
+    if answers is None:
+        want = NonceSearcher(warm["data"], device=dev, grid=37).search(
+            0, warm["max_nonce"] + 1)
+    else:
+        other = answers["striping"]["requests"][2]
+        want = (other["hash"], other["nonce"])
     if hash_op(warm["data"], warm["nonce"]) != warm["hash"] \
             or (warm["hash"], warm["nonce"]) != want:
         fail(f"sched path warm: {warm['hash'], warm['nonce']} != direct "
@@ -2335,11 +2741,16 @@ def check_sched(run: dict, default: dict, mice: dict, dev) -> None:
         if w["disconnected"]:
             fail(f"sched path: weight tenant {w['conn']} disconnected")
         h, n, secs = w["results"][0]
-        want = NonceSearcher(data, device=dev, grid=37).search(0, mx + 1)
+        if answers is None:
+            want = NonceSearcher(data, device=dev, grid=37).search(0, mx + 1)
+        else:
+            want = tuple(next(o["results"][0][:2]
+                              for o in answers["qos"]["weights"]
+                              if o["conn"] == w["conn"]))
         if hash_op(data, n) != h or (h, n) != want:
             fail(f"sched path weights {data!r}: {(h, n)} != direct {want}")
         done[w["conn"]] = secs
-    if not done[SCHED_WEIGHT_HEAVY] < done[SCHED_WEIGHT_LIGHT]:
+    if counted and not done[SCHED_WEIGHT_HEAVY] < done[SCHED_WEIGHT_LIGHT]:
         fail(f"sched path: the weight-3 elephant finished at "
              f"{done[SCHED_WEIGHT_HEAVY]:.3f} s, the weight-1 one at "
              f"{done[SCHED_WEIGHT_LIGHT]:.3f} s")
@@ -3384,6 +3795,71 @@ def phase_rates(dev_info: dict, outdir: str) -> dict:
     return info
 
 
+def phase_census(rates: dict, e2e: dict, outdir: str) -> dict:
+    """``tools.trace_census`` as a subprocess: one 2^29-lane K1 search and
+    R3's chain under ``torch.profiler``, given this run's census of K1's
+    lane body on that block's tail (the SASS of its fixed-shape build by
+    pipe, and the work a nonce needs, ``needed_int_ops``). The profiled
+    K1 search is held to a direct search of its span at 37 blocks, and
+    the profiled chain to R3's answer on the arg-min path (``e2e``).
+    Prints the idle share and the nonces/s from device time beside the
+    card's name and power limit."""
+    import torch
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    from distributed_bitcoinminer_tpu_torch.tools.trace_census import \
+        SPAN_DATA
+    one = rates["K1"]["one_block"]
+    sass = one["sass_pipes_per_lane"]
+    needed = (one["needed_int_ops_per_lane"],
+              one["needed_int32_ops_per_lane"],
+              one["needed_rotates_per_lane"])
+    census = {"sass_all": sass["all"], "sass_int32": sass["int32"],
+              "sass_fma": sass["fma"], "sass_other": sass["other"],
+              "needed_all": needed[0], "needed_int32": needed[1],
+              "needed_rotates": needed[2],
+              "needed_pipes": pipes_per_lane(needed)}
+    out = subprocess.run([sys.executable, "-m", f"{PKG}.tools.trace_census",
+                          "29", *(f"{k}={v}" for k, v in census.items())],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    with open(os.path.join(outdir, "census.txt"), "w") as f:
+        f.write(out.stdout + out.stderr)
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    if out.returncode != 0 or len(lines) != 1:
+        fail(f"tools.trace_census: rc {out.returncode}, "
+             f"{out.stdout[-2000:]!r} {out.stderr[-2000:]!r}")
+    info = lines[0]
+    card = nvidia_smi("name,power.limit")
+    info["nvidia_smi"] = card
+    for key in ("k1", "r3"):
+        rec = info[key]
+        if not 0.0 <= rec["idle_share"] < 1.0 or rec["kernel_ms"] <= 0:
+            fail(f"census {key}: {rec}")
+    k1, r3 = info["k1"], next(r for r in e2e["requests"]
+                              if r["request"] == "R3")
+    if [info["r3"]["lower"], info["r3"]["upper"]] != [0, r3["max_nonce"] + 1]:
+        fail(f"census r3: its span is not R3's: {info['r3']}")
+    want = {"k1": list(NonceSearcher(
+        SPAN_DATA, device=torch.device("cuda", 0), grid=37).search(
+            k1["lower"], k1["upper"])), "r3": [r3["hash"], r3["nonce"]]}
+    for key, answer in want.items():
+        rec = info[key]
+        if rec["answer"] != answer:
+            fail(f"census {key}: the profiled answer {rec['answer']} != "
+                 f"{answer}")
+        rec["answer_checked_against"] = answer
+    print("census: " + "; ".join(
+        f"{key} {info[key]['lanes']} nonces idle share "
+        f"{info[key]['idle_share']:.4f} of {info[key]['window_ms']:.3f} ms, "
+        f"{info[key]['nonces_per_s_device']:.6g} nonces/s from device time"
+        for key in ("k1", "r3")) + f"; K1 {census['sass_int32']:.2f} INT32 "
+        f"/ {census['sass_fma']:.2f} FMA / {census['sass_other']:.2f} other "
+        f"instructions a nonce ({card})", flush=True)
+    emit("census", **info)
+    return info
+
+
 def pipe_shares(rates: dict, dev_info: dict) -> dict:
     """K1's and K4's SASS instructions a nonce by pipe on each rates block
     (INT32, FMA: IMAD and VIADD, other), and where each measured rate
@@ -4057,6 +4533,8 @@ def main() -> int:
     seconds["e2e"] = lap()
     rates = phase_rates(dev_info, outdir)
     seconds["rates"] = lap()
+    phase_census(rates, e2e, outdir)
+    seconds["census"] = lap()
     emit("done", seconds=time.monotonic() - t0, phase_seconds=seconds)
     line = json.dumps(kernels_line(kernel, e2e, rates))
     print(line, flush=True)

@@ -22,7 +22,22 @@ Two loops:
 - the serial loop (``pipeline=False``): one blocking search per Request.
 
 Compute runs in worker threads so the asyncio loop keeps serving LSP
-heartbeats and acks while the card is busy.
+heartbeats and acks while the card is busy (``DBMT_SANITIZE=1`` warns
+when a searcher is resolved, launched or run on the loop's thread).
+
+Tracing (``DBMT_TRACE``, default on): each served chunk's SPAN rides its
+Result (the ``Span`` wire extension): ``queue_s`` (the Request's wait in
+the reader's queue), ``dispatch_s`` (resolving the searcher and starting
+its launches), ``wait_s`` (from the launches' start returning to the
+force), ``force_s`` (the fetch and host merge), ``gap_s`` (the
+executor's idle time since the previous chunk), ``subs`` (the chain's
+launches, one a block), ``compiles`` (fresh launch signatures met in the
+dispatch) and, for a coalesced window, the shared launch's id
+(``launch``) and its ``lanes``; a blocking chunk's whole search is one
+``force_s`` with ``serial``. With ``DBMT_TRACE=0`` every Result's bytes
+are the stock ones. Answered nonces over the union of the chunks' busy
+intervals feed the ``miner.nonces_per_s`` EWMA
+(:class:`_ThroughputWindow`).
 
 Bound parity: the received ``Upper`` is treated as INCLUSIVE even though the
 scheduler computed it as an exclusive end — the reference miner does the same
@@ -45,10 +60,13 @@ of them are chunked by the QoS plane instead of dispatched wholesale.
 
 Usage: ``python -m distributed_bitcoinminer_tpu_torch.apps.miner
 <host:port> [--device cuda|cpu]`` (default ``cuda``; ``DBMT_COALESCE=0``
-turns coalescing off). On a box with more than one card, or with
-``DBMT_MESH_DEVICES`` naming at least two devices, the miner searches over
-that mesh (``MeshNonceSearcher``), which then takes the place of
-``--device``.
+turns coalescing off, ``DBMT_COALESCE_LANES`` and ``DBMT_COALESCE_MAX``
+size it, ``DBMT_PIPELINE_DEPTH`` bounds the Request queue, and the LSP
+``Params`` come from ``DBMT_EPOCH_LIMIT``, ``DBMT_EPOCH_MILLIS``,
+``DBMT_WINDOW`` and ``DBMT_MAX_BACKOFF``). On a box with more than one
+card, or with ``DBMT_MESH_DEVICES`` naming at least two devices, the
+miner searches over that mesh (``MeshNonceSearcher``), which then takes
+the place of ``--device``.
 """
 
 from __future__ import annotations
@@ -66,11 +84,63 @@ from ..lsp.client import AsyncClient, new_async_client
 from ..lsp.errors import LspError
 from ..lsp.params import Params
 from ..ops import sha256_cuda
+from ..utils import sanitize as _sanitize
+from ..utils import trace as _trace
 from ..utils._env import str_env
 from ..utils.config import (CoalesceParams, PeelParams, coalesce_from_env,
-                            mesh_from_env, peel_from_env)
+                            lsp_params_from_env, mesh_from_env,
+                            peel_from_env, pipeline_depth_from_env)
+from ..utils.metrics import ensure_emitter, registry as _registry
 
 logger = logging.getLogger("dbmt.miner")
+
+# The miner's process metrics: its nonces/s EWMA over busy time, and the
+# pipeline's occupancy and overlap.
+_M = _registry()
+_MET_RATE = _M.ewma("miner.nonces_per_s", tau_s=30.0)
+_MET_OCCUPANCY = _M.gauge("miner.pipeline_occupancy")
+_MET_OVERLAP = _M.gauge("miner.pipeline_overlap_ratio")
+# The launch observer's count of fresh signatures (utils/trace.py), read
+# around each dispatch so a span reports the ones it met.
+_MET_FRESH = _M.counter("trace.fresh_launches")
+
+
+class _ThroughputWindow:
+    """Windowed nonces/s over the UNION of the chunks' busy intervals
+    ``[t0, t1]`` (completions arrive in FIFO order with nondecreasing
+    ``t0``, so the union is one frontier sweep): under the pipeline,
+    chunk k+1's interval overlaps chunk k's, and per-chunk rates would
+    sum to more than the wall clock delivered. One sample of ``nonces /
+    busy`` is observed each ``min_window_s`` of busy time. Difficulty
+    chunks are left out (their early exit scans an unknown share)."""
+
+    def __init__(self, ewma=_MET_RATE, min_window_s: float = 0.5):
+        self._ewma = ewma
+        self._min_window_s = min_window_s
+        self._born: Optional[float] = None   # first chunk's t0
+        self._frontier = 0.0                 # union sweep frontier
+        self._busy_s = 0.0                   # lifetime union of intervals
+        self._sum_s = 0.0                    # lifetime sum of durations
+        self._win_busy = 0.0
+        self._win_nonces = 0
+
+    def observe(self, t0: float, t1: float, scanned: int) -> None:
+        if self._born is None:
+            self._born = t0
+            self._frontier = t0
+        busy = max(0.0, t1 - max(t0, self._frontier))
+        self._frontier = max(self._frontier, t1)
+        self._busy_s += busy
+        self._sum_s += max(0.0, t1 - t0)
+        if self._sum_s > 0.0:
+            _MET_OVERLAP.set(1.0 - self._busy_s / self._sum_s)
+        _MET_OCCUPANCY.set(
+            self._busy_s / max(time.monotonic() - self._born, 1e-9))
+        self._win_busy += busy
+        self._win_nonces += scanned
+        if self._win_busy >= self._min_window_s:
+            self._ewma.observe(self._win_nonces / self._win_busy)
+            self._win_busy, self._win_nonces = 0.0, 0
 
 
 def default_searcher_factory(data: str, device="cuda",
@@ -124,6 +194,12 @@ class MinerWorker:
         self.coalesce_max = coalesce_max
         self.coalesced_dispatches = 0
         self.coalesced_chunks = 0
+        self._window = _ThroughputWindow()
+        ensure_emitter()   # DBMT_METRICS_INTERVAL_S; 0 = none
+        self._sanitize = _sanitize.ensure_sanitizer()
+        self._trace = _trace.ensure_tracer()
+        self._trace_launch = 0        # this miner's shared-launch ids
+        self._trace_last_done = 0.0   # the previous chunk's finish stamp
 
     async def join(self) -> None:
         """Connect and send Join (ref: miner.go:24-34), with the rate hint
@@ -182,10 +258,14 @@ class MinerWorker:
                 except ValueError:
                     continue
                 if msg.type == MsgType.REQUEST:
+                    if self._trace:
+                        # The span's reader-queue phase starts here.
+                        msg._recv_t = time.monotonic()
                     await queue.put(msg)
 
         reader_task = asyncio.create_task(reader())
-        inflight = None   # (msg or [msgs], searcher, handle, t0, dispatch_s)
+        # (msg or [msgs], searcher, handle, t0, dispatch_s, span or spans)
+        inflight = None
         carry = None      # a drained Request that did not coalesce (or stop)
         try:
             while True:
@@ -245,13 +325,13 @@ class MinerWorker:
                         return
                     continue
                 try:
-                    searcher, handle, dispatch_s = await dtask
+                    searcher, handle, dispatch_s, span = await dtask
                 except Exception:
                     await self._exit_broken(msgs[0] if msgs else msg)
                     return
                 if handle is not None:
                     inflight = (msgs or msg, searcher, handle, t0,
-                                dispatch_s)
+                                dispatch_s, span)
                 elif msgs is not None:
                     # The searchers cannot share a launch (decided before
                     # any launch): serve the drained chunks one by one,
@@ -270,20 +350,73 @@ class MinerWorker:
         return (msg.target == 0 and msg.lower <= msg.upper
                 and msg.upper - msg.lower + 1 <= self.coalesce_max)
 
+    # ------------------------------------------------------------- spans
+
+    def _span_open(self, msg) -> Optional[dict]:
+        """A chunk's span at the dispatch worker's entry: the reader-queue
+        phase closes here, and the fresh-signature count is stamped. None
+        when tracing is off."""
+        if not self._trace:
+            return None
+        now = time.monotonic()
+        return {"queue_s": round(max(0.0, now - getattr(
+            msg, "_recv_t", now)), 6), "_c0": _MET_FRESH.value}
+
+    @staticmethod
+    def _span_dispatched(span: Optional[dict], dispatch_s: float,
+                         subs: Optional[int] = None) -> None:
+        """Close the dispatch phase (on the worker thread, once the
+        launches have started); ``subs`` is the chain's launches."""
+        if span is None:
+            return
+        span["dispatch_s"] = round(dispatch_s, 6)
+        span["_d_end"] = time.monotonic()
+        fresh = _MET_FRESH.value - span.pop("_c0", 0)
+        if fresh:
+            span["compiles"] = fresh
+        if subs is not None:
+            span["subs"] = subs
+
+    def _span_close(self, span: Optional[dict], t0: float, t2: float,
+                    t3: float) -> Optional[dict]:
+        """Finish a span at reply time: the pipeline wait (the launches
+        started, to the force), the force, and the executor's idle gap
+        before this chunk (since the previous chunk's finish). Returns
+        exactly what rides the wire."""
+        if span is None:
+            return None
+        d_end = span.pop("_d_end", t2)
+        span.pop("_c0", None)
+        span["wait_s"] = round(max(0.0, t2 - d_end), 6)
+        span["force_s"] = round(max(0.0, t3 - t2), 6)
+        if self._trace_last_done:
+            span["gap_s"] = round(max(0.0, t0 - self._trace_last_done), 6)
+        return span
+
+    # ------------------------------------------------------------ serving
+
     def _resolve_and_dispatch(self, msg):
         """Worker-thread half of a two-phase chunk: resolve the searcher
-        and start its launches. Returns ``(searcher, handle,
-        dispatch_s)``; ``handle`` is None when the searcher has no
-        two-phase API."""
+        and start its launches. Returns ``(searcher, handle, dispatch_s,
+        span)``; ``handle`` is None when the searcher has no two-phase
+        API."""
+        if self._sanitize:
+            _sanitize.assert_off_loop("miner searcher resolution/dispatch")
+        span = self._span_open(msg)
         t0 = time.monotonic()
         searcher = self._get_searcher(msg.data)
         if hasattr(searcher, "dispatch") and hasattr(searcher, "finalize"):
             handle = searcher.dispatch(msg.lower, msg.upper)
-            return searcher, handle, time.monotonic() - t0
-        return searcher, None, 0.0
+            dispatch_s = time.monotonic() - t0
+            self._span_dispatched(span, dispatch_s,
+                                  getattr(searcher, "last_dispatch_subs",
+                                          None))
+            return searcher, handle, dispatch_s, span
+        return searcher, None, 0.0, span
 
     async def _finalize_and_reply(self, msg, searcher, handle, t0: float,
-                                  dispatch_s: float) -> bool:
+                                  dispatch_s: float,
+                                  span: Optional[dict] = None) -> bool:
         """Force a dispatched chunk's result and write its Result; False
         ends the serve loop (transport death or broken compute)."""
         t2 = time.monotonic()
@@ -293,15 +426,22 @@ class MinerWorker:
         except Exception:
             await self._exit_broken(msg)
             return False
-        busy_s = dispatch_s + (time.monotonic() - t2)
-        return self._reply(msg, best_hash, best_nonce, 0, t0, busy_s=busy_s)
+        t3 = time.monotonic()
+        return self._reply(msg, best_hash, best_nonce, 0, t0,
+                           busy_s=dispatch_s + (t3 - t2),
+                           span=self._span_close(span, t0, t2, t3))
 
     def _resolve_and_dispatch_batch(self, msgs: list):
         """Worker-thread half of a coalesced chunk set: resolve every
         chunk's searcher and start ONE batched dispatch through the first
         one's ``dispatch_batch``. Returns ``(searcher, handle,
-        dispatch_s)``; ``handle`` is None when the searchers cannot serve
-        a batch (no batch API, or they cannot share a launch)."""
+        dispatch_s, spans)``, a span a chunk (each with its own queue
+        wait; the dispatch is the shared launch's); ``handle`` is None
+        when the searchers cannot serve a batch (no batch API, or they
+        cannot share a launch)."""
+        if self._sanitize:
+            _sanitize.assert_off_loop("miner batched resolution/dispatch")
+        spans = [self._span_open(m) for m in msgs]
         t0 = time.monotonic()
         searchers = [self._get_searcher(m.data) for m in msgs]
         s0 = searchers[0]
@@ -309,11 +449,15 @@ class MinerWorker:
             handle = s0.dispatch_batch(
                 [(s, m.lower, m.upper) for s, m in zip(searchers, msgs)])
             if handle is not None:
-                return s0, handle, time.monotonic() - t0
-        return s0, None, 0.0
+                dispatch_s = time.monotonic() - t0
+                for span in spans:
+                    self._span_dispatched(span, dispatch_s)
+                return s0, handle, dispatch_s, spans
+        return s0, None, 0.0, spans
 
     async def _finalize_and_reply_batch(self, msgs: list, searcher, handle,
-                                        t0: float, dispatch_s: float
+                                        t0: float, dispatch_s: float,
+                                        spans: Optional[list] = None
                                         ) -> bool:
         """Force a coalesced dispatch with ONE fetch and write the
         Results in request order; False ends the serve loop."""
@@ -324,23 +468,45 @@ class MinerWorker:
         except Exception:
             await self._exit_broken(msgs[0])
             return False
-        busy_s = dispatch_s + (time.monotonic() - t2)
-        return self._reply_batch(msgs, results, t0, busy_s)
+        t3 = time.monotonic()
+        if spans is not None:
+            spans = [self._span_close(s, t0, t2, t3) for s in spans]
+        return self._reply_batch(msgs, results, t0, dispatch_s + (t3 - t2),
+                                 spans=spans)
 
     def _reply_batch(self, msgs: list, results: list, t0: float,
-                     busy_s: float) -> bool:
+                     busy_s: float, spans: Optional[list] = None) -> bool:
         """Write a shared launch's Results in request order; its busy
-        time is logged once for the whole launch."""
+        time is logged once for the whole launch, and its nonces feed the
+        throughput window once. Every lane's span carries the launch's id
+        and lane count."""
         t1 = time.monotonic()
         self.coalesced_dispatches += 1
         self.coalesced_chunks += len(msgs)
-        for msg, (best_hash, best_nonce) in zip(msgs, results):
+        total = sum(m.upper - m.lower + 1 for m in msgs
+                    if m.upper >= m.lower)
+        if total:
+            self._window.observe(t0, t1, total)
+        launch_id = None
+        if spans is not None and any(s is not None for s in spans):
+            self._trace_launch += 1
+            launch_id = self._trace_launch
+        for i, (msg, (best_hash, best_nonce)) in enumerate(
+                zip(msgs, results)):
+            span = spans[i] if spans is not None else None
+            if span is not None:
+                span["launch"] = launch_id
+                span["lanes"] = len(msgs)
             try:
-                self.client.write(
-                    new_result(best_hash, best_nonce, 0).to_json())
+                self.client.write(new_result(best_hash, best_nonce, 0,
+                                             span=span).to_json())
             except LspError:
                 return False
             self.jobs_done += 1
+        if self._trace:
+            self._trace_last_done = t1
+            _trace.flight("chunk_batch_done", lanes=len(msgs),
+                          busy_s=round(busy_s, 6), launch=launch_id)
         logger.info("served %d coalesced chunks (%s) in %.3fs, busy %.3fs",
                     len(msgs), ", ".join(f"{m.data!r} [{m.lower}, "
                                          f"{m.upper}]" for m in msgs),
@@ -354,7 +520,7 @@ class MinerWorker:
         searchers could not share a launch."""
         t0 = time.monotonic()
         try:
-            searcher, handle, dispatch_s = await asyncio.to_thread(
+            searcher, handle, dispatch_s, span = await asyncio.to_thread(
                 self._resolve_and_dispatch, msg)
         except Exception:
             await self._exit_broken(msg)
@@ -362,11 +528,14 @@ class MinerWorker:
         if handle is None:
             return await self._serve_blocking(msg)
         return await self._finalize_and_reply(msg, searcher, handle, t0,
-                                              dispatch_s)
+                                              dispatch_s, span)
 
     async def _serve_blocking(self, msg) -> bool:
         """One chunk through the blocking search; False ends the serve
-        loop."""
+        loop. Its span's whole search is one ``force_s`` (``serial``)."""
+        span = self._span_open(msg)
+        if span is not None:
+            span["serial"] = 1
         t0 = time.monotonic()
         try:
             best_hash, best_nonce, echo_target = await asyncio.to_thread(
@@ -378,7 +547,9 @@ class MinerWorker:
             # any failure, miner.go:44-50).
             await self._exit_broken(msg)
             return False
-        return self._reply(msg, best_hash, best_nonce, echo_target, t0)
+        return self._reply(msg, best_hash, best_nonce, echo_target, t0,
+                           span=self._span_close(span, t0, t0,
+                                                 time.monotonic()))
 
     async def _exit_broken(self, msg) -> None:
         """Compute-failure exit path (must be called from an except
@@ -400,18 +571,24 @@ class MinerWorker:
 
     def _reply(self, msg, best_hash: int, best_nonce: int,
                echo_target: int, t0: float,
-               busy_s: Optional[float] = None) -> bool:
-        """Write the Result; False on transport death. ``busy_s`` (a
-        pipelined chunk's dispatch and finalize time, without its wait
-        behind the previous chunk) defaults to the wall time since
-        ``t0``."""
+               busy_s: Optional[float] = None,
+               span: Optional[dict] = None) -> bool:
+        """Write the Result, with ``span`` on it; False on transport
+        death. ``busy_s`` (a pipelined chunk's dispatch and finalize
+        time, without its wait behind the previous chunk) defaults to the
+        wall time since ``t0``. An argmin chunk's nonces feed the
+        throughput window."""
         t1 = time.monotonic()
+        if msg.upper >= msg.lower and not msg.target:
+            self._window.observe(t0, t1, msg.upper - msg.lower + 1)
         try:
-            self.client.write(
-                new_result(best_hash, best_nonce, echo_target).to_json())
+            self.client.write(new_result(best_hash, best_nonce, echo_target,
+                                         span=span).to_json())
         except LspError:
             return False
         self.jobs_done += 1
+        if self._trace:
+            self._trace_last_done = t1
         logger.info("served %r [%d, %d] in %.3fs, busy %.3fs", msg.data,
                     msg.lower, msg.upper, t1 - t0,
                     t1 - t0 if busy_s is None else busy_s)
@@ -439,6 +616,8 @@ class MinerWorker:
         answers with the full-scan arg-min and echoes 0, exactly like a
         stock Go miner that dropped the unknown Target key; the scheduler
         reads the echo to grade its merge."""
+        if self._sanitize:
+            _sanitize.assert_off_loop("miner blocking search")
         if lower > upper:
             # The Go miner's loop body never runs for an inverted range and
             # it reports (maxUint, 0) (ref: miner.go:46-59).
@@ -486,11 +665,14 @@ def _resolve_rate_hint(factory) -> float:
 async def _run_miner(hostport: str, device: str,
                      body: PeelParams = PeelParams(),
                      mesh: tuple = (), rate_hint: float = 0.0) -> int:
+    coalesce = coalesce_from_env()
     worker = MinerWorker(
-        hostport, params=Params(),
+        hostport, params=lsp_params_from_env(),
         searcher_factory=lambda data: default_searcher_factory(
             data, device, body, mesh),
-        coalesce=coalesce_from_env().enabled, rate_hint=rate_hint)
+        pipeline_depth=pipeline_depth_from_env(),
+        coalesce=coalesce.enabled, coalesce_lanes=coalesce.lanes,
+        coalesce_max=coalesce.max_nonces, rate_hint=rate_hint)
     try:
         try:
             await worker.join()

@@ -53,6 +53,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..bitcoin.message import new_request
+from ..utils import trace as _tracing
 from ..utils.config import (CoalesceParams, LeaseParams, StripeParams,
                             VerifyParams)
 
@@ -126,7 +127,11 @@ class MinerPlane:
     ``lease_event(kind, chunk, miner_conn, **info)`` the log of every
     lease transition (``blown``, ``reissue``, ``quarantine``,
     ``quarantine_lifted``, ``park``); ``dispatch()`` its pump (a lifted
-    quarantine frees a miner mid-pop); ``count(name)`` its counters.
+    quarantine frees a miner mid-pop); ``count(name)`` its counters;
+    ``trace_get(job_id)`` the request trace an assignment is recorded on
+    (None when the job has none); ``trace_on`` arms the flight events.
+    ``chunk_s_overrides`` holds the adapt plane's per-miner stripe
+    seconds (``DBMT_ADAPT_PER_MINER``), read by :meth:`stripe_chunks`.
     """
 
     #: Wall-clock span one throughput sample must cover: the pipelined
@@ -141,7 +146,9 @@ class MinerPlane:
     def __init__(self, lease: LeaseParams, coalesce: CoalesceParams, *,
                  write: Callable, inflight: dict, lease_event: Callable,
                  dispatch: Callable, count: Callable, stripe: StripeParams,
-                 verify: Optional[VerifyParams] = None):
+                 verify: Optional[VerifyParams] = None,
+                 trace_get: Callable = lambda job_id: None,
+                 trace_on: bool = False):
         self.lease = lease
         self.coalesce = coalesce
         self.stripe = stripe
@@ -151,6 +158,8 @@ class MinerPlane:
         self._lease_event = lease_event
         self._dispatch = dispatch
         self._count = count
+        self._trace_get = trace_get
+        self._trace_on = trace_on
         self.miners: list[MinerState] = []      # join order
         self._by_conn: dict[int, MinerState] = {}
         self.parked: list[Chunk] = []           # chunks of dropped miners
@@ -160,6 +169,8 @@ class MinerPlane:
         # Stripe plans: how many shares were cut into how many chunks.
         self.stripe_depths: Counter = Counter()
         self._next_coalesce_id = 0
+        # Per-miner stripe seconds from the adapt plane; retired on drop.
+        self.chunk_s_overrides: dict[int, float] = {}
 
     # ------------------------------------------------------------- roster
 
@@ -183,7 +194,7 @@ class MinerPlane:
                 self._pool_hinted = True
         chunk = self.next_parked()
         if chunk is not None:
-            self.assign_chunk(miner, chunk)
+            self.assign_chunk(miner, chunk, kind="parked")
         self.miners.append(miner)
         self._by_conn[conn_id] = miner
         return miner
@@ -192,6 +203,7 @@ class MinerPlane:
         miner = self._by_conn.pop(conn_id, None)
         if miner is not None:
             self.miners.remove(miner)
+            self.chunk_s_overrides.pop(conn_id, None)
         return miner
 
     def recover(self, miner: MinerState) -> None:
@@ -206,7 +218,7 @@ class MinerPlane:
                 continue
             takeover = next(iter(self.eligible()), None)
             if takeover is not None:
-                self.assign_chunk(takeover, chunk)
+                self.assign_chunk(takeover, chunk, kind="recovered")
             else:
                 self.parked.append(chunk)
                 self._lease_event("park", chunk, miner.conn_id)
@@ -339,12 +351,16 @@ class MinerPlane:
 
     # --------------------------------------------------- grant / complete
 
-    def assign_chunk(self, miner: MinerState, chunk: Chunk) -> None:
+    def assign_chunk(self, miner: MinerState, chunk: Chunk,
+                     kind: str = "initial") -> None:
         """One chunk onto one miner's FIFO, its lease stamped, and its
         Request on the wire. At the head of the FIFO (or with
         ``fifo_aware`` off) the lease starts now; behind other chunks the
         deadline is the latest one ahead plus this chunk's own lease, and
-        is tightened when the chunk reaches the head (:meth:`pop_result`)."""
+        is tightened when the chunk reaches the head (:meth:`pop_result`).
+        The request's trace records an ``assign`` event of ``kind``
+        (``initial``, ``qos``, ``parked``, ``recovered``, ``reissue``,
+        ``claim_retry``, ``audit``)."""
         chunk.assigned_at = time.monotonic()
         chunk.lease_blown = False
         chunk.reissued = False
@@ -358,6 +374,15 @@ class MinerPlane:
             ahead = max((c.deadline for c in miner.pending[:-1]),
                         default=now)
             chunk.deadline = max(now, ahead) + self.lease_for(miner, chunk)
+        trace = self._trace_get(chunk.job_id)
+        if trace is not None:
+            trace.event("assign", miner=miner.conn_id, idx=chunk.idx,
+                        lower=chunk.lower, upper=chunk.upper, kind=kind,
+                        fifo_pos=len(miner.pending) - 1,
+                        lease_started=chunk.lease_started)
+        if self._trace_on:
+            _tracing.flight("assign", job=chunk.job_id, idx=chunk.idx,
+                            miner=miner.conn_id, kind=kind)
         self._write(miner.conn_id, new_request(chunk.data, chunk.lower,
                                                chunk.upper, chunk.target))
 
@@ -380,7 +405,7 @@ class MinerPlane:
                 or miner in self.desperation_pool()):
             parked = self.next_parked(skip_key=(chunk.job_id, chunk.idx))
             if parked is not None:
-                self.assign_chunk(miner, parked)
+                self.assign_chunk(miner, parked, kind="parked")
         return miner, chunk
 
     # --------------------------------------------------------- lease plane
@@ -463,6 +488,9 @@ class MinerPlane:
         v = self.verify
         miner.trust = max(v.trust_floor, miner.trust * v.trust_decay)
         self._count("trust_decays_" + reason)
+        if self._trace_on:
+            _tracing.flight("trust_decayed", miner=miner.conn_id,
+                            trust=round(miner.trust, 4), reason=reason)
         if miner.rate_hinted:
             miner.rate_hinted = False
             miner.rate_ewma = None
@@ -490,9 +518,39 @@ class MinerPlane:
             else self.pool_rate
         if rate is None or rate <= 0:
             return 1
-        # Weighted by trust: the rate may be an unauthenticated hint.
-        target = max(1, int(rate * miner.trust * self.stripe.chunk_s))
+        # Weighted by trust: the rate may be an unauthenticated hint. The
+        # adapt plane's per-miner seconds, when set, replace the pool's.
+        rate *= miner.trust
+        chunk_s = self.chunk_s_overrides.get(miner.conn_id,
+                                             self.stripe.chunk_s)
+        target = max(1, int(rate * chunk_s))
         return max(1, min(self.stripe.depth, -(-share // target)))
+
+    def set_chunk_s_override(self, conn_id: int, chunk_s: float) -> None:
+        """The adapt plane's per-miner stripe seconds for one miner."""
+        self.chunk_s_overrides[conn_id] = chunk_s
+
+    def clear_chunk_s_overrides(self) -> None:
+        """The pool re-converged: every per-miner value retires, so the
+        pool-wide knob governs again."""
+        self.chunk_s_overrides.clear()
+
+    def service_sample(self, chunk: Chunk):
+        """``(service_s, margin_frac)`` of a just-popped chunk for the
+        adapt plane, from the lease plane's stamps: seconds since its
+        lease started, and the unspent share of its lease. ``(None,
+        None)`` when the stamps cannot say: the lease never started, blew
+        or is infinite (leases off), or the chunk was cancelled."""
+        if not chunk.lease_started or chunk.lease_blown \
+                or chunk.cancelled or not chunk.assigned_at:
+            return None, None
+        lease_span = chunk.deadline - chunk.assigned_at
+        if not (lease_span > 0) or lease_span == float("inf"):
+            return None, None
+        now = time.monotonic()
+        service = max(0.0, now - chunk.assigned_at)
+        margin = max(0.0, (chunk.deadline - now) / lease_span)
+        return service, margin
 
     def observe_stripe(self, n_chunks: int) -> None:
         self.stripe_depths[n_chunks] += 1
@@ -547,4 +605,4 @@ class MinerPlane:
                                   to_miner=takeover.conn_id)
                 self.assign_chunk(takeover, Chunk(
                     chunk.job_id, chunk.data, chunk.lower, chunk.upper,
-                    target=chunk.target, idx=chunk.idx))
+                    target=chunk.target, idx=chunk.idx), kind="reissue")

@@ -72,6 +72,16 @@ class TokenBucket:
         self._tokens -= n
         return True
 
+    def set_rate(self, rate: float, burst: Optional[float] = None) -> None:
+        """Re-rate a live bucket (the adaptive admission controller): the
+        tokens accrued so far are settled at the old rate, then the new
+        rate (and burst, when given) applies from now."""
+        self._refill()
+        self.rate = rate
+        if burst is not None:
+            self.burst = max(1.0, burst)
+            self._tokens = min(self._tokens, self.burst)
+
     @property
     def level(self) -> float:
         if self.rate <= 0:

@@ -85,7 +85,27 @@ buckets in :mod:`.qos`.
   claimed winner inside its window is convicted itself and the window is
   audited again elsewhere. Below the trust bar a miner gets no grants.
 - ``stats`` holds the JAX package's counters (:data:`STAT_COUNTERS`),
-  logged as one ``scheduler counts`` JSON line after each answer.
+  logged as one ``scheduler counts`` JSON line after each answer (and,
+  with the adapt plane mounted, its values as a ``scheduler adapt``
+  line, which is also logged whenever a controller moves). Each chunked
+  activation logs its plan: the chunk count and size, and the chunk
+  seconds and pool rate it was planned from.
+- Tracing (``DBMT_TRACE``, default on): every request carries a
+  :class:`~..utils.metrics.RequestTrace` (enqueue, dispatch, assign,
+  result, merge, reply and every fault edge), registered by job id in
+  the tenant plane's buffer; each Result's ``Span`` (the miner's chunk
+  phases) is folded into it as a ``miner_span`` event naming its
+  dominant phase (:meth:`Scheduler._fold_span`), and
+  :meth:`Scheduler.export_trace` writes every retained trace as Chrome
+  trace-event JSON. Control-plane edges go to the flight recorder.
+- The adapt plane (``DBMT_ADAPT``, default on, ``apps.adapt``): its
+  controllers, fed by the lease stamps, the spans and the queue, move
+  the QoS and stripe chunk seconds (one value), the coalescing window's
+  ``small_s`` and, with ``AdaptParams.admit`` (off by default in the
+  port), a scheduler-wide admission bucket and queue bound, applied by
+  the sweep (:meth:`Scheduler._apply_adapt`). The controllers read the
+  scheduler's clock, ``time.monotonic`` through this module at each
+  call.
 
 Difficulty merge: a Request carrying a ``Target`` is forwarded with the
 target on every chunk. Chunks cover ascending disjoint sub-ranges and each
@@ -108,17 +128,23 @@ import logging
 import random
 import time
 from dataclasses import dataclass, field
+from dataclasses import replace as _replace
 from typing import Optional
 
 from ..bitcoin.hash import MAX_U64, hash_op
 from ..bitcoin.message import Message, MsgType, new_result
 from ..lsp.errors import LspError
 from ..lsp.server import AsyncServer
-from ..utils.config import (CacheParams, CoalesceParams, LeaseParams,
-                            QosParams, StripeParams, VerifyParams,
-                            cache_from_env, coalesce_from_env,
-                            lease_from_env, qos_from_env, stripe_from_env,
-                            verify_from_env)
+from ..utils import sanitize as _sanitize
+from ..utils import trace as _tracing
+from ..utils.config import (AdaptParams, CacheParams, CoalesceParams,
+                            LeaseParams, QosParams, StripeParams,
+                            VerifyParams, adapt_from_env, cache_from_env,
+                            coalesce_from_env, lease_from_env, qos_from_env,
+                            stripe_from_env, verify_from_env)
+from ..utils.metrics import Registry, RequestTrace
+from ..utils.metrics import registry as process_registry
+from .adapt import AdaptPlane
 from .miner_plane import Chunk, MinerPlane, MinerState
 from .qos import LAZY_REMOVE
 from .tenant_plane import TenantPlane
@@ -198,6 +224,15 @@ class Request:
     # Outstanding audits of this request's chunks: the reply waits for
     # them (an audit after the reply could only detect a lie, not stop it).
     audit_holds: int = 0
+    trace: object = None           # RequestTrace (NULL_TRACE: unsampled)
+
+    def __post_init__(self):
+        # Every Request carries a trace from birth; arrivals get the
+        # tenant plane's (possibly sampled) one.
+        if self.trace is None:
+            self.trace = RequestTrace(data=self.data, lower=self.lower,
+                                      upper=self.upper, target=self.target,
+                                      client=self.conn_id)
 
 
 @dataclass
@@ -219,11 +254,18 @@ class AuditRecord:
     deadline: float = float("inf")
 
 
+def _monotonic() -> float:
+    """The scheduler's clock: ``time.monotonic`` read through this module
+    at each call (the adapt controllers are handed it)."""
+    return time.monotonic()
+
+
 class Scheduler:
     """Single-actor scheduler over an :class:`AsyncServer`. ``qos``,
-    ``coalesce``, ``stripe``, ``cache``, ``lease`` and ``verify`` default
-    to the environment's (``DBMT_*`` knobs); ``audit_rng`` draws the
-    audits (a seeded ``random.Random`` makes them reproducible)."""
+    ``coalesce``, ``stripe``, ``cache``, ``lease``, ``verify`` and
+    ``adapt`` default to the environment's (``DBMT_*`` knobs);
+    ``audit_rng`` draws the audits (a seeded ``random.Random`` makes them
+    reproducible); ``trace_sample`` overrides ``DBMT_TRACE_SAMPLE``."""
 
     def __init__(self, server: AsyncServer, qos: Optional[QosParams] = None,
                  coalesce: Optional[CoalesceParams] = None,
@@ -231,8 +273,11 @@ class Scheduler:
                  verify: Optional[VerifyParams] = None,
                  audit_rng: Optional[random.Random] = None,
                  stripe: Optional[StripeParams] = None,
-                 cache: Optional[CacheParams] = None):
+                 cache: Optional[CacheParams] = None,
+                 adapt: Optional[AdaptParams] = None,
+                 trace_sample: Optional[float] = None):
         self.server = server
+        qos = qos if qos is not None else qos_from_env()
         coalesce = coalesce if coalesce is not None else coalesce_from_env()
         stripe = stripe if stripe is not None else stripe_from_env()
         cache = cache if cache is not None else cache_from_env()
@@ -255,13 +300,37 @@ class Scheduler:
         self._qos_chunked_reqs: dict = {}     # tenant -> {job_id: Request}
         self._tenant_inflight: dict = {}      # tenant -> requests in flight
         self.stats = dict.fromkeys(STAT_COUNTERS, 0)
+        # The adapt plane's gauges, mounted in the process registry.
+        self.metrics = Registry()
+        process_registry().mount("sched", self.metrics)
+        # DBMT_SANITIZE=1: the loop watchdog, and the hot tables pinned to
+        # the thread that runs the event handlers.
+        self._owner = (_sanitize.ThreadOwner(
+            "Scheduler hot state (miners/queue/_inflight)")
+            if _sanitize.ensure_sanitizer() else None)
+        self._trace_on = _tracing.ensure_tracer()
         self.tenant_plane = TenantPlane(
-            qos if qos is not None else qos_from_env(), self._count,
-            close_conn=getattr(server, "close_conn", None))
+            qos, self._count, close_conn=getattr(server, "close_conn", None),
+            trace_on=self._trace_on, trace_sample=trace_sample)
         self.miner_plane = MinerPlane(
             self.lease, coalesce, write=self._write, inflight=self._inflight,
             lease_event=self._on_lease_event, dispatch=self._maybe_dispatch,
-            count=self._count, verify=self.verify, stripe=stripe)
+            count=self._count, verify=self.verify, stripe=stripe,
+            trace_get=self.tenant_plane.traces.get, trace_on=self._trace_on)
+        # The adapt plane mounts only the controllers whose knobs are
+        # live: the chunk seconds and the admission gate need the QoS
+        # plane, the window bound its coalescing windows. It starts at
+        # the static values and departs from them only on evidence.
+        adapt = adapt if adapt is not None else adapt_from_env()
+        self.adapt_plane: Optional[AdaptPlane] = None
+        if adapt.enabled:
+            self.adapt_plane = AdaptPlane(
+                _replace(adapt, admit=adapt.admit and qos.enabled),
+                self.metrics, _monotonic,
+                chunk_s=qos.chunk_s if qos.enabled else 0.0,
+                small_s=coalesce.small_s
+                if (qos.enabled and coalesce.enabled) else 0.0,
+                trace_on=self._trace_on)
         self._next_job_id = 0
         self._dispatching = False
         self._starved = False          # the no-eligible-miner latch
@@ -292,6 +361,56 @@ class Scheduler:
 
     def _log_counts(self) -> None:
         logger.info("scheduler counts %s", json.dumps(self.stats))
+        if self.adapt_plane is not None:
+            logger.info("scheduler adapt %s",
+                        json.dumps(self.adapt_plane.state()))
+
+    def _fold_span(self, trace, conn_id: int, chunk: Chunk,
+                   span: Optional[dict]) -> None:
+        """Stitch one miner's chunk span (the Result's ``Span``) into the
+        request's trace as a ``miner_span`` event: only the span
+        vocabulary's numeric keys, with the dominant phase named, and the
+        miner's export track registered. Unsampled requests skip it."""
+        if span is None or trace is None or trace.null \
+                or not self._trace_on:
+            return
+        clean = {}
+        for key in _tracing.SPAN_PHASES + _tracing.SPAN_EXTRAS:
+            v = span.get(key)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                clean[key] = v
+        if not clean:
+            return
+        self.tenant_plane.track_miner(conn_id)
+        slow = _tracing.slow_phase(clean)
+        if slow is not None:
+            clean["slow"] = slow
+        trace.event("miner_span", miner=conn_id, idx=chunk.idx, **clean)
+
+    def export_trace(self, path: Optional[str] = None) -> dict:
+        """Chrome trace-event JSON (loadable in ui.perfetto.dev) of every
+        retained request trace: one track per tenant and per miner, the
+        requests' slices, the fault events as instants and the stitched
+        miner-side phases. Returns the document; ``path`` also writes it
+        (``tools/dbmtrace.py`` converts a dump the same way)."""
+        dicts = []
+        for _key, t in self.tenant_plane.traces.items():
+            d = t.to_dict()
+            d["t0"] = t.t0
+            dicts.append(d)
+        tenant_tracks, miner_tracks = {}, {}
+        for labels, tid in self.tenant_plane.tracks.items("trace_track"):
+            labels = dict(labels)
+            if "tenant" in labels:
+                tenant_tracks[labels["tenant"]] = tid
+            if "miner" in labels:
+                miner_tracks[labels["miner"]] = tid
+        doc = _tracing.to_chrome_trace(dicts, tenant_tracks=tenant_tracks,
+                                       miner_tracks=miner_tracks)
+        if path:
+            with open(path, "w", encoding="utf-8") as fh:
+                json.dump(doc, fh, sort_keys=True)
+        return doc
 
     def set_tenant_weight(self, tenant, weight: float) -> None:
         """Override one tenant's DRR weight (the environment's path is
@@ -352,22 +471,78 @@ class Scheduler:
             self._inflight, self.lease.queue_alarm_s,
             self.qos_plane.grant_share, self._count, len(mp.miners),
             len(mp.eligible()),
-            distrusted_n=sum(1 for m in mp.miners if mp.distrusted(m)))
+            distrusted_n=sum(1 for m in mp.miners if mp.distrusted(m)),
+            current=self.current)
+        if self.adapt_plane is not None:
+            self._apply_adapt()
         if self.qos.enabled:
             tp.gc(set(tp.backlog_tenants())
                   | {r.conn_id for r in self._inflight.values()})
 
+    def _apply_adapt(self) -> None:
+        """One adapt tick (run by the sweep): the controllers see the
+        oldest queued request's age, the requests answered so far and,
+        in per-miner mode, the spread of the miners' measured rates;
+        then the values they moved are applied. The chunk and stripe
+        seconds take one value; the window bound replaces ``small_s``;
+        the admission rate lives in the plane's own bucket; per-miner
+        values land on the miner plane's overrides. Chunk plans already
+        made keep their bounds."""
+        head = self.tenant_plane.head()
+        age = (time.monotonic() - head.queued_at) if head is not None \
+            else 0.0
+        # The per-miner gate reads measured rates only: an unconfirmed
+        # JOIN hint must not fork the pool.
+        ratio = None
+        chunk_ctl = self.adapt_plane.chunk
+        if chunk_ctl is not None and chunk_ctl.per_miner:
+            ewmas = [m.rate_ewma for m in self.miner_plane.miners
+                     if m.rate_ewma and not m.rate_hinted]
+            if len(ewmas) >= 2:
+                ratio = max(ewmas) / max(min(ewmas), 1e-9)
+        changes = self.adapt_plane.tick(age, self.stats["results_sent"],
+                                        rate_ratio=ratio)
+        if not changes:
+            return
+        logger.info("scheduler adapt %s",
+                    json.dumps(self.adapt_plane.state()))
+        mp = self.miner_plane
+        if changes.get("chunk_s_miner_clear"):
+            mp.clear_chunk_s_overrides()
+        for conn, v in (changes.get("chunk_s_miner") or {}).items():
+            if mp.find_miner(conn) is not None:
+                mp.set_chunk_s_override(conn, v)
+        v = changes.get("chunk_s")
+        if v is not None:
+            self.tenant_plane.qos = _replace(self.qos, chunk_s=v)
+            mp.stripe = _replace(mp.stripe, chunk_s=v)
+        v = changes.get("small_s")
+        if v is not None:
+            mp.coalesce = _replace(mp.coalesce, small_s=v)
+
     # ---------------------------------------------------------------- events
 
     def _on_request(self, conn_id: int, msg: Message) -> None:
-        """A cache hit is answered at once; under QoS the tenant's bucket
-        admits the request or sheds it; then it queues."""
+        """A cache hit is answered at once; under QoS the adapt plane's
+        admission bucket (capacity) and then the tenant's bucket
+        (fairness) admit the request or shed it; then it queues."""
+        if self._owner is not None:
+            self._owner.assert_here()
         request = self._build_request(conn_id, msg)
         if request is None:
             return
-        if self.qos.enabled and not self.tenant_plane.admit(conn_id):
-            self._shed(request, "admission")
-            return
+        if self.qos.enabled:
+            if self.adapt_plane is not None:
+                if self.adapt_plane.window is not None:
+                    cold, bound = self._qos_small_bound()
+                    self.adapt_plane.observe_arrival(self._qos_is_small(
+                        request.upper - request.lower + 1, cold, bound))
+                if not self.adapt_plane.admit():
+                    self._shed(request, "admission")
+                    return
+            if not self.tenant_plane.admit(conn_id):
+                self._shed(request, "admission")
+                return
         self._intake(request)
 
     def _build_request(self, conn_id: int, msg: Message):
@@ -379,6 +554,7 @@ class Scheduler:
             if hit is not None:
                 self._write(conn_id, new_result(*hit))
                 self._count("results_sent")
+                self.tenant_plane.cache_replay_trace(conn_id, key, *hit)
                 logger.info("request %r [%d, %d] target=%d answered from "
                             "the result cache", msg.data, msg.lower,
                             msg.upper, msg.target)
@@ -386,7 +562,10 @@ class Scheduler:
                 return None
         return Request(conn_id=conn_id, data=msg.data, lower=msg.lower,
                        upper=msg.upper, target=msg.target, cache_key=key,
-                       queued_at=time.monotonic())
+                       queued_at=time.monotonic(),
+                       trace=self.tenant_plane.new_trace(
+                           data=msg.data, lower=msg.lower, upper=msg.upper,
+                           target=msg.target, client=conn_id))
 
     def _cache_lookup(self, key, count_miss: bool = True):
         """The cached answer, counted as a hit or a miss (``count_miss``
@@ -403,8 +582,13 @@ class Scheduler:
         """Queue the request; under QoS, past ``max_queued`` the oldest
         queued request is shed; then pump."""
         tp = self.tenant_plane
+        request.trace.event("enqueue", queue_depth=len(tp))
         tp.enqueue(request)
         bound = self.qos.max_queued if self.qos.enabled else 0
+        if self.adapt_plane is not None and self.qos.enabled:
+            # The congestion depth: the tighter of the static bound and
+            # the measured service rate times the age knee.
+            bound = self.adapt_plane.effective_max_queued(bound)
         if bound > 0:
             while len(tp) > bound:
                 self._shed(tp.pop_head(), "overload")
@@ -416,6 +600,8 @@ class Scheduler:
 
     def _on_join(self, conn_id: int, msg: Optional[Message] = None) -> None:
         """``msg.rate`` is the miner's rate hint (0: none)."""
+        if self._owner is not None:
+            self._owner.assert_here()
         rate_hint = float(msg.rate) if msg is not None else 0.0
         self.miner_plane.on_join(conn_id, rate_hint=rate_hint)
         if rate_hint > 0:
@@ -424,6 +610,8 @@ class Scheduler:
         self._maybe_dispatch()
 
     def _on_result(self, conn_id: int, msg: Message) -> None:
+        if self._owner is not None:
+            self._owner.assert_here()
         popped = self.miner_plane.pop_result(conn_id)
         if popped is None:
             return
@@ -434,8 +622,21 @@ class Scheduler:
                 self._on_audit_result(rec, miner, chunk, msg)
                 return
         curr = self._inflight.get(chunk.job_id)
+        if self.adapt_plane is not None:
+            # The chunk-size signal: the lease stamps and the span; only
+            # chunked-mode grants were sized by the controlled value.
+            service_s, margin = self.miner_plane.service_sample(chunk)
+            self.adapt_plane.observe_chunk(
+                service_s, margin, span=msg.span,
+                sized=curr is not None and curr.qos_mode == "chunked",
+                miner=conn_id)
         if curr is None:
-            # Stale Result of a retired request; under QoS it freed a slot.
+            # Stale Result of a retired request (a late span names what
+            # stalled); under QoS it freed a slot.
+            stale = self.tenant_plane.traces.get(chunk.job_id)
+            if stale is not None:
+                stale.event("stale_result", miner=conn_id, idx=chunk.idx)
+                self._fold_span(stale, conn_id, chunk, msg.span)
             if self.qos.enabled:
                 self._maybe_dispatch()
             return
@@ -443,6 +644,9 @@ class Scheduler:
             # The loser of a re-issue race: the copy scanned the same
             # range and has merged already.
             self._count("dup_results")
+            self._fold_span(curr.trace, conn_id, chunk, msg.span)
+            curr.trace.event("result", miner=conn_id, idx=chunk.idx,
+                             duplicate=True)
             logger.info("duplicate Result for job %d chunk %d from miner %d "
                         "(speculation loser)", curr.job_id, chunk.idx,
                         conn_id)
@@ -458,6 +662,10 @@ class Scheduler:
         curr.answered[chunk.idx] = True
         if self.qos.enabled:
             self.qos_plane.on_chunk_answered(curr.conn_id)
+        self._fold_span(curr.trace, conn_id, chunk, msg.span)
+        curr.trace.event("result", miner=conn_id, idx=chunk.idx)
+        curr.trace.event("merge", idx=chunk.idx,
+                         answered=sum(curr.answered))
         if self.verify.audit_p > 0 and not curr.target:
             self._maybe_audit(curr, chunk, miner, msg)
         if curr.target and msg.target != curr.target and not curr.weak:
@@ -488,6 +696,8 @@ class Scheduler:
             self._maybe_dispatch()
 
     def _on_drop(self, conn_id: int) -> None:
+        if self._owner is not None:
+            self._owner.assert_here()
         miner = self.miner_plane.drop_miner(conn_id)
         if miner is not None:
             logger.info("miner %d dropped", conn_id)
@@ -498,22 +708,41 @@ class Scheduler:
                     rec = self._audits.pop(c.job_id, None)
                     if rec is not None:
                         self._reaudit_or_release(rec)
+            if self.adapt_plane is not None:
+                self.adapt_plane.forget_miner(conn_id)
+            self.tenant_plane.retire_miner_track(conn_id)
+            _tracing.flight("miner_drop", miner=conn_id)
             if self._inflight:
+                for req in self._inflight.values():
+                    req.trace.event("miner_drop", miner=conn_id)
                 self.miner_plane.recover(miner)
             return
         logger.info("client %d dropped", conn_id)
-        self.tenant_plane.purge_tenant(conn_id)
+        for req in self.tenant_plane.purge_tenant(conn_id):
+            req.trace.event("cancel", reason="client_drop")
+        self.tenant_plane.retire_tenant_track(conn_id)
         if self.qos.enabled:
             self.qos_plane.forget(conn_id)
         for req in [r for r in self._inflight.values()
                     if r.conn_id == conn_id]:
+            req.trace.event("cancel", reason="client_drop")
             self._retire(req)
 
     def _on_lease_event(self, kind: str, chunk: Chunk, miner_conn: int,
                         **info) -> None:
         """The miner plane's lease transitions, and the verification
-        tier's verdicts, as log lines (the JAX package's words)."""
+        tier's verdicts, as trace events of the owning request, flight
+        events and log lines (the JAX package's words)."""
+        curr = self._inflight.get(chunk.job_id)
         if kind == "blown":
+            if curr is not None:
+                curr.trace.event("lease_blown", miner=miner_conn,
+                                 idx=chunk.idx, streak=info["streak"],
+                                 spurious=info.get("spurious", False))
+            if self._trace_on:
+                _tracing.flight("lease_blown", job=chunk.job_id,
+                                idx=chunk.idx, miner=miner_conn,
+                                streak=info["streak"])
             logger.warning(
                 "miner %d blew the lease on job %d chunk %d "
                 "[%d, %d) after %.2fs (streak %d)%s",
@@ -523,11 +752,21 @@ class Scheduler:
                 " [spurious: miner had not reached this chunk]"
                 if info.get("spurious", False) else "")
         elif kind == "quarantine":
+            if curr is not None:
+                curr.trace.event("quarantine", miner=miner_conn)
             logger.warning(
                 "miner %d quarantined after %d consecutive "
                 "blown leases; no new assignments until it "
                 "answers", miner_conn, info["streak"])
         elif kind == "reissue":
+            if curr is not None:
+                curr.trace.event("reissue", idx=chunk.idx,
+                                 from_miner=miner_conn,
+                                 to_miner=info["to_miner"])
+            if self._trace_on:
+                _tracing.flight("reissue", job=chunk.job_id,
+                                idx=chunk.idx, from_miner=miner_conn,
+                                to_miner=info["to_miner"])
             logger.warning(
                 "speculatively re-issuing job %d chunk %d [%d, %d) "
                 "from miner %d to miner %d",
@@ -535,7 +774,19 @@ class Scheduler:
                 miner_conn, info["to_miner"])
         elif kind == "quarantine_lifted":
             logger.info("miner %d answered; quarantine lifted", miner_conn)
+        elif kind == "park":
+            if curr is not None:
+                curr.trace.event("park", idx=chunk.idx)
         elif kind == "claim_failed":
+            if curr is not None:
+                curr.trace.event("claim_failed", miner=miner_conn,
+                                 idx=chunk.idx, nonce=info.get("nonce"),
+                                 claimed=info.get("claimed"),
+                                 actual=info.get("actual"))
+            if self._trace_on:
+                _tracing.flight("claim_failed", job=chunk.job_id,
+                                idx=chunk.idx, miner=miner_conn,
+                                trust=info.get("trust"))
             logger.warning(
                 "miner %d FAILED the claim check on job %d chunk %d: "
                 "claimed hash %s for nonce %s, recomputed %s "
@@ -545,6 +796,17 @@ class Scheduler:
                 info.get("actual"), info.get("trust", 0.0),
                 " [audit re-execution]" if info.get("audit") else "")
         elif kind == "audit_failed":
+            job = info.get("job", chunk.job_id)
+            trace = self.tenant_plane.traces.get(job)
+            if trace is not None:
+                trace.event("audit_failed", miner=miner_conn,
+                            idx=info.get("idx"),
+                            lower=chunk.lower, upper=chunk.upper)
+            if self._trace_on:
+                _tracing.flight("audit_failed", job=job,
+                                idx=info.get("idx"), miner=miner_conn,
+                                auditor=info.get("auditor"),
+                                trust=info.get("trust"))
             logger.warning(
                 "miner %d FAILED an audit on job %s chunk %s: claimed "
                 "argmin hash %s, but auditor %s found %s at nonce %s "
@@ -585,9 +847,10 @@ class Scheduler:
             takeover = next((m for m in mp.eligible() if m is not miner),
                             None)
             if takeover is not None:
-                mp.assign_chunk(takeover, copy)
+                mp.assign_chunk(takeover, copy, kind="claim_retry")
             else:
                 mp.parked.append(copy)
+                self._on_lease_event("park", copy, miner.conn_id)
         self._maybe_dispatch()
         return False
 
@@ -625,7 +888,14 @@ class Scheduler:
             * (1 + len(auditor.pending))
         self._audits[aid] = rec
         self._count("audits_issued")
-        self.miner_plane.assign_chunk(auditor, ac)
+        trace = self.tenant_plane.traces.get(rec.job_id)
+        if trace is not None:
+            trace.event("audit", idx=rec.idx, auditor=auditor.conn_id,
+                        lower=rec.lower, upper=rec.upper)
+        if self._trace_on:
+            _tracing.flight("audit", job=rec.job_id, idx=rec.idx,
+                            suspect=rec.suspect, auditor=auditor.conn_id)
+        self.miner_plane.assign_chunk(auditor, ac, kind="audit")
 
     def _resolve_audit(self, rec: AuditRecord) -> None:
         """Release one hold of the audited request (whatever the verdict)
@@ -698,6 +968,7 @@ class Scheduler:
             if curr is not None and msg.hash < curr.min_hash:
                 curr.min_hash = msg.hash
                 curr.min_nonce = msg.nonce
+                curr.trace.event("merge", idx=rec.idx, audit_repair=True)
         elif rec.lower <= rec.claimed_nonce <= rec.upper \
                 and msg.hash != rec.claimed_hash:
             trust = mp.trust_fail(miner, "audit")
@@ -711,6 +982,10 @@ class Scheduler:
             return
         else:
             self._count("audits_passed")
+            trace = self.tenant_plane.traces.get(rec.job_id)
+            if trace is not None:
+                trace.event("audit_passed", idx=rec.idx,
+                            auditor=miner.conn_id)
         self._resolve_audit(rec)
         self._maybe_dispatch()
 
@@ -728,8 +1003,14 @@ class Scheduler:
             # of the key.
             self.results.put(curr.cache_key, (h, nonce))
             self._count("cache_stores")
+        elapsed = time.monotonic() - curr.started
+        curr.trace.event("reply", hash=h, nonce=nonce, early=early,
+                         weak=curr.weak, elapsed_s=round(elapsed, 6))
+        if self._trace_on:
+            _tracing.flight("reply", job=curr.job_id, tenant=curr.conn_id,
+                            elapsed_s=round(elapsed, 6))
         logger.info("request %d served in %.3fs: [%d, %d) over %d chunks%s%s",
-                    curr.job_id, time.monotonic() - curr.started,
+                    curr.job_id, elapsed,
                     curr.lower, curr.upper, curr.num_chunks,
                     " (prefix release)" if early else "",
                     " (weak merge)" if curr.weak else "")
@@ -825,20 +1106,42 @@ class Scheduler:
             return False
         self._write(req.conn_id, new_result(*hit))
         self._count("results_sent")
+        req.trace.event("cache_hit", at="dispatch")
+        req.trace.event("reply", hash=hit[0], nonce=hit[1], cached=True)
+        self.tenant_plane.register_replay(req)
         logger.info("queued request %r [%d, %d] answered from the result "
                     "cache at dispatch", req.data, req.lower, req.upper)
         self._log_counts()
         return True
 
-    def _start(self, req: Request, mode: str) -> None:
+    def _start(self, req: Request, mode: str, pool: list,
+               desperate: bool = False) -> None:
+        """Put a dequeued request in flight under a fresh job id: its
+        queue wait to the adapt plane, its trace registered by job id
+        with a ``dispatch`` event naming ``pool``."""
         self._next_job_id += 1
         req.job_id = self._next_job_id
         req.qos_mode = mode
         req.started = time.monotonic()
+        if self.adapt_plane is not None:
+            self.adapt_plane.observe_wait(req.started - req.queued_at)
+        self.tenant_plane.traces.register(req.job_id, req.trace)
+        if not req.trace.null:
+            self.tenant_plane.track_tenant(req.conn_id)
         self._inflight[req.job_id] = req
         self._tenant_inflight[req.conn_id] = \
             self._tenant_inflight.get(req.conn_id, 0) + 1
         req.upper += 1  # inclusive -> exclusive
+        miners = [m.conn_id for m in pool]
+        if mode == "chunked":
+            req.trace.event("dispatch", job=req.job_id, mode="chunked",
+                            miners=miners)
+        else:
+            req.trace.event("dispatch", job=req.job_id, miners=miners,
+                            desperate=desperate)
+        if self._trace_on:
+            _tracing.flight("dispatch", job=req.job_id, mode=mode,
+                            tenant=req.conn_id)
 
     def _load_balance(self, request: Request, pool: list[MinerState],
                       desperate: bool = False) -> None:
@@ -846,7 +1149,7 @@ class Scheduler:
         eligible miners, or the one-miner desperation pool), each share
         striped (:meth:`MinerPlane.stripe_chunks`)."""
         mp = self.miner_plane
-        self._start(request, "wholesale")
+        self._start(request, "wholesale", pool, desperate)
         if desperate:
             self._count("desperation_dispatch")
             m = pool[0]
@@ -1157,7 +1460,7 @@ class Scheduler:
         chunks (:meth:`_qos_chunk_plan`, cold fallback over the whole
         pool) and grant the first; later pump turns grant the rest, so
         concurrent tenants' chunks interleave."""
-        self._start(req, "chunked")
+        self._start(req, "chunked", pool)
         self._chunked_inflight += 1
         total = req.upper - req.lower
         if total <= 0:
@@ -1165,6 +1468,10 @@ class Scheduler:
             return
         n, _ = self._qos_chunk_plan(total, len(self.miner_plane.miners) or 1)
         size, rem = divmod(total, n)
+        logger.info("request %d %r [%d, %d] chunked: %d chunks of %d "
+                    "nonces at chunk_s %r, pool rate %r", req.job_id,
+                    req.data, req.lower, req.upper, n, size,
+                    self.qos.chunk_s, self.miner_plane.pool_rate)
         base = req.lower
         for i in range(n):
             step = size + (1 if i < rem else 0)
@@ -1209,7 +1516,7 @@ class Scheduler:
         self.qos_plane.on_grant(req.conn_id, up - lo)
         mp.assign_chunk(miner, Chunk(req.job_id, req.data, lo, up,
                                      target=req.target, idx=idx,
-                                     coalesce_id=cid))
+                                     coalesce_id=cid), kind="qos")
 
     # ---------------------------------------------------------------- helpers
 

@@ -17,7 +17,7 @@ zero could never qualify a nonce anyway.
 Trace extension: a miner→server
 Result may carry a ``Span`` object — the chunk's device-timing span
 (utils/trace.py phase vocabulary) that the scheduler stitches into the
-request's trace. Appended only when set (``DBM_TRACE=1``) so a span-less
+request's trace. Appended only when set (``DBMT_TRACE=1``) so a span-less
 message keeps stock bytes bit-for-bit; a stock endpoint drops the
 unknown key. Parsing tolerates ANY malformed value by dropping it to
 None — an observability field must never kill a message that carries a
@@ -158,7 +158,7 @@ def new_result(hash_value: int, nonce: int, target: int = 0,
     """``target``: until-speaking miners echo the Request's target so the
     scheduler can tell which responders honored the extension (a stock
     miner drops the key; 0 serializes to reference-identical bytes).
-    ``span``: the chunk's device-timing span (``DBM_TRACE=1`` miners;
+    ``span``: the chunk's device-timing span (``DBMT_TRACE=1`` miners;
     None serializes to reference-identical bytes)."""
     return Message(type=MsgType.RESULT, hash=hash_value, nonce=nonce,
                    target=target, span=span)

@@ -157,14 +157,14 @@
 //    a word; when the last digit lies in the second block, the first
 //    block is compressed once per run.
 // 1, peel (K3): replaces the peel branch of _kernel_body in
-//    ops/sha256_pallas.py (DBM_PEEL=1 DBM_HOIST=0). The same function:
+//    ops/sha256_pallas.py (peel on, hoist off). The same function:
 //    the rounds of block 0 before its first digit word t* = rem >> 2 read
 //    only constant words, so each thread runs them once, before its lane
 //    loop (the TPU ran them on its scalar plane); a lane enters block 0 at
 //    round t*, with the digit words at fixed places and no schedule math
 //    in rounds t*..15; the rest is the full schedule.
 // 2, peel fed by the host hoist (K4): replaces _peel_hoisted
-//    (DBM_PEEL=1, hoist on). The plan carries the host's HoistPlan
+//    (peel on, hoist on). The plan carries the host's HoistPlan
 //    operands: block 0 enters round t* at the host's deep state, rounds
 //    t*..15 add the lane's digits to the host's K[j] + W[j], the
 //    expanded words 16..31 compute only their lane-varying taps on top of

@@ -8,7 +8,7 @@ reference's one-goroutine-owns-the-state design), the core's ``outbox``
 is flushed to the owner's ``send_raw`` after each input (the flush is
 one syscall burst under ``sendmmsg``), the core's one timer request is
 serviced by the shared per-loop timer wheel (or a per-conn task under
-``DBM_TIMER_WHEEL=0``), and the core's app-event callbacks are mapped to
+``DBMT_TIMER_WHEEL=0``), and the core's app-event callbacks are mapped to
 the asyncio surface endpoints await (``connected`` future,
 ``closed_event``).
 
@@ -71,7 +71,7 @@ class Conn:
         # Epoch timer: the shared per-loop timer wheel by default (one
         # sleeping task services every conn on this loop — 10k conns is
         # 10k heap entries, not 10k tasks), or the stock
-        # per-conn task under DBM_TIMER_WHEEL=0. Tick schedule and
+        # per-conn task under DBMT_TIMER_WHEEL=0. Tick schedule and
         # semantics are identical either way (first tick at +epoch,
         # next relative to when this one ran).
         self._epoch_task: Optional[asyncio.Task] = None

@@ -4,7 +4,7 @@ The stock asyncio datagram path costs one ``recvfrom`` and one ``sendto``
 syscall per packet. Under an echo storm the datapath handles bursts —
 the recv pump drains what arrived, and every inbound Data produces an
 Ack at pump exit — so Linux's batched datagram syscalls amortize the
-kernel crossing over up to ``DBM_MMSG_BATCH`` packets in each direction.
+kernel crossing over up to ``DBMT_MMSG_BATCH`` packets in each direction.
 
 This module is the raw syscall wrapper only: :class:`MmsgSocket` owns
 the preallocated receive buffers and the ctypes header arrays (iovec /

@@ -17,7 +17,7 @@ like before, which the graded retransmission-law tests depend on).
 Registration and cancellation are O(log n) heap operations; a cancelled
 entry is dropped lazily when it surfaces.
 
-``DBM_TIMER_WHEEL=0`` restores the per-conn task (stock behavior — the
+``DBMT_TIMER_WHEEL=0`` restores the per-conn task (stock behavior — the
 tier-1 knob-off matrix leg pins the transport suites both ways). The
 wheel preserves per-conn tick PHASE: an entry's first fire is
 ``register_time + period``, exactly like the task it replaces — only
@@ -33,7 +33,7 @@ from typing import Callable, Optional
 
 from ..utils._env import int_env as _int_env
 
-logger = logging.getLogger("dbm.lsp")
+logger = logging.getLogger("dbmt.lsp")
 
 __all__ = ["TimerWheel", "wheel_enabled", "wheel_for"]
 
@@ -44,8 +44,8 @@ _LOOP_ATTR = "_dbm_timer_wheel"
 
 
 def wheel_enabled() -> bool:
-    """``DBM_TIMER_WHEEL`` (default 1): 0 restores per-conn tasks."""
-    return _int_env("DBM_TIMER_WHEEL", 1) != 0
+    """``DBMT_TIMER_WHEEL`` (default 1): 0 restores per-conn tasks."""
+    return _int_env("DBMT_TIMER_WHEEL", 1) != 0
 
 
 def wheel_for(loop: Optional[asyncio.AbstractEventLoop] = None

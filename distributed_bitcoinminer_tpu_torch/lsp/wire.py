@@ -31,7 +31,7 @@ This module provides byte-for-byte-identical fast paths:
   payload a UDP datagram can carry (< 64 KiB, where the reference's
   32-bit masking is a no-op); larger payloads take the stock loop.
 
-``DBM_WIRE_FAST=0`` routes every call back to the stock codec — the
+``DBMT_WIRE_FAST=0`` routes every call back to the stock codec — the
 knob-off matrix leg runs the transport suites that way, so stock parity
 stays covered both as an equality assertion AND as live wire traffic.
 """
@@ -51,7 +51,7 @@ __all__ = ["encode_data", "encode_ack", "encode_connect", "encode",
 #: Read once at import (endpoints are constructed after env is set; the
 #: tier-1 matrix leg flips it per process). ``refresh()`` re-reads for
 #: tests that monkeypatch the environment mid-process.
-_FAST = _int_env("DBM_WIRE_FAST", 1) != 0
+_FAST = _int_env("DBMT_WIRE_FAST", 1) != 0
 
 
 def fast_enabled() -> bool:
@@ -59,9 +59,9 @@ def fast_enabled() -> bool:
 
 
 def refresh() -> None:
-    """Re-read ``DBM_WIRE_FAST`` (test hook; endpoints read per call)."""
+    """Re-read ``DBMT_WIRE_FAST`` (test hook; endpoints read per call)."""
     global _FAST
-    _FAST = _int_env("DBM_WIRE_FAST", 1) != 0
+    _FAST = _int_env("DBMT_WIRE_FAST", 1) != 0
 
 
 # ------------------------------------------------------------------ encode

@@ -13,14 +13,14 @@ selects which drop knobs apply. Fault behavior matches the reference:
   must catch it;
 - sniffer: counts sent/dropped Data/Ack packets at write time.
 
-Batched syscalls: with ``DBM_MMSG`` on (the default) and
+Batched syscalls: with ``DBMT_MMSG`` on (the default) and
 ``recvmmsg``/``sendmmsg`` present, :func:`listen_udp`/:func:`dial_udp`
 return a :class:`MmsgEndpoint` — a raw nonblocking socket on the loop's
 readable callback instead of an asyncio datagram transport. One readable
-callback is ONE ``recvmmsg`` of up to ``DBM_MMSG_BATCH`` datagrams;
+callback is ONE ``recvmmsg`` of up to ``DBMT_MMSG_BATCH`` datagrams;
 outbound frames queue and flush in ONE ``sendmmsg`` per loop iteration
 (``call_soon`` runs the flush after the pump that produced the burst —
-the "flush at pump-exit" point, like the engine's ``DBM_RECV_BATCH``
+the "flush at pump-exit" point, like the engine's batched receive
 drain). The fault pipeline is shared code either way: both endpoints
 funnel inbound datagrams through :meth:`UDPEndpoint._ingress` and
 outbound through the same ``send -> _send_now`` chain, so drop/delay/
@@ -415,7 +415,7 @@ def _try_mmsg_endpoint(local: tuple | None, remote: tuple | None,
                        is_server: bool) -> MmsgEndpoint | None:
     """A batched endpoint when the knob, platform, and address allow;
     None means the caller takes the stock transport."""
-    if _int_env("DBM_MMSG", 1) == 0 or not _mmsg.available():
+    if _int_env("DBMT_MMSG", 1) == 0 or not _mmsg.available():
         return None
     sock = _socket.socket(_socket.AF_INET, _socket.SOCK_DGRAM)
     try:
@@ -424,7 +424,7 @@ def _try_mmsg_endpoint(local: tuple | None, remote: tuple | None,
             sock.bind(local)
         if remote is not None:
             sock.connect(remote)
-        batch = max(1, _int_env("DBM_MMSG_BATCH", 32))
+        batch = max(1, _int_env("DBMT_MMSG_BATCH", 32))
         return MmsgEndpoint(sock, is_server, batch)
     except OSError:
         sock.close()

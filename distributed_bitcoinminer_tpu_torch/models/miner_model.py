@@ -27,6 +27,14 @@ The peeled search (``peel=True``) runs every launch above with the peeled
 lane body: K4, fed by the host hoist (``ops.sha256_torch.build_hoist``,
 built once per midstate-cache entry), or K3 with ``hoist=False``.
 
+Every launch runs under the tracing plane's launch observer
+(``utils.trace.observe_launch``) with a static signature: the entry, the
+kernel instantiation it reaches (the tail's variant, ``sha256_cuda.
+variant_of``: a tail's ``rem`` and ``k`` are runtime arguments of one
+compiled kernel, not shapes), the grid and the lane body. On the card the
+first launch of a signature carries the library's load and CUDA's lazy
+load of that kernel, which the observer times.
+
 Results are bit-identical to the Go reference, ties included (the
 earliest nonce wins everywhere).
 """
@@ -42,9 +50,11 @@ from ..bitcoin.hash import MAX_U64, hash_op
 from ..ops import searchop
 from ..ops.search import (devloop_carry, devloop_span, devloop_span_until,
                           span_segmin)
+from ..ops.sha256_cuda import variant_of
 from ..ops.sha256_host import sha256_midstate
 from ..ops.sha256_torch import M32, build_hoist, build_tail_template
 from ..utils.metrics import registry as _registry
+from ..utils.trace import observe_launch
 
 
 # Midstate-cache misses by whether they built a hoist plan (the JAX
@@ -89,6 +99,11 @@ class _BlockPlan:
         return self.hi_i - self.lo_i + 1
 
     @property
+    def variant(self) -> int:
+        """The search kernels' instantiation for this block's tail."""
+        return variant_of(self.rem, self.k, int(self.template.shape[0]))
+
+    @property
     def hoist_ops(self):
         """The hoist's operand dict (None without a hoist)."""
         return self.hoist.ops if self.hoist is not None else None
@@ -115,7 +130,7 @@ class NonceSearcher:
     ``grid`` overrides the kernels' block count (None: one full wave).
     ``peel`` runs every launch with the peeled lane body: K4, fed by the
     host hoist, or K3 with ``hoist=False`` (the JAX package's
-    ``DBM_PEEL``/``DBM_HOIST``; the plain versions on the CPU). The hoist
+    peel and hoist knobs; the plain versions on the CPU). The hoist
     is built only for the peeled body, which alone reads it.
     """
 
@@ -132,6 +147,16 @@ class NonceSearcher:
         #: and one per batched launch it made for :meth:`dispatch_batch`
         #: (on ``cuda``, one kernel wrapper call each).
         self.device_launches = 0
+        #: The chained launches of the last :meth:`dispatch` (one a
+        #: block); a chunk's span reports them as ``subs``.
+        self.last_dispatch_subs = 0
+
+    @property
+    def body(self) -> str:
+        """The lane body's name: ``rolled``, ``peel`` (K3) or ``hoist``
+        (K4)."""
+        return ("hoist" if self.peel and self.use_hoist
+                else "peel" if self.peel else "rolled")
 
     def _plan_block(self, d: int, k: int, block_base: int, lo: int,
                     hi: int) -> _BlockPlan:
@@ -175,13 +200,19 @@ class NonceSearcher:
         if lower > upper:
             raise ValueError("empty range")
         carry = devloop_carry(searchop.ARGMIN_OP, self.device)
+        subs = 0
         for plan in self.plan(lower, upper):
             self.device_launches += 1
-            carry = devloop_span(plan.midstate, plan.template, carry,
-                                 plan.lo_i, plan.lo_i, plan.hi_i, plan.lanes,
-                                 plan.base, rem=plan.rem, k=plan.k,
-                                 device=self.device, grid=self.grid,
-                                 peel=self.peel, hoist=plan.hoist_ops)
+            subs += 1
+            with observe_launch(("devloop_span", plan.variant, self.grid,
+                                 self.body)):
+                carry = devloop_span(plan.midstate, plan.template, carry,
+                                     plan.lo_i, plan.lo_i, plan.hi_i,
+                                     plan.lanes, plan.base, rem=plan.rem,
+                                     k=plan.k, device=self.device,
+                                     grid=self.grid, peel=self.peel,
+                                     hoist=plan.hoist_ops)
+        self.last_dispatch_subs = subs
         return carry
 
     def finalize(self, carry: torch.Tensor, lower: int) -> tuple[int, int]:
@@ -237,10 +268,13 @@ class NonceSearcher:
                 seg_meta.append((ei, plan.base))
             segs.append(sid)
         self.device_launches += 1
-        words = span_segmin(
-            [(p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes, p.rem,
-              p.k, p.hoist_ops) for _, p in rows], segs, device=self.device,
-            grid=self.grid, peel=self.peel)
+        variants = tuple(sorted({p.variant for _, p in rows}))
+        with observe_launch(("span_segmin", variants, self.grid,
+                             self.body)):
+            words = span_segmin(
+                [(p.midstate, p.template, p.lo_i, p.lo_i, p.hi_i, p.lanes,
+                  p.rem, p.k, p.hoist_ops) for _, p in rows], segs,
+                device=self.device, grid=self.grid, peel=self.peel)
         return seg_meta, words
 
     def finalize_batch(self, handle) -> list:
@@ -287,11 +321,13 @@ class NonceSearcher:
         carry = devloop_carry(searchop.UNTIL_OP, self.device)
         for plan in self.plan(lower, upper):
             self.device_launches += 1
-            carry = devloop_span_until(
-                plan.midstate, plan.template, carry, plan.lo_i, plan.lo_i,
-                plan.hi_i, plan.lanes, t_hi, t_lo, plan.base, rem=plan.rem,
-                k=plan.k, device=self.device, grid=self.grid,
-                peel=self.peel, hoist=plan.hoist_ops)
+            with observe_launch(("devloop_span_until", plan.variant,
+                                 self.grid, self.body)):
+                carry = devloop_span_until(
+                    plan.midstate, plan.template, carry, plan.lo_i,
+                    plan.lo_i, plan.hi_i, plan.lanes, t_hi, t_lo, plan.base,
+                    rem=plan.rem, k=plan.k, device=self.device,
+                    grid=self.grid, peel=self.peel, hoist=plan.hoist_ops)
         found, f_nonce, best_hash, best_nonce = searchop.decode_until(
             carry.cpu(), lower)
         if found:

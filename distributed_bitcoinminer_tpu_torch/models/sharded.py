@@ -8,7 +8,9 @@ shards' results are merged and folded into the span's carry on the
 devices (``parallel.mesh_search``), which crosses the host once per span.
 The plan, the midstate cache, the lane bodies (``peel``, ``hoist``) and
 the batched dispatch are :class:`NonceSearcher`'s: coalesced mice ride the
-segment-min launch on the mesh's first device, as in the JAX package. In
+segment-min launch on the mesh's first device, as in the JAX package.
+Each block's shard searches and folds run under one launch-observer
+signature (``utils.trace.observe_launch``). In
 difficulty mode the shards of a block share its lowest hit
 (``parallel.mesh_search.MeshSpan``), across cards through peer memory
 where every pair of cards has it (:attr:`MeshNonceSearcher.hit_scope`).
@@ -22,6 +24,7 @@ from ..ops.sha256_torch import M32
 from ..parallel.mesh_search import (MeshSpan, hit_scope, make_mesh,
                                     mesh_carry, mesh_devloop_span,
                                     mesh_devloop_span_until)
+from ..utils.trace import observe_launch
 from .miner_model import NonceSearcher
 
 
@@ -60,22 +63,28 @@ class MeshNonceSearcher(NonceSearcher):
         carries = mesh_carry(op, self.devices)
         span = None
         if target is not None and self.devices[0].type == "cuda":
-            body = ("hoist" if self.peel and self.use_hoist
-                    else "peel" if self.peel else "rolled")
-            span = MeshSpan(self.devices, self.hit_scope, body)
+            span = MeshSpan(self.devices, self.hit_scope, self.body)
+        entry = "mesh_devloop_span" if target is None \
+            else "mesh_devloop_until"
+        subs = 0
         for plan in self.plan(lower, upper):
             self.device_launches += 1
+            subs += 1
             kw = dict(rem=plan.rem, k=plan.k, devices=self.devices,
                       grid=self.grid, peel=self.peel, hoist=plan.hoist_ops)
-            if target is None:
-                carries = mesh_devloop_span(
-                    plan.midstate, plan.template, carries, plan.lo_i,
-                    plan.hi_i, plan.base, **kw)
-            else:
-                carries = mesh_devloop_span_until(
-                    plan.midstate, plan.template, carries, plan.lo_i,
-                    plan.hi_i, target >> 32, target & M32, plan.base,
-                    span=span, **kw)
+            with observe_launch((entry, plan.variant, self.grid, self.body,
+                                 self.n_devices)):
+                if target is None:
+                    carries = mesh_devloop_span(
+                        plan.midstate, plan.template, carries, plan.lo_i,
+                        plan.hi_i, plan.base, **kw)
+                else:
+                    carries = mesh_devloop_span_until(
+                        plan.midstate, plan.template, carries, plan.lo_i,
+                        plan.hi_i, target >> 32, target & M32, plan.base,
+                        span=span, **kw)
+        if target is None:
+            self.last_dispatch_subs = subs
         return carries[0]
 
     def dispatch(self, lower: int, upper: int):

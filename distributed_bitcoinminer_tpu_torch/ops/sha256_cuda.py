@@ -9,7 +9,7 @@ The wrappers take CUDA tensors only: there is no fallback here.
 
 Every search wrapper takes ``peel`` and ``hoist``: ``peel=True`` launches
 the peeled body, K3 (the JAX package's peel branch of ``_kernel_body``,
-``DBM_PEEL=1 DBM_HOIST=0``), or, with a hoist (``HoistPlan.ops`` from
+peel on and hoist off), or, with a hoist (``HoistPlan.ops`` from
 ``ops.sha256_torch.build_hoist``), K4 (``_peel_hoisted``). K3 computes
 K1's function from K1's operands, so its plain version is the plain scan
 of the same entry; K4's is that scan through the hoisted compression

@@ -56,6 +56,9 @@ NON_INT32_PREFIXES = ("IMAD", "VIADD", "LD", "ST", "BRA", "BSSY", "BSYNC",
                       "WARPSYNC", "RET", "CALL", "U")
 #: The least time of one probe launch, so that launch costs do not count.
 MIN_PROBE_MS = 10.0
+#: The least time of the timed probe launches, so that the SM clock is
+#: sampled several times.
+MIN_CLOCKED_MS = 500.0
 #: The span's block: "cmu440" with 9 digits from 2 * 10^9, a 1-block tail.
 SPAN_DATA, SPAN_BASE = "cmu440", 2 * 10 ** 9
 
@@ -165,7 +168,9 @@ def events_ms(fn, reps: int) -> float:
 
 class SmClock:
     """``nvidia-smi``'s SM clock (MHz) every 50 ms while the ``with`` block
-    runs; ``mhz`` is the median after the first quarter."""
+    runs; ``mhz`` is the median after the first quarter. Entering waits
+    for the first sample, so a block shorter than ``nvidia-smi``'s start
+    is still sampled."""
 
     def __enter__(self):
         self._proc = subprocess.Popen(
@@ -173,12 +178,14 @@ class SmClock:
              "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
              "-lms", "50"], stdout=subprocess.PIPE,
             stderr=subprocess.DEVNULL, text=True)
+        self._first = self._proc.stdout.readline()
         return self
 
     def __exit__(self, *exc):
         self._proc.terminate()
         out, _ = self._proc.communicate(timeout=20)
-        vals = [float(x) for x in out.split() if x.replace(".", "").isdigit()]
+        vals = [float(x) for x in (self._first + out).split()
+                if x.replace(".", "").isdigit()]
         self.samples = vals[len(vals) // 4:]
         self.mhz = statistics.median(self.samples) if self.samples else None
         return False
@@ -195,18 +202,22 @@ def probe_k7(dev, int32_per_lane: dict) -> dict:
     one = events_ms(lambda: alu_probe.alu_probe(wave, device=dev), 3)
     waves = max(1, math.ceil(1.2 * MIN_PROBE_MS / one))
     grid = wave * waves
+    reps = max(10, math.ceil(MIN_CLOCKED_MS / (one * waves)))
     with SmClock() as clock:
-        ms = events_ms(lambda: alu_probe.alu_probe(grid, device=dev), 10)
+        ms = events_ms(lambda: alu_probe.alu_probe(grid, device=dev), reps)
+    if clock.mhz is None:
+        raise RuntimeError("K7: nvidia-smi gave no SM clock sample")
     _, loop, _ = sass_loop(alu_probe.LIBRARY, "alu_probe_kernel")
     ops = opcode_counts(loop)
     lanes, iters = grid * threads, alu_probe.ITERS
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clk_hz = (clock.mhz or float("nan")) * 1e6
+    clk_hz = clock.mhz * 1e6
     per_clk = lanes * iters / (ms / 1e3) / (sms * clk_hz)
     issued, int32 = per_clk * len(loop), per_clk * int32_count(ops)
     int32_per_s = int32 * sms * clk_hz
     return {"probe": "K7", "device": torch.cuda.get_device_name(dev),
             "grid": grid, "waves": waves, "threads": threads,
+            "reps": reps,
             "lanes": lanes, "iters": iters, "ms": ms,
             "nominal_ops_per_s": lanes * iters * alu_probe.OPS_PER_ITER
             / (ms / 1e3),

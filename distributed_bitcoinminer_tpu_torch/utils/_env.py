@@ -35,7 +35,7 @@ def float_env(name: str, default: float) -> float:
 def str_env(name: str, default=None):
     """Raw string knob (``default`` when unset — callers parse/compare).
 
-    Exists so EVERY ``DBM_*`` read in the tree routes through this module
+    Exists so EVERY ``DBMT_*`` read in the package routes through this module
     (the dbmlint knob-hygiene analyzer enforces it): one grep target for
     the full knob surface, one place where read semantics can change.
     """

@@ -6,7 +6,7 @@ tier, with the JAX package's defaults (its ``utils/config.py``
 
 Constructor arguments carry the settings; the server and miner CLIs read
 them from the environment through the ``*_from_env`` readers (knobs
-documented in the port's README), each knob the twin of a ``DBM_*`` knob
+documented in the port's README), each knob the twin of a knob
 of the JAX package, parsed and clamped the same way:
 
 - :func:`qos_from_env`: ``DBMT_QOS_CHUNK_S`` (default 1.0, seconds of one
@@ -22,10 +22,23 @@ of the JAX package, parsed and clamped the same way:
 - :func:`cache_from_env`: ``DBMT_CACHE`` (default 1), ``DBMT_CACHE_SIZE``;
 - :func:`coalesce_from_env`: ``DBMT_COALESCE`` (default 1): 0 turns off
   the scheduler's coalescing windows and the miner's drain into one
-  batched launch;
-- ``DBMT_PEEL`` (default 0, as the JAX package's ``DBM_PEEL``): 1 runs
+  batched launch; ``DBMT_COALESCE_LANES`` (default 8, at least 2),
+  ``DBMT_COALESCE_MAX`` (default 2^20 nonces; 0 turns coalescing off),
+  ``DBMT_COALESCE_SMALL_S`` (default 0.25 s);
+- :func:`adapt_from_env`: ``DBMT_ADAPT`` (default 1: the scheduler mounts
+  the self-tuning controllers of ``apps.adapt``), ``DBMT_ADAPT_TICK_S``,
+  ``DBMT_ADAPT_BAND``, ``DBMT_ADAPT_FORCE_S``, ``DBMT_ADAPT_RATE0``,
+  ``DBMT_ADAPT_CHUNK``, ``DBMT_ADAPT_COALESCE``, ``DBMT_ADAPT_ADMIT``
+  (default 0, where the JAX package's is 1: ``AdaptParams``),
+  ``DBMT_ADAPT_PER_MINER`` (default 0);
+- :func:`lsp_params_from_env`: the LSP ``Params`` of the server and the
+  miner, ``DBMT_EPOCH_LIMIT``, ``DBMT_EPOCH_MILLIS``, ``DBMT_WINDOW`` and
+  ``DBMT_MAX_BACKOFF`` (defaults: the reference's);
+- :func:`pipeline_depth_from_env`: ``DBMT_PIPELINE_DEPTH`` (default 8),
+  the miner's queue of received Requests;
+- ``DBMT_PEEL`` (default 0, as the JAX package's peel knob): 1 runs
   every search launch of the miner with the peeled lane body;
-- ``DBMT_HOIST`` (default 1, as ``DBM_HOIST``): under ``DBMT_PEEL=1``,
+- ``DBMT_HOIST`` (default 1, as its hoist knob): under ``DBMT_PEEL=1``,
   feed the peeled body the host hoist (K4); 0 runs it without (K3);
 - ``DBMT_MESH_DEVICES`` (default: every visible CUDA device): the miner's
   mesh, a comma list of devices such as ``cuda:0,cuda:1``; a device may
@@ -201,7 +214,83 @@ def cache_from_env() -> CacheParams:
 
 
 def coalesce_from_env() -> CoalesceParams:
-    return CoalesceParams(enabled=int_env("DBMT_COALESCE", 1) != 0)
+    d = CoalesceParams()
+    return CoalesceParams(
+        enabled=int_env("DBMT_COALESCE", 1) != 0,
+        lanes=max(2, int_env("DBMT_COALESCE_LANES", d.lanes)),
+        max_nonces=int_env("DBMT_COALESCE_MAX", d.max_nonces),
+        small_s=float_env("DBMT_COALESCE_SMALL_S", d.small_s))
+
+
+@dataclass(frozen=True)
+class AdaptParams:
+    """The self-tuning control plane (``apps.adapt``).
+
+    With ``enabled`` the scheduler mounts an :class:`~..apps.adapt.
+    AdaptPlane`: an AIMD controller of the chunk and stripe seconds
+    driving a chunk's force latency toward ``force_s``, a controller of
+    the coalescing window (widened under a flood of mice, collapsed on
+    pipeline bubbles), and a scheduler-wide admission bucket controlled
+    on the slope of the queue's age. ``band`` is the dead band (a
+    fraction of the setpoint), ``tick_s`` the least time between
+    adjustments, ``rate0`` the admission rate to start at (0: open, at
+    the controller's ceiling). ``chunk``, ``coalesce`` and ``admit``
+    mount each controller; ``per_miner`` forks per-miner chunk
+    setpoints once the miners' rates diverge more than 4x. The
+    controllers' floors and ceilings are class constants.
+
+    ``admit`` defaults to False, where the JAX package's is True. Its
+    congestion bound trims the queue to the service rate measured so far
+    times 0.3 s (at least 8 requests). On an NVIDIA H100 (700 W), a
+    burst of 64 mice from 8 tenants, which the pool serves in about half
+    a second with the controller off, was cut to 8 queued and 7 of the 8
+    tenants were shed: after a one-request warm-up in two runs of four,
+    and on a warm pool (the burst after an elephant had been served for
+    a few sweeps) in two runs of two, where the controller off shed no
+    one (the repo's PERF.md, PR 11). The controller is held to the JAX
+    one in the tests; ``DBMT_ADAPT_ADMIT=1`` mounts it.
+    """
+    enabled: bool = True
+    tick_s: float = 1.0
+    band: float = 0.35
+    force_s: float = 1.0
+    rate0: float = 0.0
+    chunk: bool = True
+    coalesce: bool = True
+    admit: bool = False
+    per_miner: bool = False
+
+
+def adapt_from_env() -> AdaptParams:
+    d = AdaptParams()
+    return AdaptParams(
+        enabled=int_env("DBMT_ADAPT", 1) != 0,
+        tick_s=max(0.01, float_env("DBMT_ADAPT_TICK_S", d.tick_s)),
+        band=min(0.9, max(0.0, float_env("DBMT_ADAPT_BAND", d.band))),
+        force_s=max(0.01, float_env("DBMT_ADAPT_FORCE_S", d.force_s)),
+        rate0=max(0.0, float_env("DBMT_ADAPT_RATE0", d.rate0)),
+        chunk=int_env("DBMT_ADAPT_CHUNK", 1) != 0,
+        coalesce=int_env("DBMT_ADAPT_COALESCE", 1) != 0,
+        admit=int_env("DBMT_ADAPT_ADMIT", 0) != 0,
+        per_miner=int_env("DBMT_ADAPT_PER_MINER", 0) != 0)
+
+
+def lsp_params_from_env():
+    """The LSP ``Params`` of the server and the miner: the reference's
+    defaults, each overridden by its knob."""
+    from ..lsp.params import Params
+    d = Params()
+    return Params(
+        epoch_limit=int_env("DBMT_EPOCH_LIMIT", d.epoch_limit),
+        epoch_millis=int_env("DBMT_EPOCH_MILLIS", d.epoch_millis),
+        window_size=int_env("DBMT_WINDOW", d.window_size),
+        max_backoff_interval=int_env("DBMT_MAX_BACKOFF",
+                                     d.max_backoff_interval))
+
+
+def pipeline_depth_from_env() -> int:
+    """The pipelined miner's Request queue bound (at least 1)."""
+    return max(1, int_env("DBMT_PIPELINE_DEPTH", 8))
 
 
 @dataclass(frozen=True)

@@ -45,8 +45,8 @@ to. Subsystems with per-instance stats (the scheduler) keep their own
 :class:`Registry` and ``mount()`` it into the default one under a prefix,
 so one ``snapshot()`` still covers the whole process. :func:`ensure_emitter`
 starts (once per process) a daemon thread that logs one JSON line per
-``DBM_METRICS_INTERVAL_S`` seconds through the existing ``dbm`` logger tree
-(``dbm.metrics``), plus an atexit final dump — 0 disables the emitter.
+``DBMT_METRICS_INTERVAL_S`` seconds through the existing ``dbmt`` logger tree
+(``dbmt.metrics``), plus an atexit final dump — 0 disables the emitter.
 
 Request traces (:class:`RequestTrace` / :class:`TraceBuffer`) are the
 per-request complement of the aggregate registry: an ordered, timestamped
@@ -69,7 +69,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 from ._env import float_env as _float_env, int_env as _int_env
 
-_log = logging.getLogger("dbm.metrics")
+_log = logging.getLogger("dbmt.metrics")
 
 #: Default histogram buckets (seconds): spans sub-ms LSP RTTs through
 #: multi-minute wedged-chunk latencies. Cumulative ``le`` semantics; an
@@ -235,7 +235,7 @@ class Registry:
     def __init__(self, max_series: Optional[int] = None):
         self._lock = threading.RLock()
         self.max_series = (max_series if max_series is not None
-                           else _int_env("DBM_METRICS_MAX_SERIES", 64))
+                           else _int_env("DBMT_METRICS_MAX_SERIES", 64))
         # kind -> name -> labelkey -> metric
         self._families: Dict[str, Dict[str, Dict[_LabelKey, object]]] = {
             k: {} for k in _KINDS}
@@ -350,14 +350,14 @@ class Registry:
 class Emitter(threading.Thread):
     """Daemon thread logging one JSON snapshot line per interval.
 
-    Rides the existing ``dbm`` logger tree (``dbm.metrics``) so the line
+    Rides the existing ``dbmt`` logger tree (``dbmt.metrics``) so the line
     lands wherever ``configure_logging`` pointed the process — the same
     sink as every other structured log. ``stop()`` emits one final line.
     """
 
     def __init__(self, reg: Registry, interval_s: float,
                  logger: Optional[logging.Logger] = None):
-        super().__init__(name="dbm-metrics-emitter", daemon=True)
+        super().__init__(name="dbmt-metrics-emitter", daemon=True)
         self.registry = reg
         self.interval_s = interval_s
         self.logger = logger if logger is not None else _log
@@ -482,13 +482,13 @@ def registry() -> Registry:
 def ensure_emitter(interval_s: Optional[float] = None) -> Optional[Emitter]:
     """Start the process emitter once; later calls return the running one.
 
-    ``interval_s=None`` reads ``DBM_METRICS_INTERVAL_S`` (default 30.0);
+    ``interval_s=None`` reads ``DBMT_METRICS_INTERVAL_S`` (default 30.0);
     ``<= 0`` disables (returns None without starting anything — the
     "near-zero overhead when idle" contract). The final atexit dump is
     registered with the first started emitter.
     """
     if interval_s is None:
-        interval_s = _float_env("DBM_METRICS_INTERVAL_S", 30.0)
+        interval_s = _float_env("DBMT_METRICS_INTERVAL_S", 30.0)
     if interval_s <= 0:
         return None
     global _emitter
@@ -575,7 +575,7 @@ class RequestTrace:
 
 class NullRequestTrace:
     """Shared no-op stand-in for an UNSAMPLED request's trace
-    (``DBM_TRACE_SAMPLE``).
+    (``DBMT_TRACE_SAMPLE``).
 
     At 10k tenants the per-request :class:`RequestTrace` allocation —
     object + lock + an event dict per lifecycle edge — is itself a
@@ -583,7 +583,7 @@ class NullRequestTrace:
     singleton instead: every ``event()`` is one no-op method call, it
     never registers in a :class:`TraceBuffer` (``register`` drops it),
     and it reports ``closed`` so span-completeness checks skip it.
-    ``DBM_TRACE_SAMPLE=1.0`` (the default) never constructs it — today's
+    ``DBMT_TRACE_SAMPLE=1.0`` (the default) never constructs it — today's
     behavior bit-for-bit.
     """
 
@@ -620,7 +620,7 @@ class TraceBuffer:
 
     def __init__(self, cap: Optional[int] = None):
         self.cap = cap if cap is not None else _int_env(
-            "DBM_METRICS_TRACE_CAP", 256)
+            "DBMT_METRICS_TRACE_CAP", 256)
         self._d: Dict[object, RequestTrace] = {}
         self._lock = threading.Lock()
 
@@ -631,7 +631,7 @@ class TraceBuffer:
 
     def register(self, key, trace: RequestTrace) -> None:
         if trace.null:
-            return     # unsampled (DBM_TRACE_SAMPLE): nothing to retain
+            return     # unsampled (DBMT_TRACE_SAMPLE): nothing to retain
         trace.key = key
         with self._lock:
             self._d.pop(key, None)

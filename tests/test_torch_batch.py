@@ -457,7 +457,10 @@ def test_coalescer_batches_queued_chunks_in_order():
     assert worker.coalesced_chunks >= 2
 
 
-def test_coalesce_off_reproduces_the_serial_path():
+def test_coalesce_off_reproduces_the_serial_path(monkeypatch):
+    # Untraced: a traced Result carries its chunk's timings, which no two
+    # runs share; the stock bytes must match.
+    monkeypatch.setenv("DBMT_TRACE", "0")
     payloads = [new_request("coal parity", lo, up).to_json()
                 for lo, up in _RANGES]
     off, w_off = _drive(list(payloads), 6, searcher_factory=cpu_factory(),
@@ -575,6 +578,7 @@ def test_mice_share_launches_end_to_end(ref, coalesce):
             else:
                 c.scheduler.miner_plane.coalesce = CoalesceParams(
                     enabled=coalesce)
+                c.scheduler.adapt_plane = None
             workers = [await c.start_miner(worker=MinerWorker(
                 c.hostport, params=params, coalesce=coalesce,
                 searcher_factory=cpu_factory(delay=0.02)))

@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
                  "apps.miner_plane", "models.miner_model", "ops.search",
                  "ops.sha256_cuda", "ops.sha256_torch", "lsp.core",
                  "lspnet.net", "bitcoin.hash", "utils.config",
-                 "utils.metrics"):
+                 "utils.metrics", "utils.trace", "utils.sanitize",
+                 "utils.logging", "utils.profiling", "apps.adapt",
+                 "tools.trace_census", "tools.dbmtrace", "tools.tune"):
         assert f"distributed_bitcoinminer_tpu_torch.{name}" in modules
 
 
@@ -63,6 +65,14 @@ def test_sources_never_name_jax_or_the_jax_package():
         text = path.read_text()
         assert not imports_jax.search(text), path
         assert not names_pkg.search(text), path
+
+
+def test_knobs_are_the_ports_own():
+    """The port reads and names only ``DBMT_`` knobs: a ``DBM_`` setting
+    meant for the JAX package never reaches it in a shared process."""
+    jax_knob = re.compile(r"\bDBM_[A-Z0-9_]+")
+    for path in sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")):
+        assert not jax_knob.search(path.read_text()), path
 
 
 def test_cuda_is_built_and_imported_only_inside_calls():

@@ -97,7 +97,8 @@ class Pair:
             verify=config.VerifyParams(**verify),
             audit_rng=random.Random(seed),
             stripe=config.StripeParams(enabled=False),
-            cache=config.CacheParams(enabled=False))
+            cache=config.CacheParams(enabled=False),
+            adapt=config.AdaptParams(enabled=False))
         self.ref = RefScheduler(
             self.ref_server, lease=ref_config.LeaseParams(**lease_kw),
             qos=ref_config.QosParams(enabled=qos, lazy=False, **qos_kw),

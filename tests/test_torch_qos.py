@@ -35,6 +35,8 @@ from distributed_bitcoinminer_tpu_torch.bitcoin.hash import (hash_op,
 from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
     Message, new_request, new_result)
 from distributed_bitcoinminer_tpu_torch.utils.config import \
+    AdaptParams as PortAdaptParams
+from distributed_bitcoinminer_tpu_torch.utils.config import \
     CacheParams as PortCacheParams
 from distributed_bitcoinminer_tpu_torch.utils.config import \
     CoalesceParams, QosParams
@@ -78,7 +80,8 @@ class Pair:
             coalesce=CoalesceParams(enabled=coalesce, lanes=lanes),
             verify=PortVerifyParams(audit_p=0.0),
             stripe=PortStripeParams(enabled=False),
-            cache=PortCacheParams(enabled=False))
+            cache=PortCacheParams(enabled=False),
+            adapt=PortAdaptParams(enabled=False))
         self.ref = RefScheduler(
             self.ref_server, lease=LeaseParams(),
             qos=RefQosParams(enabled=qos is not False, lazy=False, **qos_kw),

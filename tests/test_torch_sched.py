@@ -1,31 +1,44 @@
 """The rest of the port's scheduler against the JAX package's, in lockstep.
 
 Striping with the rate-hint JOIN, the result cache, admission and
-shedding, tenant weights and the lazy QoS pump, all ON, as the JAX
-package runs them by default. The port's scheduler and the JAX
-``Scheduler`` are fed the same events (joins with and without a rate
-hint, requests, Results, false claims, drops, clock steps and sweeps)
-over recording fake servers, with one fake clock read by both packages'
-scheduler, miner plane and tenant plane (the port's admission buckets
-read it through its tenant plane; the JAX ones are handed it through
-``clock=``). After every event both have written the same messages,
-closed the same conns, and hold the same counters, miners (pending
-chunks, rates and their hint flags, trust), queue, tenants (weights,
-deficits, buckets, sheds), DRR ring, lazy-pump indexes and cache. Plus
-the new ``DBMT_*`` readers against their ``DBM_*`` twins, and the
-miner's rate-hint probe.
+shedding, tenant weights, the lazy QoS pump, request tracing and the
+adapt plane, all ON, as the JAX package runs them by default (a case
+keeps the adapt plane off on both sides). The port's scheduler and the
+JAX ``Scheduler`` are fed the same events (joins with and without a rate
+hint, requests, Results with and without a miner's span, false claims,
+drops, clock steps and sweeps) over recording fake servers, with one
+fake clock read by both packages' scheduler, miner plane, tenant plane
+and request traces (the port's admission buckets read it through its
+tenant plane and its adapt controllers through its scheduler; the JAX
+ones are handed it through ``clock=``). After every event both have
+written the same messages, closed the same conns, and hold the same
+counters, miners (pending chunks, rates and their hint flags, trust),
+queue, tenants (weights, deficits, buckets, sheds), DRR ring, lazy-pump
+indexes, cache, adapt controllers (values, histories, the live knobs
+and the per-miner overrides) and stitched request traces with their
+export tracks. Plus the new ``DBMT_*`` readers against their ``DBM_*``
+twins, and the miner's rate-hint probe.
 """
 
 import random
+import time
+import types
 
 import numpy as np
 import pytest
 
+from distributed_bitcoinminer_tpu.apps import miner_plane as ref_mp_mod
+from distributed_bitcoinminer_tpu.apps import scheduler as ref_sched_mod
+from distributed_bitcoinminer_tpu.apps import tenant_plane as ref_tp_mod
 from distributed_bitcoinminer_tpu.apps.scheduler import \
     Scheduler as RefScheduler
 from distributed_bitcoinminer_tpu.bitcoin.hash import scan_min
 from distributed_bitcoinminer_tpu.utils import config as ref_config
+from distributed_bitcoinminer_tpu.utils import metrics as ref_metrics_mod
 from distributed_bitcoinminer_tpu_torch.apps import miner as miner_mod
+from distributed_bitcoinminer_tpu_torch.apps import miner_plane as mp_mod
+from distributed_bitcoinminer_tpu_torch.apps import scheduler as sched_mod
+from distributed_bitcoinminer_tpu_torch.apps import tenant_plane as tp_mod
 from distributed_bitcoinminer_tpu_torch.apps.scheduler import (STAT_COUNTERS,
                                                                Scheduler)
 from distributed_bitcoinminer_tpu_torch.bitcoin.hash import (hash_op,
@@ -33,7 +46,23 @@ from distributed_bitcoinminer_tpu_torch.bitcoin.hash import (hash_op,
 from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
     Message, new_join, new_request, new_result)
 from distributed_bitcoinminer_tpu_torch.utils import config
-from tests.test_torch_lease import clock, honest  # noqa: F401  (fixture)
+from distributed_bitcoinminer_tpu_torch.utils import metrics as metrics_mod
+from distributed_bitcoinminer_tpu_torch.utils.trace import SPAN_PHASES
+from tests.test_torch_lease import Clock, honest
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    """One fake ``time.monotonic`` for both packages' scheduler, planes
+    and request traces (the rest of ``time`` stays real)."""
+    c = Clock()
+    fake = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time)
+                                    if not k.startswith("_")})
+    fake.monotonic = c.monotonic
+    for mod in (sched_mod, mp_mod, tp_mod, metrics_mod, ref_sched_mod,
+                ref_mp_mod, ref_tp_mod, ref_metrics_mod):
+        monkeypatch.setattr(mod, "time", fake)
+    return c
 
 MINER_A, MINER_B, MINER_C = 101, 102, 103
 TEN_X, TEN_Y, TEN_Z, TEN_W = 1, 2, 3, 4
@@ -57,14 +86,16 @@ class FakeServer:
 
 class Pair:
     """The port's scheduler and the JAX package's with the same settings:
-    ``qos``, ``stripe``, ``cache``, ``lease`` and ``verify`` are dicts of
-    the param blocks' fields over the JAX package's defaults (every
-    feature on, the lazy pump, no audits; the port's own default pump is
-    the eager one, so its side is given ``lazy=True`` unless ``qos``
-    says otherwise)."""
+    ``qos``, ``stripe``, ``cache``, ``lease``, ``verify`` and ``adapt``
+    are dicts of the param blocks' fields over the JAX package's defaults
+    (every feature on, the lazy pump, the adapt plane with its admission
+    controller, no audits; the port's own default pump is the eager one
+    and its adapt plane mounts no admission controller, so its side is
+    given ``lazy=True`` and ``admit=True`` unless ``qos`` or ``adapt``
+    say otherwise)."""
 
     def __init__(self, clock, qos=None, stripe=None, cache=None, lease=None,
-                 verify=None, seed=7, qos_params=None):
+                 verify=None, seed=7, qos_params=None, adapt=None):
         verify = {"audit_p": 0.0, **(verify or {})}
         qos_params = qos_params or (
             config.QosParams(**{"lazy": True, **(qos or {})}),
@@ -77,7 +108,8 @@ class Pair:
             verify=config.VerifyParams(**verify),
             audit_rng=random.Random(seed),
             stripe=config.StripeParams(**(stripe or {})),
-            cache=config.CacheParams(**(cache or {})))
+            cache=config.CacheParams(**(cache or {})),
+            adapt=config.AdaptParams(**{"admit": True, **(adapt or {})}))
         self.ref = RefScheduler(
             self.ref_server, qos=qos_params[1],
             coalesce=ref_config.CoalesceParams(),
@@ -86,7 +118,7 @@ class Pair:
             audit_rng=random.Random(seed),
             stripe=ref_config.StripeParams(**(stripe or {})),
             cache=ref_config.CacheParams(**(cache or {})),
-            adapt=ref_config.AdaptParams(enabled=False),
+            adapt=ref_config.AdaptParams(**(adapt or {})),
             clock=clock.monotonic)
 
     def both(self, fn):
@@ -113,13 +145,14 @@ class Pair:
     def head(self, miner):
         return self.port.miner_plane.find_miner(miner).pending[0]
 
-    def answer(self, miner, pair=None, echo=True):
+    def answer(self, miner, pair=None, echo=True, span=None):
         """The miner answers its oldest chunk: honestly, or with
         ``pair(chunk)``'s ``(hash, nonce)``; the target echoed unless
-        ``echo`` is off (a stock miner)."""
+        ``echo`` is off (a stock miner); ``span`` rides the Result."""
         c = self.head(miner)
         h, nonce = (pair or honest)(c)
-        msg = new_result(h, nonce, c.target if echo else 0)
+        msg = Message.from_json(new_result(h, nonce, c.target if echo else 0,
+                                           span=span).to_json())
         self.both(lambda s: s._on_result(miner, msg))
 
     def set_rates(self, rate, miners=()):
@@ -170,7 +203,15 @@ class Pair:
                     for j, r in s._inflight.items()]
         queued = s.queue if isinstance(s, RefScheduler) \
             else s.tenant_plane.requests()
+        tp = s.tenant_plane
+        adapt = s.adapt_plane
         return {
+            "traces": [(k, t.to_dict()) for k, t in tp.traces.items()],
+            "tracks": sorted(tp.tracks.items("trace_track")),
+            "adapt": None if adapt is None
+            else (adapt.state(), adapt.histories()),
+            "knobs": (s.qos.chunk_s, mp.stripe.chunk_s, mp.coalesce.small_s),
+            "overrides": dict(mp.chunk_s_overrides),
             "miners": miners,
             "parked": [(c.job_id, c.idx) for c in mp.parked],
             "pool": (mp.pool_rate, mp._pool_hinted),
@@ -479,9 +520,18 @@ def test_env_weights_share_equals_jax(clock, monkeypatch):
 
 # ------------------------------------------------------ the lazy pump
 
-def _storm(clock, seed):
+def _span(rng):
+    """A miner's chunk span drawn from ``rng``: every phase, and now and
+    then a shared launch's id and lanes."""
+    span = {k: round(float(rng.uniform(0.0, 1.5)), 6) for k in SPAN_PHASES}
+    if rng.random() < 0.3:
+        span.update(launch=int(rng.integers(1, 9)), lanes=2)
+    return span
+
+
+def _storm(clock, seed, adapt=None):
     rng = np.random.default_rng(seed)
-    p = Pair(clock,
+    p = Pair(clock, adapt=adapt,
              qos={"wholesale_s": float(rng.choice([0.2, 1.0])),
                   "chunk_s": float(rng.choice([0.05, 0.2])),
                   "depth": int(rng.integers(1, 4)),
@@ -523,7 +573,8 @@ def _storm(clock, seed):
                 p.answer(m, pair=lambda c: (hash_op(c.data, c.lower) ^ 1,
                                             c.lower))
             else:
-                p.answer(m)
+                p.answer(m, span=_span(rng) if rng.random() < 0.5
+                         else None)
         elif r < 0.88:
             clock.step(float(rng.choice([0.05, 0.3, 0.7, 2.5])))
             p.sweep()
@@ -547,17 +598,26 @@ def _storm(clock, seed):
 
 
 STORM_SEEDS = range(10)
+#: The storms' adapt settings: the JAX defaults (on) for every seed, plus
+#: the plane off and per-miner chunk setpoints on two seeds each.
+STORM_CASES = [(seed, "on") for seed in STORM_SEEDS] \
+    + [(seed, mode) for seed in (0, 1) for mode in ("off", "per_miner")]
+ADAPT_MODES = {"on": {}, "off": {"enabled": False},
+               "per_miner": {"per_miner": True}}
 
 
-@pytest.mark.parametrize("seed", STORM_SEEDS)
-def test_lazy_pump_storms_equal_jax(clock, seed):
+@pytest.mark.parametrize("seed,adapt", STORM_CASES,
+                         ids=[f"{s}-{a}" for s, a in STORM_CASES])
+def test_lazy_pump_storms_equal_jax(clock, seed, adapt):
     """Seeded storms of joins (hinted or not), requests (mice, elephants,
-    targets, repeats), answers, false claims, miner and client drops,
-    weight changes, clock steps and sweeps, all features on: the grants
-    (every write), closes and state match the JAX lazy pump's after
-    every event, and every Result a client gets is the oracle's answer
-    to one of its requests (the scanned range is ``[0, maxNonce+1]``)."""
-    p, sent_by = _storm(clock, seed)
+    targets, repeats), answers (half with a miner's span), false claims,
+    miner and client drops, weight changes, clock steps and sweeps, all
+    features on: the grants (every write), closes and state, the adapt
+    controllers and the stitched traces included, match the JAX lazy
+    pump's after every event, and every Result a client gets is the
+    oracle's answer to one of its requests (the scanned range is
+    ``[0, maxNonce+1]``)."""
+    p, sent_by = _storm(clock, seed, ADAPT_MODES[adapt])
     assert p.port.stats["results_sent"] > 0
     oracle = {}
     for conn, kind, *_, h, nonce, _t in p.port_server.writes:
@@ -574,15 +634,59 @@ def test_lazy_pump_storms_equal_jax(clock, seed):
 
 def test_storms_exercise_every_feature(clock):
     """The storms between them stripe, replay at arrival, shed, grant
-    through the lazy pump and catch false claims."""
+    through the lazy pump, catch false claims, fold miners' spans into
+    the traces and move each adapt controller."""
     totals = dict.fromkeys(("chunks_striped", "cache_hits", "qos_shed",
                             "qos_grants", "claims_failed",
                             "qos_window_grants"), 0)
+    adjusted = dict.fromkeys(("chunk_adjustments", "window_adjustments",
+                              "admit_adjustments"), 0)
+    spans = 0
     for seed in STORM_SEEDS:
         p, _ = _storm(clock, seed)
         for k in totals:
             totals[k] += p.port.stats[k]
+        state = p.port.adapt_plane.state()
+        for k in adjusted:
+            adjusted[k] += state[k]
+        spans += sum(e["event"] == "miner_span"
+                     for _, t in p.port.tenant_plane.traces.items()
+                     for e in t.events)
     assert all(totals.values()), totals
+    assert all(adjusted.values()), adjusted
+    assert spans > 0
+
+
+def test_per_miner_setpoints_fork_and_stripe_equal_jax(clock):
+    """Per-miner chunk setpoints: with the miners' measured rates 20x
+    apart, slow force spans on one and fast ones on the other fork a
+    value a miner (``chunk_s_overrides``), which the stripe planner then
+    reads; the values, overrides and plans match the JAX package's."""
+    p = Pair(clock, qos={"wholesale_s": 0.1, "chunk_s": 0.5},
+             stripe={"chunk_s": 0.5}, adapt={"per_miner": True})
+    p.join(MINER_A)
+    p.join(MINER_B)
+    p.set_rates(1_000.0, (MINER_A,))
+    p.set_miner(MINER_B, rate_ewma=20_000.0)
+    p.request(TEN_X, "per miner", 199_999)
+    forked = set()
+    for _ in range(60):
+        busy = p.busy()
+        if not busy:
+            break
+        for m in busy:
+            p.answer(m, span={"force_s": 4.0 if m == MINER_A else 0.01,
+                              "gap_s": 0.0})
+        p.set_miner(MINER_A, rate_ewma=1_000.0)
+        p.set_miner(MINER_B, rate_ewma=20_000.0)
+        clock.step(1.0)
+        p.sweep()
+        forked |= set(p.port.miner_plane.chunk_s_overrides)
+    assert forked == {MINER_A, MINER_B}
+    overrides = dict(p.port.miner_plane.chunk_s_overrides)
+    assert overrides[MINER_A] < overrides[MINER_B]
+    p.drain()
+    assert p.replies(TEN_X) == [scan_min("per miner", 0, 200_000)]
 
 
 # ------------------------------------------------------ the env readers
