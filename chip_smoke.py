@@ -2,8 +2,11 @@
 """GPU smoke of the PyTorch/CUDA port: build, kernel checks, end to end, rates.
 
     python3 chip_smoke.py                # every phase, on one CUDA card
-    python3 chip_smoke.py --cross-card   # the mesh over every card of a
-                                         # box with several, and no more
+    python3 chip_smoke.py --cross-card   # the mesh, and a pod of one
+                                         # rank a card with its
+                                         # follower-death drill, over
+                                         # every card of a box with
+                                         # several
     python3 chip_smoke.py --against CHECKOUT
         # the build and kernel checks, then this package against the one
         # in CHECKOUT (another commit's tree, e.g. the parent's from
@@ -111,7 +114,27 @@ JSON line per phase:
    (``DBMT_PEEL=1``) R1 and R4; every answer equal to the default
    path's, their launches the shard searches and reduces (K1 and K2, or
    K4 with K1/K2 reduces) and one mesh fold (K6mesh) per block served
-   and distinct device, with no single-device K6 fold. Then the lease
+   and distinct device, with no single-device K6 fold. Then the pod
+   path, on a new server: one pod miner of two ranks on card 0
+   (``parallel.multihost``; each rank a mesh of two shards of card 0,
+   its rows over gloo, as NCCL refuses two ranks on one card) serves R1,
+   R2, R3, the mouse and R4, every answer equal to the default path's,
+   the server seeing one JOIN, each rank making one mesh fold and one
+   row gather a block and no K6; then the follower-death drill: the
+   follower of a new pod (``DBMT_POD_TIMEOUT_S=20``) is killed as its
+   elephant job starts, the owner must exit 17 within the bound, and a
+   plain miner that joins afterwards serves the chunk, equal to the mice
+   path's elephant; then the replica path: a server of two scheduler
+   replicas (``DBMT_REPLICAS=2``) and two miners serve R1, R3, R4 and
+   the 64 mice, each equal to the default or mice path's, answered from
+   both replicas' job-id ranges, the merged ``results_sent`` the server
+   logs at its stop equal to the answers; and a synchronised row gather
+   of the pod timed (``--pod-gather``, one process a rank). The
+   adapt-on mice run (coalescing on) runs with the capture plane armed
+   (``DBMT_CAPTURE=1``): its answers equal the adapt-off run's, its
+   records add up to the run's arrivals, answers, sheds and chunk
+   Results, and its baseline's p50/p99 are printed beside the clients';
+   its replay plan holds the traffic's tenants and sizes. Then the lease
    path, on a new server with 2 s leases (``DBMT_LEASE_GRACE_S``,
    ``DBMT_LEASE_FLOOR_S``), a 0.1 s sweep and 1 s age alarms: a wedged
    miner (this script's ``--fault-miner wedge``: the port's
@@ -1543,6 +1566,10 @@ MICE_SERVER_ENV = {"DBMT_QOS_WHOLESALE_S": "0.1", "DBMT_QOS_CHUNK_S": "0.05"}
 #: has moved (its first sweeps), and only then come the elephant and the
 #: mice of the mice path, while it is still served.
 WARM_ELEPHANT = ("warm pool", (1 << 36) - 1)
+#: The cross-card drill's job: the elephant's data over 2^36 nonces, about
+#: two seconds on a pod of four H100s, so that a follower killed as the job
+#: starts dies mid-job.
+CROSS_DRILL_JOB = ("cmu440", (1 << 36) - 1)
 
 
 def mice_traffic() -> list:
@@ -1599,7 +1626,8 @@ async def chunk_moved(log_path: str, served) -> None:
 
 def run_mice(outdir: str, coalesce: bool, miner_env: dict | None = None,
              tag: str | None = None, adapt: bool | None = None,
-             admit: bool = False, warm: bool = False) -> dict:
+             admit: bool = False, warm: bool = False,
+             server_env: dict | None = None) -> dict:
     """The mice path on a new server and two miners, all with
     ``DBMT_COALESCE`` on or off (the miners also with ``miner_env``), the
     server's adapt plane on or off (``DBMT_ADAPT``; None: its default,
@@ -1609,14 +1637,15 @@ def run_mice(outdir: str, coalesce: bool, miner_env: dict | None = None,
     has moved, then the elephant and the mice. Returns the answers, the
     request seconds, the tenants shed (their connections closed), the
     miners' launches and coalesced dispatches, the adapt plane's last
-    values, and the server's and the miners' logs."""
+    values, and the server's and the miners' logs. ``server_env`` adds to
+    the server's environment."""
     import asyncio
 
     from distributed_bitcoinminer_tpu_torch.apps.client import submit
     tag = tag or (("mice" if coalesce else "mice_per_chunk")
                   + ("_adapt" if adapt else "") + ("_admit" if admit else ""))
     env = {"DBMT_COALESCE": "1" if coalesce else "0"}
-    server_env = {**MICE_SERVER_ENV, **env}
+    server_env = {**MICE_SERVER_ENV, **env, **(server_env or {})}
     if adapt is not None:
         server_env["DBMT_ADAPT"] = "1" if adapt else "0"
     if admit:
@@ -1773,7 +1802,8 @@ def phase_e2e(outdir: str) -> dict:
         with open(server_log, errors="replace") as f:
             server_text = f.read()
     # The mice path in turns: the adapt plane on (the default), then off.
-    mice_adapt = [run_mice(outdir, True, adapt=True),
+    mice_adapt = [run_mice(outdir, True, adapt=True, server_env=CAPTURE_ENV,
+                           tag="mice_adapt_capture"),
                   run_mice(outdir, False, adapt=True),
                   run_mice(outdir, True, adapt=True, admit=True)]
     mice_runs = [run_mice(outdir, True, adapt=False),
@@ -1785,6 +1815,10 @@ def phase_e2e(outdir: str) -> dict:
                  for i in (1, 2) for admit in (True, False)]
     peeled = run_peeled(outdir)
     mesh = run_mesh(outdir)
+    pod = run_pod(outdir)
+    drill = run_pod_drill(outdir)
+    replicas = run_replicas(outdir)
+    gather = pod_gather_ms([POD_RANK_DEVICES] * 2)
     lease = run_lease(outdir)
     verify = run_verify(outdir)
     sched_adapt = run_sched(outdir, adapt=True)
@@ -1875,6 +1909,19 @@ def phase_e2e(outdir: str) -> dict:
               f"chunk plans {json.dumps(run['plans'])}", flush=True)
     check_peeled(peeled, by_name, dev)
     check_mesh_paths(mesh, by_name)
+    check_pod(pod, by_name)
+    check_pod_drill(drill, mice_runs[0]["elephant"])
+    check_replicas(replicas, by_name, mice_runs[0])
+    capture = check_capture(mice_adapt[0], mice_runs[0])
+    mesh_r3 = next(r for r in mesh["default"]["requests"]
+                   if r["request"] == "R3")
+    pod_r3 = next(r for r in pod["requests"] if r["request"] == "R3")
+    print(f"pod: rows over {pod['backend']}, {gather['ms_per_gather'][0]:.4f} "
+          f"ms a row gather (synchronised); R3 {pod_r3['seconds']:.4f} s on "
+          f"the pod of 2 ranks x 2 shards of card 0, "
+          f"{mesh_r3['seconds']:.4f} s on the one-process mesh "
+          f"{mesh['devices']}; drill: owner exit {drill['owner_rc']} after "
+          f"{drill['owner_exit_s']:.3f} s", flush=True)
     check_lease(lease, by_name)
     check_verify(verify, by_name)
     check_sched(sched, by_name, mice_runs[0], dev)
@@ -1898,7 +1945,9 @@ def phase_e2e(outdir: str) -> dict:
                                                  "log.txt")))}
     info = {"requests": results, "mice": mice_runs, "mice_adapt": mice_adapt,
             "mice_warm": mice_warm,
-            "peeled": peeled, "mesh": mesh, "lease": lease,
+            "peeled": peeled, "mesh": mesh, "pod": pod, "pod_drill": drill,
+            "pod_gather": gather, "replicas": replicas, "capture": capture,
+            "lease": lease,
             "verify": verify, "sched": sched, "sched_adapt": sched_adapt,
             "trace": traced, "blown_leases_by_server": blown,
             "launches": {"arg-min": argmin_launches,
@@ -1915,6 +1964,9 @@ def phase_e2e(outdir: str) -> dict:
                          **{f"mesh_{leg}": run["launches"]
                             for leg, run in mesh.items()
                             if isinstance(run, dict)},
+                         "pod": {k: sum(r[k] for r in pod["launches"])
+                                 for k in KERNELS},
+                         "replicas": replicas["launches"],
                          "lease": sum_launches(lease["launches"]),
                          "verify": sum_launches(verify["launches"]),
                          "sched": sched["launches"],
@@ -2194,6 +2246,434 @@ def check_mesh_paths(mesh: dict, default: dict) -> None:
                 and not any(counts[k] for k in ("K3", "K5", "K6"))):
             fail(f"the mesh path {leg} launched {counts} over {blocks} "
                  f"blocks on {len(devices)} shards, {holders} devices")
+
+
+#: A pod of two ranks on card 0, each rank a mesh of two shards of it
+#: (``parallel.multihost``): their rows cross through gloo, as NCCL
+#: refuses two ranks on one card.
+POD_RANK_DEVICES = "cuda:0,cuda:0"
+
+
+def read_rank_counts(log_path: str) -> dict:
+    """A pod rank's last counts line: the owner's ``miner counts``, a
+    follower's ``follower counts``."""
+    last = {}
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            for marker in ("miner counts ", "follower counts "):
+                if marker in line:
+                    last = json.loads(line.split(marker, 1)[1])
+    return last
+
+
+def start_pod(c: Cluster, tag: str, devices_of, env: dict | None = None
+              ) -> list:
+    """The ranks of one pod miner (rank r's local mesh ``devices_of(r)``,
+    ``DBMT_MESH_DEVICES``); returns their logs, the owner's first, once
+    the owner has joined and every follower's mesh is warm. Each rank's
+    launch counts must start at 0."""
+    world = len(devices_of)
+    pod_env = {"DBMT_COORDINATOR": f"127.0.0.1:{free_tcp_port()}",
+               "DBMT_NUM_PROCS": str(world), **(env or {})}
+    logs, procs = [], []
+    for r in range(world):
+        logs.append(c.spawn(f"{tag}_rank{r}", "miner",
+                            [c.hostport, "--device", "cuda"],
+                            {**pod_env, "DBMT_PROC_ID": str(r),
+                             "DBMT_MESH_DEVICES": devices_of[r]}))
+        procs.append(c.procs[-1])
+    wait_for_line(logs[0], "joined ", procs[0])
+    for log, proc in zip(logs[1:], procs[1:]):
+        wait_for_line(log, "follower rank ", proc)
+    for log in logs:
+        if read_rank_counts(log):
+            fail(f"{log}: a pod rank's counts were not 0 before its path")
+    return logs
+
+
+def free_tcp_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pod_backend(rank_log: str) -> str:
+    """The row exchange a pod rank logged (``rows over <backend> (why)``)."""
+    with open(rank_log, errors="replace") as f:
+        m = re.search(r"rows over (\w+ \([^)]*\))", f.read())
+    if m is None:
+        fail(f"{rank_log}: no row-exchange line")
+    return m.group(1)
+
+
+def run_pod(outdir: str, tag: str = "pod", devices_of=None,
+            argmin_names=("R1", "R2", "R3", "mouse"),
+            until=True) -> dict:
+    """The pod path on a new server: one pod miner (two ranks on card 0
+    by default, each a mesh of two shards of it) serves the arg-min
+    requests ``argmin_names`` and R4. Returns the answers, each rank's
+    launches and row gathers, the chunks the owner served, the backend
+    line, and how many miners the server saw join."""
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import (
+        submit, submit_until)
+    devices_of = devices_of or [POD_RANK_DEVICES] * 2
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    results = []
+    with Cluster(outdir) as c:
+        server_log = c.start(f"{tag}_server", "server", [str(c.port)],
+                             "Server listening on port")
+        logs = start_pod(c, tag, devices_of)
+        for name in argmin_names:
+            _, data, max_nonce = by_name[name]
+            results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+                asyncio.wait_for(submit(c.hostport, data, max_nonce), 300))))
+        if until:
+            name, data, max_nonce, target = UNTIL_REQUESTS[0]
+            results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+                asyncio.wait_for(submit_until(c.hostport, data, max_nonce,
+                                              target), 300))))
+        time.sleep(0.5)
+        ranks = [read_rank_counts(log) for log in logs]
+        chunks = served_chunks(logs[:1])
+        backend = pod_backend(logs[0])
+        with open(server_log, errors="replace") as f:
+            joins = f.read().count(" joined")
+    return {"requests": results, "devices_of": devices_of,
+            "launches": [launches_of(r) for r in ranks],
+            "row_gathers": [r.get("row_gathers") for r in ranks],
+            "chunks": chunks, "backend": backend, "joins": joins,
+            "rank_logs": logs}
+
+
+def check_pod(pod: dict, default: dict) -> None:
+    """Every answer of the pod path equal to the same request's on the
+    default path (each held there to the plain scans, the claim check or
+    a direct search); the server saw one miner join; on every rank per
+    block served one mesh fold for each of its distinct devices
+    (``K6mesh``) and one row gather, one to all of its shards' searches
+    (K1 or K2 each with its reduce), and no single-device K6 fold or
+    other kernel."""
+    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    for r in pod["requests"]:
+        want = default[r["request"]]
+        if hash_op(r["data"], r["nonce"]) != r["hash"] or \
+                (r["hash"], r["nonce"]) != (want["hash"], want["nonce"]):
+            fail(f"pod path {r['request']}: {r['hash'], r['nonce']} != "
+                 f"the default path's {want['hash'], want['nonce']}")
+    if pod["joins"] != 1:
+        fail(f"the pod path's server saw {pod['joins']} joins, not one")
+    pod["blocks"] = blocks = sum(
+        len(list(NonceSearcher(data, device="cpu").plan(lower, upper)))
+        for data, lower, upper in pod["chunks"])
+    if len(pod["chunks"]) != len(pod["requests"]) or not blocks:
+        fail(f"the pod's owner served {pod['chunks']}")
+    for rank, (counts, gathers, devices) in enumerate(zip(
+            pod["launches"], pod["row_gathers"], pod["devices_of"])):
+        shards, holders = len(devices.split(",")), len(set(
+            devices.split(",")))
+        calls = counts["K1"] + counts["K2"]
+        searches = calls // 2
+        if not (calls % 2 == 0 and searches <= shards * blocks
+                and counts["K6mesh"] == blocks * holders
+                and gathers == blocks
+                and not any(counts[k] for k in ("K3", "K4", "K5", "K6"))):
+            fail(f"pod rank {rank} launched {counts} with {gathers} row "
+                 f"gathers over {blocks} blocks on {devices}")
+    searches = sum((c["K1"] + c["K2"]) // 2 for c in pod["launches"])
+    if not blocks <= searches:
+        fail(f"the pod's ranks searched {searches} windows over {blocks} "
+             "blocks")
+    pod["shard_searches"] = searches
+
+
+#: The drill's bound on a pod job (``DBMT_POD_TIMEOUT_S``), seconds.
+POD_DRILL_TIMEOUT_S = 20
+#: Seconds a pod rank may take to end after it decided to exit: the bound
+#: runs from the job's start, and a process whose NCCL kernel still waits
+#: on a dead peer takes about 0.1 s to tear down (run AC, PR 12: 20.047 s
+#: from the kill to the owner's end, its exit logged 20.0 s after the
+#: job's start).
+POD_EXIT_TEARDOWN_S = 2
+
+
+def run_pod_drill(outdir: str, tag: str = "pod_drill", devices_of=None,
+                  job: tuple = ELEPHANT) -> dict:
+    """The follower-death drill on a new server: a pod (two ranks on card
+    0 by default; rank r's local mesh ``devices_of[r]``) with
+    ``DBMT_POD_TIMEOUT_S`` at :data:`POD_DRILL_TIMEOUT_S` takes ``job``
+    (data, max nonce); its last follower is killed as its first job
+    starts; the owner must exit with code 17 within the bound, without
+    having served the job; a plain miner that joins afterwards serves
+    the chunk."""
+    import asyncio
+    import concurrent.futures
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import submit
+    devices_of = devices_of or [POD_RANK_DEVICES] * 2
+    with Cluster(outdir) as c:
+        c.start(f"{tag}_server", "server", [str(c.port)],
+                "Server listening on port")
+        logs = start_pod(c, tag, devices_of,
+                         {"DBMT_POD_TIMEOUT_S": str(POD_DRILL_TIMEOUT_S)})
+        owner, follower = c.procs[-len(devices_of)], c.procs[-1]
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            t0 = time.monotonic()
+            answer = pool.submit(lambda: asyncio.run(asyncio.wait_for(
+                submit(c.hostport, *job), 300)))
+            wait_until("the follower's job", lambda: "follower job 1" in
+                       open(logs[-1], errors="replace").read(), follower,
+                       timeout=120)
+            follower.kill()
+            follower.wait()
+            t_kill = time.monotonic()
+            try:
+                rc = owner.wait(timeout=POD_DRILL_TIMEOUT_S + 5)
+            except subprocess.TimeoutExpired:
+                fail(f"{tag}: the pod's owner outlived its bound after the "
+                     "follower died")
+            exit_s = time.monotonic() - t_kill
+            spare = c.start(f"{tag}_spare", "miner",
+                            [c.hostport, "--device", "cuda"], "joined ")
+            res = answer.result(timeout=300)
+            seconds = time.monotonic() - t0
+        with open(logs[0], errors="replace") as f:
+            owner_text = f.read()
+        spare_chunks = served_chunks([spare])
+    return {"tag": tag, "devices_of": devices_of, "owner_rc": rc,
+            "owner_exit_s": exit_s,
+            "peer_error_logged": "a pod collective failed" in owner_text,
+            "bound_logged": "outlived its bound" in owner_text,
+            "owner_chunks": served_chunks(logs[:1]),
+            "elephant": None if res is None else
+            {"hash": res[0], "nonce": res[1], "seconds": seconds},
+            "spare_chunks": spare_chunks}
+
+
+def check_pod_drill(drill: dict, want: dict) -> None:
+    """The owner out with 17 within the bound (from the job's start, which
+    comes before the kill) and its teardown, having logged why (a peer's
+    error or the bound), and before it served the job (so the follower
+    died mid-job); the plain miner serving the chunk; the answer equal
+    to ``want``'s."""
+    tag = drill["tag"]
+    if drill["owner_rc"] != 17 or drill["owner_exit_s"] > \
+            POD_DRILL_TIMEOUT_S + POD_EXIT_TEARDOWN_S or not (
+                drill["peer_error_logged"] or drill["bound_logged"]):
+        fail(f"{tag}: the owner exited {drill['owner_rc']} after "
+             f"{drill['owner_exit_s']:.3f} s (peer error logged: "
+             f"{drill['peer_error_logged']}, bound logged: "
+             f"{drill['bound_logged']})")
+    if drill["owner_chunks"]:
+        fail(f"{tag}: the owner served {drill['owner_chunks']} before the "
+             "follower died")
+    el = drill["elephant"]
+    if el is None or (el["hash"], el["nonce"]) != (want["hash"],
+                                                   want["nonce"]):
+        fail(f"{tag}: the answer {el} != {want}")
+    if not drill["spare_chunks"]:
+        fail(f"{tag}: the plain miner served no chunk")
+
+
+#: The pod row-exchange benchmark: gathers of a block's rows (two shards
+#: a rank, the until layout's 5 words) timed over this many gathers.
+POD_GATHERS = 200
+
+
+def pod_gather_rank(coordinator: str, world: int, rank: int,
+                    devices: str) -> int:
+    """``--pod-gather``: one rank of a pod that times ``POD_GATHERS`` row
+    gathers of a block (two rows of 5 words) on its first device, after a
+    warm-up, each followed by a synchronisation of the card, and prints
+    its backend and the ms a gather on one line of JSON."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributed_bitcoinminer_tpu_torch.parallel import multihost
+    from distributed_bitcoinminer_tpu_torch.utils.config import PodParams
+    pod = multihost.initialize_multihost(
+        devices.split(","), PodParams(coordinator, world, rank))
+    rows = torch.full((pod.n_local, 5), rank, dtype=torch.int32,
+                      device=pod.devices[0])
+    for _ in range(20):
+        out = pod.gather(rows)
+    torch.cuda.synchronize(pod.devices[0])
+    t0 = time.perf_counter()
+    for _ in range(POD_GATHERS):
+        out = pod.gather(rows)
+        torch.cuda.synchronize(pod.devices[0])
+    ms = (time.perf_counter() - t0) * 1e3 / POD_GATHERS
+    want = torch.arange(world).repeat_interleave(pod.n_local)
+    ok = bool((out[:, 0].cpu() == want.to(torch.int32)).all())
+    print(json.dumps({"rank": rank, "backend": pod.backend,
+                      "ms_per_gather": ms, "rows": int(out.shape[0]),
+                      "ok": ok}), flush=True)
+    multihost.shutdown()
+    return 0 if ok else 1
+
+
+def pod_gather_ms(devices_of: list) -> dict:
+    """The row exchange's cost a block: one ``--pod-gather`` process a
+    rank (rank r's local mesh ``devices_of[r]``), each gather
+    synchronised on the card; returns the backend and rank 0's ms."""
+    coord = f"127.0.0.1:{free_tcp_port()}"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pod-gather", coord,
+         str(len(devices_of)), str(r), devices_of[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(len(devices_of))]
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=180)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("the pod gather benchmark timed out")
+        if p.returncode != 0:
+            fail(f"the pod gather benchmark failed: {err[-2000:]}")
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    return {"devices_of": devices_of, "backend": outs[0]["backend"],
+            "ms_per_gather": [o["ms_per_gather"] for o in outs],
+            "rows": outs[0]["rows"]}
+
+
+#: The capture run: the mice path's default settings (adapt on,
+#: coalescing on) with the capture plane armed, into its server's
+#: directory.
+CAPTURE_ENV = {"DBMT_CAPTURE": "1", "DBMT_CAPTURE_PATH": "capture.jsonl",
+               "DBMT_CAPTURE_SNAP_S": "0.5"}
+
+
+def check_capture(run: dict, same_traffic: dict) -> dict:
+    """The capture of a mice run: its answers equal to ``same_traffic``'s
+    (the same requests without capture); its records add up to what the
+    run logged (a ``req`` per arrival, a ``rep`` per answer, a ``shed``
+    per ``qos_shed``, a ``span`` per Result the miners wrote); its
+    baseline's p50/p99 beside the clients' own; the replay plan's tenants
+    and arrivals the traffic's."""
+    from distributed_bitcoinminer_tpu_torch.apps.capture import (
+        capture_baseline, load_capture, replay_plan)
+    key = lambda r: [[m[0], m[1], m[2], m[3]] for m in r["mice"]]  # noqa
+    if key(run) != key(same_traffic) or \
+            (run["elephant"]["hash"], run["elephant"]["nonce"]) != \
+            (same_traffic["elephant"]["hash"],
+             same_traffic["elephant"]["nonce"]):
+        fail(f"{run['tag']}: the captured run's answers differ from "
+             f"{same_traffic['tag']}'s")
+    path = os.path.join(os.path.dirname(run["server_log"]), "capture.jsonl")
+    cap = load_capture(path)
+    counts = scheduler_counts(run["server_log"])
+    traffic = mice_traffic()
+    arrivals = 2 + sum(len(m) for m in traffic)
+    results = sum(read_counts(log).get("chunks", 0)
+                  for log in run["miner_logs"])
+    got = {"req": len(cap.reqs), "rep": len(cap.reps),
+           "shed": len(cap.sheds), "span": len(cap.spans)}
+    want = {"req": arrivals, "rep": counts["results_sent"],
+            "shed": counts["qos_shed"], "span": results}
+    if got != want:
+        fail(f"{run['tag']}: capture records {got} != the run's {want}")
+    base = capture_baseline(cap)
+    plan = replay_plan(cap)
+    sizes = sorted(n for t in plan for _, n, _, _ in t["reqs"])
+    want_sizes = sorted([MICE_WARM_UP[1] + 1, ELEPHANT[1] + 1]
+                        + [mx + 1 for m in traffic for _, mx in m])
+    if len(plan) != 2 + len(traffic) or sizes != want_sizes:
+        fail(f"{run['tag']}: replay plan of {len(plan)} tenants, sizes "
+             f"{sizes[:5]}... != the traffic's")
+    info = {"records": got, "baseline": base, "plan_tenants": len(plan),
+            "plan_arrivals": len(sizes),
+            "clients_p50_s": run["mice_p50_s"],
+            "clients_p99_s": run["mice_p99_s"]}
+    print(f"capture: {json.dumps(got)}; baseline p50 {base['p50_s']} s, "
+          f"p99 {base['p99_s']} s (every reply: warm-up, elephant, mice) "
+          f"beside the clients' mice p50 {run['mice_p50_s']} s, p99 "
+          f"{run['mice_p99_s']} s", flush=True)
+    return info
+
+
+#: The replica path: a server of two scheduler replicas.
+REPLICA_SERVER_ENV = {"DBMT_REPLICAS": "2", **MICE_SERVER_ENV}
+REPLICAS_LINE = "replicas rollup "
+
+
+def run_replicas(outdir: str) -> dict:
+    """The replica path on a new server with ``DBMT_REPLICAS=2`` and two
+    miners on card 0 (one a replica's slice): R1, R3, R4, then the 64
+    mice of :func:`mice_traffic` from 8 connections at once. Returns the
+    answers, the miners' launches, the job ids the server answered, and
+    the rollup of the replicas' counters it logged when it stopped."""
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import (
+        submit, submit_until)
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    results = []
+    traffic = mice_traffic()
+    with Cluster(outdir) as c:
+        server_log = c.start("replicas_server", "server", [str(c.port)],
+                             "Server listening on port",
+                             env=REPLICA_SERVER_ENV)
+        miners = start_miners(c, ["replicas_miner", "replicas_miner2"],
+                              [None, None])
+        for name in ("R1", "R3"):
+            _, data, max_nonce = by_name[name]
+            results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+                asyncio.wait_for(submit(c.hostport, data, max_nonce), 300))))
+        name, data, max_nonce, target = UNTIL_REQUESTS[0]
+        results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+            asyncio.wait_for(submit_until(c.hostport, data, max_nonce,
+                                          target), 300))))
+
+        async def mice():
+            return await asyncio.gather(*(tenant_mice(c.hostport, m)
+                                          for m in traffic))
+        t0 = time.monotonic()
+        tenants = asyncio.run(asyncio.wait_for(mice(), 300))
+        mice_s = time.monotonic() - t0
+        launches = path_launches(miners)
+    with open(server_log, errors="replace") as f:
+        text = f.read()
+    rollup = None
+    for line in text.splitlines():
+        if REPLICAS_LINE in line:
+            rollup = json.loads(line.split(REPLICAS_LINE, 1)[1])
+    jobs = [int(j) for j in ANSWER_LINE.findall(text)]
+    return {"requests": results, "launches": launches, "rollup": rollup,
+            "jobs": jobs, "mice_seconds": mice_s,
+            "mice": [[data, mx, h, n, sec] for t, m in zip(tenants, traffic)
+                     for (data, mx), (h, n, sec) in zip(m, t["results"])],
+            "tenants_disconnected": sum(t["disconnected"] for t in tenants)}
+
+
+def check_replicas(run: dict, default: dict, mice: dict) -> None:
+    """Every answer of the replica path equal to the default path's (R1,
+    R3, R4) or the mice path's (each mouse, held there to the plain
+    scan); both replicas answered (job ids from both ranges); the merged
+    ``results_sent`` equal to the answers."""
+    from distributed_bitcoinminer_tpu_torch.apps.replicas import ReplicaSet
+    for r in run["requests"]:
+        want = default[r["request"]]
+        if (r["hash"], r["nonce"]) != (want["hash"], want["nonce"]):
+            fail(f"replica path {r['request']}: {r['hash'], r['nonce']} != "
+                 f"the default path's {want['hash'], want['nonce']}")
+    want_mice = [m[:4] for m in mice["mice"]]
+    if [m[:4] for m in run["mice"]] != want_mice \
+            or run["tenants_disconnected"]:
+        fail("replica path: the mice's answers differ from the mice path's")
+    answers = len(run["requests"]) + len(run["mice"])
+    ranges = {j // ReplicaSet.JOB_ID_STRIDE for j in run["jobs"]}
+    if ranges != {0, 1}:
+        fail(f"replica path: answers only from replicas {ranges}")
+    if run["rollup"] is None \
+            or run["rollup"].get("results_sent") != answers:
+        fail(f"replica path: rollup {run['rollup']} != {answers} answers")
+    if not (run["launches"]["K1"] and run["launches"]["K2"]
+            and run["launches"]["K6"]):
+        fail(f"replica path launched {run['launches']}")
 
 
 #: The lease path's server: 2 s leases on a cold pool (and as the floor on
@@ -4438,11 +4918,15 @@ def against(dev_info: dict, outdir: str, old: Worker) -> dict:
 
 
 def cross_card(outdir: str) -> dict:
-    """``--cross-card``, on a box with several cards: only the mesh over
-    every card and what it is held to. The mesh paths of
-    :func:`run_mesh` (``DBMT_MESH_DEVICES`` naming every card), each
-    answer held to a direct search on card 0 and the launches to
-    :func:`check_mesh_paths`; then :func:`rates_multi_card`."""
+    """``--cross-card``, on a box with several cards: only what spans
+    cards and what it is held to. The mesh paths of :func:`run_mesh`
+    (``DBMT_MESH_DEVICES`` naming every card), each answer held to a
+    direct search on card 0 and the launches to
+    :func:`check_mesh_paths`; a pod of one rank a card (rows over NCCL)
+    on R3 and R4, held the same way (:func:`check_pod`), its seconds
+    beside the mesh's; the follower-death drill on that pod
+    (:data:`CROSS_DRILL_JOB`, the last rank killed, held to a direct
+    search); the row gather's cost; then :func:`rates_multi_card`."""
     import torch
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
@@ -4458,7 +4942,41 @@ def cross_card(outdir: str) -> dict:
             else s.search(0, max_nonce + 1)
         direct[name] = {"hash": got[0], "nonce": got[1]}
     check_mesh_paths(mesh, direct)
-    info = {"mesh": mesh, "direct": direct,
+    # A pod of one rank a card (rows over NCCL) on R3 and R4, beside the
+    # one-process mesh of the same cards.
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    pod = run_pod(outdir, tag="pod_cross", devices_of=cards,
+                  argmin_names=("R3",))
+    check_pod(pod, direct)
+    if not pod["backend"].startswith("nccl"):
+        fail(f"the cross-card pod's rows went over {pod['backend']}")
+    # The follower-death drill over NCCL: a dead peer shows there as a
+    # collective that hangs (gloo raises at once), so the owner must leave
+    # through its bound.
+    drill = run_pod_drill(outdir, tag="pod_cross_drill", devices_of=cards,
+                          job=CROSS_DRILL_JOB)
+    got = NonceSearcher(CROSS_DRILL_JOB[0], device=dev).search(
+        0, CROSS_DRILL_JOB[1] + 1)
+    check_pod_drill(drill, {"hash": got[0], "nonce": got[1]})
+    print(f"pod drill over {pod['backend']}: rank {len(cards) - 1} killed "
+          f"mid-job, owner exit {drill['owner_rc']} after "
+          f"{drill['owner_exit_s']:.3f} s (bound {POD_DRILL_TIMEOUT_S} s; "
+          f"peer error logged: {drill['peer_error_logged']}, bound logged: "
+          f"{drill['bound_logged']}); a plain miner served "
+          f"{len(drill['spare_chunks'])} chunk(s), answer equal to a direct "
+          "search", flush=True)
+    gather = pod_gather_ms(cards)
+    mesh_s = {r["request"]: r["seconds"]
+              for r in mesh["default"]["requests"]}
+    for r in pod["requests"]:
+        print(f"pod of {len(cards)} ranks x 1 card: {r['request']} "
+              f"{r['seconds']:.4f} s over {pod['backend']}, "
+              f"{mesh_s[r['request']]:.4f} s on the one-process mesh of "
+              f"the same cards", flush=True)
+    print(f"pod: {gather['ms_per_gather'][0]:.4f} ms a row gather over "
+          f"{gather['backend']} (synchronised)", flush=True)
+    info = {"mesh": mesh, "direct": direct, "pod": pod, "pod_drill": drill,
+            "pod_gather": gather,
             "multi_card": rates_multi_card(dev, hit_block(dev))}
     emit("cross_card", **info)
     return info
@@ -4469,6 +4987,9 @@ def main() -> int:
         return worker(sys.argv[2])
     if sys.argv[1:2] == ["--fault-miner"] and len(sys.argv) == 4:
         return fault_miner(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--pod-gather"] and len(sys.argv) == 6:
+        return pod_gather_rank(sys.argv[2], int(sys.argv[3]),
+                               int(sys.argv[4]), sys.argv[5])
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script",
               file=sys.stderr)

@@ -67,6 +67,17 @@ size it, ``DBMT_PIPELINE_DEPTH`` bounds the Request queue, and the LSP
 card, or with ``DBMT_MESH_DEVICES`` naming at least two devices, the
 miner searches over that mesh (``MeshNonceSearcher``), which then takes
 the place of ``--device``.
+
+Pods (``parallel.multihost``): with ``DBMT_COORDINATOR`` (rank 0's
+``host:port``), ``DBMT_NUM_PROCS`` and ``DBMT_PROC_ID`` set, each of
+several miner processes is one rank of ONE miner. Every rank searches
+its local mesh (``DBMT_MESH_DEVICES``, else every visible card, else
+``--device``) as its part of the pod's global mesh; rank 0 alone joins
+the scheduler and serves through ``PodSearcher``, and the other ranks
+never touch LSP (:func:`run_pod_rank`). ``DBMT_POD_TIMEOUT_S`` bounds one
+pod job and ``DBMT_POD_IDLE_TIMEOUT_S`` a follower's wait between jobs;
+past either, or when a collective fails because a peer died, the rank
+exits with code 17.
 """
 
 from __future__ import annotations
@@ -84,12 +95,14 @@ from ..lsp.client import AsyncClient, new_async_client
 from ..lsp.errors import LspError
 from ..lsp.params import Params
 from ..ops import sha256_cuda
+from ..parallel import multihost
 from ..utils import sanitize as _sanitize
 from ..utils import trace as _trace
 from ..utils._env import str_env
-from ..utils.config import (CoalesceParams, PeelParams, coalesce_from_env,
-                            lsp_params_from_env, mesh_from_env,
-                            peel_from_env, pipeline_depth_from_env)
+from ..utils.config import (CoalesceParams, PeelParams, PodParams,
+                            coalesce_from_env, lsp_params_from_env,
+                            mesh_from_env, peel_from_env,
+                            pipeline_depth_from_env, pod_from_env)
 from ..utils.metrics import ensure_emitter, registry as _registry
 
 logger = logging.getLogger("dbmt.miner")
@@ -563,11 +576,16 @@ class MinerWorker:
         and CUDA kernel launches made by this process, by the
         TPU kernel each replaces (K1 arg-min search, K2 difficulty
         search, K3 and K4 the peeled bodies' searches, K5 the batched
-        segment-min, K6 the folds of the device-resident chain)."""
-        return {"chunks": self.jobs_done,
-                "coalesced_dispatches": self.coalesced_dispatches,
-                "coalesced_chunks": self.coalesced_chunks,
-                "kernel_launches": dict(sha256_cuda.launches)}
+        segment-min, K6 the folds of the device-resident chain); on a
+        pod's owner also its row gathers (one a block)."""
+        counts = {"chunks": self.jobs_done,
+                  "coalesced_dispatches": self.coalesced_dispatches,
+                  "coalesced_chunks": self.coalesced_chunks,
+                  "kernel_launches": dict(sha256_cuda.launches)}
+        pod = multihost.active_pod()
+        if pod is not None:
+            counts["row_gathers"] = pod.gathers
+        return counts
 
     def _reply(self, msg, best_hash: int, best_nonce: int,
                echo_target: int, t0: float,
@@ -662,14 +680,11 @@ def _resolve_rate_hint(factory) -> float:
         return 0.0
 
 
-async def _run_miner(hostport: str, device: str,
-                     body: PeelParams = PeelParams(),
-                     mesh: tuple = (), rate_hint: float = 0.0) -> int:
+async def _run_miner(hostport: str, factory: Callable, where: str,
+                     rate_hint: float = 0.0) -> int:
     coalesce = coalesce_from_env()
     worker = MinerWorker(
-        hostport, params=lsp_params_from_env(),
-        searcher_factory=lambda data: default_searcher_factory(
-            data, device, body, mesh),
+        hostport, params=lsp_params_from_env(), searcher_factory=factory,
         pipeline_depth=pipeline_depth_from_env(),
         coalesce=coalesce.enabled, coalesce_lanes=coalesce.lanes,
         coalesce_max=coalesce.max_nonces, rate_hint=rate_hint)
@@ -679,9 +694,7 @@ async def _run_miner(hostport: str, device: str,
         except LspError as exc:
             print("Failed to join with server:", exc)
             return 1
-        logger.info("joined %s on %s", hostport,
-                    f"the mesh {','.join(mesh)}" if len(mesh) >= 2
-                    else device)
+        logger.info("joined %s on %s", hostport, where)
         await worker.run()
         return 0
     finally:
@@ -692,7 +705,8 @@ def main(argv=None) -> int:
     """CLI contract of the reference binary (ref: miner.go:70-77):
     ``miner <hostport>``, plus ``--device cuda|cpu``; exits silently when
     the connection dies. Asking for ``cuda`` where there is none raises
-    before joining."""
+    before joining. With ``DBMT_COORDINATOR`` set the process is one rank
+    of a pod (:func:`run_pod_rank`)."""
     import sys
 
     from ..models.miner_model import resolve_device
@@ -706,18 +720,83 @@ def main(argv=None) -> int:
         return 1
     device = resolve_device(device)
     body = peel_from_env()
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    pod = pod_from_env()
+    if pod.coordinator is not None:
+        return run_pod_rank(args[0], device, body, pod)
     mesh = mesh_from_env(device)
     if len(mesh) < 2:
         mesh = ()
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
     if any(resolve_device(d).type == "cuda" for d in mesh or (device,)):
         warm_up(device, body, mesh)
-    rate_hint = _resolve_rate_hint(
-        lambda data: default_searcher_factory(data, device, body, mesh))
+
+    def factory(data):
+        return default_searcher_factory(data, device, body, mesh)
+    rate_hint = _resolve_rate_hint(factory)
     if rate_hint > 0:
         logger.info("rate hint %.6g nonces/s", rate_hint)
-    return asyncio.run(_run_miner(args[0], device, body, mesh, rate_hint))
+    return asyncio.run(_run_miner(
+        args[0], factory, f"the mesh {','.join(mesh)}" if mesh
+        else str(device), rate_hint))
+
+
+def run_pod_rank(hostport: str, device, body: PeelParams,
+                 params: PodParams) -> int:
+    """One rank of a pod (``parallel.multihost``): join the pod over this
+    rank's local mesh (``DBMT_MESH_DEVICES``, else every visible card on
+    ``cuda``, else ``device``), warm its mesh up with no collective, then
+    on rank 0 serve LSP through :class:`~..parallel.multihost.PodSearcher`
+    (the rate probe too, which every rank runs; the counters restart at 0
+    on every rank afterwards) and broadcast the stop frame on every exit
+    path; on the other ranks run the broadcast jobs until it comes. A
+    rank whose pod job fails because a peer died exits with code 17."""
+    local = mesh_from_env(device) or (str(device),)
+    pod = multihost.initialize_multihost(local, params)
+    if any(d.type == "cuda" for d in pod.devices):
+        warm_up_mesh(pod.devices, body)
+    try:
+        if not multihost.is_lsp_owner():
+            logger.info("follower rank %d ready", pod.rank)
+            jobs = multihost.run_follower(body)
+            logger.info("follower done after %d jobs", jobs)
+            return 0
+        try:
+            def factory(data):
+                return multihost.PodSearcher(data, body)
+            rate_hint = _resolve_rate_hint(factory)
+            multihost.bounded_pod_call(multihost.broadcast_reset)
+            pod.gathers = 0
+            if rate_hint > 0:
+                logger.info("rate hint %.6g nonces/s", rate_hint)
+            return asyncio.run(_run_miner(
+                hostport, factory, f"the pod of {pod.world} ranks, "
+                f"{pod.world * pod.n_local} shards", rate_hint))
+        finally:
+            multihost.bounded_pod_call(multihost.broadcast_stop)
+    finally:
+        multihost.shutdown()
+
+
+def warm_up_mesh(devices: tuple, body: PeelParams = PeelParams()) -> None:
+    """A pod rank's warm-up: its local mesh's chains (arg-min and
+    difficulty) once over [0, 10^5), with no collective, then the launch
+    counters restart at 0."""
+    import torch
+
+    from ..models import MeshNonceSearcher
+    from ..parallel.mesh_search import distinct
+    t0 = time.monotonic()
+    for d in distinct(devices):
+        torch.zeros(1, device=d)
+    s = MeshNonceSearcher("warm-up", devices=devices, peel=body.peel,
+                          hoist=body.hoist)
+    s.search(0, 10 ** 5 - 1)
+    s.search_until(0, 10 ** 5 - 1, 1)
+    sha256_cuda.reset_launches()
+    logger.info("mesh %s ready in %.3fs (%s)",
+                ",".join(str(d) for d in devices), time.monotonic() - t0,
+                body)
 
 
 def warm_up(device, body: PeelParams = PeelParams(),

@@ -199,6 +199,21 @@ class MinerPlane:
         self._by_conn[conn_id] = miner
         return miner
 
+    def adopt_miner(self, conn_id: int, pending: Optional[list] = None,
+                    rate_ewma: Optional[float] = None) -> MinerState:
+        """The replica tier's takeover: adopt a miner that a dead replica
+        owned. Its pending chunk records arrive marked cancelled (it
+        answers them in order and each pops here as stale, so the k-th
+        Result still answers the k-th Request), and its throughput EWMA
+        comes with it. New chunks queue behind the dead ones."""
+        miner = MinerState(conn_id=conn_id, rate_ewma=rate_ewma)
+        for chunk in pending or []:
+            chunk.cancelled = True
+            miner.pending.append(chunk)
+        self.miners.append(miner)
+        self._by_conn[conn_id] = miner
+        return miner
+
     def drop_miner(self, conn_id: int) -> Optional[MinerState]:
         miner = self._by_conn.pop(conn_id, None)
         if miner is not None:

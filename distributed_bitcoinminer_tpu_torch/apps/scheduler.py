@@ -144,6 +144,7 @@ from ..utils.config import (AdaptParams, CacheParams, CoalesceParams,
                             stripe_from_env, verify_from_env)
 from ..utils.metrics import Registry, RequestTrace
 from ..utils.metrics import registry as process_registry
+from . import capture as _capture
 from .adapt import AdaptPlane
 from .miner_plane import Chunk, MinerPlane, MinerState
 from .qos import LAZY_REMOVE
@@ -275,7 +276,9 @@ class Scheduler:
                  stripe: Optional[StripeParams] = None,
                  cache: Optional[CacheParams] = None,
                  adapt: Optional[AdaptParams] = None,
-                 trace_sample: Optional[float] = None):
+                 trace_sample: Optional[float] = None,
+                 result_cache: Optional[ResultCache] = None,
+                 capture=None, metrics_prefix: str = "sched"):
         self.server = server
         qos = qos if qos is not None else qos_from_env()
         coalesce = coalesce if coalesce is not None else coalesce_from_env()
@@ -283,8 +286,11 @@ class Scheduler:
         cache = cache if cache is not None else cache_from_env()
         self.lease = lease if lease is not None else lease_from_env()
         self.verify = verify if verify is not None else verify_from_env()
-        self.results: Optional[ResultCache] = \
-            ResultCache(cache.size) if cache.enabled else None
+        # ``result_cache`` is a SHARED cache (the replica tier's replay
+        # tier); otherwise each scheduler owns one.
+        self.results: Optional[ResultCache] = result_cache \
+            if result_cache is not None \
+            else ResultCache(cache.size) if cache.enabled else None
         self._audit_rng = audit_rng if audit_rng is not None \
             else random.Random()
         # Outstanding audits by audit job id (off the job id counter, so
@@ -299,19 +305,35 @@ class Scheduler:
         # its count of in-flight requests.
         self._qos_chunked_reqs: dict = {}     # tenant -> {job_id: Request}
         self._tenant_inflight: dict = {}      # tenant -> requests in flight
-        self.stats = dict.fromkeys(STAT_COUNTERS, 0)
-        # The adapt plane's gauges, mounted in the process registry.
+        # The counters (read as :attr:`stats`; the replica tier's rollup
+        # merges them) and the adapt plane's gauges, mounted in the
+        # process registry under ``metrics_prefix`` (each replica of the
+        # replica tier under its own).
         self.metrics = Registry()
-        process_registry().mount("sched", self.metrics)
+        process_registry().mount(metrics_prefix, self.metrics)
+        self._counters = {n: self.metrics.counter(n) for n in STAT_COUNTERS}
         # DBMT_SANITIZE=1: the loop watchdog, and the hot tables pinned to
         # the thread that runs the event handlers.
         self._owner = (_sanitize.ThreadOwner(
             "Scheduler hot state (miners/queue/_inflight)")
             if _sanitize.ensure_sanitizer() else None)
         self._trace_on = _tracing.ensure_tracer()
+        # The capture plane (DBMT_CAPTURE, off by default): with it off
+        # (and no instance given) this is None and every hook is one
+        # attribute test.
+        self.capture = capture if capture is not None \
+            else _capture.ensure_from_env()
         self.tenant_plane = TenantPlane(
             qos, self._count, close_conn=getattr(server, "close_conn", None),
-            trace_on=self._trace_on, trace_sample=trace_sample)
+            trace_on=self._trace_on, trace_sample=trace_sample,
+            capture=self.capture)
+        if self.capture is not None:
+            # The workload-shape knobs a replay reproduces, and the
+            # transport a replay's latencies compare against.
+            self.capture.config(max_queued=qos.max_queued,
+                                wholesale_s=qos.wholesale_s,
+                                qos=bool(qos.enabled),
+                                transport=type(server).__name__)
         self.miner_plane = MinerPlane(
             self.lease, coalesce, write=self._write, inflight=self._inflight,
             lease_event=self._on_lease_event, dispatch=self._maybe_dispatch,
@@ -331,6 +353,9 @@ class Scheduler:
                 small_s=coalesce.small_s
                 if (qos.enabled and coalesce.enabled) else 0.0,
                 trace_on=self._trace_on)
+        # Job ids count up from here; the replica tier gives each replica a
+        # disjoint range, so an adopted miner's late Result of a dead
+        # replica's job never names a live job of its adopter.
         self._next_job_id = 0
         self._dispatching = False
         self._starved = False          # the no-eligible-miner latch
@@ -356,8 +381,13 @@ class Scheduler:
     def miners(self) -> list:
         return self.miner_plane.miners
 
+    @property
+    def stats(self) -> dict:
+        """Every counter of :data:`STAT_COUNTERS` by name (a copy)."""
+        return {n: c.value for n, c in self._counters.items()}
+
     def _count(self, name: str, n: int = 1) -> None:
-        self.stats[name] += n
+        self._counters[name].inc(n)
 
     def _log_counts(self) -> None:
         logger.info("scheduler counts %s", json.dumps(self.stats))
@@ -371,6 +401,9 @@ class Scheduler:
         request's trace as a ``miner_span`` event: only the span
         vocabulary's numeric keys, with the dominant phase named, and the
         miner's export track registered. Unsampled requests skip it."""
+        if span is not None and self.capture is not None:
+            # The capture sees every span, whatever the trace sampling.
+            self.capture.span(span)
         if span is None or trace is None or trace.null \
                 or not self._trace_on:
             return
@@ -473,6 +506,11 @@ class Scheduler:
             len(mp.eligible()),
             distrusted_n=sum(1 for m in mp.miners if mp.distrusted(m)),
             current=self.current)
+        if self.capture is not None:
+            self.capture.maybe_snapshot(
+                miners=len(mp.miners),
+                rates=[m.rate_ewma for m in mp.miners if m.rate_ewma],
+                queued=len(tp), inflight=len(self._inflight))
         if self.adapt_plane is not None:
             self._apply_adapt()
         if self.qos.enabled:
@@ -500,8 +538,8 @@ class Scheduler:
                      if m.rate_ewma and not m.rate_hinted]
             if len(ewmas) >= 2:
                 ratio = max(ewmas) / max(min(ewmas), 1e-9)
-        changes = self.adapt_plane.tick(age, self.stats["results_sent"],
-                                        rate_ratio=ratio)
+        sent = self._counters["results_sent"].value
+        changes = self.adapt_plane.tick(age, sent, rate_ratio=ratio)
         if not changes:
             return
         logger.info("scheduler adapt %s",
@@ -528,6 +566,11 @@ class Scheduler:
         (fairness) admit the request or shed it; then it queues."""
         if self._owner is not None:
             self._owner.assert_here()
+        if self.capture is not None:
+            # Before admission: a shed arrival is part of the workload.
+            self.capture.request(conn_id, len(msg.data),
+                                 msg.upper - msg.lower + 1,
+                                 bool(msg.target))
         request = self._build_request(conn_id, msg)
         if request is None:
             return
@@ -545,6 +588,20 @@ class Scheduler:
                 return
         self._intake(request)
 
+    def reserve_request(self, conn_id: int, msg: Message) -> None:
+        """The replica tier's re-serve of a dead replica's request: as
+        :meth:`_on_request`, but no admission bucket is charged and no
+        overload shed runs (the request was admitted once already; the
+        queue bound holds again at the next arrival)."""
+        if self._owner is not None:
+            self._owner.assert_here()
+        request = self._build_request(conn_id, msg)
+        if request is None:
+            return
+        if self.qos.enabled:
+            self.tenant_plane.tenant(conn_id)
+        self._intake(request, bound_queue=False)
+
     def _build_request(self, conn_id: int, msg: Message):
         """The arriving request, or None when the result cache answered
         it."""
@@ -554,6 +611,8 @@ class Scheduler:
             if hit is not None:
                 self._write(conn_id, new_result(*hit))
                 self._count("results_sent")
+                if self.capture is not None:
+                    self.capture.reply(conn_id, 0.0, cached=True)
                 self.tenant_plane.cache_replay_trace(conn_id, key, *hit)
                 logger.info("request %r [%d, %d] target=%d answered from "
                             "the result cache", msg.data, msg.lower,
@@ -578,19 +637,19 @@ class Scheduler:
             self._count("cache_misses")
         return hit
 
-    def _intake(self, request: Request) -> None:
-        """Queue the request; under QoS, past ``max_queued`` the oldest
-        queued request is shed; then pump."""
+    def _intake(self, request: Request, bound_queue: bool = True) -> None:
+        """Queue the request; under QoS (and ``bound_queue``), past
+        ``max_queued`` the oldest queued request is shed; then pump."""
         tp = self.tenant_plane
         request.trace.event("enqueue", queue_depth=len(tp))
         tp.enqueue(request)
-        bound = self.qos.max_queued if self.qos.enabled else 0
-        if self.adapt_plane is not None and self.qos.enabled:
-            # The congestion depth: the tighter of the static bound and
-            # the measured service rate times the age knee.
-            bound = self.adapt_plane.effective_max_queued(bound)
-        if bound > 0:
-            while len(tp) > bound:
+        if bound_queue and self.qos.enabled:
+            bound = self.qos.max_queued
+            if self.adapt_plane is not None:
+                # The congestion depth: the tighter of the static bound
+                # and the measured service rate times the age knee.
+                bound = self.adapt_plane.effective_max_queued(bound)
+            while bound > 0 and len(tp) > bound:
                 self._shed(tp.pop_head(), "overload")
         self._maybe_dispatch()
 
@@ -607,6 +666,8 @@ class Scheduler:
         if rate_hint > 0:
             logger.info("miner %d joined with rate hint %.3g nonces/s",
                         conn_id, rate_hint)
+        else:
+            logger.info("miner %d joined", conn_id)
         self._maybe_dispatch()
 
     def _on_result(self, conn_id: int, msg: Message) -> None:
@@ -718,15 +779,20 @@ class Scheduler:
                 self.miner_plane.recover(miner)
             return
         logger.info("client %d dropped", conn_id)
-        for req in self.tenant_plane.purge_tenant(conn_id):
+        purged = self.tenant_plane.purge_tenant(conn_id)
+        for req in purged:
             req.trace.event("cancel", reason="client_drop")
         self.tenant_plane.retire_tenant_track(conn_id)
         if self.qos.enabled:
             self.qos_plane.forget(conn_id)
+        cancelled = len(purged)
         for req in [r for r in self._inflight.values()
                     if r.conn_id == conn_id]:
             req.trace.event("cancel", reason="client_drop")
+            cancelled += 1
             self._retire(req)
+        if self.capture is not None and cancelled:
+            self.capture.cancel(conn_id, cancelled)
 
     def _on_lease_event(self, kind: str, chunk: Chunk, miner_conn: int,
                         **info) -> None:
@@ -767,6 +833,8 @@ class Scheduler:
                 _tracing.flight("reissue", job=chunk.job_id,
                                 idx=chunk.idx, from_miner=miner_conn,
                                 to_miner=info["to_miner"])
+            if self.capture is not None:
+                self.capture.reissue()
             logger.warning(
                 "speculatively re-issuing job %d chunk %d [%d, %d) "
                 "from miner %d to miner %d",
@@ -1004,6 +1072,10 @@ class Scheduler:
             self.results.put(curr.cache_key, (h, nonce))
             self._count("cache_stores")
         elapsed = time.monotonic() - curr.started
+        if self.capture is not None:
+            # Arrival to reply (a replay measures submit to reply).
+            self.capture.reply(curr.conn_id,
+                               time.monotonic() - curr.queued_at)
         curr.trace.event("reply", hash=h, nonce=nonce, early=early,
                          weak=curr.weak, elapsed_s=round(elapsed, 6))
         if self._trace_on:
@@ -1106,6 +1178,10 @@ class Scheduler:
             return False
         self._write(req.conn_id, new_result(*hit))
         self._count("results_sent")
+        if self.capture is not None:
+            self.capture.reply(req.conn_id,
+                               time.monotonic() - req.queued_at,
+                               cached=True)
         req.trace.event("cache_hit", at="dispatch")
         req.trace.event("reply", hash=hit[0], nonce=hit[1], cached=True)
         self.tenant_plane.register_replay(req)

@@ -24,6 +24,14 @@ traces when it stops (SIGTERM, or the LSP server closing): the Perfetto
 document of ``Scheduler.export_trace`` to PATH, and each trace's dict
 (with its ``t0``) as a JSON line to ``PATH.jsonl``, the input of
 ``tools/dbmtrace.py``.
+
+With ``DBMT_REPLICAS`` above 1 the server runs that many scheduler
+replicas behind its one socket (``apps.replicas.ReplicaSet``: tenants
+hashed onto replicas, miners in balanced slices, one shared result
+cache), each with the settings above; the default, 1, runs the plain
+single scheduler. ``DBMT_CAPTURE=1`` arms the workload capture plane
+(``apps.capture``; ``DBMT_CAPTURE_PATH``, relative to the working
+directory), shared by every replica.
 """
 
 from __future__ import annotations
@@ -39,18 +47,23 @@ from ..lsp.server import new_async_server
 from ..utils._env import str_env
 from ..utils.config import (cache_from_env, lease_from_env,
                             lsp_params_from_env, qos_from_env,
-                            stripe_from_env, verify_from_env)
+                            replicas_from_env, stripe_from_env,
+                            verify_from_env)
 from ..utils.logging import configure_logging
 from ..utils.metrics import ensure_emitter
+from .replicas import ReplicaSet
 from .scheduler import Scheduler
 
 
-def write_trace_export(scheduler: Scheduler, path: str) -> None:
-    """The scheduler's retained traces: the Perfetto document to
-    ``path`` and one trace dict a line to ``path + ".jsonl"``."""
+def write_trace_export(scheduler, path: str) -> None:
+    """The retained traces of the scheduler (or of every live replica
+    of a ``ReplicaSet``): the Perfetto document to ``path`` and one trace
+    dict a line to ``path + ".jsonl"``."""
     scheduler.export_trace(path)
+    traces = scheduler.traces if isinstance(scheduler, ReplicaSet) \
+        else scheduler.tenant_plane.traces
     with open(path + ".jsonl", "w", encoding="utf-8") as fh:
-        for _key, t in scheduler.tenant_plane.traces.items():
+        for _key, t in traces.items():
             fh.write(json.dumps({**t.to_dict(), "t0": t.t0},
                                 sort_keys=True) + "\n")
 
@@ -58,9 +71,12 @@ def write_trace_export(scheduler: Scheduler, path: str) -> None:
 async def serve(port: int, params: Params | None = None) -> None:
     server = await new_async_server(port, params or lsp_params_from_env())
     print("Server listening on port", server.port, flush=True)
-    scheduler = Scheduler(server, qos=qos_from_env(), lease=lease_from_env(),
-                          verify=verify_from_env(), stripe=stripe_from_env(),
-                          cache=cache_from_env())
+    settings = dict(qos=qos_from_env(), lease=lease_from_env(),
+                    verify=verify_from_env(), stripe=stripe_from_env(),
+                    cache=cache_from_env())
+    n = replicas_from_env()
+    scheduler = ReplicaSet(server, n, **settings) if n > 1 \
+        else Scheduler(server, **settings)
     run = asyncio.ensure_future(scheduler.run())
     asyncio.get_running_loop().add_signal_handler(signal.SIGTERM,
                                                   run.cancel)

@@ -1,7 +1,7 @@
 """The tenant plane: the request queue, admission, shedding and weights.
 
-Counterpart of the JAX package's ``apps/tenant_plane.py``, without its
-capture hooks. :class:`TenantPlane` holds an
+Counterpart of the JAX package's ``apps/tenant_plane.py``.
+:class:`TenantPlane` holds an
 insertion-ordered map of every queued request plus a FIFO per tenant
 (client conn id), so enqueue, the global head pop, a targeted dequeue
 and a tenant's purge are O(1)-amortized, and the QoS pump's per-tenant
@@ -46,13 +46,18 @@ class TenantPlane:
     uses. The admission buckets read ``time.monotonic`` through this
     module at each call. ``trace_on`` arms the tracks and the flight
     events; ``trace_sample`` (default ``DBMT_TRACE_SAMPLE``) is the share
-    of requests traced."""
+    of requests traced; ``capture`` the scheduler's capture plane (None:
+    off)."""
 
     def __init__(self, qos: QosParams, count: Callable,
                  close_conn: Optional[Callable] = None,
                  trace_on: bool = False,
-                 trace_sample: Optional[float] = None):
+                 trace_sample: Optional[float] = None,
+                 capture=None):
         self.qos = qos
+        # The capture plane's handle (None: off): a shed records one
+        # event per victim.
+        self._capture = capture
         # The lazy pump enters a tenant into the DRR ring on each
         # enqueue; the eager pump syncs the ring itself.
         self.lazy = qos.enabled and qos.lazy
@@ -281,8 +286,12 @@ class TenantPlane:
         the reply's write fails)."""
         others = self.purge_tenant(req.conn_id)
         victims = [req] + [r for r in others if r is not req]
-        for victim in victims:
+        for i, victim in enumerate(victims):
             self._count("qos_shed")
+            if self._capture is not None:
+                # The purged siblings are sheds too (reason "conn").
+                self._capture.shed(victim.conn_id,
+                                   reason if i == 0 else "conn")
             self.qos_plane.on_shed(victim.conn_id)
             victim.trace.event("cancel", reason="shed", shed_reason=reason)
             self._register_synthetic("shed", victim.conn_id, victim.trace)

@@ -14,6 +14,11 @@ signature (``utils.trace.observe_launch``). In
 difficulty mode the shards of a block share its lowest hit
 (``parallel.mesh_search.MeshSpan``), across cards through peer memory
 where every pair of cards has it (:attr:`MeshNonceSearcher.hit_scope`).
+Joined to a pod (``pod=``, ``parallel.multihost``), the searcher is one
+rank's part of the pod's global mesh: each block is cut over every
+rank's shards, and the rows of all ranks are gathered before each
+rank's folds (the ``pod=`` argument of
+``parallel.mesh_search.mesh_devloop_span``).
 """
 
 from __future__ import annotations
@@ -36,23 +41,32 @@ class MeshNonceSearcher(NonceSearcher):
     shards on one card run one after another on its stream. A CPU mesh
     (``["cpu"] * n``) runs the plain scans, merge and folds. ``grid``
     overrides each shard launch's block count; ``peel`` and ``hoist`` pick
-    the lane body as for :class:`NonceSearcher`.
+    the lane body as for :class:`NonceSearcher`. ``pod`` (a
+    ``parallel.multihost.Pod``) joins the searcher to a pod: ``devices``
+    are then this rank's part of the pod's global mesh, and every rank
+    must run the same calls in the same order.
     """
 
     def __init__(self, data: str, devices=None, grid: int | None = None,
-                 peel: bool = False, hoist: bool = True):
+                 peel: bool = False, hoist: bool = True, pod=None):
         self.devices = make_mesh(devices=devices)
         super().__init__(data, device=self.devices[0], grid=grid, peel=peel,
                          hoist=hoist)
         self.n_devices = len(self.devices)
-        self._hit_scope = hit_scope(self.devices)
+        self.pod = pod
+        self._local_scope = hit_scope(self.devices)
+        self._hit_scope = self._local_scope
+        if pod is not None and pod.world > 1:
+            self._hit_scope = "rank" if self._local_scope == "mesh" \
+                else "card"
 
     @property
     def hit_scope(self) -> str:
         """``"mesh"`` when a difficulty block's shards all share its
         lowest hit (one card, a CPU mesh, or cards with peer access
-        between every pair); ``"card"`` when only each card's shards do.
-        Fixed at construction."""
+        between every pair); ``"card"`` when only each card's shards do;
+        in a pod of several ranks ``"rank"`` when each rank's shards share
+        theirs (no hit crosses ranks). Fixed at construction."""
         return self._hit_scope
 
     def _chain(self, lower: int, upper: int, target: int | None = None):
@@ -63,9 +77,11 @@ class MeshNonceSearcher(NonceSearcher):
         carries = mesh_carry(op, self.devices)
         span = None
         if target is not None and self.devices[0].type == "cuda":
-            span = MeshSpan(self.devices, self.hit_scope, self.body)
+            span = MeshSpan(self.devices, self._local_scope, self.body)
         entry = "mesh_devloop_span" if target is None \
             else "mesh_devloop_until"
+        if self.pod is not None:
+            entry = "pod_" + entry
         subs = 0
         for plan in self.plan(lower, upper):
             self.device_launches += 1
@@ -77,12 +93,12 @@ class MeshNonceSearcher(NonceSearcher):
                 if target is None:
                     carries = mesh_devloop_span(
                         plan.midstate, plan.template, carries, plan.lo_i,
-                        plan.hi_i, plan.base, **kw)
+                        plan.hi_i, plan.base, pod=self.pod, **kw)
                 else:
                     carries = mesh_devloop_span_until(
                         plan.midstate, plan.template, carries, plan.lo_i,
                         plan.hi_i, target >> 32, target & M32, plan.base,
-                        span=span, **kw)
+                        span=span, pod=self.pod, **kw)
         if target is None:
             self.last_dispatch_subs = subs
         return carries[0]

@@ -48,6 +48,13 @@ lowest hit on from shard to shard, the plain version of the shared word),
 :func:`mesh_lex_min` and the plain folds :func:`fold_rows_argmin` and
 :func:`fold_rows_until` (the mesh fold kernels' plain versions). A mesh of
 mixed device types raises.
+
+A pod (``parallel.multihost``: several processes as one miner) runs
+the same block on each rank over the pod's global mesh (the ``pod=``
+argument of both chains): every rank cuts the block over all the pod's
+shards, searches its own windows, and one gather of every rank's rows
+precedes each rank's folds. With no pod the one-process mesh above is
+unchanged; the pod is a layer over it.
 """
 
 from __future__ import annotations
@@ -233,27 +240,83 @@ def _cuda_block(devices: tuple, carries: tuple, windows: list, width: int,
     return carries
 
 
+def _pod_windows(lo_i: int, hi_i: int, n_local: int, pod) -> list:
+    """This rank's ``[(local shard, lo, hi)]``: the shards with a lane
+    among the ``device_windows`` cut over all the pod's ``world *
+    n_local`` shards, global shard ``rank * n_local + j``; every rank
+    computes the same cut. With no pod, :func:`_windows` of the local
+    mesh. Either way the shards with a lane come first."""
+    if pod is None:
+        return _windows(lo_i, hi_i, n_local)
+    first = pod.rank * n_local
+    return [(s - first, lo, hi)
+            for s, lo, hi in _windows(lo_i, hi_i, pod.world * n_local)
+            if first <= s < first + n_local]
+
+
+def _pod_cuda_block(devices: tuple, carries: tuple, windows: list,
+                    width: int, search, fold, pod) -> tuple:
+    """One block of a pod rank on its CUDA mesh: ``search`` per local
+    shard with a window (as :func:`_cuda_block`), its rows gathered onto
+    the rank's first device (empty shards all-ones, found 0 in the until
+    layout), one ``pod.gather`` of every rank's rows, then on every
+    distinct local device the global rows folded into its carry."""
+    n, holders = len(devices), distinct(devices)
+    lead = holders[0]
+    rows = {t: torch.empty((n, width), dtype=torch.int32, device=t)
+            for t in holders}
+    if len(windows) < n:
+        rows[lead][len(windows):] = -1
+        if width == 5:
+            rows[lead][len(windows):, 0] = 0
+    seen = set()
+    for j, lo, hi in windows:
+        d = devices[j]
+        search(d, rows[d][j], carries[holders.index(d)], lo, hi,
+               d not in seen)
+        seen.add(d)
+    for j, _, _ in windows:
+        if devices[j] != lead:
+            rows[lead][j].copy_(rows[devices[j]][j], non_blocking=True)
+    everyone = pod.gather(rows[lead])
+    for t, carry in zip(holders, carries):
+        fold(everyone if t == lead else everyone.to(t, non_blocking=True),
+             carry, t)
+    return carries
+
+
+def _block(devices: tuple, carries: tuple, windows: list, width: int,
+           search, fold, pod) -> tuple:
+    if pod is None:
+        return _cuda_block(devices, carries, windows, width, search, fold)
+    return _pod_cuda_block(devices, carries, windows, width, search, fold,
+                           pod)
+
+
 def mesh_devloop_span(midstate, template, carries: tuple, lo_i: int,
                       hi_i: int, base: int, *, rem: int, k: int, devices,
                       grid: int | None = None, peel: bool = False,
-                      hoist=None) -> tuple:
+                      hoist=None, pod=None) -> tuple:
     """One block of the mesh arg-min chain over the valid lanes ``[lo_i,
     hi_i]`` (nonce = ``base + lane``): each shard's ``(hi, lo, idx)``,
     merged and folded into ``carries`` (one 5-word carry per distinct
     device, :func:`mesh_carry`). Returns the updated carries: in place on
     a CUDA mesh, without synchronising; new ones on a CPU mesh. ``grid``,
     ``peel`` and ``hoist`` as for ``ops.search.devloop_span``, per
-    shard."""
+    shard. ``pod`` (a ``parallel.multihost.Pod``): ``devices`` are this
+    rank's part of the pod's global mesh; the block is cut over every
+    rank's shards and every rank's rows are gathered before the folds."""
     devices = tuple(devices)
     hoist = hoist if peel else None
-    windows = _windows(lo_i, hi_i, len(devices))
+    windows = _pod_windows(lo_i, hi_i, len(devices), pod)
     if _mesh_type(devices) == "cpu":
-        rows = [span_scan(midstate, template, lo, lo, hi, hi - lo + 1,
-                          rem=rem, k=k, device="cpu", hoist=hoist)
-                for _, lo, hi in windows]
-        rows += [torch.full((3,), M32, dtype=torch.int64)] * (
-            len(devices) - len(windows))
-        return (fold_rows_argmin(carries[0], torch.stack(rows), base),)
+        rows = torch.full((len(devices), 3), M32, dtype=torch.int64)
+        for j, lo, hi in windows:
+            rows[j] = span_scan(midstate, template, lo, lo, hi, hi - lo + 1,
+                                rem=rem, k=k, device="cpu", hoist=hoist)
+        if pod is not None:
+            rows = pod.gather(rows)
+        return (fold_rows_argmin(carries[0], rows, base),)
     body = sha256_cuda.body_of(peel, hoist)
 
     def search(d, row, _carry, lo, hi, _first):
@@ -263,14 +326,14 @@ def mesh_devloop_span(midstate, template, carries: tuple, lo_i: int,
 
     def fold(rows, carry, d):
         sha256_cuda.mesh_fold_argmin(rows, carry, base, device=d, body=body)
-    return _cuda_block(devices, carries, windows, 3, search, fold)
+    return _block(devices, carries, windows, 3, search, fold, pod)
 
 
 def mesh_devloop_span_until(midstate, template, carries: tuple, lo_i: int,
                             hi_i: int, t_hi: int, t_lo: int, base: int, *,
                             rem: int, k: int, devices, span,
                             grid: int | None = None, peel: bool = False,
-                            hoist=None) -> tuple:
+                            hoist=None, pod=None) -> tuple:
     """One block of the mesh difficulty chain: each shard's early-exit scan
     of its window below the target ``(t_hi, t_lo)``, merged (the lowest
     first hit and the arg-min fallback) and folded into ``carries`` (one
@@ -280,22 +343,29 @@ def mesh_devloop_span_until(midstate, template, carries: tuple, lo_i: int,
     does no lane work; once the carries say an earlier block hit, no
     shard does lane work and the carries stay as they are, so the span
     costs one fetch wherever the hit lands. Returns the updated carries
-    (in place on a CUDA mesh)."""
+    (in place on a CUDA mesh). ``pod`` as for :func:`mesh_devloop_span`:
+    no lowest-hit word crosses ranks, and the answer stays exact since
+    the windows ascend with the global shard and the fold keeps the
+    lowest hit."""
     devices = tuple(devices)
     hoist = hoist if peel else None
-    windows = _windows(lo_i, hi_i, len(devices))
+    windows = _pod_windows(lo_i, hi_i, len(devices), pod)
     if _mesh_type(devices) == "cpu":
+        # In a pod every rank's carry is the same (each folds every
+        # rank's rows), so every rank takes this branch alike.
         if int(carries[0][0]):
             return carries
-        rows, lowest = [], M32
-        for _, lo, hi in windows:
-            rows.append(span_until_scan(
+        rows = torch.tensor([[0] + [M32] * 4] * len(devices),
+                            dtype=torch.int64)
+        lowest = M32
+        for j, lo, hi in windows:
+            rows[j] = span_until_scan(
                 midstate, template, lo, lo, hi, hi - lo + 1, t_hi, t_lo,
-                rem=rem, k=k, device="cpu", hoist=hoist, lowest=lowest))
-            lowest = int(rows[-1][1])
-        rows += [torch.tensor([0] + [M32] * 4, dtype=torch.int64)] * (
-            len(devices) - len(windows))
-        return (fold_rows_until(carries[0], torch.stack(rows), base),)
+                rem=rem, k=k, device="cpu", hoist=hoist, lowest=lowest)
+            lowest = int(rows[j][1])
+        if pod is not None:
+            rows = pod.gather(rows)
+        return (fold_rows_until(carries[0], rows, base),)
     body = sha256_cuda.body_of(peel, hoist)
 
     def search(d, row, carry, lo, hi, first):
@@ -307,4 +377,4 @@ def mesh_devloop_span_until(midstate, template, carries: tuple, lo_i: int,
 
     def fold(rows, carry, d):
         sha256_cuda.mesh_fold_until(rows, carry, base, device=d, body=body)
-    return _cuda_block(devices, carries, windows, 5, search, fold)
+    return _block(devices, carries, windows, 5, search, fold, pod)

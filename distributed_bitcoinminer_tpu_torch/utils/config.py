@@ -47,6 +47,14 @@ of the JAX package, parsed and clamped the same way:
   (``MeshNonceSearcher``), as the JAX package's factory takes its mesh
   searcher on a box with more than one device.
 
+- :func:`pod_from_env`: ``DBMT_COORDINATOR`` (rank 0's ``host:port``;
+  unset, no pod), ``DBMT_NUM_PROCS``, ``DBMT_PROC_ID``,
+  ``DBMT_POD_TIMEOUT_S`` (600), ``DBMT_POD_IDLE_TIMEOUT_S`` (0: a
+  follower waits for the next job without a bound);
+- :func:`capture_from_env`: ``DBMT_CAPTURE`` (default 0),
+  ``DBMT_CAPTURE_PATH``, ``DBMT_CAPTURE_LINES``, ``DBMT_CAPTURE_SNAP_S``;
+- :func:`replicas_from_env`: ``DBMT_REPLICAS`` (default 1).
+
 The server also reads the lease plane's and the verification tier's
 knobs (:func:`lease_from_env`, :func:`verify_from_env`):
 ``DBMT_LEASE_GRACE_S``, ``DBMT_LEASE_FACTOR``, ``DBMT_LEASE_FLOOR_S``,
@@ -401,3 +409,60 @@ def verify_from_env() -> VerifyParams:
                                                 d.trust_floor))),
         trust_bar=min(1.0, max(0.0, float_env("DBMT_TRUST_BAR",
                                               d.trust_bar))))
+
+
+@dataclass(frozen=True)
+class PodParams:
+    """A pod: several processes that join the scheduler as ONE miner
+    (``parallel.multihost``). ``coordinator`` is the ``host:port`` of rank
+    0's TCP rendezvous (None: no pod), ``num_procs`` the ranks, ``proc_id``
+    this process's rank; ``timeout_s`` bounds one pod job and
+    ``idle_timeout_s`` (0: no bound) a follower's wait between jobs: past
+    either the process exits with code 17."""
+    coordinator: str | None = None
+    num_procs: int = 1
+    proc_id: int = 0
+    timeout_s: float = 600.0
+    idle_timeout_s: float = 0.0
+
+
+def pod_from_env() -> PodParams:
+    """``DBMT_COORDINATOR``, ``DBMT_NUM_PROCS``, ``DBMT_PROC_ID``,
+    ``DBMT_POD_TIMEOUT_S`` (600), ``DBMT_POD_IDLE_TIMEOUT_S`` (0)."""
+    d = PodParams()
+    return PodParams(
+        coordinator=str_env("DBMT_COORDINATOR") or None,
+        num_procs=int_env("DBMT_NUM_PROCS", d.num_procs),
+        proc_id=int_env("DBMT_PROC_ID", d.proc_id),
+        timeout_s=float_env("DBMT_POD_TIMEOUT_S", d.timeout_s),
+        idle_timeout_s=float_env("DBMT_POD_IDLE_TIMEOUT_S",
+                                 d.idle_timeout_s))
+
+
+@dataclass(frozen=True)
+class CaptureParams:
+    """The workload capture plane (``apps.capture``): ``enabled``
+    (``DBMT_CAPTURE``, default 0) arms it; records go to ``path``, which
+    rotates to ``path + ".1"`` past ``max_lines`` lines (at least 1024); a
+    pool snapshot rides the sweep at most every ``snap_s`` seconds."""
+    enabled: bool = False
+    path: str = "dbmt_capture.jsonl"
+    max_lines: int = 200_000
+    snap_s: float = 5.0
+
+
+def capture_from_env() -> CaptureParams:
+    """``DBMT_CAPTURE``, ``DBMT_CAPTURE_PATH``, ``DBMT_CAPTURE_LINES``,
+    ``DBMT_CAPTURE_SNAP_S`` (read at each call, so
+    a knob set around a construction takes effect)."""
+    d = CaptureParams()
+    return CaptureParams(
+        enabled=int_env("DBMT_CAPTURE", 0) != 0,
+        path=str_env("DBMT_CAPTURE_PATH", d.path),
+        max_lines=max(1024, int_env("DBMT_CAPTURE_LINES", d.max_lines)),
+        snap_s=float_env("DBMT_CAPTURE_SNAP_S", d.snap_s))
+
+
+def replicas_from_env() -> int:
+    """``DBMT_REPLICAS`` (default 1: the plain single scheduler)."""
+    return max(1, int_env("DBMT_REPLICAS", 1))

@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
                  "lspnet.net", "bitcoin.hash", "utils.config",
                  "utils.metrics", "utils.trace", "utils.sanitize",
                  "utils.logging", "utils.profiling", "apps.adapt",
-                 "tools.trace_census", "tools.dbmtrace", "tools.tune"):
+                 "tools.trace_census", "tools.dbmtrace", "tools.tune",
+                 "parallel.multihost", "apps.capture", "apps.health",
+                 "apps.procs", "apps.rollup", "apps.replicas"):
         assert f"distributed_bitcoinminer_tpu_torch.{name}" in modules
 
 
