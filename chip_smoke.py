@@ -128,8 +128,31 @@ JSON line per phase:
    replicas (``DBMT_REPLICAS=2``) and two miners serve R1, R3, R4 and
    the 64 mice, each equal to the default or mice path's, answered from
    both replicas' job-id ranges, the merged ``results_sent`` the server
-   logs at its stop equal to the answers; and a synchronised row gather
-   of the pod timed (``--pod-gather``, one process a rank). The
+   logs at its stop equal to the answers; then the procs path (the
+   process tier, ``apps.procs``): a ``ProcCluster`` of a router, two
+   replica processes, a miner agent and then a gateway agent with two
+   children (so one joins each replica), every miner on card 0, a 0.2 s
+   beat; R1, R3 and R4 through ``submit_with_retry("ring:<statedir>")``
+   with a tenant key owned by each replica, equal to the default path's;
+   ``tools/dbmtop.py --once --json``: five processes, all fresh; the
+   elephant ("cmu440", 2^36-1) through the ring, its owner killed with
+   ``kill -9`` once it has put it in flight: the router's missed-beat
+   detection bumps the epoch and fences it, the one reply equals a
+   direct search on card 0, the survivor answered it once, the seconds
+   from the kill to the fence and to the reply printed; ``dbmtop``
+   again: the dead replica fenced or stale and out of the totals, the
+   three SLO objectives; each agent's launches (K1, K6, K2) from the
+   gauges of its rollup blob, none in a replica or the router; and one
+   host-tier miner agent (``DBMT_COMPUTE=host``) on a ring of its own
+   serving R1, equal to the card's, with no launch. Then the gateway
+   path: a server as the parent, ``apps.gateway`` (which joins it once
+   its two children have) and two miners on ``cuda`` with probed rate
+   hints behind its inner port; a warm 2^34 request, then R1, R3 and R4
+   through the parent, equal to the default path's; the parent saw one
+   JOIN, its hint the children's probes less their decay, at least one
+   repeat JOIN logged as a refresh of that miner, and no failed claim;
+   and a synchronised row gather of the pod timed (``--pod-gather``,
+   one process a rank). The
    adapt-on mice run (coalescing on) runs with the capture plane armed
    (``DBMT_CAPTURE=1``): its answers equal the adapt-off run's, its
    records add up to the run's arrivals, answers, sheds and chunk
@@ -1818,6 +1841,8 @@ def phase_e2e(outdir: str) -> dict:
     pod = run_pod(outdir)
     drill = run_pod_drill(outdir)
     replicas = run_replicas(outdir)
+    procs_run = run_procs(outdir)
+    gateway = run_gateway(outdir)
     gather = pod_gather_ms([POD_RANK_DEVICES] * 2)
     lease = run_lease(outdir)
     verify = run_verify(outdir)
@@ -1912,6 +1937,31 @@ def phase_e2e(outdir: str) -> dict:
     check_pod(pod, by_name)
     check_pod_drill(drill, mice_runs[0]["elephant"])
     check_replicas(replicas, by_name, mice_runs[0])
+    procs_summary = check_procs(procs_run, by_name, dev)
+    check_gateway(gateway, by_name)
+    ring_s = {f"{r['request']}@replica{r['replica']}": round(r["seconds"], 4)
+              for r in procs_run["requests"]}
+    gw_s = {r["request"]: round(r["seconds"], 4)
+            for r in gateway["requests"]}
+    print(f"procs: ring seconds {json.dumps(ring_s)} against one server's "
+          f"R1 {by_name['R1']['seconds']:.4f}, R3 "
+          f"{by_name['R3']['seconds']:.4f}, R4 {by_name['R4']['seconds']:.4f};"
+          f" elephant granted after {procs_run['granted_s']:.3f} s, kill -9 "
+          f"of replica {procs_run['owner']} -> fence "
+          f"{procs_run['fence_s']:.3f} s -> reply {procs_run['reply_s']:.3f}"
+          f" s; dbmtop max age {procs_summary['max_age_before_s']} s at a "
+          f"{procs_summary['beat_s']} s beat; host-tier R1 "
+          f"{procs_run['host_r1']['seconds']:.4f} s; gateway seconds "
+          f"{json.dumps(gw_s)} (R3 {by_name['R3']['seconds']:.4f} s on one "
+          f"miner), JOIN hint {gateway['gateway_join']['hint']:.6g} = "
+          f"{' + '.join(f'{h:.6g}' for h in gateway['child_hints'])}, "
+          f"{len(gateway['parent_refreshes'])} refreshes", flush=True)
+    procs_run["dbmtop_before"] = [
+        (p["proc"], p["status"], p["age_s"])
+        for p in procs_run["dbmtop_before"]["procs"]]
+    procs_run["dbmtop_after"] = [
+        (p["proc"], p["status"], p["age_s"])
+        for p in procs_run["dbmtop_after"]["procs"]]
     capture = check_capture(mice_adapt[0], mice_runs[0])
     mesh_r3 = next(r for r in mesh["default"]["requests"]
                    if r["request"] == "R3")
@@ -1947,6 +1997,7 @@ def phase_e2e(outdir: str) -> dict:
             "mice_warm": mice_warm,
             "peeled": peeled, "mesh": mesh, "pod": pod, "pod_drill": drill,
             "pod_gather": gather, "replicas": replicas, "capture": capture,
+            "procs": procs_run, "gateway": gateway,
             "lease": lease,
             "verify": verify, "sched": sched, "sched_adapt": sched_adapt,
             "trace": traced, "blown_leases_by_server": blown,
@@ -1967,6 +2018,8 @@ def phase_e2e(outdir: str) -> dict:
                          "pod": {k: sum(r[k] for r in pod["launches"])
                                  for k in KERNELS},
                          "replicas": replicas["launches"],
+                         "procs": procs_summary["launches"],
+                         "gateway": gateway["launches"],
                          "lease": sum_launches(lease["launches"]),
                          "verify": sum_launches(verify["launches"]),
                          "sched": sched["launches"],
@@ -2674,6 +2727,375 @@ def check_replicas(run: dict, default: dict, mice: dict) -> None:
     if not (run["launches"]["K1"] and run["launches"]["K2"]
             and run["launches"]["K6"]):
         fail(f"replica path launched {run['launches']}")
+
+
+#: The process tier's path (``apps.procs``): every process of it on the
+#: card's host, the agents' miners on card 0 (``DBMT_COMPUTE`` unset), a
+#: beat of 0.2 s, LSP epochs of 0.2 s (a dead replica's conns are lost
+#: after 2 s), no result cache (each ring request reaches a miner) and no
+#: audits.
+PROCS_ENV = {"DBMT_HEALTH_BEAT_S": "0.2", "DBMT_EPOCH_MILLIS": "200",
+             "DBMT_EPOCH_LIMIT": "10", "DBMT_CACHE": "0",
+             "DBMT_AUDIT_P": "0", "DBMT_MESH_DEVICES": "cuda:0"}
+#: About 5.5 s on one card: its owner is killed once it is granted.
+PROCS_ELEPHANT = ("cmu440", (1 << 36) - 1)
+LAUNCH_GAUGE = re.compile(
+    r"miner\.kernel_launches\{kernel=(\w+),proc=(\w+)\}")
+
+
+def dbmtop_doc(statedir: str) -> dict:
+    """``tools/dbmtop.py --once --json`` as a subprocess."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.tools.dbmtop", "--once", "--json",
+         statedir], capture_output=True, text=True, timeout=60, cwd=ROOT)
+    if out.returncode != 0:
+        fail(f"dbmtop --once --json {statedir}: rc {out.returncode}, "
+             f"{out.stderr[-2000:]!r}")
+    return json.loads(out.stdout)
+
+
+def proc_launches(doc: dict) -> dict:
+    """Each process's kernel launches, from the launch gauges its rollup
+    blob carries (fresh processes only)."""
+    out: dict = {}
+    for key, value in doc["cluster"].get("gauges", {}).items():
+        m = LAUNCH_GAUGE.fullmatch(key)
+        if m:
+            out.setdefault(m.group(2), dict.fromkeys(KERNELS, 0))[
+                m.group(1)] = int(value)
+    return out
+
+
+def replica_started(statedir: str, rid: int) -> int:
+    """Requests replica ``rid`` has put in flight (its queue waits, from
+    its rollup blob)."""
+    from distributed_bitcoinminer_tpu_torch.apps.procs import read_json
+    blob = read_json(os.path.join(statedir, f"metrics_replica_{rid}.json"))
+    hist = (blob or {}).get("snapshot", {}).get("histograms", {}).get(
+        "sched.queue_wait_s") or {}
+    return hist.get("count", 0)
+
+
+def ring_keys(statedir: str) -> dict:
+    """A tenant key owned by each replica of the serving ring."""
+    from distributed_bitcoinminer_tpu_torch.apps.procs import resolve_owner
+    keys: dict = {}
+    for i in range(1000):
+        rid, _ = resolve_owner(statedir, f"tenant {i}")
+        keys.setdefault(rid, f"tenant {i}")
+    return keys
+
+
+def run_procs(outdir: str) -> dict:
+    """The procs path (the counterpart of the JAX package's
+    ``scripts/procsmoke.py`` on the card): a ``ProcCluster`` of a router,
+    2 replicas, a miner agent and a gateway agent with 2 children, started
+    in that order so the miner agent joins replica 0 and the gateway
+    replica 1; R1, R3 and R4 through ``submit_with_retry("ring:...")``
+    with a tenant key owned by each replica; ``dbmtop --once --json``;
+    the elephant, its owner killed with ``kill -9`` once it is granted;
+    ``dbmtop`` again. Then one host-tier miner agent
+    (``DBMT_COMPUTE=host``) on a ring of its own serves R1."""
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps import procs
+    from distributed_bitcoinminer_tpu_torch.apps.client import \
+        submit_with_retry
+    from distributed_bitcoinminer_tpu_torch.lsp.params import Params
+    from distributed_bitcoinminer_tpu_torch.utils.config import RetryParams
+    params = Params(epoch_limit=10, epoch_millis=200)
+    retry = RetryParams(attempts=6, timeout_s=0, backoff_s=0.2)
+
+    def ring(statedir, data, max_nonce, target=0, key=None):
+        return asyncio.run(asyncio.wait_for(submit_with_retry(
+            f"ring:{statedir}", data, max_nonce, target, params, retry,
+            tenant_key=key), 300))
+
+    def cluster(tag: str, **kw):
+        statedir = os.path.join(outdir, f"{tag}_state")
+        shutil.rmtree(statedir, ignore_errors=True)
+        logdir = os.path.join(outdir, f"{tag}_logs")
+        shutil.rmtree(logdir, ignore_errors=True)
+        c = procs.ProcCluster(statedir, logdir=logdir, **kw)
+        c.env.pop("DBMT_COMPUTE", None)
+        c.env.update(PROCS_ENV, PYTHONPATH=ROOT + os.pathsep
+                     + os.environ.get("PYTHONPATH", ""))
+        return c
+
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    c = cluster("procs", replicas=2, miners=0, gateways=0, children=2)
+    t0 = time.monotonic()
+    try:
+        c.start()
+        c.spawn_miner(0)
+        asyncio.run(c.wait_live(2, timeout_s=300, miners=1))
+        c.spawn_gateway(0)
+        m0 = asyncio.run(c.wait_live(2, timeout_s=300, miners=2))
+        start_s = time.monotonic() - t0
+        keys = ring_keys(c.statedir)
+        results = []
+        for rid, key in sorted(keys.items()):
+            for name in ("R1", "R3"):
+                _, data, max_nonce = by_name[name]
+                r = timed(name, data, max_nonce,
+                          lambda: ring(c.statedir, data, max_nonce, key=key))
+                results.append({**r, "replica": rid, "tenant_key": key})
+            name, data, max_nonce, target = UNTIL_REQUESTS[0]
+            r = timed(name, data, max_nonce, lambda: ring(
+                c.statedir, data, max_nonce, target, key))
+            results.append({**r, "replica": rid, "tenant_key": key})
+        time.sleep(0.5)                   # one more blob of each process
+        before = dbmtop_doc(c.statedir)
+        data, max_nonce = PROCS_ELEPHANT
+        owner, _ = procs.resolve_owner(c.statedir, data)
+        started0 = replica_started(c.statedir, owner)
+
+        async def elephant():
+            job = asyncio.ensure_future(submit_with_retry(
+                f"ring:{c.statedir}", data, max_nonce, 0, params, retry))
+            t_sub = time.monotonic()
+            while replica_started(c.statedir, owner) <= started0:
+                if job.done() or time.monotonic() - t_sub > 60:
+                    fail("procs path: the elephant was never granted before "
+                         "its answer")
+                await asyncio.sleep(0.02)
+            granted_s = time.monotonic() - t_sub
+            if not c.kill_replica(owner):
+                fail(f"procs path: replica {owner} was not running")
+            t_kill = time.monotonic()
+            fence_s = None
+            while not job.done():
+                m = c.membership()
+                if fence_s is None and m is not None and m.epoch > m0.epoch:
+                    fence_s = time.monotonic() - t_kill
+                await asyncio.sleep(0.02)
+            reply_s = time.monotonic() - t_kill
+            return (await job, granted_s, fence_s, reply_s)
+        got, granted_s, fence_s, reply_s = asyncio.run(
+            asyncio.wait_for(elephant(), 600))
+        answer = None if got is None else {
+            "data": data, "max_nonce": max_nonce, "hash": got[0],
+            "nonce": got[1]}
+        m1 = c.membership()
+        time.sleep(0.5)
+        after = dbmtop_doc(c.statedir)
+    finally:
+        c.close()
+    host = cluster("procs_host", replicas=1, miners=1, gateways=0)
+    host.env["DBMT_COMPUTE"] = "host"
+    try:
+        host.start()
+        asyncio.run(host.wait_live(1, timeout_s=300, miners=1))
+        _, data, max_nonce = by_name["R1"]
+        host_r1 = timed("R1 host", data, max_nonce,
+                        lambda: ring(host.statedir, data, max_nonce))
+        time.sleep(0.5)
+        host_doc = dbmtop_doc(host.statedir)
+    finally:
+        host.close()
+    return {"start_s": start_s, "requests": results,
+            "keys": {str(k): v for k, v in keys.items()},
+            "epoch_before": m0.epoch, "live_before": sorted(m0.live),
+            "owner": owner,
+            "owner_incarnation": m0.live[owner]["incarnation"],
+            "elephant": answer,
+            "granted_s": granted_s, "fence_s": fence_s, "reply_s": reply_s,
+            "epoch_after": m1.epoch, "live_after": sorted(m1.live),
+            "fenced_after": m1.is_fenced(owner,
+                                         m0.live[owner]["incarnation"]),
+            "dbmtop_before": before, "dbmtop_after": after,
+            "launches_by_proc": proc_launches(after),
+            "host_r1": host_r1,
+            "host_launches_by_proc": proc_launches(host_doc),
+            "host_roles": sorted(p["role"] for p in host_doc["procs"])}
+
+
+def check_procs(run: dict, default: dict, dev) -> dict:
+    """The procs path's checks; returns its summary for the report."""
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    if set(run["keys"]) != {"0", "1"}:
+        fail(f"procs path: the serving ring is {run['keys']}, not both "
+             "replicas")
+    for r in run["requests"]:
+        want = default[r["request"]]
+        if (r["hash"], r["nonce"]) != (want["hash"], want["nonce"]):
+            fail(f"procs path {r['request']} via replica {r['replica']}: "
+                 f"{r['hash'], r['nonce']} != the default path's "
+                 f"{want['hash'], want['nonce']}")
+    want = default["R1"]
+    if (run["host_r1"]["hash"], run["host_r1"]["nonce"]) != \
+            (want["hash"], want["nonce"]):
+        fail(f"procs path: the host tier's R1 {run['host_r1']} != the "
+             f"card's {want['hash'], want['nonce']}")
+    if any(any(v.values()) for v in run["host_launches_by_proc"].values()) \
+            or run["host_roles"] != ["miner", "replica", "router"]:
+        fail(f"procs path: the host tier's processes {run['host_roles']} "
+             f"launched {run['host_launches_by_proc']}")
+    el = run["elephant"]
+    if el is None:
+        fail("procs path: the elephant got no answer")
+    data, max_nonce = PROCS_ELEPHANT
+    direct = NonceSearcher(data, device=dev).search(0, max_nonce + 1)
+    if (el["hash"], el["nonce"]) != direct:
+        fail(f"procs path: the elephant {el['hash'], el['nonce']} != a "
+             f"direct search on card 0 {direct}")
+    if not (run["epoch_after"] > run["epoch_before"] and run["fenced_after"]
+            and run["live_after"] == [1 - run["owner"]]
+            and run["fence_s"] is not None):
+        fail(f"procs path: the router did not fence replica {run['owner']}: "
+             f"epoch {run['epoch_before']} -> {run['epoch_after']}, live "
+             f"{run['live_after']}")
+    before, after = run["dbmtop_before"], run["dbmtop_after"]
+    roles = sorted(p["role"] for p in before["procs"])
+    if roles != ["gateway", "miner", "replica", "replica", "router"] \
+            or any(p["status"] != "fresh" for p in before["procs"]):
+        fail(f"procs path: dbmtop before the kill: "
+             f"{[(p['proc'], p['status']) for p in before['procs']]}")
+    beat = float(PROCS_ENV["DBMT_HEALTH_BEAT_S"])
+    max_age = max(p["age_s"] for p in before["procs"])
+    dead = f"replica{run['owner']}"
+    rows = {p["proc"]: p for p in after["procs"]}
+    if rows.get(dead, {}).get("status") not in ("fenced", "stale") \
+            or f"proc={dead}" in json.dumps(after["cluster"]):
+        fail(f"procs path: after the kill dbmtop shows {rows.get(dead)}")
+    survivor = f"replica{1 - run['owner']}"
+    prior = {p["proc"]: p for p in before["procs"]}[survivor]
+    answered = rows[survivor]["detail"].get("results", 0) \
+        - prior["detail"].get("results", 0)
+    if answered != 1:
+        fail(f"procs path: the survivor answered {answered} requests after "
+             "the kill, not the elephant once")
+    if [s["objective"] for s in after["slo"]] != \
+            ["reply_availability", "queue_wait_p99", "shed_rate"]:
+        fail(f"procs path: dbmtop's slo list {after['slo']}")
+    by_proc = run["launches_by_proc"]
+    agents = {p: n for p, n in by_proc.items()
+              if p.startswith(("miner", "gateway"))}
+    if sorted(p.rstrip("0123456789") for p in agents) != ["gateway", "miner"]:
+        fail(f"procs path: launches by process {by_proc}")
+    for proc, n in agents.items():
+        if not (n["K1"] and n["K6"] and n["K2"]):
+            fail(f"procs path: {proc} launched {n}")
+    if set(by_proc) - set(agents):
+        fail(f"procs path: launches outside the agents {by_proc}")
+    return {"launches": {k: sum(n[k] for n in agents.values())
+                         for k in KERNELS},
+            "max_age_before_s": max_age, "beat_s": beat}
+
+
+#: The gateway path: the gateway joins its parent once both children have
+#: joined, and re-sends its JOIN at most every 0.5 s.
+GATEWAY_ENV = {"DBMT_GATEWAY_MIN_POOL": "2", "DBMT_GATEWAY_HINT_S": "0.5"}
+GATEWAY_WARM = ("gateway warm", (1 << 34) - 1)
+HINT_LINE = re.compile(r"rate hint ([0-9.e+]+) nonces/s")
+
+
+def run_gateway(outdir: str) -> dict:
+    """The gateway path: a stock port server as the parent, ``python -m
+    ...apps.gateway <parent>`` and two miner CLIs on ``cuda`` (rate hints
+    by probe) behind its inner port; a warm request that gives the inner
+    pool its measured rates (so the gateway refreshes its hint), then R1,
+    R3 and R4 through the parent."""
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps.client import (
+        submit, submit_until)
+    by_name = {r[0]: r for r in ARGMIN_REQUESTS}
+    results = []
+    with Cluster(outdir) as c:
+        parent_log = c.start("gw_parent", "server", [str(c.port)],
+                             "Server listening on port")
+        gw_dir = server_dir(outdir, "gw_gateway")
+        shutil.rmtree(gw_dir, ignore_errors=True)
+        os.makedirs(gw_dir)
+        gw_out = c.launch("gw_gateway", ["-m", f"{PKG}.apps.gateway",
+                                         c.hostport], GATEWAY_ENV,
+                          cwd=gw_dir)
+        wait_for_line(gw_out, "Gateway inner tier listening on port",
+                      c.procs[-1], timeout=120)
+        with open(gw_out) as f:
+            port = int(re.search(r"listening on port (\d+)",
+                                 f.read()).group(1))
+        inner = f"127.0.0.1:{port}"
+        miners = []
+        for name in ("gw_child", "gw_child2"):
+            miners.append(c.start(name, "miner", [inner, "--device", "cuda"],
+                                  "joined ", env={"DBMT_RATE_HINT": "probe"}))
+        wait_until("the gateway's JOIN", lambda: " joined" in open(
+            parent_log, errors="replace").read(), c.procs[0])
+        data, max_nonce = GATEWAY_WARM
+        results.append(timed("warm", data, max_nonce, lambda: asyncio.run(
+            asyncio.wait_for(submit(c.hostport, data, max_nonce), 300))))
+        wait_until("the gateway's hint refresh", lambda: "refreshed rate hint"
+                   in open(parent_log, errors="replace").read(), c.procs[0],
+                   timeout=60)
+        for name in ("R1", "R3"):
+            _, data, max_nonce = by_name[name]
+            results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+                asyncio.wait_for(submit(c.hostport, data, max_nonce), 300))))
+        name, data, max_nonce, target = UNTIL_REQUESTS[0]
+        results.append(timed(name, data, max_nonce, lambda: asyncio.run(
+            asyncio.wait_for(submit_until(c.hostport, data, max_nonce,
+                                          target), 300))))
+        launches = path_launches(miners)
+    with open(parent_log, errors="replace") as f:
+        parent = f.read()
+    with open(os.path.join(gw_dir, "log.txt"), errors="replace") as f:
+        gw_text = f.read()
+    child_hints = []
+    for log in miners:
+        with open(log, errors="replace") as f:
+            m = HINT_LINE.search(f.read())
+        child_hints.append(float(m.group(1)) if m else None)
+    joins = re.findall(r"miner (\d+) joined(?: with rate hint "
+                       r"([0-9.e+]+) nonces/s)?", parent)
+    gw_join = re.search(r"joined the parent as one miner \(pool (\d+), hint "
+                        r"([0-9.e+]+) nonces/s\)", gw_text)
+    return {"requests": results, "launches": launches,
+            "parent_joins": joins,
+            "parent_refreshes": re.findall(
+                r"miner (\d+) refreshed rate hint ([0-9.e+]+) nonces/s",
+                parent),
+            "gateway_join": None if gw_join is None else
+            {"pool": int(gw_join.group(1)), "hint": float(gw_join.group(2))},
+            "gateway_refreshes": len(re.findall(r"refreshed its hint",
+                                                gw_text)),
+            "child_hints": child_hints,
+            "parent_counts": scheduler_counts(parent_log)}
+
+
+def check_gateway(run: dict, default: dict) -> None:
+    for r in run["requests"]:
+        if r["request"] == "warm":
+            continue
+        want = default[r["request"]]
+        if (r["hash"], r["nonce"]) != (want["hash"], want["nonce"]):
+            fail(f"gateway path {r['request']}: {r['hash'], r['nonce']} != "
+                 f"the default path's {want['hash'], want['nonce']}")
+    # A repeat JOIN's hint replaces the parent's EWMA only while it is a
+    # claim or 2x off a measured rate (``rate_hints_refreshed`` counts
+    # those); every repeat JOIN is logged as a refresh of the one entry.
+    counts = run["parent_counts"]
+    if counts.get("claims_failed", 1) != 0:
+        fail(f"gateway path: the parent's counts {counts}")
+    joins, gw = run["parent_joins"], run["gateway_join"]
+    if len(joins) != 1 or not run["parent_refreshes"] \
+            or {c for c, _ in run["parent_refreshes"]} != {joins[0][0]}:
+        fail(f"gateway path: the parent saw joins {joins} and refreshes "
+             f"{run['parent_refreshes']}")
+    # The JOIN's hint is the inner pool's sum: both children's probed
+    # hints, each less the 2% a sweep (one a second) that an unconfirmed
+    # hint decays between its child's JOIN and the gateway's.
+    hints = run["child_hints"]
+    if gw is None or gw["pool"] != 2 or None in hints \
+            or not max(hints) < gw["hint"] <= sum(hints) * (1 + 1e-5) \
+            or gw["hint"] < sum(hints) * 0.98 ** 30 or not joins[0][1] \
+            or abs(float(joins[0][1]) - gw["hint"]) > 5e-3 * gw["hint"]:
+        fail(f"gateway path: the JOIN hint {joins[0][1]} / the gateway's "
+             f"{gw} against the children's {hints}")
+    if not (run["launches"]["K1"] and run["launches"]["K6"]
+            and run["launches"]["K2"]):
+        fail(f"gateway path launched {run['launches']}")
 
 
 #: The lease path's server: 2 s leases on a cold pool (and as the floor on

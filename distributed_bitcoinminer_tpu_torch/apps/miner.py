@@ -59,7 +59,8 @@ cold pool seeded from it estimates requests that much longer, so more
 of them are chunked by the QoS plane instead of dispatched wholesale.
 
 Usage: ``python -m distributed_bitcoinminer_tpu_torch.apps.miner
-<host:port> [--device cuda|cpu]`` (default ``cuda``; ``DBMT_COALESCE=0``
+<host:port> [--device cuda|cpu]`` (default ``cuda``; ``DBMT_COMPUTE=host``
+runs the host tier, :class:`HostSearcher`, instead; ``DBMT_COALESCE=0``
 turns coalescing off, ``DBMT_COALESCE_LANES`` and ``DBMT_COALESCE_MAX``
 size it, ``DBMT_PIPELINE_DEPTH`` bounds the Request queue, and the LSP
 ``Params`` come from ``DBMT_EPOCH_LIMIT``, ``DBMT_EPOCH_MILLIS``,
@@ -100,7 +101,8 @@ from ..utils import sanitize as _sanitize
 from ..utils import trace as _trace
 from ..utils._env import str_env
 from ..utils.config import (CoalesceParams, PeelParams, PodParams,
-                            coalesce_from_env, lsp_params_from_env,
+                            coalesce_from_env, compute_from_env,
+                            lsp_params_from_env,
                             mesh_from_env, peel_from_env,
                             pipeline_depth_from_env, pod_from_env)
 from ..utils.metrics import ensure_emitter, registry as _registry
@@ -156,14 +158,78 @@ class _ThroughputWindow:
             self._win_busy, self._win_nonces = 0.0, 0
 
 
+class HostSearcher:
+    """The host compute tier: the native C++ scan of
+    ``ops.sha256_native`` (SHA-NI where the CPU has it, every core for
+    large ranges), for miners without a card. Asked for only explicitly
+    (``DBMT_COMPUTE=host``); where ``g++`` is missing every search raises,
+    as a kernel that does not build does (the JAX package's answers from
+    its pure-Python oracle there). ``threads``: 0 every core for large
+    ranges, 1 one, N that many.
+
+    It has the device searchers' two-phase shape: ``dispatch`` starts the
+    scan on a worker thread of its own and returns, ``finalize`` joins
+    it, so the pipelined miner overlaps chunk k+1's scan with chunk k's
+    reply; ``dispatch_batch``/``finalize_batch`` serve a coalesced window
+    the same way, one scan per entry."""
+
+    def __init__(self, data: str, threads: int = 0):
+        self.data = data
+        self.threads = threads
+        self._pool = None
+
+    def _executor(self):
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            # Two workers: one scan finishing while the next starts.
+            self._pool = ThreadPoolExecutor(max_workers=2,
+                                            thread_name_prefix="host-scan")
+        return self._pool
+
+    def search(self, lower: int, upper: int):
+        from ..ops.sha256_native import scan_min_native
+        return scan_min_native(self.data, lower, upper,
+                               threads=self.threads)
+
+    def search_until(self, lower: int, upper: int, target: int):
+        from ..ops.sha256_native import scan_until_native
+        return scan_until_native(self.data, lower, upper, target,
+                                 threads=self.threads)
+
+    def dispatch(self, lower: int, upper: int):
+        """Start the scan; returns a handle for :meth:`finalize`."""
+        if lower > upper:
+            raise ValueError("empty range")
+        return self._executor().submit(self.search, lower, upper)
+
+    def finalize(self, handle, lower: int):
+        """Join a dispatched scan: the exact ``(min_hash, argmin_nonce)``."""
+        return handle.result()
+
+    def dispatch_batch(self, entries: list):
+        """Start every entry's scan (``(searcher, lower, upper)``, each
+        searcher a HostSearcher) on its searcher's workers; None when an
+        entry's searcher is of another tier."""
+        if not all(isinstance(s, HostSearcher) for s, _lo, _up in entries):
+            return None
+        return [s.dispatch(lower, upper) for s, lower, upper in entries]
+
+    def finalize_batch(self, handle) -> list:
+        """One ``(hash, nonce)`` pair per entry of the batch."""
+        return [f.result() for f in handle]
+
+
 def default_searcher_factory(data: str, device="cuda",
                              body: PeelParams = PeelParams(),
                              mesh: tuple = ()):
     """The port's searcher for ``data`` with the lane body ``body``
-    (``DBMT_PEEL``, ``DBMT_HOIST``): a :class:`MeshNonceSearcher` over
+    (``DBMT_PEEL``, ``DBMT_HOIST``): a :class:`HostSearcher` under
+    ``DBMT_COMPUTE=host`` alone; else a :class:`MeshNonceSearcher` over
     ``mesh`` when it names at least two devices (``DBMT_MESH_DEVICES``,
     :func:`~..utils.config.mesh_from_env`), else a :class:`NonceSearcher`
-    on ``device``."""
+    on ``device``. There is no automatic choice of the host tier."""
+    if compute_from_env() == "host":
+        return HostSearcher(data)
     from ..models import MeshNonceSearcher, NonceSearcher
     if len(mesh) >= 2:
         return MeshNonceSearcher(data, devices=mesh, peel=body.peel,
@@ -718,10 +784,15 @@ def main(argv=None) -> int:
     if len(args) != 1:
         print(f"Usage: ./{argv[0]} <hostport> [--device cuda|cpu]", end="")
         return 1
-    device = resolve_device(device)
-    body = peel_from_env()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
+    if compute_from_env() == "host":
+        return asyncio.run(_run_miner(args[0], default_searcher_factory,
+                                      "the host tier",
+                                      _resolve_rate_hint(
+                                          default_searcher_factory)))
+    device = resolve_device(device)
+    body = peel_from_env()
     pod = pod_from_env()
     if pod.coordinator is not None:
         return run_pod_rank(args[0], device, body, pod)

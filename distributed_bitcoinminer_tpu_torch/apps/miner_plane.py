@@ -199,6 +199,25 @@ class MinerPlane:
         self._by_conn[conn_id] = miner
         return miner
 
+    def refresh_rate_hint(self, miner: MinerState, rate_hint: float) -> None:
+        """A repeat JOIN's rate hint (a GatewayMiner re-sends its JOIN as
+        its inner pool's sum moves): update ``miner`` in place, seeded as
+        :meth:`on_join` seeds (clamped to ``RATE_HINT_CAP``, times the
+        miner's trust). A hint-only EWMA is replaced; a MEASURED one
+        outranks the claim unless they diverge at least 2x either way (the
+        pool behind the gateway changed shape faster than the EWMA
+        follows), and then the hint re-seeds it, flagged as a claim
+        again. A hint of 0 or less changes nothing."""
+        if rate_hint <= 0:
+            return
+        hinted = min(float(rate_hint), self.RATE_HINT_CAP) * miner.trust
+        if miner.rate_ewma is not None and not miner.rate_hinted \
+                and miner.rate_ewma * 0.5 < hinted < miner.rate_ewma * 2.0:
+            return
+        miner.rate_ewma = hinted
+        miner.rate_hinted = True
+        self._count("rate_hints_refreshed")
+
     def adopt_miner(self, conn_id: int, pending: Optional[list] = None,
                     rate_ewma: Optional[float] = None) -> MinerState:
         """The replica tier's takeover: adopt a miner that a dead replica

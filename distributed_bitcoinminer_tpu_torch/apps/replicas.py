@@ -29,10 +29,14 @@ Job ids come from disjoint ranges, ``JOB_ID_STRIDE`` apart, one a
 replica: an adopted miner's late Result carries the dead replica's job
 id, which must be stale on its adopter, never a live job of it.
 
+A repeat JOIN from a conn a live replica already owns (a GatewayMiner's
+rate-hint refresh, under ``DBMT_GATEWAY``) goes to that owner: picking
+the thinnest slice again would register the same gateway on a second
+replica.
+
 ``DBMT_REPLICAS=1`` (the default) keeps the server's plain single
 scheduler, byte for byte. The multi-process tier (one process a replica,
-heartbeats, fencing: ``apps.health``, ``apps.procs``) is still to port
-beyond its state-file helpers.
+heartbeats, fencing) is ``apps.procs``.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ from typing import Dict, List, Optional
 
 from ..bitcoin.message import Message, MsgType, new_request
 from ..lsp.errors import LspError
-from ..utils.config import CacheParams, cache_from_env, replicas_from_env
+from ..utils.config import (CacheParams, cache_from_env, gateway_from_env,
+                            replicas_from_env)
 from .scheduler import ResultCache, Scheduler
 
 logger = logging.getLogger("dbmt.replicas")
@@ -128,6 +133,9 @@ class ReplicaSet:
         self._route_ring: Optional[HashRing] = None
         self._routes_since_gc = 0
         self._sweep_tasks: Dict[int, asyncio.Task] = {}
+        # Repeat JOINs go to their owner (``DBMT_GATEWAY``, read once, as
+        # the schedulers read it).
+        self._gateway = gateway_from_env().enabled
 
     # ------------------------------------------------------------- routing
 
@@ -192,6 +200,10 @@ class ReplicaSet:
         except ValueError:
             return
         if msg.type == MsgType.JOIN:
+            rid = self._miner_owner.get(conn_id)
+            if self._gateway and rid is not None and rid in self.live:
+                self.replicas[rid]._on_join(conn_id, msg)
+                return
             rid = self._thinnest()
             self._miner_owner[conn_id] = rid
             self.replicas[rid]._on_join(conn_id, msg)

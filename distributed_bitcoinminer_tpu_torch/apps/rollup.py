@@ -25,12 +25,21 @@ are admitted through a :class:`SourceSet` bounded by
 overflow is counted in the merged snapshot's ``series_overflow``.
 
 Staleness: a blob older than its publisher's advertised period times
-``stale_k`` (:data:`STALE_K`) is flagged ``stale`` and left out of the
-totals, a fenced replica incarnation's blob is flagged ``fenced`` and left
-out too, and :func:`gc_stale_blobs` removes blobs stale for many windows.
-The periods are plain parameters with the JAX package's defaults
-(:data:`BEAT_S`, :data:`STALE_K`): the processes that would read them
-from the environment are not yet ported.
+``stale_k`` (:data:`STALE_K`, ``DBMT_ROLLUP_STALE_K``) is flagged
+``stale`` and left out of the totals, a fenced replica incarnation's blob
+is flagged ``fenced`` and left out too, and :func:`gc_stale_blobs`
+removes blobs stale for many windows. The periods are parameters with
+the JAX package's defaults (:data:`BEAT_S`, :data:`STALE_K`); the
+processes of ``apps.procs`` and the console (:class:`RollupState`) read
+them from the environment (``DBMT_HEALTH_BEAT_S``, :func:`stale_k`) and
+pass them on. ``DBMT_ROLLUP=0`` (:func:`rollup_enabled`) stops those
+processes publishing.
+
+:class:`RollupState` is the console's long-lived view (``tools/dbmtop``):
+over :func:`aggregate` it applies the seq-advance rule of the beats (a
+blob re-read unchanged never stays fresh), keeps one :class:`SourceSet`
+across refreshes, retiring sources fenced or stale for long, and the
+membership epoch's timeline.
 """
 
 from __future__ import annotations
@@ -40,11 +49,12 @@ import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from ..utils._env import int_env
-from .health import Membership
+from .health import Membership, SeqFreshness
 
 __all__ = ["blob_path", "read_blobs", "RollupPublisher", "SourceSet",
-           "merge_snapshots", "hist_quantile", "aggregate",
-           "gc_stale_blobs", "BEAT_S", "STALE_K", "RETIRE_K"]
+           "merge_snapshots", "hist_quantile", "aggregate", "RollupState",
+           "gc_stale_blobs", "rollup_enabled", "stale_k", "BEAT_S",
+           "STALE_K", "RETIRE_K"]
 
 #: Blob format version (readers skip versions they do not understand).
 BLOB_V = 1
@@ -62,6 +72,19 @@ BEAT_S = 0.5
 #: Publish periods of silence before a source's blob is flagged stale and
 #: left out of the cluster totals (the heartbeat's missed-beat count).
 STALE_K = 3
+
+
+def rollup_enabled() -> bool:
+    """``DBMT_ROLLUP`` (default 1): the processes of ``apps.procs``
+    publish their snapshot blobs; 0 publishes none."""
+    return int_env("DBMT_ROLLUP", 1) != 0
+
+
+def stale_k() -> int:
+    """``DBMT_ROLLUP_STALE_K`` (default ``DBMT_HEALTH_MISS_K``, else
+    :data:`STALE_K`; at least 1)."""
+    return max(1, int_env("DBMT_ROLLUP_STALE_K",
+                          int_env("DBMT_HEALTH_MISS_K", STALE_K)))
 
 
 def blob_path(statedir: str, role: str, rid) -> str:
@@ -362,6 +385,59 @@ def aggregate(statedir: str, *, now: Optional[float] = None,
     if membership is not None:
         doc["membership"] = membership.to_dict()
     return doc
+
+
+class RollupState:
+    """The console's long-lived aggregation (the module docstring):
+    :meth:`refresh` is one frame, :func:`aggregate` with the seq-advance
+    rule over it (a publisher whose wall stamp moves but whose seq does
+    not, a replayed or copied blob, is stale), the retirement of sources
+    fenced or stale for :data:`RETIRE_K` windows from the
+    :class:`SourceSet`, and the membership epoch's changes (the last
+    ``history``) for :meth:`epochs`. Each frame reads :func:`stale_k`."""
+
+    def __init__(self, statedir: str, history: int = 32):
+        self.statedir = statedir
+        self.sources = SourceSet()
+        self._fresh: Optional[SeqFreshness] = None
+        self._epochs: List[Tuple[float, int]] = []   # (wall, epoch)
+        self.history = history
+
+    def epochs(self) -> List[Tuple[float, int]]:
+        return list(self._epochs)
+
+    def refresh(self, now: Optional[float] = None) -> dict:
+        """One console frame. Without ``now`` the clock is read inside
+        :func:`aggregate` (after its imports), so a first frame's ages are
+        not cut short by the time a fresh console takes to load them."""
+        doc = aggregate(self.statedir, now=now, source_set=self.sources,
+                        stale_k=stale_k())
+        now = doc["at"]
+        window = max((p["window_s"] for p in doc["procs"]), default=1.0)
+        if self._fresh is None:
+            self._fresh = SeqFreshness(window)
+        self._fresh.window_s = max(1e-3, window)
+        for p in doc["procs"]:
+            self._fresh.observe((p["role"], p["rid"]), p["inc"], p["seq"],
+                                now)
+        stale_keys = set(self._fresh.stale(now))
+        for p in doc["procs"]:
+            key = (p["role"], p["rid"])
+            if p["status"] == "fresh" and key in stale_keys:
+                p["status"] = "stale"
+            if p["status"] != "fresh":
+                age = self._fresh.age_s(key, now)
+                if p["status"] == "fenced" or (
+                        age is not None
+                        and age > self._fresh.window_s * RETIRE_K):
+                    self.sources.retire_proc("rollup_sources",
+                                             proc=p["proc"])
+        epoch = (doc.get("membership") or {}).get("epoch")
+        if epoch is not None and (not self._epochs
+                                  or self._epochs[-1][1] != epoch):
+            self._epochs.append((now, int(epoch)))
+            del self._epochs[:-self.history]
+        return doc
 
 
 def gc_stale_blobs(statedir: str, *, now: Optional[float] = None,

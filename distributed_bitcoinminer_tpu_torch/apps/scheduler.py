@@ -140,8 +140,9 @@ from ..utils import trace as _tracing
 from ..utils.config import (AdaptParams, CacheParams, CoalesceParams,
                             LeaseParams, QosParams, StripeParams,
                             VerifyParams, adapt_from_env, cache_from_env,
-                            coalesce_from_env, lease_from_env, qos_from_env,
-                            stripe_from_env, verify_from_env)
+                            coalesce_from_env, gateway_from_env,
+                            lease_from_env, qos_from_env, stripe_from_env,
+                            verify_from_env)
 from ..utils.metrics import Registry, RequestTrace
 from ..utils.metrics import registry as process_registry
 from . import capture as _capture
@@ -163,7 +164,7 @@ STAT_COUNTERS = (
     "queue_alarms", "inflight_alarms", "qos_grants", "qos_shed",
     "qos_window_grants", "claims_checked", "claims_failed", "audits_issued",
     "audits_passed", "audits_failed", "audits_inconclusive",
-    "trust_decays_claim", "trust_decays_audit")
+    "trust_decays_claim", "trust_decays_audit", "rate_hints_refreshed")
 
 
 class ResultCache:
@@ -280,6 +281,11 @@ class Scheduler:
                  result_cache: Optional[ResultCache] = None,
                  capture=None, metrics_prefix: str = "sched"):
         self.server = server
+        # The federation (``DBMT_GATEWAY``, default 1, read once here): a
+        # repeat JOIN from a live miner's conn refreshes its rate hint in
+        # place (the GatewayMiner's pool sum); 0 registers a new miner
+        # for every JOIN, as the reference does.
+        self._gateway = gateway_from_env().enabled
         qos = qos if qos is not None else qos_from_env()
         coalesce = coalesce if coalesce is not None else coalesce_from_env()
         stripe = stripe if stripe is not None else stripe_from_env()
@@ -312,6 +318,12 @@ class Scheduler:
         self.metrics = Registry()
         process_registry().mount(metrics_prefix, self.metrics)
         self._counters = {n: self.metrics.counter(n) for n in STAT_COUNTERS}
+        # What the rollup's process rows and the queue-wait SLO read
+        # (``apps.rollup``, ``apps.slo``): the queue's depth and the pool's
+        # size after each event, each request's seconds in the queue.
+        self._queue_depth = self.metrics.gauge("queue_depth")
+        self._pool_size = self.metrics.gauge("pool_size")
+        self._queue_wait = self.metrics.histogram("queue_wait_s")
         # DBMT_SANITIZE=1: the loop watchdog, and the hot tables pinned to
         # the thread that runs the event handlers.
         self._owner = (_sanitize.ThreadOwner(
@@ -658,10 +670,23 @@ class Scheduler:
         self._log_counts()
 
     def _on_join(self, conn_id: int, msg: Optional[Message] = None) -> None:
-        """``msg.rate`` is the miner's rate hint (0: none)."""
+        """``msg.rate`` is the miner's rate hint (0: none). A repeat JOIN
+        from a conn already in the roster (under ``DBMT_GATEWAY``) is a
+        GatewayMiner's rate-hint refresh: the entry is updated in place
+        (:meth:`MinerPlane.refresh_rate_hint`), never duplicated, since a
+        second entry would be capacity the stripe planner counts forever
+        and no conn serves."""
         if self._owner is not None:
             self._owner.assert_here()
         rate_hint = float(msg.rate) if msg is not None else 0.0
+        if self._gateway:
+            miner = self.miner_plane.find_miner(conn_id)
+            if miner is not None:
+                self.miner_plane.refresh_rate_hint(miner, rate_hint)
+                logger.info("miner %d refreshed rate hint %.3g nonces/s",
+                            conn_id, rate_hint)
+                self._maybe_dispatch()
+                return
         self.miner_plane.on_join(conn_id, rate_hint=rate_hint)
         if rate_hint > 0:
             logger.info("miner %d joined with rate hint %.3g nonces/s",
@@ -762,6 +787,7 @@ class Scheduler:
         miner = self.miner_plane.drop_miner(conn_id)
         if miner is not None:
             logger.info("miner %d dropped", conn_id)
+            self._update_gauges()
             if self._audits:
                 # A dead auditor's audits hold their requests' replies:
                 # audit the windows again elsewhere, or release them.
@@ -1133,6 +1159,7 @@ class Scheduler:
                 self._qos_pump()
         finally:
             self._dispatching = False
+        self._update_gauges()
         if not self._inflight and len(self.tenant_plane) \
                 and not self.miner_plane.eligible():
             if not self._starved:
@@ -1149,6 +1176,10 @@ class Scheduler:
                         if not m.available and not m.quarantined))
         elif not len(self.tenant_plane):
             self._starved = False
+
+    def _update_gauges(self) -> None:
+        self._queue_depth.set(len(self.tenant_plane))
+        self._pool_size.set(len(self.miner_plane.miners))
 
     def _fifo_pump(self) -> None:
         """Pop the queue head whenever nothing is in flight; a wholly
@@ -1182,6 +1213,7 @@ class Scheduler:
             self.capture.reply(req.conn_id,
                                time.monotonic() - req.queued_at,
                                cached=True)
+        self._queue_wait.observe(time.monotonic() - req.queued_at)
         req.trace.event("cache_hit", at="dispatch")
         req.trace.event("reply", hash=hit[0], nonce=hit[1], cached=True)
         self.tenant_plane.register_replay(req)
@@ -1199,6 +1231,7 @@ class Scheduler:
         req.job_id = self._next_job_id
         req.qos_mode = mode
         req.started = time.monotonic()
+        self._queue_wait.observe(req.started - req.queued_at)
         if self.adapt_plane is not None:
             self.adapt_plane.observe_wait(req.started - req.queued_at)
         self.tenant_plane.traces.register(req.job_id, req.trace)

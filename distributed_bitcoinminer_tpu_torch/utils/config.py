@@ -53,7 +53,19 @@ of the JAX package, parsed and clamped the same way:
   follower waits for the next job without a bound);
 - :func:`capture_from_env`: ``DBMT_CAPTURE`` (default 0),
   ``DBMT_CAPTURE_PATH``, ``DBMT_CAPTURE_LINES``, ``DBMT_CAPTURE_SNAP_S``;
-- :func:`replicas_from_env`: ``DBMT_REPLICAS`` (default 1).
+- :func:`replicas_from_env`: ``DBMT_REPLICAS`` (default 1);
+- :func:`retry_from_env`: the client's retry plane,
+  ``DBMT_RETRY_ATTEMPTS`` (3; the CLI retries only above 1 or for a
+  ``ring:`` target), ``DBMT_RETRY_TIMEOUT_S``, ``DBMT_RETRY_BACKOFF_S``,
+  ``DBMT_RETRY_BACKOFF_CAP_S``;
+- :func:`gateway_from_env`: the federation, ``DBMT_GATEWAY`` (default 1:
+  a repeat JOIN refreshes the miner's rate hint in place; 0 registers a
+  new miner, and the gateway role refuses to start),
+  ``DBMT_GATEWAY_HINT_S``, ``DBMT_GATEWAY_MIN_POOL``,
+  ``DBMT_GATEWAY_ORPHAN_S``;
+- :func:`compute_from_env`: ``DBMT_COMPUTE`` (unset: the card; ``host``
+  the native C++ scan of ``ops.sha256_native``, which raises without
+  ``g++``).
 
 The server also reads the lease plane's and the verification tier's
 knobs (:func:`lease_from_env`, :func:`verify_from_env`):
@@ -69,6 +81,8 @@ on/off switches (``QosParams.enabled`` and ``lazy``,
 
 from __future__ import annotations
 
+import hashlib
+import platform
 from dataclasses import dataclass
 
 from ._env import float_env, int_env, str_env
@@ -466,3 +480,79 @@ def capture_from_env() -> CaptureParams:
 def replicas_from_env() -> int:
     """``DBMT_REPLICAS`` (default 1: the plain single scheduler)."""
     return max(1, int_env("DBMT_REPLICAS", 1))
+
+
+@dataclass(frozen=True)
+class RetryParams:
+    """The client's ``submit_with_retry``: ``attempts`` tries in all (1 is
+    the reference's one-shot submit); ``timeout_s`` the deadline of one
+    attempt's Result (0: none; a dead connection still retries); the
+    back-off between attempts doubles from ``backoff_s`` up to
+    ``backoff_cap_s``. A closed LSP connection is only a local flush, so
+    the scheduler cancels an abandoned attempt's request once its epoch
+    timer declares the conn lost; a faster resubmission queues behind it
+    (latency, never a wrong or doubled answer)."""
+    attempts: int = 3
+    timeout_s: float = 0.0
+    backoff_s: float = 0.5
+    backoff_cap_s: float = 8.0
+
+
+def retry_from_env() -> RetryParams:
+    """``DBMT_RETRY_ATTEMPTS`` (at least 1), ``DBMT_RETRY_TIMEOUT_S``,
+    ``DBMT_RETRY_BACKOFF_S``, ``DBMT_RETRY_BACKOFF_CAP_S``."""
+    d = RetryParams()
+    return RetryParams(
+        attempts=max(1, int_env("DBMT_RETRY_ATTEMPTS", d.attempts)),
+        timeout_s=float_env("DBMT_RETRY_TIMEOUT_S", d.timeout_s),
+        backoff_s=float_env("DBMT_RETRY_BACKOFF_S", d.backoff_s),
+        backoff_cap_s=float_env("DBMT_RETRY_BACKOFF_CAP_S",
+                                d.backoff_cap_s))
+
+
+@dataclass(frozen=True)
+class GatewayParams:
+    """The federation (``apps.gateway``): a ``GatewayMiner`` joins a
+    parent scheduler as ONE miner whose rate hint is its inner pool's
+    summed rate, refreshed by a repeat JOIN at most every ``hint_s`` when
+    the sum moved by a tenth; it joins once ``min_pool`` inner miners
+    exist, and drops the parent conn when the inner pool has been empty
+    for ``orphan_s`` with grants pending. ``enabled=False`` is the flat
+    topology: a repeat JOIN registers a new miner, as the reference's
+    scheduler does."""
+    enabled: bool = True
+    hint_s: float = 2.0
+    min_pool: int = 1
+    orphan_s: float = 10.0
+
+
+def gateway_from_env() -> GatewayParams:
+    """``DBMT_GATEWAY`` (default 1), ``DBMT_GATEWAY_HINT_S`` (at least
+    0.05), ``DBMT_GATEWAY_MIN_POOL`` (at least 1),
+    ``DBMT_GATEWAY_ORPHAN_S`` (at least 0.1)."""
+    d = GatewayParams()
+    return GatewayParams(
+        enabled=int_env("DBMT_GATEWAY", 1) != 0,
+        hint_s=max(0.05, float_env("DBMT_GATEWAY_HINT_S", d.hint_s)),
+        min_pool=max(1, int_env("DBMT_GATEWAY_MIN_POOL", d.min_pool)),
+        orphan_s=max(0.1, float_env("DBMT_GATEWAY_ORPHAN_S", d.orphan_s)))
+
+
+def compute_from_env() -> str:
+    """``DBMT_COMPUTE``, lower-cased: ``host`` asks for the host tier (the
+    native C++ scan); anything else, or unset, leaves the miner on its
+    device. There is no automatic choice of tier."""
+    return str_env("DBMT_COMPUTE", "").strip().lower()
+
+
+def host_fingerprint() -> str:
+    """12 hex digits of this host's CPU feature flags: the key of a build
+    compiled with ``-march=native``, so a library built on one machine is
+    never loaded on another with fewer instruction-set extensions."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            sig = next((ln for ln in f if ln.startswith("flags")), "")
+    except OSError:
+        sig = ""
+    sig = sig or platform.processor() or platform.machine()
+    return hashlib.sha256(sig.encode()).hexdigest()[:12]

@@ -56,7 +56,9 @@ def test_importing_the_port_loads_no_jax():
                  "utils.logging", "utils.profiling", "apps.adapt",
                  "tools.trace_census", "tools.dbmtrace", "tools.tune",
                  "parallel.multihost", "apps.capture", "apps.health",
-                 "apps.procs", "apps.rollup", "apps.replicas"):
+                 "apps.procs", "apps.rollup", "apps.replicas",
+                 "apps.gateway", "apps.slo", "tools.dbmtop",
+                 "ops.sha256_native"):
         assert f"distributed_bitcoinminer_tpu_torch.{name}" in modules
 
 
@@ -73,7 +75,8 @@ def test_knobs_are_the_ports_own():
     """The port reads and names only ``DBMT_`` knobs: a ``DBM_`` setting
     meant for the JAX package never reaches it in a shared process."""
     jax_knob = re.compile(r"\bDBM_[A-Z0-9_]+")
-    for path in sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")):
+    for path in sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) \
+            + sorted(PKG.rglob("*.cpp")):
         assert not jax_knob.search(path.read_text()), path
 
 
@@ -88,3 +91,26 @@ def test_cuda_is_built_and_imported_only_inside_calls():
     from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
     assert "arch=compute_90a,code=sm_90a" in sha256_cuda.NVCC_FLAGS
     assert sha256_cuda._libs == {}
+
+
+def test_host_library_is_built_from_the_ports_own_source():
+    """The host tier's scan is the port's ``csrc/sha256_scan.cpp``, built
+    into the port's ``build/`` as ``libdbmt_native-*.so``: nothing of the
+    port names the JAX package's committed ``libdbm_native-*.so`` or its
+    ``native/`` loader, and the entry points are the port's own."""
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_native
+    assert pathlib.Path(sha256_native.SOURCE) == PKG / "csrc" / \
+        "sha256_scan.cpp"
+    assert pathlib.Path(sha256_native.BUILD_DIR) == PKG / "build"
+    lib = pathlib.Path(sha256_native.library_path())
+    assert lib.parent == PKG / "build"
+    assert re.fullmatch(r"libdbmt_native-[0-9a-f]{12}\.so", lib.name)
+    src = (PKG / "csrc" / "sha256_scan.cpp").read_text()
+    assert "int dbmt_scan_until_mt(" in src
+    assert not re.search(r"\bdbm_scan", src)
+    for path in _sources():
+        text = path.read_text()
+        assert "libdbm_native" not in text, path
+        assert not re.search(r"\bnative\.(scan|load|available)", text), path
+    assert not list(PKG.rglob("*.so")) or all(
+        p.parent == PKG / "build" for p in PKG.rglob("*.so"))

@@ -475,16 +475,20 @@ def test_replica_health_rollup_readers_equal_jax(monkeypatch, env):
         monkeypatch.setenv(f"DBMT_{k}", v)
         monkeypatch.setenv(f"DBM_{k}", v)
     assert config.replicas_from_env() == ref_replicas.replicas_from_env()
-    # The heartbeat and rollup periods are plain parameters in the port
-    # (no entry point reads them yet), whatever the environment says;
-    # their defaults are the JAX readers' with nothing set.
+    # The process tier reads the heartbeat and rollup knobs where it
+    # passes them on (``apps.procs``, ``apps.rollup``), as the JAX
+    # package's does; the parameters' defaults are the JAX readers' with
+    # nothing set.
+    assert procs.health_beat_s() == ref_procs.health_beat_s()
+    assert procs.health_miss_k() == ref_procs.health_miss_k()
+    assert rollup.rollup_enabled() == ref_rollup.rollup_enabled()
+    assert rollup.stale_k() == ref_rollup.stale_k()
     for k in ("HEALTH_BEAT_S", "HEALTH_MISS_K", "ROLLUP_STALE_K"):
         monkeypatch.delenv(f"DBM_{k}", raising=False)
     assert rollup.BEAT_S == ref_procs.health_beat_s()
     assert rollup.STALE_K == ref_procs.health_miss_k() == \
         ref_rollup.stale_k()
     assert not hasattr(config, "health_beat_s")
-    assert not hasattr(rollup, "rollup_enabled")
 
 
 # ------------------------------------------------------------ end to end
