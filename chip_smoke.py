@@ -7,6 +7,7 @@
                                          # follower-death drill, over
                                          # every card of a box with
                                          # several
+    python3 chip_smoke.py --chaos-storm SEED   # the chaos path's worker
     python3 chip_smoke.py --against CHECKOUT
         # the build and kernel checks, then this package against the one
         # in CHECKOUT (another commit's tree, e.g. the parent's from
@@ -72,7 +73,7 @@ JSON line per phase:
    check, to the target, and to the plain until scan on the card from 0,
    with a "(prefix release)" line in the server log when its hit lies in
    chunk 0; direct ``search_until`` runs over R4's range and over the
-   second miner's chunk [2^31, 2^32], at the default grid and at 37
+   second chunk [2^31, 2^32], at the default grid and at 37
    blocks, each equal to the plain until scan on the same range (the
    second chunk's answer is dropped by the prefix release, so this is
    where the until chain's hit-and-fold on real lanes is held to the
@@ -81,8 +82,8 @@ JSON line per phase:
    five times, on a new server (QoS chunking from 0.1 s, 0.05 s chunks) and
    two miners each time, in turns with the server's adapt plane on (the
    default; once more with its admission controller,
-   ``DBMT_ADAPT_ADMIT=1``) and then off (``DBMT_ADAPT=0``), then four
-   times on a warm pool, the admission controller on and off in turns (a
+   ``DBMT_ADAPT_ADMIT=1``) and then off (``DBMT_ADAPT=0``), then twice
+   on a warm pool, the admission controller on and then off (a
    second elephant, ("warm pool", 2^36-1), served first until the chunk
    controller has moved): a warm-up request that gives the scheduler its
    throughput sample, then an elephant ("cmu440", 2^34-1) and, while it
@@ -220,6 +221,36 @@ JSON line per phase:
    reported. Every other miner is pinned to card 0. The launch counts
    of each path come from its own miner processes, which start at 0
    just before the path;
+   Then the harness paths (``phase_harness``), each its own JSON line
+   with its seconds: the chaos path, in a worker process of its own
+   (``--chaos-storm SEED``, so that the global fault knobs never touch
+   this process): the port's scheduler on a localhost LSP server (2 s
+   leases, a 0.1 s sweep, quarantine after 3 blown leases, every
+   arg-min chunk audited over at most 2^20 nonces, no result cache) and
+   three ``ChaosMiner`` handles on card 0 (``beta`` lying in
+   ``wrong_hash`` mode during the turn-coat episodes), the seeded
+   schedule (``seed_packet_faults(11)``, ``generate_schedule(11, 8.0,
+   ...)`` over ``BYZ_EPISODES``, printed, equal to a second generation)
+   applied while a client submits R1, R3, R4 and ("chaos storm", 2^32-1)
+   through ``submit_with_retry`` round after round; every answer equal
+   to the default path's or to a direct search on card 0 and the claim
+   check, one Result reaching the client a request, the pool converged
+   afterwards, and K1, K2 and K6 launched by the storm's miners (their
+   launches join the ``kernels`` line's); the process storm: a
+   ``ProcCluster`` (router, 2 replicas, 2 miner agents on card 0, a 0.2 s
+   beat) through one ``ProcEpisode`` of each kind (a replica's SIGKILL,
+   its SIGSTOP, the router's SIGKILL; each request 2^33-2^34 nonces),
+   each reply once and equal to a direct search on card 0, the seconds
+   from the fault to the fence and to the reply, and the agents'
+   launches from their rollup gauges; the replay: the adapt-on mice
+   run's capture re-sent through ``run_replay`` (detnet) and
+   ``run_replay_procs``, each sending the plan's requests, completed
+   plus shed equal to them, with the fidelity verdict printed; the load
+   harness on the card's host (1,000 tenants on 1 and 4 replicas,
+   ``mice_stampede`` static and adaptive, 200 tenants over the process
+   tier): every request not shed completes; and the transport bench (2
+   rounds of 2 s legs, fast and stock, and resident bytes a conn at
+   10,000 conns, in child processes);
 5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
    (2-block tail with digits in both blocks) and a 10^9 block whose second
    tail block holds no digit; K2 over the first block with a target
@@ -1529,15 +1560,16 @@ def cli_submit(cluster: Cluster, data: str, max_nonce: int, target: int):
 
 
 def start_miners(c: Cluster, names: list, envs: list) -> list:
-    """Start one miner per name on ``cuda`` (in join order, which is chunk
-    order) and check that each one's launch counts start at 0."""
-    logs = []
-    for name, env in zip(names, envs):
-        logs.append(c.start(name, "miner", [c.hostport, "--device", "cuda"],
-                            "joined ", env=env))
-        if read_counts(logs[-1]):
+    """Start one miner per name on ``cuda``, all at once (each pays its
+    process start and warm-up beside the others), wait until every one
+    has joined, and check that each one's launch counts start at 0."""
+    logs = [c.spawn(name, "miner", [c.hostport, "--device", "cuda"], env)
+            for name, env in zip(names, envs)]
+    for name, log, proc in zip(names, logs, c.procs[-len(names):]):
+        wait_for_line(log, "joined ", proc)
+        if read_counts(log):
             fail(f"{name}'s counts were not 0 before its path: "
-                 f"{read_counts(logs[-1])}")
+                 f"{read_counts(log)}")
     return logs
 
 
@@ -1801,6 +1833,12 @@ def phase_e2e(outdir: str) -> dict:
     from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
     from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
     dev = torch.device("cuda", 0)
+    # Each path's seconds, its clusters' start and stop included.
+    path_s, marks = {}, [time.monotonic()]
+
+    def lap(name: str) -> None:
+        marks.append(time.monotonic())
+        path_s[name] = round(marks[-1] - marks[-2], 3)
     results = []
     with Cluster(outdir) as c:
         c.start("server", "server", [str(c.port)], "Server listening on port")
@@ -1809,6 +1847,7 @@ def phase_e2e(outdir: str) -> dict:
             results.append(timed(name, data, max_nonce, lambda: asyncio.run(
                 asyncio.wait_for(submit(c.hostport, data, max_nonce), 300))))
         argmin_launches = path_launches(miners)
+    lap("arg-min")
     with Cluster(outdir) as c:
         server_log = c.start("until_server", "server", [str(c.port)],
                              "Server listening on port")
@@ -1824,6 +1863,7 @@ def phase_e2e(outdir: str) -> dict:
         until_launches = path_launches(miners)
         with open(server_log, errors="replace") as f:
             server_text = f.read()
+    lap("difficulty")
     # The mice path in turns: the adapt plane on (the default), then off.
     mice_adapt = [run_mice(outdir, True, adapt=True, server_env=CAPTURE_ENV,
                            tag="mice_adapt_capture"),
@@ -1831,23 +1871,36 @@ def phase_e2e(outdir: str) -> dict:
                   run_mice(outdir, True, adapt=True, admit=True)]
     mice_runs = [run_mice(outdir, True, adapt=False),
                  run_mice(outdir, False, adapt=False)]
-    # The warm pool, the admission controller on and off in turns (the
-    # adapt plane on).
+    # The warm pool, the admission controller on, then off (the adapt
+    # plane on). One turn each: its second pair repeated the first.
     mice_warm = [run_mice(outdir, True, adapt=True, admit=admit, warm=True,
-                          tag=f"mice_warm{'_admit' if admit else ''}_{i}")
-                 for i in (1, 2) for admit in (True, False)]
+                          tag=f"mice_warm{'_admit' if admit else ''}_1")
+                 for admit in (True, False)]
+    lap("mice")
     peeled = run_peeled(outdir)
+    lap("peeled")
     mesh = run_mesh(outdir)
+    lap("mesh")
     pod = run_pod(outdir)
+    lap("pod")
     drill = run_pod_drill(outdir)
+    lap("pod_drill")
     replicas = run_replicas(outdir)
+    lap("replicas")
     procs_run = run_procs(outdir)
+    lap("procs")
     gateway = run_gateway(outdir)
+    lap("gateway")
     gather = pod_gather_ms([POD_RANK_DEVICES] * 2)
+    lap("pod_gather")
     lease = run_lease(outdir)
+    lap("lease")
     verify = run_verify(outdir)
+    lap("verify")
     sched_adapt = run_sched(outdir, adapt=True)
+    lap("sched_adapt")
     sched = run_sched(outdir, adapt=False)
+    lap("sched")
     for path, counts, kernels in (("arg-min", argmin_launches, ("K1", "K6")),
                                   ("difficulty", until_launches,
                                    ("K2", "K6"))):
@@ -1883,7 +1936,7 @@ def phase_e2e(outdir: str) -> dict:
     r4 = by_name["R4"]
     if not r4["hash"] < R4_TARGET:
         fail(f"R4: hash {r4['hash']} is not below the target {R4_TARGET}")
-    # Two miners: chunk 0 is [0, 2^31] (the first miner's), chunk 1
+    # Two miners: chunk 0 is [0, 2^31] (one miner's), chunk 1
     # [2^31, 2^32] (each miner scans its upper bound too); a hit in chunk
     # 0 releases before chunk 1 answers.
     ranges = {"request": (0, r4["max_nonce"] + 1),
@@ -1993,7 +2046,9 @@ def phase_e2e(outdir: str) -> dict:
         log, {"n": LEASE_LINES["blown"]})["n"]
         for log in sorted(glob.glob(os.path.join(outdir, "e2e_*server",
                                                  "log.txt")))}
-    info = {"requests": results, "mice": mice_runs, "mice_adapt": mice_adapt,
+    lap("checks")
+    info = {"path_s": path_s,
+            "requests": results, "mice": mice_runs, "mice_adapt": mice_adapt,
             "mice_warm": mice_warm,
             "peeled": peeled, "mesh": mesh, "pod": pod, "pod_drill": drill,
             "pod_gather": gather, "replicas": replicas, "capture": capture,
@@ -3656,6 +3711,490 @@ def check_sched(run: dict, default: dict, mice: dict, dev,
         fail(f"sched path: the weight-3 elephant finished at "
              f"{done[SCHED_WEIGHT_HEAVY]:.3f} s, the weight-1 one at "
              f"{done[SCHED_WEIGHT_LIGHT]:.3f} s")
+
+
+# ---------------------------------------------------------- harness phases
+
+#: The chaos path: three ``ChaosMiner`` handles on card 0 in a worker process
+#: of its own (``--chaos-storm SEED``), one of them lying in ``wrong_hash``
+#: mode while the schedule's turn-coat episodes hold.
+CHAOS_SEED = 11
+CHAOS_MINERS = ("alpha", "beta", "gamma")
+CHAOS_LIES = {"beta": "wrong_hash"}
+CHAOS_DURATION_S = 8.0
+CHAOS_NEW = ("chaos storm", (1 << 32) - 1)
+#: Rounds of the four requests at most while the storm runs.
+CHAOS_ROUNDS = 12
+CHAOS_LINE = "chaos storm result "
+
+
+def chaos_requests() -> list:
+    """R1, R3, R4 and the new message, as ``(name, data, max_nonce,
+    target)``."""
+    by = {r[0]: r for r in ARGMIN_REQUESTS}
+    return [("R1", *by["R1"][1:], 0), ("R3", *by["R3"][1:], 0),
+            UNTIL_REQUESTS[0], ("new", *CHAOS_NEW, 0)]
+
+
+def chaos_schedule(seed: int) -> list:
+    from distributed_bitcoinminer_tpu_torch.lspnet import chaos
+    return chaos.generate_schedule(seed, CHAOS_DURATION_S,
+                                   list(CHAOS_MINERS), episodes=6,
+                                   max_percent=25, kinds=chaos.BYZ_EPISODES)
+
+
+def chaos_storm(seed_arg: str) -> int:
+    """``--chaos-storm SEED``: the port's ``Scheduler`` on a localhost LSP
+    server (2 s lease grace and floor, a 0.1 s sweep, quarantine after 3
+    blown leases, every arg-min chunk audited over at most 2^20 nonces,
+    no result cache) and the three ``ChaosMiner`` handles of ``CHAOS_MINERS`` on
+    card 0 (the kernels warmed up first, the launch counters then at 0);
+    ``seed_packet_faults(SEED)``, then the seeded schedule applied by
+    ``run_schedule`` while a client submits ``chaos_requests()`` through
+    ``submit_with_retry``, round after round until the storm has ended
+    (``CHAOS_ROUNDS`` at most); then the pool's convergence. Its last line
+    is ``CHAOS_LINE`` and a JSON object: the schedule, every answer with
+    its seconds and its attempts, Results and ok outcomes, the
+    scheduler's counters, the restarts and the launches. The fault knobs
+    are global to a process, so the storm runs in one of its own."""
+    import asyncio
+    import logging
+    sys.path.insert(0, ROOT)
+    from distributed_bitcoinminer_tpu_torch.apps.client import \
+        submit_with_retry
+    from distributed_bitcoinminer_tpu_torch.apps.miner import warm_up
+    from distributed_bitcoinminer_tpu_torch.apps.scheduler import Scheduler
+    from distributed_bitcoinminer_tpu_torch.lsp.params import Params
+    from distributed_bitcoinminer_tpu_torch.lsp.server import \
+        new_async_server
+    from distributed_bitcoinminer_tpu_torch.lspnet import chaos
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    from distributed_bitcoinminer_tpu_torch.utils.config import (
+        CacheParams, LeaseParams, RetryParams, VerifyParams)
+    from distributed_bitcoinminer_tpu_torch.utils.metrics import registry
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    seed = int(seed_arg)
+    warm_up("cuda")
+    # Eight epochs of 0.2 s before a conn is lost: under 25% packet drop a
+    # live conn survives, a killed miner is seen in 1.6 s.
+    params = Params(epoch_limit=8, epoch_millis=200, window_size=5,
+                    max_backoff_interval=2)
+    retry = RetryParams(attempts=12, timeout_s=60.0, backoff_s=0.1,
+                        backoff_cap_s=0.5)
+    schedule = chaos_schedule(seed)
+    same = schedule == chaos_schedule(seed)
+
+    def counter(key: str) -> int:
+        return int(registry().snapshot()["counters"].get(key, 0))
+
+    async def storm() -> dict:
+        chaos.seed_packet_faults(seed)
+        server = await new_async_server(0, params)
+        sched = Scheduler(
+            server, lease=LeaseParams(grace_s=2.0, floor_s=2.0, tick_s=0.1,
+                                      quarantine_after=3),
+            verify=VerifyParams(enabled=True, audit_p=1.0,
+                                audit_max_nonces=1 << 20),
+            cache=CacheParams(enabled=False))
+        loop = asyncio.get_running_loop()
+        sched_task = loop.create_task(sched.run())
+        hostport = f"127.0.0.1:{server.port}"
+        miners = {}
+        try:
+            for name in CHAOS_MINERS:
+                m = chaos.ChaosMiner(hostport, params=params, name=name,
+                                     byzantine=CHAOS_LIES.get(name, ""))
+                await m.start()
+                miners[name] = m
+                deadline = loop.time() + 60
+                while sched.miner_plane.find_miner(m.conn_id) is None:
+                    if loop.time() > deadline:
+                        raise RuntimeError(f"{name} never joined")
+                    await asyncio.sleep(0.01)
+            storm_task = loop.create_task(chaos.run_schedule(schedule,
+                                                             miners))
+            t_storm = time.monotonic()
+            answers = []
+            try:
+                for rnd in range(CHAOS_ROUNDS):
+                    if rnd and storm_task.done():
+                        break
+                    for name, data, max_nonce, target in chaos_requests():
+                        sent0 = sched.stats["results_sent"]
+                        att0 = counter("client.retry_attempts")
+                        ok0 = counter("client.retry_outcomes{outcome=ok}")
+                        t0 = time.monotonic()
+                        got = await asyncio.wait_for(submit_with_retry(
+                            hostport, data, max_nonce, target, params,
+                            retry), 600)
+                        answers.append({
+                            "round": rnd, "request": name, "data": data,
+                            "max_nonce": max_nonce, "target": target,
+                            "answer": None if got is None else list(got),
+                            "seconds": time.monotonic() - t0,
+                            "at_s": t0 - t_storm,
+                            "attempts": counter("client.retry_attempts")
+                            - att0,
+                            "ok": counter("client.retry_outcomes{outcome=ok}")
+                            - ok0,
+                            "results_sent": sched.stats["results_sent"]
+                            - sent0})
+            finally:
+                applied = await asyncio.wait_for(storm_task, 120)
+            storm_s = time.monotonic() - t_storm
+            deadline = loop.time() + 60
+            converged = False
+            while loop.time() < deadline:
+                if (sched.current is None
+                        and not sched.tenant_plane.requests()
+                        and not sched.miner_plane.parked and sched.miners
+                        and all(m.available for m in sched.miners)):
+                    converged = True
+                    break
+                await asyncio.sleep(0.02)
+            return {"seed": seed, "schedule": [
+                        [e.at, e.action, e.subject, e.value]
+                        for e in schedule],
+                    "schedule_repeats": same, "applied": applied,
+                    "storm_s": storm_s, "answers": answers,
+                    "converged": converged, "pool": len(sched.miners),
+                    "queued": len(sched.tenant_plane.requests()),
+                    "parked": len(sched.miner_plane.parked),
+                    "stats": sched.stats,
+                    "restarts": {n: m.restarts for n, m in miners.items()},
+                    "launches": dict(sha256_cuda.launches)}
+        finally:
+            for m in miners.values():
+                await m.close()
+            sched_task.cancel()
+            await server.close()
+
+    out = asyncio.run(storm())
+    print(CHAOS_LINE + json.dumps(out), flush=True)
+    return 0
+
+
+def harness_env() -> dict:
+    return dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                + os.environ.get("PYTHONPATH", ""),
+                DBMT_METRICS_INTERVAL_S="0")
+
+
+def run_chaos(outdir: str) -> dict:
+    """The chaos path: ``--chaos-storm CHAOS_SEED`` as a subprocess,
+    logging to ``chaos_storm.log``; returns its result line."""
+    log = os.path.join(outdir, "chaos_storm.log")
+    with open(log, "w") as fh:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--chaos-storm",
+             str(CHAOS_SEED)], stdout=fh, stderr=subprocess.STDOUT,
+            env=harness_env(), cwd=outdir, timeout=900)
+    with open(log, errors="replace") as f:
+        lines = [ln for ln in f if ln.startswith(CHAOS_LINE)]
+    if proc.returncode != 0 or not lines:
+        fail(f"chaos path: rc {proc.returncode}, no result line (see {log})")
+    return json.loads(lines[-1][len(CHAOS_LINE):])
+
+
+def check_chaos(run: dict, default: dict, dev) -> dict:
+    """Every answer equal to the default path's (R1, R3, R4) or to a
+    direct search on card 0 and the claim check (the new message), each
+    request answered once; the schedule repeatable, the pool converged,
+    and K1, K2 and K6 launched by the storm's miners."""
+    from distributed_bitcoinminer_tpu_torch.bitcoin.hash import hash_op
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    if not run["schedule_repeats"]:
+        fail("chaos path: a second generation gave another schedule")
+    if run["applied"] != len(run["schedule"]):
+        fail(f"chaos path: {run['applied']} of {len(run['schedule'])} "
+             f"events applied")
+    data, max_nonce = CHAOS_NEW
+    new = NonceSearcher(data, device=dev).search(0, max_nonce + 1)
+    if hash_op(data, new[1]) != new[0]:
+        fail(f"chaos path: the direct search's {new} fails the claim check")
+    for a in run["answers"]:
+        got = a["answer"]
+        want = new if a["request"] == "new" else (
+            default[a["request"]]["hash"], default[a["request"]]["nonce"])
+        if got is None or tuple(got[:2]) != tuple(want):
+            fail(f"chaos path {a['request']} round {a['round']}: {got} != "
+                 f"{want}")
+        if hash_op(a["data"], got[1]) != got[0]:
+            fail(f"chaos path {a['request']}: claim check failed: {got}")
+        # One Result reached the caller. The scheduler wrote exactly one
+        # for a request answered at its first attempt, and one for each
+        # attempt at most where the client retried (an abandoned
+        # attempt's conn may get one before its loss is seen).
+        if a["ok"] != 1 or not 1 <= a["results_sent"] <= a["attempts"] \
+                or a["attempts"] == 1 and a["results_sent"] != 1:
+            fail(f"chaos path {a['request']}: {a['ok']} answers, "
+                 f"{a['results_sent']} Results for {a['attempts']} "
+                 f"attempts")
+    if not run["converged"]:
+        fail(f"chaos path: the pool did not converge: {run['pool']} miners,"
+             f" {run['queued']} queued, {run['parked']} parked")
+    launches = {k: run["launches"].get(k, 0) for k in KERNELS}
+    for k in ("K1", "K2", "K6"):
+        if launches[k] <= 0:
+            fail(f"chaos path: the storm's miners launched no {k}: "
+                 f"{launches}")
+    s = run["stats"]
+    counters = {k: s[k] for k in ("leases_blown", "reissues", "quarantines",
+                                  "audits_issued", "audits_failed",
+                                  "claims_checked", "claims_failed",
+                                  "results_sent")}
+    counters["restarts"] = sum(run["restarts"].values())
+    retried = [a for a in run["answers"] if a["attempts"] > 1]
+    counters["requests_retried"] = len(retried)
+    counters["results_beyond_one"] = sum(a["results_sent"] - 1
+                                         for a in retried)
+    return {"launches": launches, "counters": counters, "direct_new": new}
+
+
+#: The process storm: one episode of each kind, each request 2^33-2^34
+#: nonces, so that it is in flight on the card when the fault lands.
+PROC_STORM_SEED = 14
+PROC_STORM_RANGE = (1 << 33, 1 << 34)
+
+
+def launch_totals(doc: dict) -> dict:
+    """Every process's launches summed, from ``proc_launches``."""
+    by_proc = proc_launches(doc)
+    return {k: sum(p.get(k, 0) for p in by_proc.values()) for k in KERNELS}
+
+
+def run_proc_storm(outdir: str, dev) -> dict:
+    """The process-storm path: a ``ProcCluster`` (router, 2 replicas, 2
+    miner agents on card 0 started one after the other, so one joins each
+    replica; a 0.2 s beat) and one ``ProcEpisode`` of each
+    ``PROC_EPISODES`` kind through ``run_proc_episode``, its oracle a
+    direct search on card 0; between episodes the cluster heals to 2
+    replicas and 2 agents. Each episode's launches are the agents' rollup
+    gauges after it less before it."""
+    import asyncio
+
+    from distributed_bitcoinminer_tpu_torch.apps import procs
+    from distributed_bitcoinminer_tpu_torch.lsp.params import Params
+    from distributed_bitcoinminer_tpu_torch.lspnet.chaos import (
+        PROC_EPISODES, generate_proc_storm, run_proc_episode)
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+    from distributed_bitcoinminer_tpu_torch.utils.config import RetryParams
+    from distributed_bitcoinminer_tpu_torch.utils.metrics import registry
+    params = Params(epoch_limit=10, epoch_millis=200)
+    retry = RetryParams(attempts=12, timeout_s=0, backoff_s=0.2,
+                        backoff_cap_s=1.0)
+
+    def oracle(data, lower, upper):
+        return NonceSearcher(data, device=dev).search(lower, upper)
+
+    def ok_count() -> int:
+        return int(registry().snapshot()["counters"].get(
+            "client.retry_outcomes{outcome=ok}", 0))
+
+    episodes = [generate_proc_storm(PROC_STORM_SEED + i, 1, kinds=(kind,),
+                                    nonce_range=PROC_STORM_RANGE)[0]
+                for i, kind in enumerate(PROC_EPISODES)]
+    statedir = os.path.join(outdir, "proc_storm_state")
+    logdir = os.path.join(outdir, "proc_storm_logs")
+    for d in (statedir, logdir):
+        shutil.rmtree(d, ignore_errors=True)
+    c = procs.ProcCluster(statedir, replicas=2, miners=0, logdir=logdir)
+    c.env.pop("DBMT_COMPUTE", None)
+    c.env.update(PROCS_ENV, PYTHONPATH=ROOT + os.pathsep
+                 + os.environ.get("PYTHONPATH", ""))
+    records = []
+    t0 = time.monotonic()
+    try:
+        c.start()
+        for i in range(2):
+            c.spawn_miner(i)
+            asyncio.run(c.wait_live(2, timeout_s=300, miners=i + 1))
+        c.m = 2
+        start_s = time.monotonic() - t0
+        for ep in episodes:
+            time.sleep(0.5)                 # a fresh blob of each agent
+            before = launch_totals(dbmtop_doc(statedir))
+            ok0 = ok_count()
+            try:
+                rec = asyncio.run(asyncio.wait_for(run_proc_episode(
+                    c, ep, params, retry, reply_timeout_s=300,
+                    oracle=oracle), 600))
+            except AssertionError as exc:
+                fail(f"proc storm {ep.kind}: {exc}")
+            asyncio.run(c.wait_live(2, timeout_s=300, miners=2))
+            time.sleep(0.5)
+            after = launch_totals(dbmtop_doc(statedir))
+            rec.update(max_nonce=ep.max_nonce, tenant=ep.tenant,
+                       fault_at=ep.fault_at, replies=ok_count() - ok0,
+                       launches={k: after[k] - before[k] for k in KERNELS})
+            records.append(rec)
+    finally:
+        c.close()
+    return {"start_s": start_s, "episodes": records}
+
+
+def check_proc_storm(run: dict) -> dict:
+    """One reply an episode (equal to the card's direct search:
+    ``run_proc_episode`` checked it), a fence where a replica was the
+    victim, and launches in the agents."""
+    from distributed_bitcoinminer_tpu_torch.apps.procs import FENCED_EXIT
+    for rec in run["episodes"]:
+        if rec["replies"] != 1:
+            fail(f"proc storm {rec['kind']}: {rec['replies']} replies")
+        if rec["kind"] != "kill_router" and rec["fence_s"] is None:
+            fail(f"proc storm {rec['kind']}: replica never fenced")
+        if rec["kind"] == "stop_replica" \
+                and rec["fenced_exit"] != FENCED_EXIT:
+            fail(f"proc storm stop_replica: the woken replica exited "
+                 f"{rec['fenced_exit']}, not {FENCED_EXIT}")
+    total = {k: sum(r["launches"][k] for r in run["episodes"])
+             for k in KERNELS}
+    if total["K1"] <= 0 or total["K6"] <= 0:
+        fail(f"proc storm: the agents launched no K1 or K6: {total}")
+    return total
+
+
+def run_replay_phase(capture_path: str) -> dict:
+    """The adapt-on mice run's capture re-sent through ``run_replay``
+    (detnet, miners modelled from the capture) and ``run_replay_procs``
+    (the process tier, 2 replicas and 4 instant agents): each sends the
+    plan's requests, completed plus shed equal to them; the fidelity
+    verdict (its ratios, ``within`` under the JAX package's rules: a
+    capture over real LSP has its p99 reported, not gated) is printed."""
+    from distributed_bitcoinminer_tpu_torch.apps import loadharness as lh
+    from distributed_bitcoinminer_tpu_torch.apps.capture import (
+        load_capture, replay_plan)
+    planned = sum(len(p["reqs"]) for p in replay_plan(
+        load_capture(capture_path)))
+    out = {"planned": planned}
+    for leg, fn in (("detnet", lambda: lh.run_replay(capture_path,
+                                                      timeout_s=300)),
+                    ("procs", lambda: lh.run_replay_procs(
+                        capture_path, timeout_s=300))):
+        t0 = time.monotonic()
+        r = fn()
+        r["seconds"] = time.monotonic() - t0
+        if r["requests"] != planned or r.get("timed_out") \
+                or r["completed"] + r["shed_requests"] != planned:
+            fail(f"replay {leg}: {r['completed']} completed + "
+                 f"{r['shed_requests']} shed of {r['requests']}, the plan "
+                 f"{planned}")
+        # The verdict is reported, not a gate: the replay's instant
+        # miners end the arrivals' makespan sooner than the card ended
+        # the capture's, which moves admitted/s by the workload's shape.
+        out[leg] = r
+    return out
+
+
+def load_summary(leg: dict) -> dict:
+    shed = leg.get("shed_requests", leg["shed_tenants"])
+    if leg.get("timed_out") or leg["completed"] + shed != leg["requests"]:
+        fail(f"load leg {leg}: {leg['completed']} completed + {shed} shed "
+             f"!= {leg['requests']}")
+    return {k: leg.get(k) for k in (
+        "tenants", "replicas", "miners", "workload", "adapt", "requests",
+        "completed", "shed_tenants", "shed_requests", "makespan_s",
+        "admitted_per_s", "p50_s", "p99_s", "cpu_s_per_request")}
+
+
+def run_load_phase() -> dict:
+    """The load harness on the card's host: ``run_load`` with 1,000
+    tenants on 1 and 4 replicas, ``mice_stampede`` with the adapt plane
+    off and on, and ``run_load_procs`` with 200 tenants, 2 replicas and 4
+    instant agents. Every request not shed completes."""
+    from distributed_bitcoinminer_tpu_torch.apps import loadharness as lh
+    legs = {}
+    for name, fn in (
+            ("r1", lambda: lh.run_load(tenants=1000, replicas=1)),
+            ("r4", lambda: lh.run_load(tenants=1000, replicas=4)),
+            ("stampede_static",
+             lambda: lh.run_adversarial("mice_stampede", adapt=False)),
+            ("stampede_adapt",
+             lambda: lh.run_adversarial("mice_stampede", adapt=True)),
+            ("procs", lambda: lh.run_load_procs(tenants=200, replicas=2,
+                                                miners=4))):
+        t0 = time.monotonic()
+        legs[name] = load_summary(fn())
+        legs[name]["seconds"] = time.monotonic() - t0
+    return legs
+
+
+#: The transport phase: 2 rounds of 2 s legs, fast and stock.
+TRANSPORT_ENV = {"DBMT_BENCH_TRANSPORT_ROUNDS": "2",
+                 "DBMT_BENCH_TRANSPORT_SECS": "2"}
+
+
+def run_transport_phase() -> dict:
+    """``transport_probe`` (its legs in child processes) and
+    ``conn_memory_probe`` at 10,000 conns."""
+    from distributed_bitcoinminer_tpu_torch.apps.transportbench import \
+        transport_probe
+    saved = {k: os.environ.get(k) for k in TRANSPORT_ENV}
+    os.environ.update(TRANSPORT_ENV)
+    try:
+        probe = transport_probe(ROOT, conn_counts=(10_000,))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    es = probe["echo_storm"]
+    if not es["throughput"] or not es["stock_msgs_per_s"]:
+        fail(f"transport phase: no echo throughput: {es}")
+    return probe
+
+
+def phase_harness(outdir: str, e2e: dict) -> dict:
+    """The harness paths, each its own JSON line with its seconds: the
+    chaos storm, the process storm, the capture's replays, the load
+    harness and the transport bench. The storms' launches join the e2e
+    launches (the ``kernels`` line's counts)."""
+    import torch
+    dev = torch.device("cuda", 0)
+    default = {r["request"]: r for r in e2e["requests"]}
+    out = {}
+    t0 = time.monotonic()
+    chaos = run_chaos(outdir)
+    summary = check_chaos(chaos, default, dev)
+    emit("chaos", seconds=time.monotonic() - t0, **summary,
+         schedule=chaos["schedule"], storm_s=chaos["storm_s"],
+         restarts=chaos["restarts"],
+         answers=[{k: a[k] for k in ("round", "request", "seconds",
+                                     "attempts", "results_sent")}
+                  for a in chaos["answers"]])
+    e2e["launches"]["chaos"] = summary["launches"]
+    out["chaos"] = summary
+    t0 = time.monotonic()
+    storm = run_proc_storm(outdir, dev)
+    storm_launches = check_proc_storm(storm)
+    emit("proc_storm", seconds=time.monotonic() - t0,
+         start_s=storm["start_s"], launches=storm_launches,
+         episodes=storm["episodes"])
+    e2e["launches"]["proc_storm"] = storm_launches
+    out["proc_storm"] = storm
+    t0 = time.monotonic()
+    capture = os.path.join(os.path.dirname(
+        e2e["mice_adapt"][0]["server_log"]), "capture.jsonl")
+    replay = run_replay_phase(capture)
+    emit("replay", seconds=time.monotonic() - t0, planned=replay["planned"],
+         **{leg: {k: replay[leg].get(k) for k in (
+             "requests", "completed", "shed_requests", "admitted_per_s",
+             "p50_s", "p99_s", "makespan_s", "seconds", "fidelity")}
+            for leg in ("detnet", "procs")})
+    out["replay"] = replay
+    t0 = time.monotonic()
+    load = run_load_phase()
+    emit("load", seconds=time.monotonic() - t0, **load)
+    out["load"] = load
+    t0 = time.monotonic()
+    transport = run_transport_phase()
+    emit("transport", seconds=time.monotonic() - t0,
+         **{k: transport[k] for k in ("echo_storm", "fast", "stock",
+                                      "conn_memory", "mmsg_available")})
+    out["transport"] = transport
+    return out
 
 
 def per_block_search(searcher, lower: int, upper: int, scan):
@@ -5409,6 +5948,8 @@ def main() -> int:
         return worker(sys.argv[2])
     if sys.argv[1:2] == ["--fault-miner"] and len(sys.argv) == 4:
         return fault_miner(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--chaos-storm"] and len(sys.argv) == 3:
+        return chaos_storm(sys.argv[2])
     if sys.argv[1:2] == ["--pod-gather"] and len(sys.argv) == 6:
         return pod_gather_rank(sys.argv[2], int(sys.argv[3]),
                                int(sys.argv[4]), sys.argv[5])
@@ -5474,6 +6015,8 @@ def main() -> int:
     seconds["kernel"] = lap()
     e2e = phase_e2e(outdir)
     seconds["e2e"] = lap()
+    phase_harness(outdir, e2e)
+    seconds["harness"] = lap()
     rates = phase_rates(dev_info, outdir)
     seconds["rates"] = lap()
     phase_census(rates, e2e, outdir)

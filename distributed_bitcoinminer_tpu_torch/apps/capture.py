@@ -18,9 +18,10 @@ package loads in the other.
   file starts with its own header, so every window loads alone.
 - **Replay** (:func:`load_capture`, :func:`replay_plan`): a capture
   becomes a deterministic schedule of tenants and requests that keeps
-  each hashed tenant's inter-arrival process and the geometry mix. The
-  load harness, which re-sends it (and reads the replay's speed), is not
-  yet ported.
+  each hashed tenant's inter-arrival process and the geometry mix;
+  ``apps.loadharness.run_replay`` (detnet) and ``run_replay_procs`` (the
+  process tier over UDP) re-send it, warped by ``DBMT_REPLAY_SPEED``
+  (:func:`replay_speed`).
 - **Fidelity** (:func:`capture_baseline`, :func:`fidelity`): a replay's
   report beside the capture's own numbers (admitted/s, shed rate,
   p50/p99, the span phases' medians), within the stated
@@ -45,7 +46,8 @@ Records (one JSON object a line; short keys):
 
 Knobs (``utils.config.capture_from_env``): ``DBMT_CAPTURE``,
 ``DBMT_CAPTURE_PATH`` (default ``dbmt_capture.jsonl``),
-``DBMT_CAPTURE_LINES``, ``DBMT_CAPTURE_SNAP_S``.
+``DBMT_CAPTURE_LINES``, ``DBMT_CAPTURE_SNAP_S``; :func:`replay_speed`:
+``DBMT_REPLAY_SPEED``.
 """
 
 from __future__ import annotations
@@ -59,12 +61,13 @@ from statistics import median
 from typing import Dict, List, Optional
 
 from ..utils import metrics as _metrics
+from ..utils._env import float_env
 from ..utils.config import capture_from_env
 from ..utils.trace import SPAN_PHASES
 
 __all__ = ["WorkloadCapture", "Capture", "enabled", "ensure_from_env",
            "close_active", "load_capture", "capture_baseline",
-           "replay_plan", "fidelity",
+           "replay_plan", "fidelity", "replay_speed",
            "CAPTURE_VERSION", "FIDELITY_BOUNDS"]
 
 #: Capture record-schema version; bumped on any incompatible change.
@@ -93,6 +96,15 @@ def enabled() -> bool:
     read at each call. Off by default: capture writes a line a request,
     and an operator arms it for an incident or a soak."""
     return capture_from_env().enabled
+
+
+def replay_speed() -> float:
+    """``DBMT_REPLAY_SPEED`` (default 1.0; not above 0 reads as 1.0): the
+    replay's time warp. The captured gaps are divided by it, so 4.0
+    re-sends an hour in fifteen minutes; the rate-limited miners the
+    replay models run that much faster too. Read at each call."""
+    v = float_env("DBMT_REPLAY_SPEED", 1.0)
+    return v if v > 0 else 1.0
 
 
 def _pow2_class(n: int) -> int:

@@ -49,10 +49,9 @@ from bisect import bisect_right
 from typing import Dict, List, Optional
 
 from ..bitcoin.message import Message, MsgType, new_request
-from ..lsp.errors import LspError
 from ..utils.config import (CacheParams, cache_from_env, gateway_from_env,
-                            replicas_from_env)
-from .scheduler import ResultCache, Scheduler
+                            recv_batch_from_env, replicas_from_env)
+from .scheduler import ResultCache, Scheduler, receive
 
 logger = logging.getLogger("dbmt.replicas")
 
@@ -108,8 +107,11 @@ class ReplicaSet:
 
     def __init__(self, server, n: Optional[int] = None, *,
                  cache: Optional[CacheParams] = None, capture=None,
-                 **sched_kw):
+                 recv_batch: Optional[int] = None, **sched_kw):
         self.server = server
+        # The batched receive, as the scheduler's (``DBMT_RECV_BATCH``).
+        self._recv_batch = max(1, recv_batch) if recv_batch is not None \
+            else recv_batch_from_env()
         self.n = n if n is not None else replicas_from_env()
         cache = cache if cache is not None else cache_from_env()
         #: The shared replay tier (None when caching is off).
@@ -119,7 +121,7 @@ class ReplicaSet:
         for rid in range(self.n):
             sched = Scheduler(server, cache=cache,
                               result_cache=self.shared_cache,
-                              capture=capture,
+                              capture=capture, recv_batch=self._recv_batch,
                               metrics_prefix=f"sched.r{rid}", **sched_kw)
             sched._next_job_id = rid * self.JOB_ID_STRIDE
             self.replicas[rid] = sched
@@ -229,12 +231,7 @@ class ReplicaSet:
             self._sweep_tasks[rid] = loop.create_task(
                 self._sweep_loop(self.replicas[rid]))
         try:
-            while True:
-                try:
-                    conn_id, payload = await self.server.read()
-                except LspError:
-                    return
-                self.route(conn_id, payload)
+            await receive(self.server, self.route, self._recv_batch)
         finally:
             for task in self._sweep_tasks.values():
                 task.cancel()

@@ -141,7 +141,8 @@ from ..utils.config import (AdaptParams, CacheParams, CoalesceParams,
                             LeaseParams, QosParams, StripeParams,
                             VerifyParams, adapt_from_env, cache_from_env,
                             coalesce_from_env, gateway_from_env,
-                            lease_from_env, qos_from_env, stripe_from_env,
+                            lease_from_env, qos_from_env,
+                            recv_batch_from_env, stripe_from_env,
                             verify_from_env)
 from ..utils.metrics import Registry, RequestTrace
 from ..utils.metrics import registry as process_registry
@@ -191,6 +192,24 @@ class ResultCache:
 
     def __len__(self):
         return len(self._d)
+
+
+async def receive(server, handle, recv_batch: int) -> None:
+    """Feed every transport item to ``handle(conn_id, payload)`` until the
+    server closes: one awaited read, then up to ``recv_batch - 1`` items
+    already delivered (``read_nowait``), in order, without a loop hop a
+    message. ``recv_batch=1`` reads one item an await."""
+    while True:
+        try:
+            conn_id, payload = await server.read()
+        except LspError:
+            return
+        handle(conn_id, payload)
+        for _ in range(recv_batch - 1):
+            item = server.read_nowait()
+            if item is None:
+                break
+            handle(item[0], item[1])
 
 
 @dataclass
@@ -279,8 +298,14 @@ class Scheduler:
                  adapt: Optional[AdaptParams] = None,
                  trace_sample: Optional[float] = None,
                  result_cache: Optional[ResultCache] = None,
-                 capture=None, metrics_prefix: str = "sched"):
+                 capture=None, metrics_prefix: str = "sched",
+                 recv_batch: Optional[int] = None):
         self.server = server
+        # The batched receive: after each awaited read, up to
+        # ``recv_batch - 1`` more delivered messages are handled without
+        # a loop hop (``DBMT_RECV_BATCH``; 1: one message an await).
+        self._recv_batch = max(1, recv_batch) if recv_batch is not None \
+            else recv_batch_from_env()
         # The federation (``DBMT_GATEWAY``, default 1, read once here): a
         # repeat JOIN from a live miner's conn refreshes its rate hint in
         # place (the GatewayMiner's pool sum); 0 registers a new miner
@@ -332,9 +357,10 @@ class Scheduler:
         self._trace_on = _tracing.ensure_tracer()
         # The capture plane (DBMT_CAPTURE, off by default): with it off
         # (and no instance given) this is None and every hook is one
-        # attribute test.
-        self.capture = capture if capture is not None \
-            else _capture.ensure_from_env()
+        # attribute test. ``capture=False`` refuses the environment's (a
+        # replay must not truncate the capture it reads).
+        self.capture = None if capture is False else capture \
+            if capture is not None else _capture.ensure_from_env()
         self.tenant_plane = TenantPlane(
             qos, self._count, close_conn=getattr(server, "close_conn", None),
             trace_on=self._trace_on, trace_sample=trace_sample,
@@ -457,6 +483,11 @@ class Scheduler:
                 json.dump(doc, fh, sort_keys=True)
         return doc
 
+    @property
+    def traces(self):
+        """The request traces (the tenant plane's buffer)."""
+        return self.tenant_plane.traces
+
     def set_tenant_weight(self, tenant, weight: float) -> None:
         """Override one tenant's DRR weight (the environment's path is
         ``DBMT_QOS_WEIGHTS``)."""
@@ -466,12 +497,7 @@ class Scheduler:
         """Serve until the LSP server is closed; the sweep runs beside."""
         sweeper = asyncio.get_running_loop().create_task(self._lease_loop())
         try:
-            while True:
-                try:
-                    conn_id, payload = await self.server.read()
-                except LspError:
-                    return
-                self.handle(conn_id, payload)
+            await receive(self.server, self.handle, self._recv_batch)
         finally:
             sweeper.cancel()
 

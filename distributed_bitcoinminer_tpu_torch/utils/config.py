@@ -482,6 +482,14 @@ def replicas_from_env() -> int:
     return max(1, int_env("DBMT_REPLICAS", 1))
 
 
+def recv_batch_from_env() -> int:
+    """``DBMT_RECV_BATCH`` (default 64, at least 1): the messages a
+    scheduler's (or ``ReplicaSet``'s) read loop handles for one awaited
+    read, the rest drained without a loop hop; 1 is one message an
+    await."""
+    return max(1, int_env("DBMT_RECV_BATCH", 64))
+
+
 @dataclass(frozen=True)
 class RetryParams:
     """The client's ``submit_with_retry``: ``attempts`` tries in all (1 is

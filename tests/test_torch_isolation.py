@@ -58,7 +58,10 @@ def test_importing_the_port_loads_no_jax():
                  "parallel.multihost", "apps.capture", "apps.health",
                  "apps.procs", "apps.rollup", "apps.replicas",
                  "apps.gateway", "apps.slo", "tools.dbmtop",
-                 "ops.sha256_native"):
+                 "ops.sha256_native", "lspnet.detnet", "lspnet.chaos",
+                 "apps.loadharness", "apps.transportbench",
+                 "tools.loadharness", "runners.srunner",
+                 "runners.crunner"):
         assert f"distributed_bitcoinminer_tpu_torch.{name}" in modules
 
 
