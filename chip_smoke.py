@@ -79,11 +79,11 @@ JSON line per phase:
    where the until chain's hit-and-fold on real lanes is held to the
    plain version); and R5 ("cmu440", 2^26-1, target 1) through the
    client CLI's fifth argument, which must equal R1. Then the mice path,
-   five times, on a new server (QoS chunking from 0.1 s, 0.05 s chunks) and
-   two miners each time, in turns with the server's adapt plane on (the
-   default; once more with its admission controller,
-   ``DBMT_ADAPT_ADMIT=1``) and then off (``DBMT_ADAPT=0``), then twice
-   on a warm pool, the admission controller on and then off (a
+   four times, on a new server (QoS chunking from 0.1 s, 0.05 s chunks)
+   and two miners each time, in turns with the server's adapt plane on
+   (the default) and then off (``DBMT_ADAPT=0``), each with coalescing
+   on, then off, then twice on a warm pool, the admission
+   controller (``DBMT_ADAPT_ADMIT=1``) on and then off (a
    second elephant, ("warm pool", 2^36-1), served first until the chunk
    controller has moved): a warm-up request that gives the scheduler its
    throughput sample, then an elephant ("cmu440", 2^34-1) and, while it
@@ -251,6 +251,17 @@ JSON line per phase:
    tier): every request not shed completes; and the transport bench (2
    rounds of 2 s legs, fast and stock, and resident bytes a conn at
    10,000 conns, in child processes);
+   Then the analysis phase (``phase_analysis``, its own JSON line), its
+   three parts started together: ``tools/dbmlint.py --list`` on this
+   tree (exit 0, no finding); ``tools/dbmcheck.py --seeds 10 --dfs 8``
+   over the explorer's 17 scenarios (exit 0, no violation); and, in a
+   worker (``--analysis-card``), ``pipelined_dispatch`` and
+   ``batched_dispatch`` for 8 seeds each with the fake searcher swapped
+   for ``CardSearcher`` (``card_scenarios``: ``NonceSearcher`` on card
+   0 behind the fake's virtual-clock charges, so each schedule must be
+   the fake's step for step), every Result held to the oracle by the
+   scenarios' checks, K1, K5 and K6 each launched (their launches join
+   the ``kernels`` line's);
 5. rates: K1 over one full 10^9 block (1-block tail), R2's 9*10^8 block
    (2-block tail with digits in both blocks) and a 10^9 block whose second
    tail block holds no digit; K2 over the first block with a target
@@ -1865,10 +1876,12 @@ def phase_e2e(outdir: str) -> dict:
             server_text = f.read()
     lap("difficulty")
     # The mice path in turns: the adapt plane on (the default), then off.
+    # The cold turn with the admission controller was cut to pay for the
+    # analysis phase (the warm pool runs the admission controller on and
+    # off).
     mice_adapt = [run_mice(outdir, True, adapt=True, server_env=CAPTURE_ENV,
                            tag="mice_adapt_capture"),
-                  run_mice(outdir, False, adapt=True),
-                  run_mice(outdir, True, adapt=True, admit=True)]
+                  run_mice(outdir, False, adapt=True)]
     mice_runs = [run_mice(outdir, True, adapt=False),
                  run_mice(outdir, False, adapt=False)]
     # The warm pool, the admission controller on, then off (the adapt
@@ -2062,7 +2075,6 @@ def phase_e2e(outdir: str) -> dict:
                          "mice_per_chunk": mice_runs[1]["launches"],
                          "mice_adapt": mice_adapt[0]["launches"],
                          "mice_per_chunk_adapt": mice_adapt[1]["launches"],
-                         "mice_adapt_admit": mice_adapt[2]["launches"],
                          **{run["tag"]: run["launches"]
                             for run in mice_warm},
                          **{f"peeled_{leg}": run["launches"]
@@ -4197,6 +4209,228 @@ def phase_harness(outdir: str, e2e: dict) -> dict:
     return out
 
 
+#: The analysis phase: the explorer over the whole catalogue at a small
+#: budget, then the miner-pipeline scenarios with a card searcher.
+ANALYSIS_SEEDS = 10
+ANALYSIS_DFS = 8
+ANALYSIS_CARD_SEEDS = 8
+ANALYSIS_CARD_LINE = "analysis card result "
+SCENARIO_LINE = re.compile(r"^(\w+)\s+explored=\s*(\d+) distinct=\s*(\d+) "
+                           r"violations=\s*(\d+)")
+
+
+def card_scenarios(device) -> dict:
+    """The explorer's two miner-pipeline scenarios (``pipelined_dispatch``,
+    ``batched_dispatch``) with their fake searcher swapped for
+    ``CardSearcher``: it wraps ``NonceSearcher(data, device=device)``,
+    charges the virtual clock exactly as the fake does (the same draws
+    from the same stream, so a seed gives the fake's schedule) and answers
+    from the searcher: on ``cuda`` its ``dispatch`` starts the K1 launches
+    chained through K6 and returns before they end, ``finalize`` forces
+    the carry, and ``dispatch_batch`` is K5. The scenarios' own checks
+    hold every Result to the oracle. ``CardSearcher.answers`` counts the
+    answers it gave, ``CardSearcher.batches`` its batched dispatches."""
+    from distributed_bitcoinminer_tpu_torch.analysis.schedcheck import (
+        scenarios)
+    from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
+
+    class CardSearcher(scenarios._FakeSearcher):
+        answers = batches = 0
+
+        def __init__(self, data, ctx, rng, rate: float = 4000.0):
+            super().__init__(data, ctx, rng, rate)
+            self.inner = NonceSearcher(data, device=device)
+
+        def _answered(self, n: int = 1) -> None:
+            type(self).answers += n
+
+        def search(self, lower: int, upper: int):
+            self._charge(upper - lower + 1)
+            self._answered()
+            return self.inner.search(lower, upper)
+
+        def search_until(self, lower: int, upper: int, target: int):
+            self._charge(upper - lower + 1)
+            self._answered()
+            return self.inner.search_until(lower, upper, target)
+
+        def dispatch(self, lower: int, upper: int):
+            self._charge(upper - lower + 1, frac=0.2)
+            return lower, upper, self.inner.dispatch(lower, upper)
+
+        def finalize(self, handle, lower: int):
+            lo, up, carry = handle
+            self._charge(up - lo + 1, frac=0.8)
+            self._answered()
+            return self.inner.finalize(carry, lower)
+
+        def dispatch_batch(self, entries):
+            for _s, lo, up in entries:
+                if lo > up:
+                    raise ValueError("empty range")
+            sizes = [up - lo + 1 for _s, lo, up in entries]
+            self._charge(sum(sizes), frac=0.2)
+            type(self).batches += 1
+            handle = self.inner.dispatch_batch(
+                [(s.inner, lo, up) for s, lo, up in entries])
+            if handle is None:
+                raise RuntimeError("the card searchers could not share a "
+                                   "batched launch")
+            return sizes, handle
+
+        def finalize_batch(self, handle):
+            sizes, inner = handle
+            self._charge(sum(sizes), frac=0.8)
+            self._answered(len(sizes))
+            return self.inner.finalize_batch(inner)
+
+    class CardPipelined(scenarios.PipelinedDispatch):
+        SEARCHER = CardSearcher
+
+    class CardBatched(scenarios.BatchedDispatch):
+        SEARCHER = CardSearcher
+
+    return {"searcher": CardSearcher,
+            "pipelined_dispatch": CardPipelined,
+            "batched_dispatch": CardBatched}
+
+
+def run_card_scenarios(device, seeds: int) -> dict:
+    """``seeds`` schedules of each card scenario, each beside the fake's
+    schedule of the same seed: the violations (each with its repro spec),
+    the distinct schedules, how many equal the fake's step for step, the
+    card's answers and batched dispatches."""
+    from distributed_bitcoinminer_tpu_torch.analysis.schedcheck import (
+        ALL, execute, format_spec)
+    card = card_scenarios(device)
+
+    def steps(result) -> list:
+        # An executor step names its function's class (the fake's or the
+        # card's searcher): compare by method name.
+        return [st.rsplit(".", 1)[-1] if st.startswith("executor:") else st
+                for st in result.steps]
+    out = {"schedules": 0, "violations": [], "same_as_fake": 0}
+    distinct = set()
+    for name in ("pipelined_dispatch", "batched_dispatch"):
+        for seed in range(seeds):
+            fake = execute(ALL[name](), seed)
+            got = execute(card[name](), seed)
+            out["schedules"] += 1
+            distinct.add((name, got.schedule_key()))
+            out["same_as_fake"] += steps(got) == steps(fake)
+            if got.failed:
+                out["violations"].append(
+                    f"{format_spec(got)}: {got.violations}")
+    out["distinct"] = len(distinct)
+    out["answers"] = card["searcher"].answers
+    out["batches"] = card["searcher"].batches
+    return out
+
+
+def analysis_card() -> int:
+    """The worker of the analysis phase's card half (``--analysis-card``):
+    the card scenarios on card 0 in a process of its own (the explorer
+    patches ``time.monotonic`` and arms the sanitizer), its launches
+    counted from 0; one result line."""
+    os.environ["DBMT_METRICS_INTERVAL_S"] = "0"
+    os.environ.setdefault("DBMT_SANITIZE", "1")
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributed_bitcoinminer_tpu_torch.ops import sha256_cuda
+    if not torch.cuda.is_available():
+        print("chip_smoke --analysis-card: no CUDA device", file=sys.stderr)
+        return 1
+    sha256_cuda.reset_launches()
+    out = run_card_scenarios(torch.device("cuda", 0), ANALYSIS_CARD_SEEDS)
+    out["launches"] = {k: sha256_cuda.launches[k] for k in KERNELS}
+    print(ANALYSIS_CARD_LINE + json.dumps(out), flush=True)
+    return 1 if out["violations"] \
+        or out["same_as_fake"] != out["schedules"] else 0
+
+
+def phase_analysis(outdir: str, e2e: dict) -> dict:
+    """The analysis tier on the card's host, its three parts started
+    together: ``tools/dbmlint.py --list`` on this tree (exit 0, no
+    finding), ``tools/dbmcheck.py`` over the whole catalogue at
+    ``--seeds ANALYSIS_SEEDS --dfs ANALYSIS_DFS`` (exit 0, no violation),
+    and the card scenarios in a worker (``--analysis-card``): each Result
+    held to the oracle by the scenarios' checks, and K1, K5 and K6 each
+    launched. Its launches join the e2e launches (the ``kernels``
+    line's)."""
+    t0 = time.monotonic()
+    env = harness_env()
+    parts = {
+        "lint": [sys.executable, "-m", f"{PKG}.tools.dbmlint", "--list"],
+        "check": [sys.executable, "-m", f"{PKG}.tools.dbmcheck",
+                  "--seeds", str(ANALYSIS_SEEDS), "--dfs", str(ANALYSIS_DFS),
+                  "--budget-s", "600"],
+        "card": [sys.executable, os.path.abspath(__file__),
+                 "--analysis-card"]}
+    procs, logs, rcs, text = {}, {}, {}, {}
+    try:
+        for name, cmd in parts.items():
+            logs[name] = os.path.join(outdir, f"analysis_{name}.log")
+            with open(logs[name], "w") as out, \
+                    open(logs[name] + ".err", "w") as err:
+                procs[name] = subprocess.Popen(cmd, stdout=out, stderr=err,
+                                               env=env, cwd=ROOT)
+        for name, proc in procs.items():
+            rcs[name] = proc.wait(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name in parts:
+        with open(logs[name], errors="replace") as f:
+            text[name] = f.read()
+    findings = [ln for ln in text["lint"].splitlines()
+                if ln.startswith(("NEW ", "base "))]
+    if rcs["lint"] != 0 or findings:
+        fail(f"dbmlint: rc {rcs['lint']}, findings {findings} "
+             f"(see {logs['lint']})")
+    scen = {m.group(1): {"explored": int(m.group(2)),
+                         "distinct": int(m.group(3)),
+                         "violations": int(m.group(4))}
+            for m in map(SCENARIO_LINE.match, text["check"].splitlines())
+            if m}
+    if rcs["check"] != 0 or "DBMCHECK_RC=0" not in text["check"] \
+            or len(scen) != 17 \
+            or any(s["violations"] or s["explored"] < ANALYSIS_SEEDS
+                   for s in scen.values()):
+        fail(f"dbmcheck: rc {rcs['check']}, scenarios {scen} "
+             f"(see {logs['check']})")
+    lines = [ln for ln in text["card"].splitlines()
+             if ln.startswith(ANALYSIS_CARD_LINE)]
+    if not lines:
+        fail(f"analysis card worker: rc {rcs['card']}, no result line "
+             f"(see {logs['card']})")
+    card = json.loads(lines[-1][len(ANALYSIS_CARD_LINE):])
+    if rcs["card"] != 0 or card["violations"] \
+            or card["same_as_fake"] != card["schedules"]:
+        fail(f"analysis card scenarios: rc {rcs['card']}, violations "
+             f"{card['violations']}, {card['same_as_fake']} of "
+             f"{card['schedules']} schedules the fake's")
+    for kern in ("K1", "K5", "K6"):
+        if card["launches"].get(kern, 0) <= 0:
+            fail(f"analysis card scenarios launched no {kern}: "
+                 f"{card['launches']}")
+    summary = {
+        "lint_findings": len(findings),
+        "explored": sum(s["explored"] for s in scen.values()),
+        "distinct": sum(s["distinct"] for s in scen.values()),
+        "violations": 0, "scenarios": scen,
+        "card_schedules": card["schedules"],
+        "card_distinct": card["distinct"],
+        "card_same_as_fake": card["same_as_fake"],
+        "card_answers": card["answers"],
+        "card_batches": card["batches"],
+        "launches": card["launches"]}
+    emit("analysis", seconds=time.monotonic() - t0, **summary)
+    e2e["launches"]["analysis"] = card["launches"]
+    return summary
+
+
 def per_block_search(searcher, lower: int, upper: int, scan):
     """The searcher's block plan, one ``scan(plan)`` (a (3,) device tensor
     ``(hi, lo, idx)``) per block, the triples copied to the host in one
@@ -5950,6 +6184,8 @@ def main() -> int:
         return fault_miner(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--chaos-storm"] and len(sys.argv) == 3:
         return chaos_storm(sys.argv[2])
+    if sys.argv[1:] == ["--analysis-card"]:
+        return analysis_card()
     if sys.argv[1:2] == ["--pod-gather"] and len(sys.argv) == 6:
         return pod_gather_rank(sys.argv[2], int(sys.argv[3]),
                                int(sys.argv[4]), sys.argv[5])
@@ -6017,6 +6253,8 @@ def main() -> int:
     seconds["e2e"] = lap()
     phase_harness(outdir, e2e)
     seconds["harness"] = lap()
+    phase_analysis(outdir, e2e)
+    seconds["analysis"] = lap()
     rates = phase_rates(dev_info, outdir)
     seconds["rates"] = lap()
     phase_census(rates, e2e, outdir)

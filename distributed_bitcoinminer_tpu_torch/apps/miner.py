@@ -252,6 +252,24 @@ class MinerWorker:
     # messages can't grow midstate caches without bound.
     SEARCHER_CACHE_SIZE = 4
 
+    #: Cross-thread ownership table (dbmlint: thread-state). Attributes
+    #: listed here are touched from worker threads (``asyncio.to_thread``)
+    #: and may be touched from the event loop, with the serialization
+    #: argument on record; the analyzer fails any cross-thread attribute
+    #: that is neither declared here nor mutated under a lock.
+    THREAD_SHARED = {
+        "_searchers": "executor-serialized: the LRU is touched only inside "
+                      "_get_searcher, which runs on a to_thread worker "
+                      "(_resolve_and_dispatch, _resolve_and_dispatch_batch, "
+                      "_search). The pipelined executor has at most one "
+                      "dispatch task in flight and awaits it before a "
+                      "two-phase or blocking serve starts; the finalize "
+                      "hop that overlaps a dispatch task calls only the "
+                      "searcher's finalize. The serial loop awaits every "
+                      "search. So one worker touches the LRU at a time, "
+                      "though the thread may change per chunk.",
+    }
+
     def __init__(self, hostport: str, params: Optional[Params] = None,
                  searcher_factory: Callable = default_searcher_factory,
                  pipeline: bool = True, pipeline_depth: int = 8,

@@ -530,6 +530,17 @@ class MinerPlane:
             miner.rate_ewma = None
         return miner.trust
 
+    def pin_rates(self, rate: float, include_hinted: bool = False) -> None:
+        """Pin every (by default un-hinted) miner's rate EWMA and the pool
+        rate to ``rate`` and clear the pool's hint flag: how a harness
+        warms a pool without reaching into the hint bookkeeping (hinted
+        miners keep their JOIN hint)."""
+        for m in self.miners:
+            if include_hinted or not m.rate_hinted:
+                m.rate_ewma = rate
+        self.pool_rate = rate
+        self._pool_hinted = False
+
     def decay_rate_hints(self) -> None:
         """One sweep's decay of the unconfirmed hints, the miners' and the
         pool's, so a stale or inflated claim bleeds away."""

@@ -325,9 +325,36 @@ class ReplicaSet:
         return doc
 
     @property
+    def queue(self) -> list:
+        """Queued requests across the live replicas (read-only)."""
+        return [r for rid in self.live for r in self.replicas[rid].queue]
+
+    @property
+    def _inflight(self) -> dict:
+        """In-flight requests across the live replicas, by job id."""
+        return {job: req for rid in self.live
+                for job, req in self.replicas[rid]._inflight.items()}
+
+    @property
+    def qos_plane(self):
+        """The live replicas' QoS planes, merged (read-only)."""
+        return _MergedQos([self.replicas[rid] for rid in self.live])
+
+    @property
     def traces(self):
         """The live replicas' trace buffers, merged (read-only)."""
         return _MergedTraces([self.replicas[rid] for rid in self.live])
+
+
+class _MergedQos:
+    """Read-only merged view of the live replicas' QoS planes: their
+    ``tenants`` tables, which the interleaving explorer's accounting
+    invariant walks."""
+
+    def __init__(self, scheds):
+        self.tenants: dict = {}
+        for sched in scheds:
+            self.tenants.update(sched.qos_plane.tenants)
 
 
 class _MergedTraces:

@@ -407,6 +407,12 @@ class Scheduler:
         return self.tenant_plane.qos_plane
 
     @property
+    def queue(self) -> list:
+        """Arrival-ordered copy of the queued requests (a read-only view:
+        the interleaving explorer's accounting invariant reads it)."""
+        return self.tenant_plane.requests()
+
+    @property
     def current(self) -> Optional[Request]:
         """The oldest in-flight request, or None."""
         return next(iter(self._inflight.values()), None)

@@ -77,6 +77,43 @@ knobs (:func:`lease_from_env`, :func:`verify_from_env`):
 on/off switches (``QosParams.enabled`` and ``lazy``,
 ``StripeParams.enabled``, ``LeaseParams.enabled``, ``fifo_aware``,
 ``desperation``, ``VerifyParams.enabled``) are constructor fields only.
+
+Knobs read in other modules, each through ``utils/_env.py`` where it is
+used (the lint's knob catalogue: every knob the port reads is named in
+this docstring and in the package README):
+
+- the miner's JOIN hint ``DBMT_RATE_HINT`` (0: no hint; a number of
+  nonces/s, or ``probe``); the scheduler's batched receive
+  ``DBMT_RECV_BATCH`` (64, :func:`recv_batch_from_env`);
+- the tracing plane: ``DBMT_TRACE`` (1), ``DBMT_TRACE_SAMPLE`` (1.0),
+  ``DBMT_TRACE_FLIGHT`` (512), ``DBMT_TRACE_STORM_N`` (12),
+  ``DBMT_TRACE_STORM_S`` (30.0), ``DBMT_TRACE_EXPORT`` (the server's
+  trace file; unset: none);
+- metrics and the sanitizer: ``DBMT_METRICS_INTERVAL_S`` (30.0; 0: no
+  emitter thread), ``DBMT_METRICS_MAX_SERIES`` (64),
+  ``DBMT_METRICS_TRACE_CAP`` (256), ``DBMT_SANITIZE`` (0),
+  ``DBMT_SANITIZE_SLOW_S`` (0.1);
+- the transport: ``DBMT_TIMER_WHEEL`` (1), ``DBMT_WIRE_FAST`` (1),
+  ``DBMT_MMSG`` (1), ``DBMT_MMSG_BATCH`` (32);
+- the process tier and its rollup: ``DBMT_HEALTH_BEAT_S`` (0.5),
+  ``DBMT_HEALTH_MISS_K`` (3), ``DBMT_PROC_CACHE`` (1), ``DBMT_ROLLUP``
+  (1), ``DBMT_ROLLUP_STALE_K``; the SLOs ``DBMT_SLO_AVAIL`` (0.99),
+  ``DBMT_SLO_P99_S`` (60.0), ``DBMT_SLO_SHED`` (0.25),
+  ``DBMT_SLO_WINDOW_S`` (300.0), ``DBMT_SLO_BURN`` (4.0);
+- capture replay: ``DBMT_REPLAY_SPEED`` (1.0);
+- the transport bench: ``DBMT_BENCH_TRANSPORT_CONNS`` (32),
+  ``DBMT_BENCH_TRANSPORT_INFLIGHT`` (8),
+  ``DBMT_BENCH_TRANSPORT_PAYLOAD`` (128),
+  ``DBMT_BENCH_TRANSPORT_SECS`` (1.0),
+  ``DBMT_BENCH_TRANSPORT_WARMUP_S`` (0.3),
+  ``DBMT_BENCH_TRANSPORT_ROUNDS`` (3);
+- the interleaving explorer (``tools/dbmcheck.py``):
+  ``DBMT_CHECK_SEEDS`` (200 random-walk seeds a scenario),
+  ``DBMT_CHECK_BUDGET_S`` (75.0 s for the whole run),
+  ``DBMT_CHECK_DFS`` (64 bounded-DFS schedules a scenario; 0: none),
+  ``DBMT_CHECK_SCENARIOS`` (a comma list; unset: the whole catalogue),
+  ``DBMT_CHECK_CAPTURE`` (the capture ``replayed_storm`` replays;
+  unset: its checked-in fixture).
 """
 
 from __future__ import annotations
@@ -189,11 +226,11 @@ class CacheParams:
     size: int = 256
 
 
-def _weights_env(name: str) -> tuple:
+def _weights(raw: str) -> tuple:
     """``conn:weight`` pairs, comma-separated; a malformed pair is
     skipped."""
     weights = []
-    for part in str_env(name, "").split(","):
+    for part in raw.split(","):
         part = part.strip()
         if not part or ":" not in part:
             continue
@@ -219,7 +256,7 @@ def qos_from_env() -> QosParams:
         burst=max(1.0, float_env("DBMT_QOS_BURST", d.burst)),
         default_weight=float_env("DBMT_QOS_WEIGHT_DEFAULT",
                                  d.default_weight),
-        weights=_weights_env("DBMT_QOS_WEIGHTS"))
+        weights=_weights(str_env("DBMT_QOS_WEIGHTS", "")))
 
 
 def stripe_from_env() -> StripeParams:

@@ -61,7 +61,16 @@ def test_importing_the_port_loads_no_jax():
                  "ops.sha256_native", "lspnet.detnet", "lspnet.chaos",
                  "apps.loadharness", "apps.transportbench",
                  "tools.loadharness", "runners.srunner",
-                 "runners.crunner"):
+                 "runners.crunner", "analysis", "analysis.core",
+                 "analysis.knobs", "analysis.loopblock",
+                 "analysis.lockdiscipline", "analysis.threadstate",
+                 "analysis.cardinality", "analysis.hotpathalloc",
+                 "analysis.buildstatic", "analysis.schedcheck",
+                 "analysis.schedcheck.detloop",
+                 "analysis.schedcheck.scenario",
+                 "analysis.schedcheck.scenarios",
+                 "analysis.schedcheck.explore", "tools.dbmlint",
+                 "tools.dbmcheck"):
         assert f"distributed_bitcoinminer_tpu_torch.{name}" in modules
 
 

@@ -223,6 +223,62 @@ def test_kill_adopts_miners_and_reserves_exactly_once(clock):
         s.port.kill(1)
 
 
+def _views(rs):
+    """The merged views the interleaving explorer's invariants read."""
+    return (sorted(rs._inflight), sorted(r.job_id for r in rs.queue),
+            sorted((t, st.inflight) for t, st in rs.qos_plane.tenants.items()),
+            sorted(k for k, _t in rs.traces.items()))
+
+
+def test_merged_views_equal_jax(clock):
+    """``ReplicaSet.queue``, ``_inflight``, ``qos_plane`` (``_MergedQos``)
+    and ``traces`` over the live replicas equal the JAX set's, before and
+    after a replica's kill; ``Scheduler.queue`` is the tenant plane's
+    queue, in arrival order."""
+    s = Sets(clock, qos={"wholesale_s": 1e-9, "chunk_s": 4.0})
+    for miner in (101, 102):
+        s.join(miner)
+    for rid in s.port.replicas:
+        for rs in (s.port, s.ref):
+            rs.replicas[rid].miner_plane.pin_rates(1000.0)
+    for t in range(1, 9):
+        s.request(t, f"view {t}", 20_000 + t)
+    views = _views(s.port)
+    assert views == _views(s.ref)
+    inflight, queued, tenants, traces = views
+    assert inflight and queued and traces
+    assert any(n for _t, n in tenants)      # granted chunks accounted
+    for rid, sched in s.port.replicas.items():
+        assert [r.job_id for r in sched.queue] == \
+            [r.job_id for r in sched.tenant_plane.requests()]
+        assert [r.job_id for r in sched.queue] == \
+            [r.job_id for r in s.ref.replicas[rid].queue]
+    s.kill(0)
+    assert _views(s.port) == _views(s.ref)
+    assert all(j >= STRIDE for j in s.port._inflight)
+    s.drain()
+    assert _views(s.port)[:2] == ([], []) == _views(s.ref)[:2]
+    assert all(n == 0 for _t, n in s.port.qos_plane.tenants.items()
+               for n in [n.inflight])
+
+
+def test_pin_rates_equals_jax(clock):
+    """``MinerPlane.pin_rates`` warms the un-hinted miners and the pool as
+    the JAX helper does, keeping a hinted miner's JOIN hint."""
+    pair = Pair(clock)
+    pair.join(101, rate=50_000)
+    pair.join(102)
+    for include in (False, True):
+        for sched in (pair.port, pair.ref):
+            sched.miner_plane.pin_rates(1234.0, include_hinted=include)
+        mine = [(m.rate_ewma, m.rate_hinted) for m in pair.port.miners]
+        assert mine == [(m.rate_ewma, m.rate_hinted) for m in pair.ref.miners]
+        assert pair.port.miner_plane.pool_rate == \
+            pair.ref.miner_plane.pool_rate == 1234.0
+        assert pair.port.miner_plane._pool_hinted is False
+    assert [m.rate_ewma for m in pair.port.miners] == [1234.0, 1234.0]
+
+
 def test_requests_before_any_miner_and_drops_equal_jax(clock):
     s = Sets(clock, n=3, cache={"size": 4})
     s.request(1, "early", 999)
