@@ -213,7 +213,31 @@ JSON line per phase:
    coalesced window's spans share one launch id, as many as its lanes;
    on the lease path a flight-recorder dump is one JSON line holding the
    blown leases; R4's and R5's seconds split into their chunks' span
-   phases and the scheduler's remainder. Every other server runs with
+   phases and the scheduler's remainder. Then the ``metrics`` check (its
+   own JSON line), from the snapshots each process's metrics emitter
+   logs: every 30 s, at its exit (a miner on SIGTERM too), and every
+   0.1 s on the mice, lease and verification servers
+   (``METRICS_ENV``). On the arg-min path the miner's
+   ``miner.nonces_scanned`` equals the nonces of the chunks the
+   scheduler assigned (its exported traces), its
+   ``miner.chunks_served`` its ``counts()["chunks"]``, its
+   ``model.device_launches`` since its launch counts restarted the
+   search launches counted (K1-K4, K5's less a reduce a batched
+   launch), no ``sched.miner_trust`` below 1.0, and
+   ``sched.pool_rate_nps`` beside ``miner.nonces_per_s`` (within
+   ``RATE_FACTOR`` either way where the scheduler has a rate); on the
+   mice path (coalescing on, adapt off) each miner the same and its
+   coalesced dispatches and chunks equal to its counts,
+   ``sched.stripe_chunks_per_share`` a sample per miner share of each
+   wholesale dispatch, every tenant's ``sched.qos_granted_chunks`` in
+   every line at most the chunks its traces show granted (the series
+   retires with its tenant, so the share of the grants seen is
+   printed) and the rates within ``RATE_FACTOR``; on the lease path
+   ``sched.pool_quarantined`` at least 1 during the quarantine and 0
+   in the last line; on the verification path each convicted miner's
+   ``sched.miner_trust`` below 1; on the procs path ``dbmtop``'s row of
+   the live replica after the kill a number in ``lease_min_s`` and
+   ``nps`` and no ``trust_min`` below 1.0. Every other server runs with
    ``DBMT_AUDIT_P=0`` (random audits would add launches no path
    expects), ``DBMT_CACHE=0`` (the cache would answer the repeated R1,
    R3 of the arg-min, lease and verification paths without the miners)
@@ -1325,6 +1349,50 @@ def launches_of(counts: dict) -> dict:
     return dict(counts.get("kernel_launches", dict.fromkeys(KERNELS, 0)))
 
 
+#: The emitter's cadence on the servers whose live series the metrics
+#: check reads (the mice, lease and verification paths: series that
+#: retire with their tenant, or move back once a quarantine lifts); every
+#: other process logs its snapshot each 30 s and, at its exit, its final
+#: one (a miner on SIGTERM too).
+METRICS_ENV = {"DBMT_METRICS_INTERVAL_S": "0.1"}
+#: The scheduler's pool rate against a miner's own nonces/s EWMA: within
+#: this factor either way (the prediction PERF.md holds for this check).
+RATE_FACTOR = 3.0
+#: A miner's model counters where its launch counts restart at 0.
+RESTART_LINE = "model counts at the launch counts' restart "
+
+
+def metric_snapshots(log_path: str) -> list:
+    """Every snapshot line a process's metrics emitter logged, oldest
+    first (a final one last, once the process has exited)."""
+    snaps = []
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            if '"event": "metrics"' in line:
+                snaps.append(json.loads(line[line.index("{"):]))
+    return snaps
+
+
+def final_snapshot(log_path: str, what: str) -> dict:
+    """The snapshot ``what`` logged at its exit."""
+    snaps = metric_snapshots(log_path)
+    if not snaps or not snaps[-1]["final"]:
+        fail(f"metrics: {what} logged no final snapshot ({log_path})")
+    return snaps[-1]["snapshot"]
+
+
+def restart_counts(log_path: str) -> dict:
+    """A miner's model counters at its last launch-count restart."""
+    last = None
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            if RESTART_LINE in line:
+                last = json.loads(line.split(RESTART_LINE, 1)[1])
+    if last is None:
+        fail(f"metrics: no {RESTART_LINE.strip()!r} line in {log_path}")
+    return last
+
+
 #: R2's message: 60 characters, so the prefix tail is 61 bytes and every
 #: nonce's digits run into a second tail block.
 R2_DATA = "a sixty-character message whose nonce digits cross a block.."
@@ -1711,7 +1779,8 @@ def run_mice(outdir: str, coalesce: bool, miner_env: dict | None = None,
     tag = tag or (("mice" if coalesce else "mice_per_chunk")
                   + ("_adapt" if adapt else "") + ("_admit" if admit else ""))
     env = {"DBMT_COALESCE": "1" if coalesce else "0"}
-    server_env = {**MICE_SERVER_ENV, **env, **(server_env or {})}
+    server_env = {**MICE_SERVER_ENV, **METRICS_ENV, **env,
+                  **(server_env or {})}
     if adapt is not None:
         server_env["DBMT_ADAPT"] = "1" if adapt else "0"
     if admit:
@@ -1829,6 +1898,188 @@ def check_mice(runs: list, dev) -> None:
                  f"disconnected, sheds {run['shed_lines']}")
 
 
+def miner_metrics(log_path: str) -> dict:
+    """One miner's final snapshot held to its own ``counts()``: chunks
+    served, coalesced dispatches and their chunks, and the model's search
+    launches since the launch counts restarted equal to the search
+    launches counted (K1-K4, and K5's less one reduce a batched launch).
+    Returns its scanned nonces, launches and nonces/s."""
+    name = os.path.basename(log_path)
+    snap = final_snapshot(log_path, name)
+    c = snap["counters"]
+    counts = read_counts(log_path)
+    mine = (c["miner.chunks_served"], c["miner.coalesced_dispatches"],
+            c["miner.chunks_coalesced"])
+    want = (counts.get("chunks", 0), counts.get("coalesced_dispatches", 0),
+            counts.get("coalesced_chunks", 0))
+    if mine != want:
+        fail(f"metrics: {name} chunks served, coalesced dispatches and "
+             f"chunks {mine} != its counts {want}")
+    base = restart_counts(log_path)
+    k = launches_of(counts)
+    batched = c["model.coalesced_launches"] \
+        - base.get("model.coalesced_launches", 0)
+    search = sum(k[x] for x in ("K1", "K2", "K3", "K4", "K5")) - batched
+    model = c["model.device_launches"] - base.get("model.device_launches", 0)
+    if model != search:
+        fail(f"metrics: {name} model.device_launches +{model} != its "
+             f"search launches {search} ({k}, {batched} batched)")
+    return {"nonces_scanned": c["miner.nonces_scanned"],
+            "chunks_served": c["miner.chunks_served"],
+            "device_launches": model,
+            "nonces_per_s": snap["ewmas"]["miner.nonces_per_s"]["value"]}
+
+
+def assigned_nonces(dicts: list) -> int:
+    """The nonces of every chunk a server's traces show it assigned
+    (``Upper`` read inclusive)."""
+    if any(d.get("events_dropped") for d in dicts):
+        fail("metrics: a trace dropped events")
+    return sum(e["upper"] - e["lower"] + 1 for d in dicts
+               for e in d["events"] if e["event"] == "assign")
+
+
+def rate_ratio(pool, miners: list):
+    """``sched.pool_rate_nps`` over the mean ``miner.nonces_per_s``,
+    held within ``RATE_FACTOR`` when both exist; None without a pool rate
+    (no throughput window closed)."""
+    rates = [m["nonces_per_s"] for m in miners if m["nonces_per_s"]]
+    if pool is None or not rates:
+        return None
+    ratio = pool / (sum(rates) / len(rates))
+    if not 1 / RATE_FACTOR <= ratio <= RATE_FACTOR:
+        fail(f"metrics: sched.pool_rate_nps {pool} against miner.nonces_"
+             f"per_s {rates}: ratio {ratio} outside {RATE_FACTOR}x")
+    return ratio
+
+
+def argmin_metrics(outdir: str, server_log: str, miner_logs: list) -> dict:
+    """The arg-min path's metrics: the nonces the miners scanned
+    (``miner.nonces_scanned``) equal those of the chunks the scheduler
+    assigned, each miner held to its counts (:func:`miner_metrics`),
+    every ``sched.miner_trust`` at 1.0 (an honest pool's miners have no
+    such series: the gauge is set where a score moves, the JAX rule, so
+    an absent one reads 1.0), and the pool's rate beside the miner's."""
+    miners = [miner_metrics(log) for log in miner_logs]
+    cut = assigned_nonces(exported_traces(outdir, "server")[0])
+    scanned = sum(m["nonces_scanned"] for m in miners)
+    if scanned != cut:
+        fail(f"metrics: the arg-min miners scanned {scanned} nonces, the "
+             f"scheduler cut {cut}")
+    g = final_snapshot(server_log, "the arg-min server")["gauges"]
+    trust = {k: v for k, v in g.items() if k.startswith("sched.miner_trust")}
+    if any(v != 1.0 for v in trust.values()):
+        fail(f"metrics: an honest miner's trust moved: {trust}")
+    pool = g.get("sched.pool_rate_nps")
+    return {"nonces_cut": cut, "nonces_scanned": scanned,
+            "chunks_served": sum(m["chunks_served"] for m in miners),
+            "device_launches": sum(m["device_launches"] for m in miners),
+            "trust_series": trust, "pool_rate_nps": pool,
+            "miner_nonces_per_s": [m["nonces_per_s"] for m in miners],
+            "rate_ratio": rate_ratio(pool, miners)}
+
+
+def mice_metrics(outdir: str, run: dict) -> dict:
+    """A mice run's metrics: each miner held to its counts (coalesced
+    dispatches and chunks among them); ``sched.stripe_chunks_per_share``
+    with a sample per miner share of each wholesale dispatch in the
+    traces; each tenant's ``sched.qos_granted_chunks`` in every snapshot
+    line no more than the chunks granted it (the assignments of kind
+    ``initial`` or ``qos`` in its traces), read while it lives: the series
+    retires with its tenant (a dropped client, the idle GC), so the line
+    that shows a tenant's last grant may not exist, and the share of the
+    grants seen is reported; and the pool's rate beside the miners'."""
+    miners = [miner_metrics(log) for log in run["miner_logs"]]
+    dicts, _ = exported_traces(outdir, f"{run['tag']}_server")
+    grants: dict = {}
+    shares = 0
+    for d in dicts:
+        for e in d["events"]:
+            if e["event"] == "assign" and e.get("kind") in ("initial", "qos"):
+                t = d["meta"]["client"]
+                grants[t] = grants.get(t, 0) + 1
+            elif e["event"] == "dispatch" and e.get("mode") != "chunked":
+                shares += len(e["miners"])
+    snaps = metric_snapshots(run["server_log"])
+    if not snaps or not snaps[-1]["final"]:
+        fail(f"metrics: {run['tag']}'s server logged no final snapshot")
+    plans = snaps[-1]["snapshot"]["histograms"][
+        "sched.stripe_chunks_per_share"]["count"]
+    if plans != shares:
+        fail(f"metrics: {run['tag']} stripe_chunks_per_share has {plans} "
+             f"samples, its wholesale dispatches {shares} shares")
+    pref = "sched.qos_granted_chunks{tenant="
+    seen: dict = {}
+    for s in snaps:
+        for key, v in s["snapshot"]["counters"].items():
+            if key.startswith(pref):
+                t = int(key[len(pref):-1])
+                if v > grants.get(t, 0):
+                    fail(f"metrics: {run['tag']} {key} {v} > the "
+                         f"{grants.get(t, 0)} chunks granted it")
+                seen[t] = max(seen.get(t, 0), v)
+    if not seen:
+        fail(f"metrics: no snapshot of {run['tag']} held a tenant's "
+             "granted chunks")
+    pool = snaps[-1]["snapshot"]["gauges"].get("sched.pool_rate_nps")
+    if pool is None:
+        fail(f"metrics: {run['tag']} has no sched.pool_rate_nps after its "
+             "warm-up")
+    return {"coalesced_dispatches": run["coalesced_dispatches"],
+            "chunks_coalesced": run["coalesced_chunks"],
+            "stripe_samples": plans, "granted": sum(grants.values()),
+            "granted_seen": sum(seen.values()),
+            "tenants_seen": len(seen), "snapshot_lines": len(snaps),
+            "pool_rate_nps": pool,
+            "miner_nonces_per_s": [m["nonces_per_s"] for m in miners],
+            "rate_ratio": rate_ratio(pool, miners)}
+
+
+def lease_metrics(lease: dict, verify: dict) -> dict:
+    """The lease path's ``sched.pool_quarantined``: at least 1 while the
+    wedged miner was quarantined, 0 in the last line once it answered;
+    the verification path's ``sched.miner_trust`` below 1 at some line
+    for every miner the server convicted (its FAILED lines)."""
+    snaps = metric_snapshots(lease["server_log"])
+    quarantined = [s["snapshot"]["gauges"].get("sched.pool_quarantined", 0)
+                   for s in snaps]
+    if not quarantined or max(quarantined) < 1 or quarantined[-1] != 0:
+        fail(f"metrics: the lease path's pool_quarantined over "
+             f"{len(snaps)} lines: max {max(quarantined, default=None)}, "
+             f"last {quarantined[-1] if quarantined else None}")
+    lowest: dict = {}
+    for s in metric_snapshots(verify["server_log"]):
+        for key, v in s["snapshot"]["gauges"].items():
+            if key.startswith("sched.miner_trust{miner="):
+                m = int(key[len("sched.miner_trust{miner="):-1])
+                lowest[m] = min(lowest.get(m, 1.0), v)
+    convicted = {m for m, _ in verify["trust_after_failures"]}
+    if not convicted or any(lowest.get(m, 1.0) >= 1.0 for m in convicted):
+        fail(f"metrics: convicted miners {sorted(convicted)}, their lowest "
+             f"sched.miner_trust {lowest}")
+    return {"pool_quarantined_max": max(quarantined),
+            "pool_quarantined_last": quarantined[-1],
+            "lease_lines": len(snaps),
+            "trust_lowest": {str(m): v for m, v in sorted(lowest.items())}}
+
+
+def procs_metrics(doc: dict) -> dict:
+    """The procs path's console after the kill: every live replica's row
+    holds a number in ``lease_min_s`` and ``nps``, and no ``trust_min``
+    below 1.0 (an honest pool publishes none: the JAX rule)."""
+    rows = {p["proc"]: p["detail"] for p in doc["procs"]
+            if p["role"] == "replica" and p["status"] == "fresh"}
+    for proc, d in rows.items():
+        if not all(isinstance(d.get(k), (int, float))
+                   for k in ("lease_min_s", "nps")) \
+                or d.get("trust_min", 1.0) != 1.0:
+            fail(f"metrics: dbmtop's {proc} row {d}")
+    if not rows:
+        fail("metrics: dbmtop shows no live replica after the kill")
+    return {proc: {k: d.get(k) for k in ("trust_min", "lease_min_s", "nps")}
+            for proc, d in rows.items()}
+
+
 def phase_e2e(outdir: str) -> dict:
     """The main paths, each on a cluster of its own so that every launch
     count starts at 0 just before the path. The arg-min path: the port's
@@ -1852,12 +2103,14 @@ def phase_e2e(outdir: str) -> dict:
         path_s[name] = round(marks[-1] - marks[-2], 3)
     results = []
     with Cluster(outdir) as c:
-        c.start("server", "server", [str(c.port)], "Server listening on port")
+        argmin_server = c.start("server", "server", [str(c.port)],
+                                "Server listening on port")
         miners = start_miners(c, ["miner"], [None])
         for name, data, max_nonce in ARGMIN_REQUESTS:
             results.append(timed(name, data, max_nonce, lambda: asyncio.run(
                 asyncio.wait_for(submit(c.hostport, data, max_nonce), 300))))
         argmin_launches = path_launches(miners)
+        argmin_miners = miners
     lap("arg-min")
     with Cluster(outdir) as c:
         server_log = c.start("until_server", "server", [str(c.port)],
@@ -2004,6 +2257,10 @@ def phase_e2e(outdir: str) -> dict:
     check_pod_drill(drill, mice_runs[0]["elephant"])
     check_replicas(replicas, by_name, mice_runs[0])
     procs_summary = check_procs(procs_run, by_name, dev)
+    metrics = {"argmin": argmin_metrics(outdir, argmin_server,
+                                        argmin_miners),
+               "mice": mice_metrics(outdir, mice_runs[0]),
+               "procs": procs_metrics(procs_run["dbmtop_after"])}
     check_gateway(gateway, by_name)
     ring_s = {f"{r['request']}@replica{r['replica']}": round(r["seconds"], 4)
               for r in procs_run["requests"]}
@@ -2040,6 +2297,8 @@ def phase_e2e(outdir: str) -> dict:
           f"{drill['owner_exit_s']:.3f} s", flush=True)
     check_lease(lease, by_name)
     check_verify(verify, by_name)
+    metrics["lease_verify"] = lease_metrics(lease, verify)
+    emit("metrics", **metrics)
     check_sched(sched, by_name, mice_runs[0], dev)
     check_sched(sched_adapt, by_name, mice_runs[0], dev, counted=False,
                 answers=sched)
@@ -3169,10 +3428,11 @@ def check_gateway(run: dict, default: dict) -> None:
 #: a warm one), a sweep every 0.1 s, the age alarms after 1 s, no audits.
 LEASE_SERVER_ENV = {"DBMT_LEASE_GRACE_S": "2", "DBMT_LEASE_FLOOR_S": "2",
                     "DBMT_LEASE_TICK_S": "0.1", "DBMT_QUEUE_ALARM_S": "1",
-                    "DBMT_AUDIT_P": "0"}
+                    "DBMT_AUDIT_P": "0", **METRICS_ENV}
 #: The verification path's server: every arg-min chunk audited, over its
 #: whole range (an honest audit restores the exact chunk arg-min).
-VERIFY_SERVER_ENV = {"DBMT_AUDIT_P": "1", "DBMT_AUDIT_MAX": str(1 << 32)}
+VERIFY_SERVER_ENV = {"DBMT_AUDIT_P": "1", "DBMT_AUDIT_MAX": str(1 << 32),
+                     **METRICS_ENV}
 #: The server's lines each path counts.
 LEASE_LINES = {"blown": "blew the lease", "reissued": "speculatively re-issuing",
                "quarantined": "quarantined after",
@@ -3310,6 +3570,7 @@ def run_lease(outdir: str) -> dict:
         lines = count_lines(server_log, LEASE_LINES)
         counts = scheduler_counts(server_log)
     return {"requests": results, "launches": launches, "chunks": chunks,
+            "server_log": server_log,
             "wedged_served_before_release": len(held),
             "late_chunks_s": late_s, "server_lines": lines,
             "scheduler_counts": counts}
@@ -3383,6 +3644,7 @@ def run_verify(outdir: str) -> dict:
             trust = re.findall(r"miner (\d+) FAILED .*\(trust -> "
                                r"([0-9.e-]+)\)", f.read())
     return {"requests": results, "launches": launches,
+            "server_log": server_log,
             "served_before_last": before, "served_after_last": after,
             "server_lines": lines, "scheduler_counts": counts,
             "trust_after_failures": [[int(m), float(t)] for m, t in trust]}

@@ -35,9 +35,21 @@ launches, one a block), ``compiles`` (fresh launch signatures met in the
 dispatch) and, for a coalesced window, the shared launch's id
 (``launch``) and its ``lanes``; a blocking chunk's whole search is one
 ``force_s`` with ``serial``. With ``DBMT_TRACE=0`` every Result's bytes
-are the stock ones. Answered nonces over the union of the chunks' busy
-intervals feed the ``miner.nonces_per_s`` EWMA
-(:class:`_ThroughputWindow`).
+are the stock ones.
+
+Metrics (the process registry, the JAX package's families): the
+``miner.chunk_seconds`` histogram of each chunk's busy time (a pipelined
+chunk's dispatch and finalize, without its wait behind the previous
+chunk; a coalesced window's once for the shared launch),
+``miner.nonces_scanned`` and ``miner.chunks_served`` as each Result is
+written, ``miner.search_failures`` before a broken miner exits,
+``miner.dispatch_queue_depth`` (the Requests left queued at each pickup),
+``miner.chunks_two_phase`` (chunks served through ``dispatch`` and
+``finalize``), ``miner.coalesced_dispatches``, ``miner.chunks_coalesced``
+and the ``miner.coalesce_width`` histogram of the batched launches, and
+the ``miner.nonces_per_s`` EWMA over the union of the chunks' busy
+intervals (:class:`_ThroughputWindow`) with the pipeline's occupancy and
+overlap.
 
 Bound parity: the received ``Upper`` is treated as INCLUSIVE even though the
 scheduler computed it as an exclusive end — the reference miner does the same
@@ -86,6 +98,8 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
+import signal
 import time
 from collections import OrderedDict
 from typing import Callable, Optional
@@ -105,16 +119,25 @@ from ..utils.config import (CoalesceParams, PeelParams, PodParams,
                             lsp_params_from_env,
                             mesh_from_env, peel_from_env,
                             pipeline_depth_from_env, pod_from_env)
-from ..utils.metrics import ensure_emitter, registry as _registry
+from ..utils.metrics import (OCCUPANCY_BUCKETS, ensure_emitter,
+                             registry as _registry)
 
 logger = logging.getLogger("dbmt.miner")
 
-# The miner's process metrics: its nonces/s EWMA over busy time, and the
-# pipeline's occupancy and overlap.
+# The miner's process metrics (module docstring).
 _M = _registry()
+_MET_CHUNK_S = _M.histogram("miner.chunk_seconds")
+_MET_NONCES = _M.counter("miner.nonces_scanned")
+_MET_CHUNKS = _M.counter("miner.chunks_served")
 _MET_RATE = _M.ewma("miner.nonces_per_s", tau_s=30.0)
+_MET_FAILURES = _M.counter("miner.search_failures")
+_MET_QDEPTH = _M.histogram("miner.dispatch_queue_depth", OCCUPANCY_BUCKETS)
 _MET_OCCUPANCY = _M.gauge("miner.pipeline_occupancy")
 _MET_OVERLAP = _M.gauge("miner.pipeline_overlap_ratio")
+_MET_TWO_PHASE = _M.counter("miner.chunks_two_phase")
+_MET_COAL_DISPATCHES = _M.counter("miner.coalesced_dispatches")
+_MET_COAL_CHUNKS = _M.counter("miner.chunks_coalesced")
+_MET_COAL_WIDTH = _M.histogram("miner.coalesce_width", OCCUPANCY_BUCKETS)
 # The launch observer's count of fresh signatures (utils/trace.py), read
 # around each dispatch so a span reports the ones it met.
 _MET_FRESH = _M.counter("trace.fresh_launches")
@@ -377,6 +400,8 @@ class MinerWorker:
                         msg = idle
                 if msg is stop:
                     return   # transport died; nothing can be written
+                if msg is not idle:
+                    _MET_QDEPTH.observe(queue.qsize())
                 msgs = None
                 if self.coalesce and msg is not idle \
                         and self._coalescible(msg):
@@ -429,6 +454,7 @@ class MinerWorker:
                 if handle is not None:
                     inflight = (msgs or msg, searcher, handle, t0,
                                 dispatch_s, span)
+                    _MET_TWO_PHASE.inc(len(msgs) if msgs else 1)
                 elif msgs is not None:
                     # The searchers cannot share a launch (decided before
                     # any launch): serve the drained chunks one by one,
@@ -578,8 +604,12 @@ class MinerWorker:
         throughput window once. Every lane's span carries the launch's id
         and lane count."""
         t1 = time.monotonic()
+        _MET_CHUNK_S.observe(max(busy_s, 1e-9))
         self.coalesced_dispatches += 1
         self.coalesced_chunks += len(msgs)
+        _MET_COAL_DISPATCHES.inc()
+        _MET_COAL_CHUNKS.inc(len(msgs))
+        _MET_COAL_WIDTH.observe(len(msgs))
         total = sum(m.upper - m.lower + 1 for m in msgs
                     if m.upper >= m.lower)
         if total:
@@ -590,6 +620,9 @@ class MinerWorker:
             launch_id = self._trace_launch
         for i, (msg, (best_hash, best_nonce)) in enumerate(
                 zip(msgs, results)):
+            _MET_CHUNKS.inc()
+            if msg.upper >= msg.lower:
+                _MET_NONCES.inc(msg.upper - msg.lower + 1)
             span = spans[i] if spans is not None else None
             if span is not None:
                 span["launch"] = launch_id
@@ -624,6 +657,7 @@ class MinerWorker:
             return False
         if handle is None:
             return await self._serve_blocking(msg)
+        _MET_TWO_PHASE.inc()
         return await self._finalize_and_reply(msg, searcher, handle, t0,
                                               dispatch_s, span)
 
@@ -650,7 +684,9 @@ class MinerWorker:
 
     async def _exit_broken(self, msg) -> None:
         """Compute-failure exit path (must be called from an except
-        block: it logs the active exception)."""
+        block: it logs the active exception), counted in
+        ``miner.search_failures``."""
+        _MET_FAILURES.inc()
         logger.exception("search failed for %r [%d, %d]; exiting",
                          msg.data, msg.lower, msg.upper)
         await self.client.close()
@@ -681,8 +717,16 @@ class MinerWorker:
         wall time since ``t0``. An argmin chunk's nonces feed the
         throughput window."""
         t1 = time.monotonic()
-        if msg.upper >= msg.lower and not msg.target:
-            self._window.observe(t0, t1, msg.upper - msg.lower + 1)
+        _MET_CHUNK_S.observe(max(busy_s if busy_s is not None
+                                 else t1 - t0, 1e-9))
+        _MET_CHUNKS.inc()
+        if msg.upper >= msg.lower:
+            # A difficulty chunk's early exit may scan less: it is left
+            # out of the throughput window, not of the scanned count.
+            scanned = msg.upper - msg.lower + 1
+            _MET_NONCES.inc(scanned)
+            if not msg.target:
+                self._window.observe(t0, t1, scanned)
         try:
             self.client.write(new_result(best_hash, best_nonce, echo_target,
                                          span=span).to_json())
@@ -737,6 +781,17 @@ class MinerWorker:
             await self.client.close()
 
 
+def _restart_launch_counts() -> None:
+    """Restart the kernel launch counts at 0 (they count the launches
+    made serving requests) and log the model's counters at that point
+    (the process registry's count from the process's start), so a
+    reader can take their deltas over the same window."""
+    sha256_cuda.reset_launches()
+    counters = _M.snapshot()["counters"]
+    logger.info("model counts at the launch counts' restart %s", json.dumps(
+        {k: v for k, v in counters.items() if k.startswith("model.")}))
+
+
 def measure_rate_hint(searcher, probe_nonces: int = 1 << 17) -> float:
     """The rate-hint probe (nonces/s): one warm pass, then one timed pass
     over the adjacent window of ``probe_nonces``, both inside one aligned
@@ -756,7 +811,7 @@ def _resolve_rate_hint(factory) -> float:
     raw = str_env("DBMT_RATE_HINT", "0")
     if raw.strip().lower() == "probe":
         hint = measure_rate_hint(factory("dbmt rate probe"))
-        sha256_cuda.reset_launches()   # the counts are of requests served
+        _restart_launch_counts()   # the counts are of requests served
         return hint
     try:
         return max(0.0, float(raw))
@@ -764,8 +819,22 @@ def _resolve_rate_hint(factory) -> float:
         return 0.0
 
 
+def _final_snapshot_on_sigterm() -> None:
+    """SIGTERM still ends the miner at once, as its default action does,
+    but the metrics emitter first writes its final snapshot, which the
+    exit hooks write on a normal exit and a signal skips."""
+    def handler(signum, _frame):
+        emitter = ensure_emitter()
+        if emitter is not None:
+            emitter.stop()
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+    signal.signal(signal.SIGTERM, handler)
+
+
 async def _run_miner(hostport: str, factory: Callable, where: str,
                      rate_hint: float = 0.0) -> int:
+    _final_snapshot_on_sigterm()
     coalesce = coalesce_from_env()
     worker = MinerWorker(
         hostport, params=lsp_params_from_env(), searcher_factory=factory,
@@ -882,7 +951,7 @@ def warm_up_mesh(devices: tuple, body: PeelParams = PeelParams()) -> None:
                           hoist=body.hoist)
     s.search(0, 10 ** 5 - 1)
     s.search_until(0, 10 ** 5 - 1, 1)
-    sha256_cuda.reset_launches()
+    _restart_launch_counts()
     logger.info("mesh %s ready in %.3fs (%s)",
                 ",".join(str(d) for d in devices), time.monotonic() - t0,
                 body)
@@ -911,7 +980,7 @@ def warm_up(device, body: PeelParams = PeelParams(),
     # A batch with a 1-block and a 2-block tail: both K5 search kernels.
     t = default_searcher_factory("w" * 60, device, body, mesh)
     s.finalize_batch(s.dispatch_batch([(s, 0, 999), (t, 10 ** 4, 10 ** 5)]))
-    sha256_cuda.reset_launches()
+    _restart_launch_counts()
     logger.info("device %s ready in %.3fs (%s; %s)",
                 ",".join(str(d) for d in devices), time.monotonic() - t0,
                 torch.cuda.get_device_name(devices[0]), body)

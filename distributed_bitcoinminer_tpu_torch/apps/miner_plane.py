@@ -1,8 +1,7 @@
 """Miner plane: the pool roster, pending FIFOs, leases, trust and windows.
 
-Counterpart of the JAX package's ``apps/miner_plane.py``, without its
-metric series, the gateway's repeat-JOIN hint refresh and the adapt
-plane's per-miner chunk seconds. It owns everything miner-facing:
+Counterpart of the JAX package's ``apps/miner_plane.py``, metric series
+included. It owns everything miner-facing:
 
 - the roster (join order) and each miner's pending FIFO: every Request
   written to a miner pushes a chunk record, and since miners answer in
@@ -43,12 +42,24 @@ plane's per-miner chunk seconds. It owns everything miner-facing:
 The scheduler decides who gets what; this plane executes the grant
 (:meth:`MinerPlane.assign_chunk`), reports every lease transition through
 the ``lease_event`` callback, and never touches merge state.
+
+Its series, in the scheduler's registry (mounted under ``sched.``), at the
+JAX package's moments: ``pool_size`` and ``pool_quarantined`` on every
+roster or quarantine change; ``lease_remaining_s{miner}`` (each miner's
+nearest live deadline) and ``lease_min_remaining_s`` after every lease
+sweep, cleared when no request is in flight; the ``lease_wait_s``
+histogram (a chunk's wait in its miner's FIFO, observed when its lease
+starts) and ``stripe_chunks_per_share`` (the chunks of one miner's share
+of a striped plan); ``miner_rate_nps{miner}`` and ``pool_rate_nps``
+wherever a rate moves (a hinted JOIN, a hint refresh, a measured window,
+the sweep's decay); ``miner_trust{miner}`` wherever a trust score moves;
+``adapt_chunk_s_miner{miner}`` with each per-miner stripe seconds. A
+dropped miner's labelled series retire with it.
 """
 
 from __future__ import annotations
 
 import time
-from collections import Counter
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -56,6 +67,7 @@ from ..bitcoin.message import new_request
 from ..utils import trace as _tracing
 from ..utils.config import (CoalesceParams, LeaseParams, StripeParams,
                             VerifyParams)
+from ..utils.metrics import LATENCY_BUCKETS_S, OCCUPANCY_BUCKETS, Registry
 
 
 @dataclass
@@ -121,7 +133,8 @@ class MinerState:
 class MinerPlane:
     """The miner-facing half of the scheduler.
 
-    Callbacks, the scheduler's: ``write(conn_id, msg)`` its wire write;
+    ``metrics`` is the scheduler's registry, which the plane's series go
+    into. Callbacks, the scheduler's: ``write(conn_id, msg)`` its wire write;
     ``inflight`` its live ``{job_id: Request}`` map (read here: the sweep
     and recovery skip retired jobs and answered chunks);
     ``lease_event(kind, chunk, miner_conn, **info)`` the log of every
@@ -143,12 +156,14 @@ class MinerPlane:
     RATE_HINT_CAP = 1e12
     RATE_HINT_DECAY = 0.98
 
-    def __init__(self, lease: LeaseParams, coalesce: CoalesceParams, *,
-                 write: Callable, inflight: dict, lease_event: Callable,
-                 dispatch: Callable, count: Callable, stripe: StripeParams,
+    def __init__(self, metrics: Registry, lease: LeaseParams,
+                 coalesce: CoalesceParams, *, write: Callable,
+                 inflight: dict, lease_event: Callable, dispatch: Callable,
+                 count: Callable, stripe: StripeParams,
                  verify: Optional[VerifyParams] = None,
                  trace_get: Callable = lambda job_id: None,
                  trace_on: bool = False):
+        self.metrics = metrics
         self.lease = lease
         self.coalesce = coalesce
         self.stripe = stripe
@@ -166,13 +181,32 @@ class MinerPlane:
         self.pool_rate: Optional[float] = None  # pool throughput EWMA
         # True while pool_rate holds only a JOIN hint.
         self._pool_hinted = False
-        # Stripe plans: how many shares were cut into how many chunks.
-        self.stripe_depths: Counter = Counter()
         self._next_coalesce_id = 0
         # Per-miner stripe seconds from the adapt plane; retired on drop.
         self.chunk_s_overrides: dict[int, float] = {}
+        self._pool_size = metrics.gauge("pool_size")
+        self._pool_quarantined = metrics.gauge("pool_quarantined")
+        self._lease_min_remaining = metrics.gauge("lease_min_remaining_s")
+        self._lease_wait = metrics.histogram("lease_wait_s",
+                                             LATENCY_BUCKETS_S)
+        # Stripe plans: the chunks each miner's share was cut into.
+        self._stripe_depth = metrics.histogram("stripe_chunks_per_share",
+                                               OCCUPANCY_BUCKETS)
+
+    def _set_rate(self, miner: MinerState) -> None:
+        self.metrics.gauge("miner_rate_nps",
+                           miner=str(miner.conn_id)).set(miner.rate_ewma)
+
+    def _set_trust(self, miner: MinerState) -> None:
+        self.metrics.gauge("miner_trust",
+                           miner=str(miner.conn_id)).set(miner.trust)
 
     # ------------------------------------------------------------- roster
+
+    def update_pool_gauges(self) -> None:
+        self._pool_size.set(len(self.miners))
+        self._pool_quarantined.set(
+            sum(1 for m in self.miners if m.quarantined))
 
     def find_miner(self, conn_id: int) -> Optional[MinerState]:
         return self._by_conn.get(conn_id)
@@ -189,14 +223,17 @@ class MinerPlane:
             miner.rate_ewma = min(float(rate_hint),
                                   self.RATE_HINT_CAP) * miner.trust
             miner.rate_hinted = True
+            self._set_rate(miner)
             if self.pool_rate is None:
                 self.pool_rate = miner.rate_ewma
                 self._pool_hinted = True
+                self.metrics.gauge("pool_rate_nps").set(self.pool_rate)
         chunk = self.next_parked()
         if chunk is not None:
             self.assign_chunk(miner, chunk, kind="parked")
         self.miners.append(miner)
         self._by_conn[conn_id] = miner
+        self.update_pool_gauges()
         return miner
 
     def refresh_rate_hint(self, miner: MinerState, rate_hint: float) -> None:
@@ -216,6 +253,7 @@ class MinerPlane:
             return
         miner.rate_ewma = hinted
         miner.rate_hinted = True
+        self._set_rate(miner)
         self._count("rate_hints_refreshed")
 
     def adopt_miner(self, conn_id: int, pending: Optional[list] = None,
@@ -231,13 +269,24 @@ class MinerPlane:
             miner.pending.append(chunk)
         self.miners.append(miner)
         self._by_conn[conn_id] = miner
+        self.update_pool_gauges()
         return miner
 
     def drop_miner(self, conn_id: int) -> Optional[MinerState]:
+        """Remove a dropped miner and retire its labelled series (a dead
+        conn id's values must not linger, and reconnect churn, a fresh
+        conn id a rejoin, must not exhaust a family's series bound); the
+        scheduler recovers its chunks (:meth:`recover`)."""
         miner = self._by_conn.pop(conn_id, None)
-        if miner is not None:
-            self.miners.remove(miner)
-            self.chunk_s_overrides.pop(conn_id, None)
+        if miner is None:
+            return None
+        self.miners.remove(miner)
+        self.chunk_s_overrides.pop(conn_id, None)
+        self.update_pool_gauges()
+        self.metrics.remove("miner_rate_nps", miner=str(conn_id))
+        self.metrics.remove("lease_remaining_s", miner=str(conn_id))
+        self.metrics.remove("adapt_chunk_s_miner", miner=str(conn_id))
+        self.metrics.remove("miner_trust", miner=str(conn_id))
         return miner
 
     def recover(self, miner: MinerState) -> None:
@@ -445,10 +494,13 @@ class MinerPlane:
     # --------------------------------------------------------- lease plane
 
     def start_lease(self, miner: MinerState, chunk: Chunk) -> None:
-        """The miner is (about to be) computing this chunk: re-stamp
+        """The miner is (about to be) computing this chunk: observe its
+        wait since assignment (``lease_wait_s``), re-stamp
         ``assigned_at``, so the throughput sample and the overdue time
         measure compute, not FIFO wait, and set the deadline."""
         now = time.monotonic()
+        if chunk.assigned_at:
+            self._lease_wait.observe(now - chunk.assigned_at)
         chunk.assigned_at = now
         chunk.deadline = now + self.lease_for(miner, chunk)
         chunk.lease_started = True
@@ -501,6 +553,8 @@ class MinerPlane:
                     alpha * rate + (1 - alpha) * miner.rate_ewma
                 self.pool_rate = rate if self.pool_rate is None else \
                     alpha * rate + (1 - alpha) * self.pool_rate
+                self._set_rate(miner)
+                self.metrics.gauge("pool_rate_nps").set(self.pool_rate)
         else:
             miner.win_t0, miner.win_nonces = 0.0, 0
         miner.blown_streak = 0
@@ -508,8 +562,10 @@ class MinerPlane:
         # lands last and a liar never gains trust from its own lie.
         if miner.trust < 1.0:
             miner.trust = min(1.0, miner.trust + self.verify.trust_recover)
+            self._set_trust(miner)
         if miner.quarantined:
             miner.quarantined = False
+            self.update_pool_gauges()
             self._lease_event("quarantine_lifted", chunk, miner.conn_id)
             self._dispatch()
 
@@ -522,12 +578,14 @@ class MinerPlane:
         v = self.verify
         miner.trust = max(v.trust_floor, miner.trust * v.trust_decay)
         self._count("trust_decays_" + reason)
+        self._set_trust(miner)
         if self._trace_on:
             _tracing.flight("trust_decayed", miner=miner.conn_id,
                             trust=round(miner.trust, 4), reason=reason)
         if miner.rate_hinted:
             miner.rate_hinted = False
             miner.rate_ewma = None
+            self.metrics.remove("miner_rate_nps", miner=str(miner.conn_id))
         return miner.trust
 
     def pin_rates(self, rate: float, include_hinted: bool = False) -> None:
@@ -547,8 +605,10 @@ class MinerPlane:
         for m in self.miners:
             if m.rate_hinted and m.rate_ewma:
                 m.rate_ewma *= self.RATE_HINT_DECAY
+                self._set_rate(m)
         if self._pool_hinted and self.pool_rate:
             self.pool_rate *= self.RATE_HINT_DECAY
+            self.metrics.gauge("pool_rate_nps").set(self.pool_rate)
 
     # ------------------------------------------------------------ striping
 
@@ -574,10 +634,14 @@ class MinerPlane:
     def set_chunk_s_override(self, conn_id: int, chunk_s: float) -> None:
         """The adapt plane's per-miner stripe seconds for one miner."""
         self.chunk_s_overrides[conn_id] = chunk_s
+        self.metrics.gauge("adapt_chunk_s_miner",
+                           miner=str(conn_id)).set(chunk_s)
 
     def clear_chunk_s_overrides(self) -> None:
-        """The pool re-converged: every per-miner value retires, so the
-        pool-wide knob governs again."""
+        """The pool re-converged: every per-miner value retires, and its
+        gauge with it, so the pool-wide knob governs again."""
+        for conn_id in self.chunk_s_overrides:
+            self.metrics.remove("adapt_chunk_s_miner", miner=str(conn_id))
         self.chunk_s_overrides.clear()
 
     def service_sample(self, chunk: Chunk):
@@ -598,7 +662,14 @@ class MinerPlane:
         return service, margin
 
     def observe_stripe(self, n_chunks: int) -> None:
-        self.stripe_depths[n_chunks] += 1
+        self._stripe_depth.observe(n_chunks)
+
+    def clear_lease_gauges(self) -> None:
+        """No request in flight: the remaining-lease gauges clear, so an
+        idle scheduler does not report a retired job's last sweep."""
+        for m in self.miners:
+            self.metrics.remove("lease_remaining_s", miner=str(m.conn_id))
+        self._lease_min_remaining.set(0.0)
 
     def check_leases(self) -> None:
         """One lease sweep over every in-flight job: blow expired leases
@@ -608,6 +679,9 @@ class MinerPlane:
         if not self._inflight:
             return
         now = time.monotonic()
+        # Each miner's nearest live deadline (a deep budgeted chunk must
+        # not hide the head's), published after the sweep.
+        remaining_by_miner: dict[int, float] = {}
         for miner in list(self.miners):
             for chunk in list(miner.pending):
                 if chunk.cancelled:
@@ -617,6 +691,10 @@ class MinerPlane:
                     continue
                 if not chunk.lease_blown:
                     if now < chunk.deadline:
+                        remaining = chunk.deadline - now
+                        prev = remaining_by_miner.get(miner.conn_id)
+                        if prev is None or remaining < prev:
+                            remaining_by_miner[miner.conn_id] = remaining
                         continue
                     chunk.lease_blown = True
                     self._count("leases_blown")
@@ -635,6 +713,7 @@ class MinerPlane:
                             and not miner.quarantined):
                         miner.quarantined = True
                         self._count("quarantines")
+                        self.update_pool_gauges()
                         self._lease_event("quarantine", chunk,
                                           miner.conn_id,
                                           streak=miner.blown_streak)
@@ -651,3 +730,14 @@ class MinerPlane:
                 self.assign_chunk(takeover, Chunk(
                     chunk.job_id, chunk.data, chunk.lower, chunk.upper,
                     target=chunk.target, idx=chunk.idx), kind="reissue")
+        # A miner without a live unexpired lease (blown, answered, idle)
+        # loses its series: a blown lease's stale positive remainder would
+        # read as headroom.
+        for m in self.miners:
+            if m.conn_id not in remaining_by_miner:
+                self.metrics.remove("lease_remaining_s", miner=str(m.conn_id))
+        for conn_id, remaining in remaining_by_miner.items():
+            self.metrics.gauge("lease_remaining_s",
+                               miner=str(conn_id)).set(remaining)
+        self._lease_min_remaining.set(
+            min(remaining_by_miner.values()) if remaining_by_miner else 0.0)

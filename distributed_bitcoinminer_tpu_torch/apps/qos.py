@@ -1,8 +1,8 @@
 """Fair-share QoS plane: per-tenant deficit-round-robin and admission state.
 
 Counterpart of the JAX package's ``apps/qos.py`` (``TokenBucket``,
-``TenantState``, ``QosPlane``), without its metric series. Tenants are
-client conn ids. Three mechanisms:
+``TenantState``, ``QosPlane``). Tenants are client conn ids. Three
+mechanisms:
 
 - **Deficit-round-robin at chunk granularity.** Each tenant carries a
   deficit in NONCES. :meth:`QosPlane.pick` walks a ring of the
@@ -26,6 +26,16 @@ client conn ids. Three mechanisms:
 
 The scheduler owns chunk plans and miner choice; this plane answers
 "whose turn is it" and keeps the per-tenant accounting.
+
+Its series, in the scheduler's registry (mounted under ``sched.``):
+``qos_tenants`` (the tenants known), ``qos_granted_chunks{tenant}`` and
+``qos_grant_share{tenant}`` (the tenant's cumulative share of the granted
+nonces), ``qos_shed_reason{reason}`` (``admission``, ``overload`` or
+``conn``). A grant sets the granted tenant's share at once; the others',
+stale against the grown total, are refreshed from :meth:`QosPlane.gc`
+once a sweep (the tenants granted since the last sweep, and every tenant
+each ``FULL_REFRESH_SWEEPS``-th sweep), so a grant costs O(1). A
+forgotten tenant's series retire with it.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from __future__ import annotations
 import time
 from collections import deque
 from typing import Callable, Dict, Optional
+
+from ..utils.metrics import Registry
 
 __all__ = ["LAZY_REMOVE", "QosPlane", "TenantState", "TokenBucket"]
 
@@ -114,13 +126,20 @@ class TenantState:
 class QosPlane:
     """Tenant registry + DRR ring. The scheduler executes every
     decision; the plane owns whose-turn-is-it and the accounting.
-    ``clock`` feeds the admission buckets."""
+    ``metrics`` is the scheduler's registry; ``clock`` feeds the
+    admission buckets."""
 
     #: Safety valve on the DRR walk: weights are clamped to >= 1e-3, but
     #: a pick must terminate even on corrupted state.
     MAX_PASSES = 1024
 
-    def __init__(self, clock: Callable[[], float] = time.monotonic):
+    #: Every this-many sweeps :meth:`gc` refreshes every tenant's share
+    #: gauge; in between only those granted since the last sweep.
+    FULL_REFRESH_SWEEPS = 32
+
+    def __init__(self, metrics: Registry,
+                 clock: Callable[[], float] = time.monotonic):
+        self.metrics = metrics
         self._clock = clock
         self.tenants: Dict[object, TenantState] = {}
         self.ring: deque = deque()        # backlogged tenant ids, DRR order
@@ -132,6 +151,11 @@ class QosPlane:
         # The lazy walk's quantum: the largest head cost it has priced
         # since the ring last drained.
         self._lazy_quantum = 0.0
+        # Tenants granted since the last sweep (their share gauges are
+        # the ones gc refreshes), and the sweeps so far.
+        self._dirty_shares: set = set()
+        self._sweeps = 0
+        self._g_tenants = metrics.gauge("qos_tenants")
 
     def tenant(self, tenant, weight: float = 1.0, rate: float = 0.0,
                burst: float = 8.0) -> TenantState:
@@ -142,6 +166,7 @@ class QosPlane:
         if st is None:
             st = self.tenants[tenant] = TenantState(
                 tenant, weight, TokenBucket(rate, burst, self._clock))
+            self._g_tenants.set(len(self.tenants))
         return st
 
     def _ensure_ring(self, tenant) -> None:
@@ -187,22 +212,29 @@ class QosPlane:
             self.tenants[tenant].weight = max(weight, 1e-3)
 
     def forget(self, tenant) -> None:
-        """Drop a tenant for good (its conn closed, or the idle GC)."""
+        """Drop a tenant for good (its conn closed, or the idle GC), and
+        its series with it, so conn churn cannot exhaust their bound."""
         if self.tenants.pop(tenant, None) is None:
             return
         self._topped.discard(tenant)
+        self._dirty_shares.discard(tenant)
         if tenant in self._in_ring:
             self._in_ring.discard(tenant)
             self.ring.remove(tenant)
+        self.metrics.remove("qos_grant_share", tenant=str(tenant))
+        self.metrics.remove("qos_granted_chunks", tenant=str(tenant))
+        self._g_tenants.set(len(self.tenants))
 
     def gc(self, busy: set) -> None:
         """Forget every tenant not in ``busy`` (no queued or in-flight
         work) with nothing granted outstanding and a full admission
-        bucket: it holds nothing worth keeping."""
+        bucket: it holds nothing worth keeping. Then refresh the share
+        gauges (:meth:`_update_shares`)."""
         for tenant in [t for t, st in self.tenants.items()
                        if t not in busy and st.inflight == 0
                        and st.bucket.full]:
             self.forget(tenant)
+        self._update_shares()
 
     # ----------------------------------------------------------- admission
 
@@ -210,10 +242,14 @@ class QosPlane:
         """Spend one admission token; False = shed at admission."""
         return self.tenants[tenant].bucket.take(1.0)
 
-    def on_shed(self, tenant) -> None:
+    def on_shed(self, tenant, reason: str) -> None:
         st = self.tenants.get(tenant)
         if st is not None:
             st.shed += 1
+        self.metrics.counter(   # dbmlint: ok[cardinality] bounded:
+            # reason is always one of the scheduler's literal shed kinds
+            # ("admission" / "overload" / "conn"), never an entity id.
+            "qos_shed_reason", reason=reason).inc()
 
     # ----------------------------------------------------------------- DRR
 
@@ -294,13 +330,18 @@ class QosPlane:
 
     def on_grant(self, tenant, nonces: int) -> None:
         """Account one executed grant: debit the deficit, count it in
-        flight."""
+        flight, and set the granted tenant's series (only its own: the
+        others' shares are refreshed once a sweep, :meth:`gc`)."""
         st = self.tenant(tenant)
         st.deficit = max(0.0, st.deficit - nonces)
         st.inflight += 1
         st.granted_chunks += 1
         st.granted_nonces += nonces
         self.total_granted_nonces += nonces
+        self._dirty_shares.add(tenant)
+        self.metrics.counter("qos_granted_chunks", tenant=str(tenant)).inc()
+        self.metrics.gauge("qos_grant_share", tenant=str(tenant)).set(
+            st.granted_nonces / self.total_granted_nonces)
 
     def on_chunk_answered(self, tenant) -> None:
         st = self.tenants.get(tenant)
@@ -320,3 +361,21 @@ class QosPlane:
         if st is None or not self.total_granted_nonces:
             return 0.0
         return st.granted_nonces / self.total_granted_nonces
+
+    def _update_shares(self) -> None:
+        """One sweep's share-gauge refresh: the tenants granted since the
+        last sweep, and every tenant each ``FULL_REFRESH_SWEEPS``-th
+        sweep (so an idle tenant's gauge is stale a bounded number of
+        sweeps; the alarms read :meth:`grant_share`, never the gauge)."""
+        if not self.total_granted_nonces:
+            return
+        self._sweeps += 1
+        if self._sweeps % self.FULL_REFRESH_SWEEPS == 0:
+            targets = list(self.tenants.items())
+        else:
+            targets = [(t, self.tenants[t]) for t in self._dirty_shares
+                       if t in self.tenants]
+        for tenant, st in targets:
+            self.metrics.gauge("qos_grant_share", tenant=str(tenant)).set(
+                st.granted_nonces / self.total_granted_nonces)
+        self._dirty_shares.clear()

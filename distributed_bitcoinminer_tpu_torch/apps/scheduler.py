@@ -343,12 +343,12 @@ class Scheduler:
         self.metrics = Registry()
         process_registry().mount(metrics_prefix, self.metrics)
         self._counters = {n: self.metrics.counter(n) for n in STAT_COUNTERS}
-        # What the rollup's process rows and the queue-wait SLO read
-        # (``apps.rollup``, ``apps.slo``): the queue's depth and the pool's
-        # size after each event, each request's seconds in the queue.
-        self._queue_depth = self.metrics.gauge("queue_depth")
-        self._pool_size = self.metrics.gauge("pool_size")
+        # What the queue-wait SLO reads (``apps.slo``): each request's
+        # seconds in the queue. The tenant plane keeps the queue's depth,
+        # the miner plane the pool's series, the QoS plane the tenants'.
         self._queue_wait = self.metrics.histogram("queue_wait_s")
+        # Hits over lookups, after each lookup (:meth:`_cache_lookup`).
+        self._cache_hit_ratio = self.metrics.gauge("cache_hit_ratio")
         # DBMT_SANITIZE=1: the loop watchdog, and the hot tables pinned to
         # the thread that runs the event handlers.
         self._owner = (_sanitize.ThreadOwner(
@@ -362,7 +362,8 @@ class Scheduler:
         self.capture = None if capture is False else capture \
             if capture is not None else _capture.ensure_from_env()
         self.tenant_plane = TenantPlane(
-            qos, self._count, close_conn=getattr(server, "close_conn", None),
+            self.metrics, qos, self._count,
+            close_conn=getattr(server, "close_conn", None),
             trace_on=self._trace_on, trace_sample=trace_sample,
             capture=self.capture)
         if self.capture is not None:
@@ -373,9 +374,10 @@ class Scheduler:
                                 qos=bool(qos.enabled),
                                 transport=type(server).__name__)
         self.miner_plane = MinerPlane(
-            self.lease, coalesce, write=self._write, inflight=self._inflight,
-            lease_event=self._on_lease_event, dispatch=self._maybe_dispatch,
-            count=self._count, verify=self.verify, stripe=stripe,
+            self.metrics, self.lease, coalesce, write=self._write,
+            inflight=self._inflight, lease_event=self._on_lease_event,
+            dispatch=self._maybe_dispatch, count=self._count,
+            verify=self.verify, stripe=stripe,
             trace_get=self.tenant_plane.traces.get, trace_on=self._trace_on)
         # The adapt plane mounts only the controllers whose knobs are
         # live: the chunk seconds and the admission gate need the QoS
@@ -671,14 +673,18 @@ class Scheduler:
                            target=msg.target, client=conn_id))
 
     def _cache_lookup(self, key, count_miss: bool = True):
-        """The cached answer, counted as a hit or a miss (``count_miss``
-        off for the dispatch-time check of a key that missed at
-        arrival)."""
+        """The cached answer, counted as a hit or a miss, and the hit
+        ratio set (``count_miss`` off for the dispatch-time check of a key
+        that missed at arrival: a request dispatched normally is one
+        miss, not two)."""
         hit = self.results.get(key)
         if hit is not None:
             self._count("cache_hits")
         elif count_miss:
             self._count("cache_misses")
+        hits = self._counters["cache_hits"].value
+        total = hits + self._counters["cache_misses"].value
+        self._cache_hit_ratio.set(hits / total if total else 0.0)
         return hit
 
     def _intake(self, request: Request, bound_queue: bool = True) -> None:
@@ -819,7 +825,6 @@ class Scheduler:
         miner = self.miner_plane.drop_miner(conn_id)
         if miner is not None:
             logger.info("miner %d dropped", conn_id)
-            self._update_gauges()
             if self._audits:
                 # A dead auditor's audits hold their requests' replies:
                 # audit the windows again elsewhere, or release them.
@@ -1170,6 +1175,8 @@ class Scheduler:
         if self.qos.enabled:
             self.qos_plane.release(
                 curr.conn_id, curr.granted_chunks - sum(curr.answered))
+        if not self._inflight:
+            self.miner_plane.clear_lease_gauges()
         self._maybe_dispatch()
 
     def _maybe_dispatch(self) -> None:
@@ -1191,7 +1198,6 @@ class Scheduler:
                 self._qos_pump()
         finally:
             self._dispatching = False
-        self._update_gauges()
         if not self._inflight and len(self.tenant_plane) \
                 and not self.miner_plane.eligible():
             if not self._starved:
@@ -1208,10 +1214,6 @@ class Scheduler:
                         if not m.available and not m.quarantined))
         elif not len(self.tenant_plane):
             self._starved = False
-
-    def _update_gauges(self) -> None:
-        self._queue_depth.set(len(self.tenant_plane))
-        self._pool_size.set(len(self.miner_plane.miners))
 
     def _fifo_pump(self) -> None:
         """Pop the queue head whenever nothing is in flight; a wholly

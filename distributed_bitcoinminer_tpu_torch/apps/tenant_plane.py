@@ -33,7 +33,7 @@ from typing import Callable, Optional
 from ..lsp.errors import LspError
 from ..utils import trace as _tracing
 from ..utils.config import QosParams
-from ..utils.metrics import NULL_TRACE, RequestTrace, TraceBuffer
+from ..utils.metrics import NULL_TRACE, Registry, RequestTrace, TraceBuffer
 from .qos import QosPlane
 
 logger = logging.getLogger("dbmt.scheduler")
@@ -41,7 +41,8 @@ logger = logging.getLogger("dbmt.scheduler")
 
 class TenantPlane:
     """Queued requests in arrival order, with per-tenant FIFO heads, and
-    the tenants' QoS state. ``count(name)`` is the scheduler's counter
+    the tenants' QoS state (its series go into ``metrics``, the
+    scheduler's registry). ``count(name)`` is the scheduler's counter
     bump; ``close_conn(conn_id)`` the transport's close, which the shed
     uses. The admission buckets read ``time.monotonic`` through this
     module at each call. ``trace_on`` arms the tracks and the flight
@@ -49,7 +50,7 @@ class TenantPlane:
     of requests traced; ``capture`` the scheduler's capture plane (None:
     off)."""
 
-    def __init__(self, qos: QosParams, count: Callable,
+    def __init__(self, metrics: Registry, qos: QosParams, count: Callable,
                  close_conn: Optional[Callable] = None,
                  trace_on: bool = False,
                  trace_sample: Optional[float] = None,
@@ -63,7 +64,7 @@ class TenantPlane:
         self.lazy = qos.enabled and qos.lazy
         self._count = count
         self._close_conn = close_conn
-        self.qos_plane = QosPlane(clock=lambda: time.monotonic())
+        self.qos_plane = QosPlane(metrics, clock=lambda: time.monotonic())
         self._tenant_weights: dict = {}    # per-tenant overrides
         self._queue: dict = {}       # qkey -> request, arrival order
         self._by_tenant: dict = {}   # tenant -> deque of its requests
@@ -75,6 +76,8 @@ class TenantPlane:
         self._cache_trace_seq = 0
         self.traces = TraceBuffer()
         self.tracks = _tracing.TrackSet()
+        # The queue's depth, after each change (the rollup's ``queue``).
+        self._queue_depth = metrics.gauge("queue_depth")
 
     def __len__(self) -> int:
         return len(self._queue)
@@ -88,6 +91,7 @@ class TenantPlane:
         req.qkey = self._next_qkey
         self._queue[req.qkey] = req
         self._by_tenant.setdefault(req.conn_id, deque()).append(req)
+        self._queue_depth.set(len(self._queue))
         if self.lazy:
             self.qos_plane.backlog_enter(req.conn_id)
 
@@ -102,6 +106,7 @@ class TenantPlane:
             dq.remove(req)
         if not dq:
             del self._by_tenant[req.conn_id]
+        self._queue_depth.set(len(self._queue))
 
     def head(self):
         """The globally oldest queued request, or None (not popped)."""
@@ -122,6 +127,7 @@ class TenantPlane:
             return []
         for req in dq:
             del self._queue[req.qkey]
+        self._queue_depth.set(len(self._queue))
         return list(dq)
 
     def tenant_heads(self) -> list:
@@ -292,7 +298,8 @@ class TenantPlane:
                 # The purged siblings are sheds too (reason "conn").
                 self._capture.shed(victim.conn_id,
                                    reason if i == 0 else "conn")
-            self.qos_plane.on_shed(victim.conn_id)
+            self.qos_plane.on_shed(victim.conn_id,
+                                   reason if i == 0 else "conn")
             victim.trace.event("cancel", reason="shed", shed_reason=reason)
             self._register_synthetic("shed", victim.conn_id, victim.trace)
             if self._trace_on:

@@ -37,6 +37,17 @@ load of that kernel, which the observer times.
 
 Results are bit-identical to the Go reference, ties included (the
 earliest nonce wins everywhere).
+
+Metrics (the process registry, the JAX package's families):
+``model.midstate_cache{result=hit|miss}`` per block planned, and on a
+miss ``model.hoist_plans{enabled}``; ``model.blocks_dispatched`` per block
+planned; ``model.device_launches`` per SEARCH-kernel launch (one a block
+of a chain, one a tail shape among a batched launch's rows, one a shard
+window of a mesh block), so on the card its delta over a window equals
+the search launches ``ops.sha256_cuda.launches`` counts in it (K1, K2,
+K3, K4, and K5's search launches, without the reduces and folds; the JAX
+package counts one a jitted dispatch); ``model.coalesced_launches`` and
+``model.coalesced_rows`` per batched launch.
 """
 
 from __future__ import annotations
@@ -57,10 +68,17 @@ from ..utils.metrics import registry as _registry
 from ..utils.trace import observe_launch
 
 
-# Midstate-cache misses by whether they built a hoist plan (the JAX
-# package's model.hoist_plans): a miss pays the host's hoist build.
-_MET_HOIST_ON = _registry().counter("model.hoist_plans", enabled="true")
-_MET_HOIST_OFF = _registry().counter("model.hoist_plans", enabled="false")
+# The model's process metrics (module docstring). A midstate-cache miss
+# pays the host's midstate (and, for K4, hoist) build.
+_M = _registry()
+_MET_PLAN_HIT = _M.counter("model.midstate_cache", result="hit")
+_MET_PLAN_MISS = _M.counter("model.midstate_cache", result="miss")
+_MET_HOIST_ON = _M.counter("model.hoist_plans", enabled="true")
+_MET_HOIST_OFF = _M.counter("model.hoist_plans", enabled="false")
+_MET_BLOCKS = _M.counter("model.blocks_dispatched")
+_MET_LAUNCHES = _M.counter("model.device_launches")
+_MET_BATCH_LAUNCHES = _M.counter("model.coalesced_launches")
+_MET_BATCH_ROWS = _M.counter("model.coalesced_rows")
 
 #: Row cap per batched launch: a batch with more rows splits into several
 #: launches (the JAX package's _BATCH_ROWS_MAX; 8 mice of 10^6 nonces are
@@ -164,6 +182,7 @@ class NonceSearcher:
         key = (top, k)
         cached = self._midstate_cache.get(key)
         if cached is None:
+            _MET_PLAN_MISS.inc()
             prefix = self._prefix + top.encode("ascii")
             midstate, tail = sha256_midstate(prefix)
             template = build_tail_template(tail, k, len(prefix) + k)
@@ -175,6 +194,9 @@ class NonceSearcher:
             (_MET_HOIST_ON if hoist is not None else _MET_HOIST_OFF).inc()
             cached = (midstate, template, len(tail), hoist)
             self._midstate_cache[key] = cached
+        else:
+            _MET_PLAN_HIT.inc()
+        _MET_BLOCKS.inc()
         midstate, template, rem, hoist = cached
         return _BlockPlan(
             base=block_base,
@@ -203,6 +225,7 @@ class NonceSearcher:
         subs = 0
         for plan in self.plan(lower, upper):
             self.device_launches += 1
+            _MET_LAUNCHES.inc()
             subs += 1
             with observe_launch(("devloop_span", plan.variant, self.grid,
                                  self.body)):
@@ -269,6 +292,10 @@ class NonceSearcher:
             segs.append(sid)
         self.device_launches += 1
         variants = tuple(sorted({p.variant for _, p in rows}))
+        # One search launch a tail shape among the rows, then the reduce.
+        _MET_LAUNCHES.inc(len(variants))
+        _MET_BATCH_LAUNCHES.inc()
+        _MET_BATCH_ROWS.inc(len(rows))
         with observe_launch(("span_segmin", variants, self.grid,
                              self.body)):
             words = span_segmin(
@@ -321,6 +348,7 @@ class NonceSearcher:
         carry = devloop_carry(searchop.UNTIL_OP, self.device)
         for plan in self.plan(lower, upper):
             self.device_launches += 1
+            _MET_LAUNCHES.inc()
             with observe_launch(("devloop_span_until", plan.variant,
                                  self.grid, self.body)):
                 carry = devloop_span_until(

@@ -28,9 +28,9 @@ from ..ops import searchop
 from ..ops.sha256_torch import M32
 from ..parallel.mesh_search import (MeshSpan, hit_scope, make_mesh,
                                     mesh_carry, mesh_devloop_span,
-                                    mesh_devloop_span_until)
+                                    mesh_devloop_span_until, shard_windows)
 from ..utils.trace import observe_launch
-from .miner_model import NonceSearcher
+from .miner_model import _MET_LAUNCHES, NonceSearcher
 
 
 class MeshNonceSearcher(NonceSearcher):
@@ -85,6 +85,9 @@ class MeshNonceSearcher(NonceSearcher):
         subs = 0
         for plan in self.plan(lower, upper):
             self.device_launches += 1
+            # One search launch a shard of this rank with lanes to scan.
+            _MET_LAUNCHES.inc(len(shard_windows(plan.lo_i, plan.hi_i,
+                                                self.n_devices, self.pod)))
             subs += 1
             kw = dict(rem=plan.rem, k=plan.k, devices=self.devices,
                       grid=self.grid, peel=self.peel, hoist=plan.hoist_ops)

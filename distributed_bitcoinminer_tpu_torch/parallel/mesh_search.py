@@ -240,7 +240,7 @@ def _cuda_block(devices: tuple, carries: tuple, windows: list, width: int,
     return carries
 
 
-def _pod_windows(lo_i: int, hi_i: int, n_local: int, pod) -> list:
+def shard_windows(lo_i: int, hi_i: int, n_local: int, pod) -> list:
     """This rank's ``[(local shard, lo, hi)]``: the shards with a lane
     among the ``device_windows`` cut over all the pod's ``world *
     n_local`` shards, global shard ``rank * n_local + j``; every rank
@@ -308,7 +308,7 @@ def mesh_devloop_span(midstate, template, carries: tuple, lo_i: int,
     rank's shards and every rank's rows are gathered before the folds."""
     devices = tuple(devices)
     hoist = hoist if peel else None
-    windows = _pod_windows(lo_i, hi_i, len(devices), pod)
+    windows = shard_windows(lo_i, hi_i, len(devices), pod)
     if _mesh_type(devices) == "cpu":
         rows = torch.full((len(devices), 3), M32, dtype=torch.int64)
         for j, lo, hi in windows:
@@ -349,7 +349,7 @@ def mesh_devloop_span_until(midstate, template, carries: tuple, lo_i: int,
     lowest hit."""
     devices = tuple(devices)
     hoist = hoist if peel else None
-    windows = _pod_windows(lo_i, hi_i, len(devices), pod)
+    windows = shard_windows(lo_i, hi_i, len(devices), pod)
     if _mesh_type(devices) == "cpu":
         # In a pod every rank's carry is the same (each folds every
         # rank's rows), so every rank takes this branch alike.

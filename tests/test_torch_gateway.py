@@ -39,6 +39,7 @@ from distributed_bitcoinminer_tpu_torch.lsp.client import new_async_client
 from distributed_bitcoinminer_tpu_torch.lsp.server import new_async_server
 from distributed_bitcoinminer_tpu_torch.models import NonceSearcher
 from distributed_bitcoinminer_tpu_torch.utils import config
+from distributed_bitcoinminer_tpu_torch.utils.metrics import Registry
 from tests.test_torch_apps import fast_params
 from tests.test_torch_replicas import Sets
 from tests.test_torch_sched import (MINER_A, MINER_B, TEN_X, TEN_Y, Pair,
@@ -79,7 +80,7 @@ class _Planes:
                 self.counts[side][name] = self.counts[side].get(name, 0) + n
             return _count
         self.port = MinerPlane(
-            config.LeaseParams(grace_s=5.0, floor_s=2.0),
+            Registry(), config.LeaseParams(grace_s=5.0, floor_s=2.0),
             config.CoalesceParams(enabled=False), write=lambda c, m: None,
             inflight={}, lease_event=lambda *a, **k: None,
             dispatch=lambda: None, count=count(0),

@@ -30,6 +30,8 @@ from distributed_bitcoinminer_tpu_torch.apps.qos import QosPlane
 from distributed_bitcoinminer_tpu_torch.apps.scheduler import Request, \
     Scheduler
 from distributed_bitcoinminer_tpu_torch.apps.tenant_plane import TenantPlane
+from distributed_bitcoinminer_tpu_torch.utils.metrics import \
+    Registry as PortRegistry
 from distributed_bitcoinminer_tpu_torch.bitcoin.hash import (hash_op,
                                                              scan_until)
 from distributed_bitcoinminer_tpu_torch.bitcoin.message import (
@@ -310,16 +312,16 @@ def _drive(plane, weights, grants, cost):
 
 def test_drr_picks_equal_jax_and_share_follows_weight():
     weights = {TEN_X: 1.0, TEN_Y: 2.0, TEN_Z: 4.0}
-    picks = _drive(QosPlane(), weights, 700, 100)
+    picks = _drive(QosPlane(PortRegistry()), weights, 700, 100)
     assert picks == _drive(RefQosPlane(Registry()), weights, 700, 100)
-    plane = QosPlane()
+    plane = QosPlane(PortRegistry())
     _drive(plane, weights, 700, 100)
     for t, w in weights.items():
         assert plane.grant_share(t) == pytest.approx(w / 7, abs=0.05)
 
 
 def test_drr_sync_forget_release():
-    plane = QosPlane()
+    plane = QosPlane(PortRegistry())
     plane.tenant(TEN_X).deficit = 50.0
     plane.sync_backlog([TEN_X, TEN_Y])
     assert list(plane.ring) == [TEN_X, TEN_Y]
@@ -335,7 +337,7 @@ def test_drr_sync_forget_release():
 
 
 def test_tenant_queue_index():
-    q = TenantPlane(QosParams(), lambda name, n=1: None)
+    q = TenantPlane(PortRegistry(), QosParams(), lambda name, n=1: None)
     reqs = [Request(conn_id=t, data=f"r{i}", lower=0, upper=i)
             for i, t in enumerate([TEN_X, TEN_Y, TEN_X, TEN_Z, TEN_Y])]
     for r in reqs:
